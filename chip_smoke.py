@@ -1,0 +1,433 @@
+#!/usr/bin/env python3
+"""Run the PyTorch port (``src/repro_torch``) on one CUDA card and check it.
+
+    python3 chip_smoke.py
+
+Phases, each reported on its own line (any failure raises, exit != 0):
+
+1. build: the card's name and power limit (nvidia-smi) and the seconds to
+   build every CUDA kernel from ``src/repro_torch/kernels/csrc`` with nvcc
+   (one process per source, in parallel) into ``build/kernels``;
+2. kernels: each kernel against its plain PyTorch version on the card at
+   the shapes of the main path (the packed lm_350m delta, R rows of 256
+   f32; (2, 2, R, 256) for the fused reduce), bitwise, plus a small bf16
+   check; median ms of the kernel, of the plain version and, for
+   dequantize, of the one library call that computes it (``torch.mul``)
+   (CUDA events, >= 20 timed runs after warmup) beside the bytes bound;
+3. flat: 3 DrJAX local-SGD rounds of full lm_350m (bf16, 24 layers; cohort
+   4, 2 local steps, batch 4, seq 512) with int8 delta compression, through
+   ``repro_torch.launch.train``; losses finite, quantize/dequantize launched
+   at least rounds x cohort times;
+4. hier: 2 pod-hierarchical rounds (2 pods x 2 clients, fused int8
+   reduce+compress), then one more round from the same state unfused; the
+   fused and unfused rounds agree within one quantization step per element;
+5. reference: one flat int8 round of the reduced config on the card and on
+   the CPU (the plain versions) agree within one quantization step.
+
+Then one JSON line with every kernel's launches, error and times, and last
+``{"ok": true, "device": {...}}``. Exits non-zero without a card, and when
+the port's sources are not beside this script.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
+F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
+
+
+def log(phase: str, **fields) -> None:
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
+          flush=True)
+
+
+def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
+    """Median device milliseconds of ``fn()`` over ``iters`` runs."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def bound(nbytes: float, ops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_abs_err(outs, refs) -> float:
+    return max(float((o.double() - r.double()).abs().max()) for o, r in zip(outs, refs))
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def require_equal(outs, refs, what: str) -> None:
+    """Bitwise equality of kernel outputs and plain outputs, or a report of
+    where they differ."""
+    bad = []
+    for i, (o, r) in enumerate(zip(outs, refs)):
+        if not (o.shape == r.shape and o.dtype == r.dtype
+                and bool(o.eq(r).all())):
+            diff = (o.double() - r.double()).abs()
+            idx = diff.reshape(-1).nonzero()[:3].reshape(-1).tolist()
+            bad.append(f"output {i}: {int((diff > 0).sum())} differ, "
+                       f"max {float(diff.max())}, first flat idx {idx}, "
+                       f"kernel {o.reshape(-1)[idx].tolist()} "
+                       f"plain {r.reshape(-1)[idx].tolist()}")
+    require(not bad, f"{what} != plain: " + "; ".join(bad))
+
+
+def quant_steps(delta: dict) -> dict:
+    """Per element, the int8 step (row absmax / 127) of its 256-wide row in
+    the packed layout (each leaf padded to the row boundary)."""
+    out = {}
+    for k, d in delta.items():
+        flat = d.reshape(-1).float()
+        pad = (-flat.numel()) % 256
+        rows = torch.nn.functional.pad(flat, (0, pad)).reshape(-1, 256)
+        step = rows.abs().amax(dim=1, keepdim=True) / 127.0
+        out[k] = step.expand(-1, 256).reshape(-1)[: flat.numel()].reshape(d.shape)
+    return out
+
+
+def agree_within_step(a: dict, b: dict, steps: dict, rel: float) -> tuple:
+    """Max over elements of |a - b| / (step + rel * |a| + 1e-6); <= 1 means
+    within tolerance. Also the fraction of elements that are equal."""
+    worst, equal, total = 0.0, 0, 0
+    for k in a:
+        x, y = a[k].float(), b[k].float()
+        tol = steps[k] + rel * x.abs() + 1e-6
+        worst = max(worst, float(((x - y).abs() / tol).max()))
+        equal += int((x == y).sum())
+        total += x.numel()
+    return worst, equal / total
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    secs = _build.KERNELS.build_all()
+    for name in _build.SOURCES:
+        _build.KERNELS.library(name)
+    log("build", seconds=f"{secs:.2f}", sources=",".join(_build.SOURCES),
+        dir=_build.KERNELS.build_dir)
+    return smi
+
+
+def phase_kernels(rows: int, gen):
+    from repro_torch.kernels import quantize as kq
+    from repro_torch.kernels import reduce_compress as krc
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    results = {}
+    n = rows * 256
+
+    # K1a quantize: the packed f32 delta, with zero rows (flat-pack padding)
+    x = torch.randn((rows, 256), generator=gen, device=dev) * 1e-3
+    x[:7] = 0.0
+    q, s = kq.quantize(x)
+    qr, sr = ref.quantize_ref(x)
+    torch.cuda.synchronize()
+    require_equal((q, s), (qr, sr), "quantize")
+    require(bool((s[:7] == 1e-12).all()) and not bool(q[:7].any()),
+            "zero rows: scale must be 1e-12 and q 0")
+    b, by = bound(n * 4 + n + rows * 4, 6.0 * n)
+    results["quantize"] = dict(
+        err=max_abs_err((q, s), (qr, sr)), ms=time_ms(lambda: kq.quantize(x)),
+        plain_ms=time_ms(lambda: ref.quantize_ref(x)), bound_ms=b, bound_by=by,
+        source="src/repro_torch/kernels/csrc/quantize.cu",
+        replaces="src/repro/kernels/quantize.py:31")
+    log("kernels", name="quantize", rows=rows, bitwise=True,
+        ms=f"{results['quantize']['ms']:.4f}",
+        plain_ms=f"{results['quantize']['plain_ms']:.4f}", bound_ms=f"{b:.4f}")
+
+    # K1b dequantize. One library call computes the same f32 function:
+    # torch.mul promotes int8 * f32 to f32, each int8 is exact in f32 and
+    # the product is one IEEE multiply, so it must be bitwise too.
+    out = kq.dequantize(q, s, torch.float32)
+    outr = ref.dequantize_ref(qr, sr, torch.float32)
+    outl = torch.mul(q, s)
+    torch.cuda.synchronize()
+    require_equal((out,), (outr,), "dequantize")
+    require_equal((out,), (outl,), "dequantize vs torch.mul")
+    b, by = bound(n + rows * 4 + n * 4, 1.0 * n)
+    results["dequantize"] = dict(
+        err=max_abs_err((out,), (outr,)),
+        ms=time_ms(lambda: kq.dequantize(q, s, torch.float32)),
+        plain_ms=time_ms(lambda: ref.dequantize_ref(q, s, torch.float32)),
+        library_ms=time_ms(lambda: torch.mul(q, s)),
+        bound_ms=b, bound_by=by,
+        source="src/repro_torch/kernels/csrc/quantize.cu",
+        replaces="src/repro/kernels/quantize.py:57")
+    log("kernels", name="dequantize", rows=rows, bitwise=True,
+        ms=f"{results['dequantize']['ms']:.4f}",
+        plain_ms=f"{results['dequantize']['plain_ms']:.4f}",
+        library_ms=f"{results['dequantize']['library_ms']:.4f}",
+        bound_ms=f"{b:.4f}")
+    del x, q, s, qr, sr, out, outr, outl
+    torch.cuda.empty_cache()
+
+    # K3b reduce_compress_roundtrip on (L=2 pods, G=2 clients, R, 256)
+    L, G = 2, 2
+    x4 = torch.randn((L, G, rows, 256), generator=gen, device=dev) * 1e-3
+    outs = krc.reduce_compress_roundtrip(x4)
+    refs = ref.reduce_compress_roundtrip_ref(x4)
+    torch.cuda.synchronize()
+    require_equal(outs, refs, "reduce_compress_roundtrip")
+    m = L * rows * 256  # output values
+    b, by = bound(G * m * 4 + m * 4 + m + L * rows * 4, (G + 7.0) * m)
+    results["reduce_compress_roundtrip"] = dict(
+        err=max_abs_err(outs, refs),
+        ms=time_ms(lambda: krc.reduce_compress_roundtrip(x4)),
+        plain_ms=time_ms(lambda: ref.reduce_compress_roundtrip_ref(x4)),
+        bound_ms=b, bound_by=by,
+        source="src/repro_torch/kernels/csrc/reduce_compress.cu",
+        replaces="src/repro/kernels/reduce_compress.py:108")
+    log("kernels", name="reduce_compress_roundtrip", shape=tuple(x4.shape),
+        bitwise=True, ms=f"{results['reduce_compress_roundtrip']['ms']:.4f}",
+        plain_ms=f"{results['reduce_compress_roundtrip']['plain_ms']:.4f}",
+        bound_ms=f"{b:.4f}")
+    del x4, outs, refs
+    torch.cuda.empty_cache()
+
+    # bf16 instances of the same kernels, ragged row count
+    xb = (torch.randn((4099, 256), generator=gen, device=dev) * 3).bfloat16()
+    qb, sb = kq.quantize(xb)
+    require_equal((qb, sb), ref.quantize_ref(xb), "bf16 quantize")
+    require_equal((kq.dequantize(qb, sb, torch.bfloat16),),
+                  (ref.dequantize_ref(qb, sb, torch.bfloat16),),
+                  "bf16 dequantize")
+    x4b = (torch.randn((2, 3, 1027, 256), generator=gen, device=dev)).bfloat16()
+    require_equal(krc.reduce_compress_roundtrip(x4b),
+                  ref.reduce_compress_roundtrip_ref(x4b),
+                  "bf16 reduce_compress_roundtrip")
+    torch.cuda.synchronize()
+    log("kernels", bf16="bitwise", shapes="(4099,256),(2,3,1027,256)")
+    return results
+
+
+def flat_args(**over):
+    base = dict(arch="lm_350m", reduced=False, algorithm="local_sgd", rounds=3,
+                cohort=4, local_steps=2, batch=4, seq=512, client_lr=0.05,
+                compression="int8", log_every=1, seed=0, device="cuda")
+    base.update(over)
+    return argparse.Namespace(**base)
+
+
+def phase_flat():
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    args = flat_args()
+    ops.reset_launches()
+    summary, params, _, losses, seconds = train.train(args)
+    counts = ops.launch_counts()
+    require(all(math.isfinite(v) for v in losses), f"non-finite losses {losses}")
+    need = args.rounds * args.cohort
+    require(counts["quantize"] >= need and counts["dequantize"] >= need,
+            f"int8 kernels launched {counts}, need >= {need} each")
+    n_params = sum(p.numel() for p in params.values())
+    log("flat", params=n_params, losses=[round(v, 5) for v in losses],
+        round_s=[round(v, 3) for v in seconds], launches=json.dumps(counts))
+    print(json.dumps(summary), flush=True)
+    return counts, seconds
+
+
+def hier_round_fn(cfg, args, pods: int, fused: bool):
+    """The pod-hierarchical int8 round (``pods`` pods of ``args.cohort //
+    pods`` clients), fused reduce+compress or the generic composition."""
+    import functools
+
+    from repro_torch.algorithms import rounds
+    from repro_torch.launch import train
+    from repro_torch.models import registry
+
+    client_opt, server_opt = train.optimizers(args)
+    round_cfg = rounds.LocalSGDConfig(
+        partition_size=args.cohort // pods, num_local_steps=args.local_steps,
+        grad_clip=1.0, compression="int8", num_pods=pods, fused_reduce=fused)
+    return rounds.make_hierarchical_local_sgd_round(
+        functools.partial(registry.loss_fn, cfg), client_opt, server_opt,
+        round_cfg), server_opt
+
+
+def phase_hier():
+    from repro_torch.data.grouped import CohortSampler, GroupedCorpus
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+
+    args = flat_args(rounds=2)
+    cfg = registry.get_config(args.arch)
+    params = registry.init_params(cfg, seed=args.seed, device="cuda")
+    fused_fn, server_opt = hier_round_fn(cfg, args, pods=2, fused=True)
+    unfused_fn, _ = hier_round_fn(cfg, args, pods=2, fused=False)
+    state = server_opt.init(params)
+    sampler = CohortSampler(GroupedCorpus(vocab_size=cfg.vocab_size),
+                            cohort_size=args.cohort)
+
+    def data(r):
+        d = sampler.round_batch(r, args.local_steps, args.batch, args.seq,
+                                device="cuda")
+        return {k: d[k].reshape((2, 2) + tuple(d[k].shape[1:]))
+                for k in ("tokens", "labels")}
+
+    ops.reset_launches()
+    losses, seconds, states = [], [], [(params, state)]
+    for r in range(args.rounds):
+        t0 = time.perf_counter()
+        params, state, metrics = fused_fn(params, state, data(r))
+        losses.append(float(metrics["loss"]))
+        seconds.append(time.perf_counter() - t0)
+        states.append((params, state))
+    counts = ops.launch_counts()
+    require(all(math.isfinite(v) for v in losses), f"non-finite losses {losses}")
+    require(counts["reduce_compress_roundtrip"] >= args.rounds,
+            f"fused kernel launched {counts}, need >= {args.rounds}")
+    # the last round again from the same state, unfused
+    base, base_state = states[-2]
+    t0 = time.perf_counter()
+    unfused, _, m_u = unfused_fn(base, base_state, data(args.rounds - 1))
+    loss_u = float(m_u["loss"])
+    unfused_s = time.perf_counter() - t0
+    # The step of a row of the applied update (the mean of the two pods'
+    # quantized partials) stands in for the partials' own steps; both forms
+    # quantize the same rows, so they normally agree bitwise.
+    steps = quant_steps({k: params[k].float() - base[k].float() for k in params})
+    worst, equal = agree_within_step(params, unfused, steps, rel=2.0 ** -7)
+    require(worst <= 1.0, f"fused vs unfused beyond one int8 step: {worst}")
+    require(abs(loss_u - losses[-1]) <= 1e-5 * abs(losses[-1]),
+            f"loss fused {losses[-1]} vs unfused {loss_u}")
+    log("hier", losses=[round(v, 5) for v in losses],
+        round_s=[round(v, 3) for v in seconds], unfused_s=round(unfused_s, 3),
+        fused_vs_unfused_worst=f"{worst:.4f}", equal_fraction=f"{equal:.6f}",
+        launches=json.dumps(counts))
+    del states, base, params, unfused
+    torch.cuda.empty_cache()
+    return counts, seconds
+
+
+def phase_reference():
+    """Reduced config (f32), one flat int8 round from the same parameters
+    and data on the card (kernels) and on the CPU (plain versions). They
+    agree within the mean over clients of each client delta's int8 step
+    (the deltas are quantized one by one, then averaged)."""
+    import functools
+
+    from repro_torch import optim
+    from repro_torch.algorithms import rounds
+    from repro_torch.data.grouped import CohortSampler, GroupedCorpus
+    from repro_torch.launch import train
+    from repro_torch.models import registry
+
+    args = flat_args(reduced=True, rounds=1, cohort=2, batch=2, seq=64)
+    cfg = registry.get_config("lm_350m").reduced()
+    base = registry.init_params(cfg, seed=0, device="cpu")
+    sampler = CohortSampler(GroupedCorpus(vocab_size=cfg.vocab_size),
+                            cohort_size=args.cohort)
+    out = {}
+    for device in ("cuda", "cpu"):
+        round_fn, server_opt = train.build_round_fn(cfg, args)
+        params = {k: v.to(device) for k, v in base.items()}
+        d = sampler.round_batch(0, args.local_steps, args.batch, args.seq,
+                                device=device)
+        batch = {"tokens": d["tokens"], "labels": d["labels"]}
+        new, _, metrics = round_fn(params, server_opt.init(params), batch)
+        out[device] = ({k: v.cpu() for k, v in new.items()},
+                       float(metrics["loss"]))
+    client = rounds._make_client_update(
+        functools.partial(registry.loss_fn, cfg), optim.sgd(args.client_lr),
+        rounds.LocalSGDConfig(partition_size=args.cohort,
+                              num_local_steps=args.local_steps, grad_clip=1.0))
+    with torch.no_grad():
+        deltas = [client(base, {k: batch[k][c].cpu() for k in batch})[0]
+                  for c in range(args.cohort)]
+    per_client = [quant_steps(dl) for dl in deltas]
+    steps = {k: sum(s[k] for s in per_client) / len(per_client) for k in base}
+    worst, equal = agree_within_step(out["cpu"][0], out["cuda"][0], steps, rel=0.0)
+    require(worst <= 1.0, f"card vs CPU beyond one int8 step: {worst}")
+    require(abs(out["cuda"][1] - out["cpu"][1]) <= 1e-5 * abs(out["cpu"][1]),
+            f"loss card {out['cuda'][1]} vs cpu {out['cpu'][1]}")
+    log("reference", loss_card=out["cuda"][1], loss_cpu=out["cpu"][1],
+        worst=f"{worst:.4f}", equal_fraction=f"{equal:.6f}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; no card",
+              file=sys.stderr)
+        return 2
+    src = Path(__file__).resolve().parent / "src"
+    if not (src / "repro_torch").is_dir():
+        print(f"chip_smoke: the port's sources are not at {src}", file=sys.stderr)
+        return 3
+    sys.path.insert(0, str(src))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t_start = time.perf_counter()
+    smi = phase_build()
+    from repro_torch.models import registry, transformer
+
+    cfg = registry.get_config("lm_350m")
+    shapes_params = registry.init_params(cfg, seed=0, device="cuda")
+    rows = sum(-(-p.numel() // 256) for p in shapes_params.values())
+    del shapes_params
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    kernels = phase_kernels(rows, gen)
+    torch.cuda.reset_peak_memory_stats()
+    flat_counts, flat_s = phase_flat()
+    log("flat", peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    torch.cuda.reset_peak_memory_stats()
+    hier_counts, hier_s = phase_hier()
+    log("hier", peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    phase_reference()
+    launches = {"quantize": flat_counts["quantize"],
+                "dequantize": flat_counts["dequantize"],
+                "reduce_compress_roundtrip": hier_counts["reduce_compress_roundtrip"]}
+    line = {"kernels": [
+        {"name": name, "route": "cuda", "source": r["source"],
+         "replaces": r["replaces"], "launches": launches[name],
+         "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+         "library_ms": r.get("library_ms")}
+        for name, r in kernels.items()
+    ]}
+    log("done", seconds=f"{time.perf_counter() - t_start:.1f}",
+        padded_vocab=transformer.padded_vocab(cfg), packed_rows=rows, card=smi)
+    print(json.dumps(line), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,16 @@
+"""PyTorch/CUDA port of the DrJAX reproduction (``repro``).
+
+Laid out module for module beside the JAX package: ``repro_torch.core`` is
+``repro.core``, ``repro_torch.kernels`` is ``repro.kernels`` and so on. The
+port imports ``torch`` and numpy only — never ``jax`` and nothing of
+``repro``; the parity tests import both.
+
+This slice ports the paper's §4 training path for the dense LM (lm_350m):
+DrJAX local-SGD rounds, flat and pod-hierarchical, with int8 delta
+compression on hand-written Hopper kernels (``kernels/csrc/*.cu``). What it
+leaves out is listed in each module's docstring and in ROADMAP.md.
+"""
+
+from . import compat
+
+__all__ = ["compat"]

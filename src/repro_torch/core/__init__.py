@@ -1,0 +1,36 @@
+"""DrJAX core for PyTorch: placements, primitives, the user API and the
+hierarchical reduction. ``from repro_torch import core as drjax``."""
+
+from .api import (
+    broadcast,
+    current_context,
+    map_fn,
+    partition_size,
+    placement_context,
+    program,
+    reduce_mean,
+    reduce_sum,
+)
+from .hierarchical import (
+    cross_pod_bytes,
+    hierarchical_reduce_mean,
+    int8_wire_ratio,
+)
+from .placement import Placement, PlacementContext, make_context
+
+__all__ = [
+    "Placement",
+    "PlacementContext",
+    "broadcast",
+    "cross_pod_bytes",
+    "current_context",
+    "hierarchical_reduce_mean",
+    "int8_wire_ratio",
+    "make_context",
+    "map_fn",
+    "partition_size",
+    "placement_context",
+    "program",
+    "reduce_mean",
+    "reduce_sum",
+]

@@ -1,0 +1,176 @@
+"""User-facing DrJAX API on trees of tensors (``repro/core/api.py``).
+
+.. code-block:: python
+
+    from repro_torch import core as drjax
+
+    @drjax.program(partition_size=3)
+    def broadcast_double_and_sum(x):
+        y = drjax.broadcast(x)
+        z = drjax.map_fn(lambda a: 2 * a, y)
+        return drjax.reduce_sum(z)
+
+Placements nest (``placements={"pods": 2, "clients": 4}``); with no
+``placement=``, ``broadcast``/``reduce_*``/``map_fn`` span the whole stack.
+All ops take trees (dicts, lists, tuples of tensors; ``torch.utils._pytree``)
+whose every leaf carries the leading group axes.
+
+Ported: ``program``, ``broadcast``, ``map_fn``, ``reduce_sum``,
+``reduce_mean``, ``partition_size``. Left out for later slices:
+``reduce_max``, ``reduce_weighted_mean``/``masked_reduce_mean`` (straggler
+rounds), ``stage_transfer``/``stage_map``, and the sharding annotations.
+"""
+
+from __future__ import annotations
+
+import functools
+import itertools
+from typing import Callable, Mapping, Optional
+
+import torch
+from torch.utils import _pytree as pytree
+
+from . import placement as placement_lib
+from . import primitives as prims
+
+__all__ = [
+    "program",
+    "placement_context",
+    "broadcast",
+    "map_fn",
+    "reduce_sum",
+    "reduce_mean",
+    "partition_size",
+    "current_context",
+]
+
+placement_context = placement_lib.placement_context
+current_context = placement_lib.current_context
+
+
+def program(
+    fn: Optional[Callable] = None,
+    *,
+    partition_size: Optional[int] = None,
+    placements: Optional[Mapping[str, int]] = None,
+):
+    """Decorator declaring a DrJAX program over ``partition_size=n`` groups
+    (the paper's API, one "clients" placement) or an ordered stack
+    ``placements={"pods": P, "clients": m}``, outermost first."""
+    if fn is not None:
+        raise TypeError(
+            "drjax.program requires a partition size: use "
+            "@drjax.program(partition_size=n)."
+        )
+    if placements is not None and partition_size is not None:
+        raise ValueError("Pass either partition_size or placements, not both.")
+    if placements is None and partition_size is None:
+        raise ValueError("partition_size (or placements) is required.")
+    ctx = placement_lib.make_context(partition_size, placements=placements)
+
+    def deco(f: Callable) -> Callable:
+        @functools.wraps(f)
+        def wrapped(*args, **kwargs):
+            with placement_lib.placement_context(ctx):
+                return f(*args, **kwargs)
+
+        wrapped.drjax_context = ctx
+        return wrapped
+
+    return deco
+
+
+def broadcast(tree, placement: Optional[str] = None):
+    """Replicate a structure to every group. With ``placement=p``: one
+    broadcast at that level; with none: server -> fully partitioned, one
+    broadcast per level, outermost first."""
+    ctx = placement_lib.current_context()
+    chain = ctx.names if placement is None else (placement,)
+
+    def leaf(x):
+        for name in chain:
+            x = prims.broadcast(x, placement=name)
+        return x
+
+    return pytree.tree_map(leaf, tree)
+
+
+def _reduce_tree(tree, binder, placement: Optional[str]):
+    ctx = placement_lib.current_context()
+    chain = tuple(reversed(ctx.names)) if placement is None else (placement,)
+
+    def leaf(x):
+        for name in chain:
+            x = binder(x, placement=name)
+        return x
+
+    return pytree.tree_map(leaf, tree)
+
+
+def reduce_sum(tree, placement: Optional[str] = None):
+    """Sum over one level's groups, or (default) the whole stack, innermost
+    level first."""
+    return _reduce_tree(tree, prims.reduce_sum, placement)
+
+
+def reduce_mean(tree, placement: Optional[str] = None):
+    """Mean over one level's groups, or (default) the whole stack as a
+    mean of per-level means (equal group sizes)."""
+    return _reduce_tree(tree, prims.reduce_mean, placement)
+
+
+def map_fn(fn: Callable, tree, placement: Optional[str] = None):
+    """Apply ``fn`` to every group's slice and stack the results.
+
+    A *tuple* ``tree`` passes its elements as separate positional
+    arguments. With ``placement=p`` the map runs over that level's axis
+    (outputs stacked back at its position); with none it runs over every
+    level of the stack (outputs carry all the group axes).
+
+    The reference vmaps ``fn``; here the groups run one after another on
+    the one device and the outputs are stacked on new leading axes. The
+    values are those of the vmap (each group sees its own slice), and the
+    memory a group's computation holds is one group's, not all of them:
+    the point on one card, where a whole client's training state is large.
+    The map is differentiable (autograd through the slices and the stack).
+    """
+    ctx = placement_lib.current_context()
+    call = (lambda args: fn(*args)) if isinstance(tree, tuple) else fn
+    if placement is None:
+        lead = 0
+        sizes = ctx.sizes
+    else:
+        lead = ctx.index_of(placement)
+        sizes = (ctx.get(placement).size,)
+    depth = len(sizes)
+
+    def check(x):
+        if x.ndim < lead + depth or tuple(x.shape[lead:lead + depth]) != sizes:
+            raise ValueError(
+                f"map_fn: a mapped leaf of shape {tuple(x.shape)} does not "
+                f"carry the group axes {sizes} at axis {lead}."
+            )
+
+    pytree.tree_map(check, tree)
+    outs = []
+    for idx in itertools.product(*(range(n) for n in sizes)):
+        sel = (slice(None),) * lead + idx
+        outs.append(call(pytree.tree_map(lambda x: x[sel], tree)))
+
+    def stack(*xs):
+        out = torch.stack(xs, dim=lead)
+        return out.reshape(out.shape[:lead] + sizes + out.shape[lead + 1:])
+
+    flat = [pytree.tree_flatten(o) for o in outs]
+    spec = flat[0][1]
+    leaves = [stack(*parts) for parts in zip(*(f[0] for f in flat))]
+    return pytree.tree_unflatten(leaves, spec)
+
+
+def partition_size(placement: Optional[str] = None) -> int:
+    """One placement's size, or (default) the total number of innermost
+    groups across the whole stack."""
+    ctx = placement_lib.current_context()
+    if placement is None:
+        return ctx.total_size()
+    return ctx.get(placement).size

@@ -1,0 +1,136 @@
+"""Build the CUDA kernels with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` is compiled at first use into its own shared
+library with a plain C interface:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
+
+into ``build/kernels/`` at the root of the checkout (listed in
+``.gitignore``). The file name carries a hash of the sources and flags, so an
+edited source is rebuilt and an unchanged one is reused. All sources are
+compiled together, one nvcc process each, on the first call to
+:func:`library`. No fast math: the kernels must divide and round exactly as
+the reference does.
+
+No build failure is caught: a missing nvcc or a compile error raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, List, Optional
+
+from .. import compat
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = ("quantize", "reduce_compress")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_longlong
+# C signatures of the extern "C" entry points (all return cudaError_t as int).
+SIGNATURES = {
+    "quantize": {
+        "repro_quantize": (_P, ctypes.c_int, _P, _P, _I64, _P),
+        "repro_dequantize": (_P, _P, _P, ctypes.c_int, _I64, _P),
+    },
+    "reduce_compress": {
+        "repro_reduce_compress_roundtrip": (
+            _P, ctypes.c_int, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float,
+            _P,
+        ),
+    },
+}
+
+
+class KernelBuild:
+    """Builds and loads the kernel libraries of one checkout, once."""
+
+    def __init__(self):
+        self.build_dir = BUILD_DIR
+        self.build_seconds: Optional[float] = None
+        self._libs: Dict[str, ctypes.CDLL] = {}
+        self._lock = threading.Lock()
+
+    def _target(self, name: str) -> Path:
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for src in sorted(CSRC.iterdir()):
+            if src.suffix in (".cu", ".cuh"):
+                h.update(src.name.encode())
+                h.update(src.read_bytes())
+        return self.build_dir / f"{name}-{h.hexdigest()[:16]}.so"
+
+    def build_all(self) -> float:
+        """Compile every source whose library is missing, in parallel.
+        Returns the wall seconds spent (0 if everything was built)."""
+        nvcc = compat.nvcc_path()
+        todo = [n for n in SOURCES if not self._target(n).exists()]
+        t0 = time.perf_counter()
+        if todo:
+            if nvcc is None:
+                raise RuntimeError(
+                    "repro_torch: nvcc not found (PATH or CUDA_HOME); the "
+                    "CUDA kernels cannot be built"
+                )
+            self.build_dir.mkdir(parents=True, exist_ok=True)
+            procs: List[tuple] = []
+            for name in todo:
+                out = self._target(name)
+                tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+                cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                       str(CSRC / f"{name}.cu")]
+                procs.append((name, out, tmp, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
+            errors = []
+            for name, out, tmp, proc in procs:
+                log, _ = proc.communicate()
+                if proc.returncode != 0:
+                    errors.append(f"nvcc {name}.cu failed:\n{log}")
+                else:
+                    os.replace(tmp, out)
+            if errors:
+                raise RuntimeError("\n".join(errors))
+        self.build_seconds = time.perf_counter() - t0
+        return self.build_seconds
+
+    def library(self, name: str) -> ctypes.CDLL:
+        """The loaded library of ``csrc/<name>.cu``, built at first use."""
+        with self._lock:
+            if name not in self._libs:
+                if not compat.is_hopper():
+                    raise RuntimeError(
+                        "repro_torch kernels are compiled for sm_90a and need "
+                        f"a compute-capability 9.x card; found "
+                        f"{compat.compute_capability()}"
+                    )
+                if self.build_seconds is None:
+                    self.build_all()
+                lib = ctypes.CDLL(str(self._target(name)))
+                for fn, argtypes in SIGNATURES[name].items():
+                    f = getattr(lib, fn)
+                    f.argtypes = list(argtypes)
+                    f.restype = ctypes.c_int
+                self._libs[name] = lib
+            return self._libs[name]
+
+
+# The process's one build of this checkout's kernels (nothing runs at import).
+KERNELS = KernelBuild()
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a launch."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")

@@ -1,0 +1,103 @@
+"""Decoder-only language model (``repro/models/transformer.py``).
+
+:class:`TransformerLM` is the ``nn.Module``: it owns the parameters, named
+``embed.table``, ``final_ln.scale``, ``lm_head.w`` and
+``layers.<i>.{ln1,ln2}.scale`` / ``layers.<i>.attn.w{q,k,v,o}`` /
+``layers.<i>.mlp.w{i,g,o}``. The math is :func:`forward` and
+:func:`loss_fn` over a flat dict of those tensors, so a training round can
+run a client's own copy of the parameters through the same code
+(``TransformerLM.forward`` passes its own). The reference stacks the layers
+on a leading axis for ``lax.scan``; here each layer is its own module and
+the stack is a Python loop. ``remat="full"`` checkpoints each layer
+(``torch.utils.checkpoint``, non-reentrant).
+
+Left out for later slices: tied embeddings, frontend embeddings (VLM),
+hybrid stacks and the serve paths (prefill, decode, chunked prefill).
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from . import blocks, common
+
+F32 = torch.float32
+
+
+def padded_vocab(cfg) -> int:
+    return -(-cfg.vocab_size // 512) * 512
+
+
+class Embedding(nn.Module):
+    def __init__(self, vocab: int, d: int, dtype, generator, device=None):
+        super().__init__()
+        self.table = nn.Parameter(common.normal_init(
+            generator, (vocab, d), dtype, stddev=1.0, device=device))
+
+
+class Readout(nn.Module):
+    def __init__(self, d: int, vocab: int, dtype, generator, device=None):
+        super().__init__()
+        self.w = nn.Parameter(common.normal_init(
+            generator, (d, vocab), dtype, device=device))
+
+
+class TransformerLM(nn.Module):
+    """The dense LM. Parameters are drawn from ``generator`` (whose device
+    must be ``device``)."""
+
+    def __init__(self, cfg, generator: torch.Generator, device=None):
+        super().__init__()
+        if cfg.tie_embeddings or cfg.frontend != "none":
+            raise NotImplementedError(
+                "tied embeddings and frontends are not ported")
+        blocks.layer_kinds(cfg)  # rejects non-dense families
+        self.cfg = cfg
+        pv, d, dt = padded_vocab(cfg), cfg.d_model, cfg.torch_dtype
+        self.embed = Embedding(pv, d, dt, generator, device)
+        self.final_ln = blocks.RMSNorm(d, dt, device)
+        self.lm_head = Readout(d, pv, dt, generator, device)
+        self.layers = nn.ModuleList(
+            blocks.Block(cfg, generator, device) for _ in range(cfg.num_layers)
+        )
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return forward(self.cfg, dict(self.named_parameters()), tokens)
+
+
+def layer_params(params: Dict[str, torch.Tensor], i: int):
+    return blocks.sub(params, f"layers.{i}.")
+
+
+def forward(cfg, params: Dict[str, torch.Tensor], tokens: torch.Tensor,
+            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """tokens (B, S) -> logits (B, S, padded_vocab) f32."""
+    x = torch.nn.functional.embedding(tokens.long(), params["embed.table"])
+    b, s = x.shape[:2]
+    if positions is None:
+        positions = torch.arange(s, device=x.device).expand(b, s)
+    for i in range(cfg.num_layers):
+        layer = functools.partial(blocks.block_apply, cfg, layer_params(params, i))
+        if cfg.remat == "full" and torch.is_grad_enabled():
+            x = checkpoint(layer, x, positions, use_reentrant=False,
+                           preserve_rng_state=False)
+        elif cfg.remat in ("none", "full"):
+            x = layer(x, positions)
+        else:
+            raise ValueError(f"remat {cfg.remat!r} is not ported")
+    x = common.rmsnorm_apply(params["final_ln.scale"], x, cfg.norm_eps)
+    # f32 logits from the activation-dtype inputs, as the reference's
+    # preferred_element_type=f32 product.
+    return torch.matmul(x.to(F32), params["lm_head.w"].to(F32))
+
+
+def loss_fn(cfg, params: Dict[str, torch.Tensor], batch) -> torch.Tensor:
+    """batch: {tokens, labels, [mask]} -> scalar mean cross-entropy."""
+    logits = forward(cfg, params, batch["tokens"])
+    return common.softmax_cross_entropy(logits, batch["labels"],
+                                        batch.get("mask"))
