@@ -14,15 +14,36 @@ Phases, each reported on its own line (any failure raises, exit != 0):
    check; median ms of the kernel, of the plain version and, for
    dequantize, of the one library call that computes it (``torch.mul``)
    (CUDA events, >= 20 timed runs after warmup) beside the bytes bound;
+   then K2 (flash attention forward, ``bwd_dq`` and ``bwd_dkdv``) against
+   the plain versions at the main path's shapes (B 4 x S 512 and B 2 x S
+   4096, 16 heads, hd 64, bf16, causal) and over a sweep of small shapes
+   (f32 and bf16, hd 80 and 128, GQA G = 7 and 8, window 256 at a ragged
+   S = 1000, non-causal Sq 24 / Skv 56): f32 outputs within the
+   reference's 2e-5 and gradients within 1e-4 of their largest magnitude;
+   bf16 outputs and gradients within one bf16 step (2^-7 |plain|) plus
+   1e-3 of the largest magnitude; with the times of the kernels, the
+   plain versions and ``scaled_dot_product_attention`` (forward, and its
+   autograd backward) beside the f32 operations bound;
 3. flat: 3 DrJAX local-SGD rounds of full lm_350m (bf16, 24 layers; cohort
    4, 2 local steps, batch 4, seq 512) with int8 delta compression, through
    ``repro_torch.launch.train``; losses finite, quantize/dequantize launched
-   at least rounds x cohort times;
+   at least rounds x cohort times, the K2 forward at least rounds x cohort
+   x steps x layers x 2 (the checkpoint recompute) and each K2 backward
+   kernel rounds x cohort x steps x layers times;
 4. hier: 2 pod-hierarchical rounds (2 pods x 2 clients, fused int8
    reduce+compress), then one more round from the same state unfused; the
    fused and unfused rounds agree within one quantization step per element;
-5. reference: one flat int8 round of the reduced config on the card and on
-   the CPU (the plain versions) agree within one quantization step.
+   the fused rounds launch K2 as often as the flat ones;
+5. long: 2 flat int8 rounds of full lm_350m at seq 4096 (the reference's
+   train_4k shape; cohort 4, 2 local steps, batch 2: 65,536 tokens a
+   round); losses finite, the same K2 launch counts;
+6. grads: lm_350m at full width with 2 layers, f32, seq 4096, batch 1:
+   loss and every gradient through the K2 kernels against the same through
+   PyTorch's autograd of the plain forward on the card (loss within 1e-5
+   relative, each leaf within 1e-4 of its largest magnitude);
+7. reference: one flat int8 round of the reduced config on the card and on
+   the CPU (the plain versions) agree within one quantization step, with
+   ``naive`` attention and again with ``blocked`` (K2 on the card).
 
 Then one JSON line with every kernel's launches, error and times, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, and when
@@ -44,6 +65,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
+BF16_TC_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 
 
 def log(phase: str, **fields) -> None:
@@ -234,6 +256,192 @@ def phase_kernels(rows: int, gen):
     return results
 
 
+# K2: the main path's attention shapes (lm_350m: 16 heads of 64, bf16,
+# causal), the seq-512 rounds' first, then the seq-4096 rounds'.
+FLASH_MAIN = {"seq512": (4, 512), "seq4096": (2, 4096)}
+FLASH_SOURCE = {
+    "flash_attention_fwd": dict(
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:103"),
+    "flash_attention_bwd_dq": dict(
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/models/attention.py:437"),
+    "flash_attention_bwd_dkdv": dict(
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/models/attention.py:437"),
+}
+FLASH_SWEEP = (  # (B, Sq, Skv, Hq, Hkv, hd, causal, window)
+    (2, 200, 200, 8, 8, 80, True, 0),
+    (1, 300, 300, 4, 2, 128, True, 0),
+    (1, 130, 130, 56, 8, 64, True, 0),      # yi_34b's 56:8, G = 7
+    (2, 100, 100, 8, 1, 32, True, 0),       # G = 8
+    (1, 1000, 1000, 4, 2, 64, True, 256),   # window, ragged S
+    (1, 24, 56, 4, 2, 32, False, 0),        # non-causal, Sq != Skv
+)
+
+
+def check_close(what, got, want, tol) -> float:
+    """Elementwise ``|got - want| <= tol + tol * |want|`` (rtol = atol =
+    tol); returns the max abs error."""
+    diff = (got.double() - want.double()).abs()
+    excess = float((diff - tol - tol * want.double().abs()).max())
+    require(excess <= 0, f"{what}: beyond rtol = atol = {tol} by {excess} "
+            f"(max abs err {float(diff.max())})")
+    return float(diff.max())
+
+
+def check_bf16(what, got, want) -> float:
+    """bf16 values that the kernel and the plain version both compute in
+    f32 and round once: ``|got - want| <= 2^-7 |want| + 1e-3 max|want|``
+    (one bf16 step of each value, plus a floor for values that cancel to
+    near 0); returns the max abs error."""
+    diff = (got.double() - want.double()).abs()
+    lim = 2.0 ** -7 * want.double().abs() + 1e-3 * float(want.double().abs().max())
+    excess = float((diff - lim).max())
+    require(excess <= 0, f"{what}: beyond one bf16 step + 1e-3 max|plain| by "
+            f"{excess} (max abs err {float(diff.max())})")
+    return float(diff.max())
+
+
+def check_grad(what, got, want, dtype) -> float:
+    """f32: max abs error <= 1e-4 * max |plain| (sums over up to 4096
+    positions and G heads in another order); bf16: one bf16 step."""
+    if dtype != torch.float32:
+        return check_bf16(what, got, want)
+    err = float((got.double() - want.double()).abs().max())
+    lim = 1e-4 * float(want.double().abs().max())
+    require(err <= lim, f"{what}: max abs err {err} > {lim}")
+    return err
+
+
+def flash_case(gen, b, sq, skv, hq, hkv, hd, causal, window, dtype):
+    """K2 forward and backward against the plain versions on one input.
+    The backward kernels get the plain residuals (out_f32, L) and D, so each
+    kernel is held to its own plain version. Returns the inputs, the
+    residuals and the errors."""
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    q = torch.randn((b, sq, hq, hd), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, skv, hkv, hd), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, skv, hkv, hd), generator=gen, device=dev).to(dtype)
+    do = torch.randn((b, sq, hq, hd), generator=gen, device=dev).to(dtype)
+    kw = dict(causal=causal, window=window)
+    what = f"K2 {(b, sq, skv, hq, hkv, hd)} {dtype} causal={causal} w={window}"
+    out, out32, lse = ops.flash_attention_fwd(q, k, v, **kw)
+    r_out, r_out32, r_lse = ref.flash_attention_ref(q, k, v, **kw)
+    dq, delta = ops.flash_attention_bwd_dq(q, k, v, r_out32, r_lse, do, **kw)
+    r_dq, r_delta = ref.flash_attention_bwd_dq_ref(q, k, v, r_out32, r_lse,
+                                                   do, **kw)
+    dk, dv = ops.flash_attention_bwd_dkdv(q, k, v, r_lse, r_delta, do, **kw)
+    r_dk, r_dv = ref.flash_attention_bwd_dkdv_ref(q, k, v, r_lse, r_delta,
+                                                  do, **kw)
+    torch.cuda.synchronize()
+    errs = {
+        "out": (check_close(f"{what} out", out, r_out, 2e-5)
+                if dtype == torch.float32 else check_bf16(f"{what} out", out, r_out)),
+        "out32": check_close(f"{what} out32", out32, r_out32, 2e-5),
+        "lse": check_close(f"{what} L", lse, r_lse, 2e-5),
+        "delta": check_close(f"{what} D", delta, r_delta, 2e-5),
+        "dq": check_grad(f"{what} dq", dq, r_dq, dtype),
+        "dk": check_grad(f"{what} dk", dk, r_dk, dtype),
+        "dv": check_grad(f"{what} dv", dv, r_dv, dtype),
+    }
+    require(out.dtype == dtype and dq.dtype == dtype and dk.dtype == dtype,
+            f"{what}: output dtypes")
+    return (q, k, v, do, r_out32, r_lse, r_delta), errs
+
+
+def visible_pairs(sq, skv, causal, window) -> int:
+    from repro_torch.kernels import ref
+
+    return int(ref.visible_mask(sq, skv, causal, window, "cpu").sum())
+
+
+def sdpa_times(q, k, v, do):
+    """The library yardstick: ``scaled_dot_product_attention`` (causal,
+    GQA) forward, and its autograd backward (dq, dk, dv), in ms; its
+    forward's max abs difference from the plain version as information
+    (it computes p in bf16 and is not held to the tolerance)."""
+    from repro_torch.kernels import ref
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    fwd_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
+    out = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+    dot = do.transpose(1, 2)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                 retain_graph=True))
+    err = float((out.detach().transpose(1, 2).double()
+                 - ref.flash_attention_ref(q, k, v)[0].double()).abs().max())
+    return fwd_ms, bwd_ms, err
+
+
+def phase_flash(gen):
+    """K2 against its plain versions, and its times at the main shapes."""
+    from repro_torch.kernels import ops, ref
+
+    for case in FLASH_SWEEP:
+        for dtype in (torch.float32, torch.bfloat16):
+            _, errs = flash_case(gen, *case, dtype)
+            log("kernels", name="K2 sweep", shape=case[:6], causal=case[6],
+                window=case[7], dtype=str(dtype).split(".")[-1],
+                errs=json.dumps({k: f"{v:.3e}" for k, v in errs.items()}))
+    results = {}
+    for key, (b, s) in FLASH_MAIN.items():
+        (q, k, v, do, out32, lse, delta), errs = flash_case(
+            gen, b, s, s, 16, 16, 64, True, 0, torch.bfloat16)
+        hq, hd = 16, 64
+        pairs = b * hq * visible_pairs(s, s, True, 0)
+        rows = b * s * hq
+        nb = q.numel() * 2  # bytes of one (B, S, H, hd) bf16 tensor
+        ms = {
+            "flash_attention_fwd": time_ms(lambda: ops.flash_attention_fwd(q, k, v)),
+            "flash_attention_bwd_dq": time_ms(lambda: ops.flash_attention_bwd_dq(
+                q, k, v, out32, lse, do)),
+            "flash_attention_bwd_dkdv": time_ms(lambda: ops.flash_attention_bwd_dkdv(
+                q, k, v, lse, delta, do)),
+        }
+        plain = {
+            "flash_attention_fwd": time_ms(lambda: ref.flash_attention_ref(q, k, v)),
+            "flash_attention_bwd_dq": time_ms(lambda: ref.flash_attention_bwd_dq_ref(
+                q, k, v, out32, lse, do)),
+            "flash_attention_bwd_dkdv": time_ms(lambda: ref.flash_attention_bwd_dkdv_ref(
+                q, k, v, lse, delta, do)),
+        }
+        lib_fwd, lib_bwd, lib_err = sdpa_times(q, k, v, do)
+        # FLOP per visible pair: fwd q.k and p.v (4 hd); bwd_dq recomputes
+        # s and dp and forms dq (6 hd); bwd_dkdv recomputes s and dp and
+        # forms dv and dk (8 hd). Bytes: each input read once, each output
+        # written once (out32 and L are outputs of the training forward).
+        work = {
+            "flash_attention_fwd": (3 * nb + nb + 2 * nb + rows * 4, 4 * hd * pairs),
+            "flash_attention_bwd_dq": (7 * nb + 2 * rows * 4, 6 * hd * pairs),
+            "flash_attention_bwd_dkdv": (4 * nb + 2 * rows * 4 + 2 * nb,
+                                         8 * hd * pairs),
+        }
+        errs_by = {"flash_attention_fwd": max(errs["out"], errs["lse"]),
+                   "flash_attention_bwd_dq": max(errs["dq"], errs["delta"]),
+                   "flash_attention_bwd_dkdv": max(errs["dk"], errs["dv"])}
+        for name, (nbytes, flop) in work.items():
+            b_ms, by = bound(nbytes, flop)
+            results.setdefault(name, {})[key] = dict(
+                err=errs_by[name], ms=ms[name], plain_ms=plain[name],
+                library_ms=lib_fwd if name == "flash_attention_fwd" else lib_bwd,
+                bound_ms=b_ms, bound_by=by)
+            log("kernels", name=name, shape=(b, s, hq, hd), ms=f"{ms[name]:.4f}",
+                plain_ms=f"{plain[name]:.4f}",
+                library_ms=f"{results[name][key]['library_ms']:.4f}",
+                bound_ms=f"{b_ms:.4f}", bound_by=by, flop=flop, bytes=nbytes,
+                bound_ms_bf16_tensor_cores=f"{flop / BF16_TC_OPS_PER_S * 1e3:.4f}",
+                err=f"{errs_by[name]:.3e}")
+        log("kernels", name="sdpa (information)", shape=(b, s, hq, hd),
+            fwd_max_abs_diff_vs_plain=f"{lib_err:.3e}")
+        del q, k, v, do, out32, lse, delta
+        torch.cuda.empty_cache()
+    return results
+
+
 def flat_args(**over):
     base = dict(arch="lm_350m", reduced=False, algorithm="local_sgd", rounds=3,
                 cohort=4, local_steps=2, batch=4, seq=512, client_lr=0.05,
@@ -242,11 +450,24 @@ def flat_args(**over):
     return argparse.Namespace(**base)
 
 
-def phase_flat():
+def require_flash_launches(counts: dict, args, layers: int) -> None:
+    """Every layer of every client step ran the K2 forward twice (once
+    more in the checkpoint recompute) and each backward kernel once."""
+    steps = args.rounds * args.cohort * args.local_steps * layers
+    require(counts["flash_attention_fwd"] >= 2 * steps
+            and counts["flash_attention_bwd_dq"] >= steps
+            and counts["flash_attention_bwd_dkdv"] >= steps,
+            f"K2 launched {counts}, need fwd >= {2 * steps}, each bwd >= {steps}")
+
+
+def phase_train(phase: str, **over):
+    """Flat int8 rounds of full lm_350m through ``launch.train``."""
     from repro_torch.kernels import ops
     from repro_torch.launch import train
+    from repro_torch.models import registry
 
-    args = flat_args()
+    args = flat_args(**over)
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     summary, params, _, losses, seconds = train.train(args)
     counts = ops.launch_counts()
@@ -254,11 +475,17 @@ def phase_flat():
     need = args.rounds * args.cohort
     require(counts["quantize"] >= need and counts["dequantize"] >= need,
             f"int8 kernels launched {counts}, need >= {need} each")
+    require_flash_launches(counts, args, registry.get_config(args.arch).num_layers)
     n_params = sum(p.numel() for p in params.values())
-    log("flat", params=n_params, losses=[round(v, 5) for v in losses],
-        round_s=[round(v, 3) for v in seconds], launches=json.dumps(counts))
+    tokens = args.cohort * args.local_steps * args.batch * args.seq
+    log(phase, params=n_params, seq=args.seq, tokens_per_round=tokens,
+        losses=[round(v, 5) for v in losses],
+        round_s=[round(v, 3) for v in seconds],
+        tokens_per_s=[round(tokens / v, 1) for v in seconds],
+        peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+        launches=json.dumps(counts))
     print(json.dumps(summary), flush=True)
-    return counts, seconds
+    return counts
 
 
 def hier_round_fn(cfg, args, pods: int, fused: bool):
@@ -311,6 +538,7 @@ def phase_hier():
     require(all(math.isfinite(v) for v in losses), f"non-finite losses {losses}")
     require(counts["reduce_compress_roundtrip"] >= args.rounds,
             f"fused kernel launched {counts}, need >= {args.rounds}")
+    require_flash_launches(counts, args, cfg.num_layers)
     # the last round again from the same state, unfused
     base, base_state = states[-2]
     t0 = time.perf_counter()
@@ -331,14 +559,69 @@ def phase_hier():
         launches=json.dumps(counts))
     del states, base, params, unfused
     torch.cuda.empty_cache()
-    return counts, seconds
+    return counts
 
 
-def phase_reference():
+def phase_grads(seq: int = 4096, layers: int = 2):
+    """lm_350m at full width, ``layers`` layers, f32, batch 1: loss and
+    gradients through the K2 kernels against the same through PyTorch's
+    autograd of K2's plain forward on the card, from the same parameters
+    and tokens."""
+    import dataclasses
+    from unittest import mock
+
+    import numpy as np
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import registry
+
+    cfg = dataclasses.replace(registry.get_config("lm_350m"),
+                              num_layers=layers, dtype="float32")
+    params = registry.init_params(cfg, seed=0, device="cuda")
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, seq + 1))
+    toks = torch.from_numpy(toks.astype(np.int64)).cuda()
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def loss_and_grads():
+        p = {k: v.detach().requires_grad_() for k, v in params.items()}
+        loss = registry.loss_fn(cfg, p, batch)
+        grads = torch.autograd.grad(loss, list(p.values()))
+        return float(loss.detach()), dict(zip(p, grads))
+
+    ops.reset_launches()
+    loss_k, grads_k = loss_and_grads()
+    counts = ops.launch_counts()
+    require(counts["flash_attention_fwd"] >= 2 * layers
+            and counts["flash_attention_bwd_dq"] >= layers
+            and counts["flash_attention_bwd_dkdv"] >= layers,
+            f"grads phase: K2 launched {counts}")
+    with mock.patch.object(ops, "flash_attention",
+                           lambda q, k, v, **kw: ref.flash_attention_ref(q, k, v, **kw)[0]):
+        loss_p, grads_p = loss_and_grads()
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    require(rel <= 1e-5, f"loss kernels {loss_k} vs plain {loss_p}")
+    worst_name, worst = "", 0.0
+    for name, gp in grads_p.items():
+        err = float((grads_k[name].double() - gp.double()).abs().max())
+        ratio = err / max(float(gp.double().abs().max()), 1e-30)
+        require(ratio <= 1e-4, f"grad {name}: max abs err {err} = {ratio:.3e} "
+                "of its largest magnitude > 1e-4")
+        if ratio >= worst:
+            worst_name, worst = name, ratio
+    log("grads", seq=seq, layers=layers, loss_kernels=loss_k,
+        loss_plain=loss_p, loss_rel_diff=f"{rel:.3e}", leaves=len(grads_p),
+        worst_leaf=worst_name, worst_err_over_max=f"{worst:.3e}")
+    del params, grads_k, grads_p
+    torch.cuda.empty_cache()
+
+
+def phase_reference(attn_impl: str):
     """Reduced config (f32), one flat int8 round from the same parameters
     and data on the card (kernels) and on the CPU (plain versions). They
     agree within the mean over clients of each client delta's int8 step
-    (the deltas are quantized one by one, then averaged)."""
+    (the deltas are quantized one by one, then averaged). ``naive``
+    attention holds the int8 kernels; ``blocked`` adds K2's forward and
+    backward."""
     import functools
 
     from repro_torch import optim
@@ -348,7 +631,7 @@ def phase_reference():
     from repro_torch.models import registry
 
     args = flat_args(reduced=True, rounds=1, cohort=2, batch=2, seq=64)
-    cfg = registry.get_config("lm_350m").reduced()
+    cfg = registry.get_config("lm_350m").reduced(attn_impl=attn_impl)
     base = registry.init_params(cfg, seed=0, device="cpu")
     sampler = CohortSampler(GroupedCorpus(vocab_size=cfg.vocab_size),
                             cohort_size=args.cohort)
@@ -375,7 +658,8 @@ def phase_reference():
     require(worst <= 1.0, f"card vs CPU beyond one int8 step: {worst}")
     require(abs(out["cuda"][1] - out["cpu"][1]) <= 1e-5 * abs(out["cpu"][1]),
             f"loss card {out['cuda'][1]} vs cpu {out['cpu'][1]}")
-    log("reference", loss_card=out["cuda"][1], loss_cpu=out["cpu"][1],
+    log("reference", attn_impl=attn_impl, loss_card=out["cuda"][1],
+        loss_cpu=out["cpu"][1],
         worst=f"{worst:.4f}", equal_fraction=f"{equal:.6f}")
 
 
@@ -402,24 +686,37 @@ def main() -> int:
     del shapes_params
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernels = phase_kernels(rows, gen)
+    flash = phase_flash(gen)
+    flat_counts = phase_train("flat")
     torch.cuda.reset_peak_memory_stats()
-    flat_counts, flat_s = phase_flat()
-    log("flat", peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
-    torch.cuda.reset_peak_memory_stats()
-    hier_counts, hier_s = phase_hier()
+    hier_counts = phase_hier()
     log("hier", peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
-    phase_reference()
+    long_counts = phase_train("long", rounds=2, batch=2, seq=4096)
+    phase_grads()
+    phase_reference("naive")
+    phase_reference("blocked")
     launches = {"quantize": flat_counts["quantize"],
                 "dequantize": flat_counts["dequantize"],
                 "reduce_compress_roundtrip": hier_counts["reduce_compress_roundtrip"]}
-    line = {"kernels": [
-        {"name": name, "route": "cuda", "source": r["source"],
-         "replaces": r["replaces"], "launches": launches[name],
-         "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": r.get("library_ms")}
-        for name, r in kernels.items()
-    ]}
+
+    def entry(name, r, n, **extra):
+        return {"name": name, "route": "cuda", "source": r["source"],
+                "replaces": r["replaces"], "launches": n,
+                "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r.get("library_ms"), **extra}
+
+    line = {"kernels": [entry(name, r, launches[name])
+                        for name, r in kernels.items()]}
+    for name, by_shape in flash.items():
+        # the seq-512 flat rounds' shape and launches, seq 4096's beside them
+        e512, e4096 = (
+            entry(name, dict(by_shape[key], **FLASH_SOURCE[name]), n,
+                  shape=f"B {b} x S {s} x 16 heads x 64, bf16, causal")
+            for key, (b, s), n in (
+                ("seq512", FLASH_MAIN["seq512"], flat_counts[name]),
+                ("seq4096", FLASH_MAIN["seq4096"], long_counts[name])))
+        line["kernels"].append(dict(e512, seq4096=e4096))
     log("done", seconds=f"{time.perf_counter() - t_start:.1f}",
         padded_vocab=transformer.padded_vocab(cfg), packed_rows=rows, card=smi)
     print(json.dumps(line), flush=True)

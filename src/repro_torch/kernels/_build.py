@@ -31,7 +31,7 @@ from .. import compat
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("quantize", "reduce_compress")
+SOURCES = ("quantize", "reduce_compress", "flash_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -39,6 +39,8 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
+_C = ctypes.c_int
+_FLASH_TAIL = (_C,) * 8 + (ctypes.c_float, _P)
 # C signatures of the extern "C" entry points (all return cudaError_t as int).
 SIGNATURES = {
     "quantize": {
@@ -50,6 +52,15 @@ SIGNATURES = {
             _P, ctypes.c_int, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float,
             _P,
         ),
+    },
+    # (q, k, v, dtype, ...buffers..., B, Sq, Skv, Hq, Hkv, hd, causal,
+    #  window, scale, stream)
+    "flash_attention": {
+        "repro_flash_fwd": (_P, _P, _P, _C, _P, _P, _P, *_FLASH_TAIL),
+        "repro_flash_bwd_dq": (_P, _P, _P, _C, _P, _P, _P, _P, _P,
+                               *_FLASH_TAIL),
+        "repro_flash_bwd_dkdv": (_P, _P, _P, _C, _P, _P, _P, _P, _P,
+                                 *_FLASH_TAIL),
     },
 }
 

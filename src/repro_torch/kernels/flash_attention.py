@@ -1,0 +1,141 @@
+"""Launchers of the CUDA flash attention kernels (``csrc/flash_attention.cu``).
+
+The counterpart of ``repro/kernels/flash_attention.py::flash_attention``
+(forward) and of ``repro/models/attention.py::_flash_bwd_rule`` (the
+backward of ``flash_attention_xla``), in the reference's layout: q
+(B, Sq, Hq, hd), k/v (B, Skv, Hkv, hd), f32 or bf16, contiguous, on one
+card. Three kernels: the forward (with the f32 output and the logsumexp L
+that the backward reads), ``bwd_dq`` (D and dq) and ``bwd_dkdv`` (dk and
+dv, after ``bwd_dq``). Each launcher checks what the kernel takes and
+raises on anything else, allocates its outputs with ``torch.empty`` and
+launches on the current stream. CUDA tensors only; ``kernels.ops``
+dispatches CPU tensors to ``kernels.ref`` and counts the launches.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _build
+from .quantize import DTYPE_CODES
+
+HEAD_DIMS = (16, 32, 64, 80, 128)
+_MAX_GRID_YZ = 65535
+
+
+def _check_qkv(what: str, q, k, v):
+    """(B, Sq, Skv, Hq, Hkv, hd) of a call the kernels take, or raise."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda":
+            raise ValueError(f"{what}: {name} must be a CUDA tensor, got {t.device}")
+        if t.dtype not in DTYPE_CODES:
+            raise TypeError(f"{what}: {name} dtype {t.dtype} not in "
+                            f"{tuple(DTYPE_CODES)}")
+        if t.ndim != 4:
+            raise ValueError(f"{what}: {name} must be 4-d, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{what}: q, k, v dtypes differ: {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"{what}: q, k, v on different devices")
+    b, sq, hq, hd = q.shape
+    _, skv, hkv, _ = k.shape
+    if (tuple(k.shape) != tuple(v.shape) or k.shape[0] != b
+            or k.shape[3] != hd):
+        raise ValueError(f"{what}: shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} do not match")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{what}: head_dim {hd} not in {HEAD_DIMS}")
+    if min(b, sq, skv, hq, hkv) <= 0 or hq % hkv:
+        raise ValueError(f"{what}: need B, Sq, Skv > 0 and Hkv dividing Hq, "
+                         f"got q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if max(b, hq) > _MAX_GRID_YZ:
+        raise ValueError(f"{what}: B and Hq must be <= {_MAX_GRID_YZ}")
+    return b, sq, skv, hq, hkv, hd
+
+
+def _check_aux(what: str, name: str, t, shape, dtype, device) -> None:
+    if (t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape)
+            or not t.is_contiguous()):
+        raise ValueError(
+            f"{what}: {name} must be contiguous {dtype} {tuple(shape)} on "
+            f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
+        )
+
+
+def _common(dims, causal: bool, window: int, stream: int):
+    b, sq, skv, hq, hkv, hd = dims
+    return (b, sq, skv, hq, hkv, hd, int(bool(causal)), int(window or 0),
+            1.0 / math.sqrt(hd), stream)
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def fwd(q, k, v, *, causal: bool, window: int):
+    """-> (out in q's dtype, out_f32, L (B, Sq, Hq) f32). The f32 output
+    and L are what the backward reads; for f32 inputs ``out_f32`` is
+    ``out`` itself."""
+    dims = _check_qkv("flash_attention_fwd", q, k, v)
+    b, sq, _, hq, _, _ = dims
+    out = torch.empty_like(q)
+    out32 = None if q.dtype == torch.float32 else torch.empty(
+        q.shape, dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, sq, hq), dtype=torch.float32, device=q.device)
+    lib = _build.KERNELS.library("flash_attention")
+    with torch.cuda.device(q.device):
+        rc = lib.repro_flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), DTYPE_CODES[q.dtype],
+            out.data_ptr(), None if out32 is None else out32.data_ptr(),
+            lse.data_ptr(), *_common(dims, causal, window, _stream(q)))
+    _build.check(rc, "flash_attention_fwd")
+    return out, out if out32 is None else out32, lse
+
+
+def bwd_dq(q, k, v, out32, lse, dout, *, causal: bool, window: int):
+    """-> (dq in q's dtype, D (B, Sq, Hq) f32 = rowsum(dout * out32))."""
+    dims = _check_qkv("flash_attention_bwd_dq", q, k, v)
+    b, sq, _, hq, _, _ = dims
+    _check_aux("flash_attention_bwd_dq", "out32", out32, q.shape,
+               torch.float32, q.device)
+    _check_aux("flash_attention_bwd_dq", "lse", lse, (b, sq, hq),
+               torch.float32, q.device)
+    _check_aux("flash_attention_bwd_dq", "dout", dout, q.shape, q.dtype,
+               q.device)
+    dq = torch.empty_like(q)
+    delta = torch.empty((b, sq, hq), dtype=torch.float32, device=q.device)
+    lib = _build.KERNELS.library("flash_attention")
+    with torch.cuda.device(q.device):
+        rc = lib.repro_flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), DTYPE_CODES[q.dtype],
+            out32.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(),
+            *_common(dims, causal, window, _stream(q)))
+    _build.check(rc, "flash_attention_bwd_dq")
+    return dq, delta
+
+
+def bwd_dkdv(q, k, v, lse, delta, dout, *, causal: bool, window: int):
+    """-> (dk in k's dtype, dv in v's dtype), given D from :func:`bwd_dq`."""
+    dims = _check_qkv("flash_attention_bwd_dkdv", q, k, v)
+    b, sq, _, hq, _, _ = dims
+    for name, t in (("lse", lse), ("delta", delta)):
+        _check_aux("flash_attention_bwd_dkdv", name, t, (b, sq, hq),
+                   torch.float32, q.device)
+    _check_aux("flash_attention_bwd_dkdv", "dout", dout, q.shape, q.dtype,
+               q.device)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    lib = _build.KERNELS.library("flash_attention")
+    with torch.cuda.device(q.device):
+        rc = lib.repro_flash_bwd_dkdv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), DTYPE_CODES[q.dtype],
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), *_common(dims, causal, window, _stream(q)))
+    _build.check(rc, "flash_attention_bwd_dkdv")
+    return dk, dv

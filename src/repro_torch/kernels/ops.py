@@ -16,6 +16,7 @@ from typing import Dict
 
 import torch
 
+from . import flash_attention as _fa
 from . import quantize as _quant
 from . import reduce_compress as _rc
 from . import ref as _ref
@@ -89,7 +90,79 @@ def reduce_compress_roundtrip(x: torch.Tensor, *, axis: int = 0,
     return back
 
 
-KERNEL_WRAPPERS = (quantize, dequantize, reduce_compress_roundtrip)
+def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0):
+    """K2 forward: -> (out in q's dtype, out_f32, L (B, Sq, Hq) f32)."""
+    if not _on_card(q, "flash_attention_fwd"):
+        return _ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    out = _fa.fwd(q, k, v, causal=causal, window=window)
+    flash_attention_fwd.launches += 1
+    return out
+
+
+def flash_attention_bwd_dq(q, k, v, out32, lse, dout, *, causal: bool = True,
+                           window: int = 0):
+    """K2 backward, first half: -> (dq, D = rowsum(dout * out_f32))."""
+    if not _on_card(q, "flash_attention_bwd_dq"):
+        return _ref.flash_attention_bwd_dq_ref(q, k, v, out32, lse, dout,
+                                               causal=causal, window=window)
+    out = _fa.bwd_dq(q, k, v, out32, lse, dout, causal=causal, window=window)
+    flash_attention_bwd_dq.launches += 1
+    return out
+
+
+def flash_attention_bwd_dkdv(q, k, v, lse, delta, dout, *,
+                             causal: bool = True, window: int = 0):
+    """K2 backward, second half: -> (dk, dv), given D."""
+    if not _on_card(q, "flash_attention_bwd_dkdv"):
+        return _ref.flash_attention_bwd_dkdv_ref(q, k, v, lse, delta, dout,
+                                                 causal=causal, window=window)
+    out = _fa.bwd_dkdv(q, k, v, lse, delta, dout, causal=causal,
+                       window=window)
+    flash_attention_bwd_dkdv.launches += 1
+    return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``flash_attention_xla``'s custom VJP: the forward saves q, k, v, the
+    f32 output and L (``repro/models/attention.py:_flash_fwd_rule``), the
+    backward recomputes p from L. Works under non-reentrant
+    ``torch.utils.checkpoint``, which runs the forward again in the
+    backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, out32, lse = flash_attention_fwd(q, k, v, causal=causal,
+                                              window=window)
+        ctx.save_for_backward(q, k, v, out32, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out32, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        dq, delta = flash_attention_bwd_dq(q, k, v, out32, lse, dout,
+                                           causal=ctx.causal,
+                                           window=ctx.window)
+        dk, dv = flash_attention_bwd_dkdv(q, k, v, lse, delta, dout,
+                                          causal=ctx.causal,
+                                          window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """GQA flash attention with its backward: q (B, Sq, Hq, hd), k/v
+    (B, Skv, Hkv, hd) -> (B, Sq, Hq, hd) in q's dtype. On the card the K2
+    kernels (forward, then ``bwd_dq`` and ``bwd_dkdv``); on the CPU their
+    plain versions."""
+    return _FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), bool(causal), int(window or 0))
+
+
+KERNEL_WRAPPERS = (quantize, dequantize, reduce_compress_roundtrip,
+                   flash_attention_fwd, flash_attention_bwd_dq,
+                   flash_attention_bwd_dkdv)
 for _fn in KERNEL_WRAPPERS:
     _fn.launches = 0
 

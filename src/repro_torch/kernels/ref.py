@@ -1,11 +1,14 @@
 """Plain PyTorch versions of the kernels (``repro/kernels/ref.py``).
 
 Each function computes what its kernel computes, op for op, so that the
-kernel can be held to it bitwise on the card and the CPU path can be held to
-the JAX oracle. The ``ops`` wrappers run these only for CPU tensors.
+kernel can be held to it on the card (bitwise for K1 and K3, within the
+stated f32/bf16 tolerances for K2, whose sums run in another order) and the
+CPU path can be held to the JAX oracle. The ``ops`` wrappers run these only for CPU tensors.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -54,3 +57,113 @@ def reduce_compress_roundtrip_ref(x: torch.Tensor):
     dequant, the straight-through value the tagged reduction consumes."""
     q, s = reduce_compress_ref(x)
     return dequantize_ref(q, s, x.dtype), q, s
+
+
+# --- K2: flash attention -------------------------------------------------
+
+NEG_INF = -1e30
+
+
+def visible_mask(sq: int, skv: int, causal: bool, window: int, device):
+    """(Sq, Skv) bool: which (query, key) pairs attend. Positions start at
+    0 for both, also when Sq != Skv."""
+    q_pos = torch.arange(sq, device=device)[:, None]
+    k_pos = torch.arange(skv, device=device)[None, :]
+    ok = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        ok = ok & (k_pos <= q_pos)
+    if window and window > 0:
+        ok = ok & (k_pos > q_pos - window)
+    return ok
+
+
+def _scores(q, k, causal, window):
+    """f32 scores ``(q . k) * (1 / sqrt(hd))`` in the (B, Hkv, G, Sq, Skv)
+    layout, masked to -1e30."""
+    b, sq, hq, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, sq, hkv, hq // hkv, hd).to(torch.float32)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(torch.float32))
+    s = s * (1.0 / math.sqrt(hd))
+    ok = visible_mask(sq, skv, causal, window, q.device)
+    return torch.where(ok, s, torch.full_like(s, NEG_INF))
+
+
+def _rows(t, hkv):
+    """(B, Sq, Hq) -> (B, Hkv, G, Sq, 1), the row layout of the scores."""
+    b, sq, hq = t.shape
+    return t.reshape(b, sq, hkv, hq // hkv).permute(0, 2, 3, 1)[..., None]
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0):
+    """GQA attention, ``repro/kernels/ref.py:flash_attention_ref`` op for
+    op: f32 scores times the f32 scale (as the Pallas kernel and
+    ``flash_attention_xla`` multiply), masked to -1e30, softmax, f32 value
+    product. Query head ``i`` reads kv head ``i // G``.
+
+    q (B, Sq, Hq, hd), k/v (B, Skv, Hkv, hd) -> (out in q's dtype, out in
+    f32, logsumexp L (B, Sq, Hq) f32). ``L = m + log(max(l, 1e-30))`` with
+    m the row max and l the row sum of ``exp(s - m)``, as the reference's
+    ``_flash_fwd_core``; the backward reads it and the f32 output.
+    """
+    b, sq, hq, hd = q.shape
+    hkv = k.shape[2]
+    s = _scores(q, k, causal, window)
+    m = torch.amax(s, dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    l = torch.sum(e, dim=-1, keepdim=True)
+    w = e / l
+    out = torch.einsum("bhgqk,bkhd->bqhgd", w, v.to(torch.float32))
+    out = out.reshape(b, sq, hq, hd).contiguous()
+    lse = m + torch.log(torch.clamp_min(l, 1e-30))  # (B, Hkv, G, Sq, 1)
+    lse = lse[..., 0].permute(0, 3, 1, 2).reshape(b, sq, hq).contiguous()
+    return out.to(q.dtype), out, lse
+
+
+def _probs_and_dscores(q, k, v, lse, dout, delta, causal, window):
+    """``p = exp(s - L)`` and ``ds = p * (dp - D) * scale`` in the
+    (B, Hkv, G, Sq, Skv) layout, with ``dp = dout . v`` (f32)."""
+    b, sq, hq, hd = q.shape
+    hkv = k.shape[2]
+    p = torch.exp(_scores(q, k, causal, window) - _rows(lse, hkv))
+    do = dout.to(torch.float32).reshape(b, sq, hkv, hq // hkv, hd)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", do, v.to(torch.float32))
+    ds = p * (dp - _rows(delta, hkv)) * (1.0 / math.sqrt(hd))
+    return p, ds, do
+
+
+def flash_attention_bwd_dq_ref(q, k, v, out32, lse, dout, *, causal=True,
+                               window=0):
+    """The dq half of ``flash_attention_xla``'s backward
+    (``repro/models/attention.py:_flash_bwd_rule``) without the block scan.
+    Returns (dq in q's dtype, D (B, Sq, Hq) f32) with
+    ``D = rowsum(f32(dout) * out32)`` from the f32 forward output."""
+    b, sq, hq, hd = q.shape
+    delta = torch.sum(dout.to(torch.float32) * out32, dim=-1)
+    _, ds, _ = _probs_and_dscores(q, k, v, lse, dout, delta, causal, window)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.to(torch.float32))
+    return dq.reshape(b, sq, hq, hd).to(q.dtype), delta
+
+
+def flash_attention_bwd_dkdv_ref(q, k, v, lse, delta, dout, *, causal=True,
+                                 window=0):
+    """The dk/dv half of the same backward, given D from
+    :func:`flash_attention_bwd_dq_ref`: sums over the G query heads of each
+    kv head. Returns (dk in k's dtype, dv in v's dtype)."""
+    b, sq, hq, hd = q.shape
+    hkv = k.shape[2]
+    p, ds, do = _probs_and_dscores(q, k, v, lse, dout, delta, causal, window)
+    qg = q.reshape(b, sq, hkv, hq // hkv, hd).to(torch.float32)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, do)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_ref(q, k, v, out32, lse, dout, *, causal=True,
+                            window=0):
+    """Both halves: (dq, dk, dv) in the input dtypes."""
+    dq, delta = flash_attention_bwd_dq_ref(q, k, v, out32, lse, dout,
+                                           causal=causal, window=window)
+    dk, dv = flash_attention_bwd_dkdv_ref(q, k, v, lse, delta, dout,
+                                          causal=causal, window=window)
+    return dq, dk, dv

@@ -1,13 +1,15 @@
 """Where a training round's time goes on the card.
 
 Runs DrJAX local-SGD rounds of full lm_350m (the ``chip_smoke.py`` flat and
-hierarchical settings: cohort 4, 2 local steps, batch 4, seq 512, int8),
-warms up one round, then traces one round with ``torch.profiler`` and
-prints the round's wall time, the device's busy time (the sum of kernel
-times; one stream, so kernels do not overlap) and idle share, and the
-device time by kernel family and by kernel:
+hierarchical settings: cohort 4, 2 local steps, int8; the smoke's long
+rounds are ``--seq 4096 --batch 2``), warms up one round, then
+traces one round with ``torch.profiler`` and prints the round's wall time,
+the device's busy time (the sum of kernel times; one stream, so kernels do
+not overlap) and idle share, and the device time by kernel family and by
+kernel:
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_round [--pods 2]
+    PYTHONPATH=src python -m repro_torch.launch.profile_round [--pods 2] \
+        [--seq 4096 --batch 2]
 
 The same numbers go to ``--out`` as JSON. Needs a card.
 """
@@ -29,6 +31,7 @@ from ..models import registry
 from . import train
 
 FAMILIES = (
+    ("flash attention K2 (repro)", ("repro::flash::",)),
     ("int8 kernels (repro)", ("quantize_kernel", "dequantize_kernel",
                               "reduce_compress_roundtrip_kernel")),
     ("matmul", ("gemm", "cutlass", "xmma", "cublas", "sm90_", "nvjet")),
@@ -53,12 +56,12 @@ def _device_us(evt) -> float:
     raise RuntimeError("profiler events carry no device time")
 
 
-def profile(pods: int, rounds_warm: int = 1):
+def profile(pods: int, seq: int = 512, batch: int = 4, rounds_warm: int = 1):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     args = train.parse_args([
-        "--cohort", "4", "--local-steps", "2", "--batch", "4", "--seq", "512",
-        "--compression", "int8", "--device", "cuda"])
+        "--cohort", "4", "--local-steps", "2", "--batch", str(batch),
+        "--seq", str(seq), "--compression", "int8", "--device", "cuda"])
     cfg = registry.get_config(args.arch)
     params = registry.init_params(cfg, seed=0, device="cuda")
     if pods:
@@ -105,6 +108,7 @@ def profile(pods: int, rounds_warm: int = 1):
     top = sorted(kernels, key=_device_us, reverse=True)[:12]
     return {
         "form": f"hierarchical {pods}x{args.cohort // pods}" if pods else "flat",
+        "seq": args.seq, "batch": args.batch,
         "card": torch.cuda.get_device_name(0),
         "round_wall_ms": wall_s * 1e3,
         "device_busy_ms": busy_us / 1e3,
@@ -120,11 +124,13 @@ def profile(pods: int, rounds_warm: int = 1):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--pods", type=int, default=0)
+    ap.add_argument("--seq", type=int, default=512)
+    ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--out", default=None)
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_round needs a CUDA card")
-    res = profile(a.pods)
+    res = profile(a.pods, a.seq, a.batch)
     print(json.dumps(res, indent=1))
     if a.out:
         Path(a.out).parent.mkdir(parents=True, exist_ok=True)

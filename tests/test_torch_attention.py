@@ -1,0 +1,175 @@
+"""K2 flash attention: the port's plain versions (and ``ops.flash_attention``
+on CPU tensors) against the reference.
+
+- The forward against the Pallas kernel run in interpret mode, over the
+  reference's own shape list (``tests/test_kernels.py``), local windows and
+  the non-causal Sq != Skv case, at the reference's tolerances (2e-5 in f32,
+  2e-2 in bf16).
+- The logsumexp L and the plain backward (dq, dk, dv) against
+  ``jax.vjp`` of ``flash_attention_xla`` (the reference model's attention,
+  whose backward is XLA code reading the saved L), with block sizes that
+  make the reference scan over several block pairs, at 2e-5 in f32.
+- The ``autograd.Function`` on CPU against PyTorch's autograd through the
+  plain forward, at 2e-5: the hand-written backward is the gradient, also
+  under non-reentrant checkpointing.
+
+The CUDA kernels are held to the plain versions in
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+from jax import vjp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.models.attention import _flash_fwd_core, flash_attention_xla  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+
+F32_TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def _tol(dtype):
+    return dict(rtol=2e-2, atol=2e-2) if dtype == jnp.bfloat16 else F32_TOL
+
+
+def _inputs(seed, b, sq, skv, hq, hkv, hd):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(shape).astype(np.float32) for shape in (
+        (b, sq, hq, hd), (b, skv, hkv, hd), (b, skv, hkv, hd), (b, sq, hq, hd)))
+
+
+def _to_torch(a, dtype=torch.float32):
+    return torch.from_numpy(np.array(a, np.float32)).to(dtype)
+
+
+def _np(t):
+    return t.detach().to(torch.float32).numpy()
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize(
+    "b,s,hq,hkv,hd,qb,kb",
+    [
+        (1, 32, 4, 4, 16, 16, 16),   # MHA
+        (2, 64, 8, 2, 32, 16, 16),   # GQA 4:1
+        (1, 40, 8, 1, 64, 8, 16),    # MQA, ragged seq
+        (2, 128, 4, 2, 16, 32, 64),  # kv_block > q_block
+    ],
+)
+def test_forward_matches_pallas_kernel(b, s, hq, hkv, hd, qb, kb, dtype):
+    q, k, v, _ = _inputs(b * s + hd, b, s, s, hq, hkv, hd)
+    jq, jk, jv = (jnp.asarray(a, dtype) for a in (q, k, v))
+    want = np.asarray(jops.flash_attention(
+        jq, jk, jv, causal=True, q_block=qb, kv_block=kb, interpret=True),
+        np.float32)
+    tdt = torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32
+    # the same (bf16-rounded) inputs on both sides
+    tq, tk, tv = (_to_torch(np.asarray(a, np.float32), tdt) for a in (jq, jk, jv))
+    out, out32, lse = ref.flash_attention_ref(tq, tk, tv, causal=True)
+    assert out.dtype == tdt and out32.dtype == torch.float32
+    assert tuple(lse.shape) == (b, s, hq)
+    np.testing.assert_allclose(_np(out), want, **_tol(dtype))
+    np.testing.assert_allclose(_np(ops.flash_attention(tq, tk, tv, causal=True)),
+                               want, **_tol(dtype))
+
+
+@pytest.mark.parametrize("window", [8, 24, 1000])
+def test_forward_local_window(window):
+    q, k, v, _ = _inputs(window, 2, 64, 64, 4, 2, 16)
+    want = jops.flash_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                causal=True, window=window, q_block=16,
+                                kv_block=16, interpret=True)
+    out = ops.flash_attention(*(_to_torch(a) for a in (q, k, v)), causal=True,
+                              window=window)
+    np.testing.assert_allclose(_np(out), np.asarray(want), **F32_TOL)
+
+
+def test_forward_non_causal_cross():
+    q, k, v, _ = _inputs(2, 1, 24, 56, 4, 2, 32)  # Skv != Sq
+    want = jops.flash_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                causal=False, q_block=8, kv_block=16,
+                                interpret=True)
+    out = ops.flash_attention(*(_to_torch(a) for a in (q, k, v)), causal=False)
+    np.testing.assert_allclose(_np(out), np.asarray(want), **F32_TOL)
+
+
+@pytest.mark.parametrize(
+    "b,sq,skv,hq,hkv,hd,causal,window,qb,kb",
+    [
+        (2, 64, 64, 8, 2, 32, True, 0, 16, 16),   # 4 x 4 block pairs
+        (1, 40, 40, 8, 1, 16, True, 0, 8, 16),    # MQA, ragged, qb < kb
+        (1, 48, 48, 4, 4, 16, True, 0, 32, 8),    # qb > kb
+        (2, 64, 64, 4, 2, 16, True, 24, 16, 16),  # window: pairs skipped
+        (1, 24, 56, 4, 2, 32, False, 0, 8, 16),   # non-causal, Sq != Skv
+    ],
+)
+def test_lse_and_backward_match_flash_attention_xla(b, sq, skv, hq, hkv, hd,
+                                                    causal, window, qb, kb):
+    q, k, v, do = _inputs(sq * hd + window, b, sq, skv, hq, hkv, hd)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    out, pullback = vjp(
+        lambda q_, k_, v_: flash_attention_xla(q_, k_, v_, causal, window, qb, kb),
+        jq, jk, jv)
+    want_grads = pullback(jnp.asarray(do))
+    _, want_lse = _flash_fwd_core(jq, jk, jv, causal, window, qb, kb)
+
+    tq, tk, tv = (_to_torch(a) for a in (q, k, v))
+    got, out32, lse = ref.flash_attention_ref(tq, tk, tv, causal=causal,
+                                              window=window)
+    np.testing.assert_allclose(_np(got), np.asarray(out), **F32_TOL)
+    np.testing.assert_allclose(_np(lse), np.asarray(want_lse).reshape(b, sq, hq),
+                               **F32_TOL)
+    grads = ref.flash_attention_bwd_ref(tq, tk, tv, out32, lse, _to_torch(do),
+                                        causal=causal, window=window)
+    for name, g, w in zip(("dq", "dk", "dv"), grads, want_grads):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(_np(g), np.asarray(w), err_msg=name, **F32_TOL)
+
+
+@pytest.mark.parametrize(
+    "shape,causal,window,remat",
+    [
+        ((2, 33, 33, 4, 2, 16), True, 0, False),
+        ((1, 40, 40, 6, 3, 32), True, 12, False),
+        ((1, 24, 56, 4, 1, 16), False, 0, False),
+        ((2, 33, 33, 4, 2, 16), True, 0, True),   # under checkpoint
+    ],
+)
+def test_autograd_function_is_the_gradient(shape, causal, window, remat):
+    q, k, v, do = (_to_torch(a).requires_grad_(i < 3)
+                   for i, a in enumerate(_inputs(sum(shape), *shape)))
+
+    def attend(q_, k_, v_):
+        return ops.flash_attention(q_, k_, v_, causal=causal, window=window)
+
+    if remat:
+        out = torch.utils.checkpoint.checkpoint(attend, q, k, v,
+                                                use_reentrant=False)
+    else:
+        out = attend(q, k, v)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    plain = ref.flash_attention_ref(q, k, v, causal=causal, window=window)[0]
+    want = torch.autograd.grad(plain, (q, k, v), do)
+    np.testing.assert_allclose(_np(out), _np(plain), **F32_TOL)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(_np(g), _np(w), err_msg=name, **F32_TOL)
+
+
+def test_cpu_path_launches_nothing_and_odd_devices_raise():
+    ops.reset_launches()
+    q, k, v, do = (_to_torch(a).requires_grad_(i < 3)
+                   for i, a in enumerate(_inputs(0, 1, 8, 8, 2, 1, 16)))
+    torch.autograd.grad(ops.flash_attention(q, k, v), (q, k, v), do)
+    counts = ops.launch_counts()
+    assert {n: counts[n] for n in ("flash_attention_fwd",
+                                   "flash_attention_bwd_dq",
+                                   "flash_attention_bwd_dkdv")} == {
+        "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+        "flash_attention_bwd_dkdv": 0}
+    meta = torch.empty((1, 8, 2, 16), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.flash_attention(meta, meta[:, :, :1], meta[:, :, :1])

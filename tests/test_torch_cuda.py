@@ -39,7 +39,9 @@ def test_kernels_match_plain(card, dtype):
     back = ops.reduce_compress_roundtrip(x4, axis=1)
     assert torch.equal(back, ref.reduce_compress_roundtrip_ref(x4)[0])
     assert ops.launch_counts() == {
-        "quantize": 1, "dequantize": 1, "reduce_compress_roundtrip": 1}
+        "quantize": 1, "dequantize": 1, "reduce_compress_roundtrip": 1,
+        "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+        "flash_attention_bwd_dkdv": 0}
 
 
 @pytest.mark.cuda
@@ -80,3 +82,98 @@ def test_round_on_card_matches_cpu(card):
                            {"tokens": d["tokens"], "labels": d["labels"]})
         losses[device] = float(m["loss"])
     assert abs(losses["cuda"] - losses["cpu"]) <= 1e-5 * abs(losses["cpu"])
+
+
+def _qkvd(card, b, sq, skv, hq, hkv, hd, dtype, seed=0):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen, device=card).to(dtype)
+                 for shape in ((b, sq, hq, hd), (b, skv, hkv, hd),
+                               (b, skv, hkv, hd), (b, sq, hq, hd)))
+
+
+def _assert_within_bf16_step(got, want):
+    """``|got - want| <= 2^-7 |want| + 1e-3 max|want|``: one bf16 step of
+    each value, plus a floor for values that cancel to near 0."""
+    diff = (got.double() - want.double()).abs()
+    lim = 2.0 ** -7 * want.double().abs() + 1e-3 * want.double().abs().max()
+    assert bool((diff <= lim).all()), float((diff - lim).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b,sq,skv,hq,hkv,hd,causal,window",
+    [
+        (2, 130, 130, 4, 4, 16, True, 0),
+        (1, 200, 200, 14, 2, 80, True, 0),      # G = 7
+        (1, 150, 150, 8, 1, 128, True, 0),      # G = 8, hd 128
+        (1, 300, 300, 4, 2, 64, True, 100),     # window, ragged
+        (1, 24, 56, 4, 2, 32, False, 0),        # non-causal, Sq != Skv
+    ],
+)
+def test_flash_attention_matches_plain(card, b, sq, skv, hq, hkv, hd, causal,
+                                       window, dtype):
+    """K2 forward and backward through the autograd function against
+    PyTorch's autograd through the plain forward: f32 output and L within
+    2e-5, gradients within 1e-4 of their largest magnitude; bf16 output and
+    gradients within one bf16 step (both round an f32 value once) plus
+    1e-3 of the largest magnitude."""
+    q, k, v, do = _qkvd(card, b, sq, skv, hq, hkv, hd, dtype)
+    kw = dict(causal=causal, window=window)
+    ops.reset_launches()
+    out, out32, lse = ops.flash_attention_fwd(q, k, v, **kw)
+    r_out, r_out32, r_lse = ref.flash_attention_ref(q, k, v, **kw)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, r_out, rtol=2e-5, atol=2e-5)
+    else:
+        _assert_within_bf16_step(out, r_out)
+    torch.testing.assert_close(lse, r_lse, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(out32, r_out32, rtol=2e-5, atol=2e-5)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    got = torch.autograd.grad(ops.flash_attention(qg, kg, vg, **kw),
+                              (qg, kg, vg), do)
+    want = torch.autograd.grad(ref.flash_attention_ref(qg, kg, vg, **kw)[0],
+                               (qg, kg, vg), do)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        if dtype == torch.float32:
+            err = float((g - w).abs().max())
+            assert err <= 1e-4 * float(w.abs().max()), err
+        else:
+            _assert_within_bf16_step(g, w)
+    counts = ops.launch_counts()
+    assert (counts["flash_attention_fwd"], counts["flash_attention_bwd_dq"],
+            counts["flash_attention_bwd_dkdv"]) == (2, 1, 1)
+
+
+@pytest.mark.cuda
+def test_flash_attention_backward_is_deterministic_under_checkpoint(card):
+    q, k, v, do = _qkvd(card, 2, 256, 256, 8, 2, 64, torch.bfloat16, seed=1)
+
+    def grads():
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+        out = torch.utils.checkpoint.checkpoint(
+            lambda a, b, c: ops.flash_attention(a, b, c), qg, kg, vg,
+            use_reentrant=False)
+        return torch.autograd.grad(out, (qg, kg, vg), do)
+
+    for a, b in zip(grads(), grads()):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_wrappers_refuse_what_the_kernels_do_not_take(card):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, _ = _qkvd(card, 1, 16, 16, 4, 2, 64, torch.float32)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.fwd(q[..., :48].contiguous(), k[..., :48].contiguous(),
+               v[..., :48].contiguous(), causal=True, window=0)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.fwd(q.transpose(1, 2), k, v, causal=True, window=0)
+    with pytest.raises(TypeError):
+        fa.fwd(q, k.bfloat16(), v, causal=True, window=0)
+    with pytest.raises(TypeError):
+        fa.fwd(q.half(), k.half(), v.half(), causal=True, window=0)
+    with pytest.raises(ValueError, match="Hkv dividing Hq"):
+        fa.fwd(q[:, :, :3].contiguous(), k, v, causal=True, window=0)

@@ -121,4 +121,6 @@ def test_cpu_path_launches_nothing():
     ops.dequantize(*ops.quantize(x))
     ops.reduce_compress_roundtrip(torch.ones((2, 3, 256)))
     assert ops.launch_counts() == {
-        "quantize": 0, "dequantize": 0, "reduce_compress_roundtrip": 0}
+        "quantize": 0, "dequantize": 0, "reduce_compress_roundtrip": 0,
+        "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+        "flash_attention_bwd_dkdv": 0}

@@ -4,7 +4,9 @@ init, carried over by ``params_from_jax``) and the same tokens, at
 rtol = atol = 2e-5, the reference's own f32 tolerance
 (``tests/test_kernels.py``). Both attention dispatches are covered:
 ``naive`` and the flash/blocked one (the reference's online-softmax
-``flash_attention_xla`` against the port's exact f32 softmax).
+``flash_attention_xla`` against the port's ``ops.flash_attention``, whose
+CPU path is the plain K2 forward and backward), the latter also with
+blocks small enough that the reference scans over many block pairs.
 """
 
 import functools
@@ -44,12 +46,11 @@ def _leaves(tree, prefix=""):
             yield f"{prefix}{k}", np.asarray(tree[k])
 
 
-@pytest.mark.parametrize("attn_impl", ["naive", "blocked"])
-def test_loss_and_grads_match_reference(attn_impl):
-    jcfg, tcfg = _configs(attn_impl=attn_impl)
+def _check_loss_and_grads(seq, **over):
+    jcfg, tcfg = _configs(**over)
     assert (tcfg.num_heads, tcfg.num_kv_heads, tcfg.remat) == (4, 2, "full")
     jparams = jreg.init_params(jax.random.PRNGKey(0), jcfg)
-    tokens, labels = _batch(jcfg)
+    tokens, labels = _batch(jcfg, s=seq)
     jbatch = {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)}
     want, wgrads = jax.value_and_grad(functools.partial(jreg.loss_fn, jcfg))(
         jparams, jbatch)
@@ -66,6 +67,18 @@ def test_loss_and_grads_match_reference(attn_impl):
     assert set(got_leaves) == set(want_leaves)
     for name, g in got_leaves.items():
         np.testing.assert_allclose(g, want_leaves[name], err_msg=name, **TOL)
+
+
+@pytest.mark.parametrize("attn_impl", ["naive", "blocked"])
+def test_loss_and_grads_match_reference(attn_impl):
+    _check_loss_and_grads(16, attn_impl=attn_impl)
+
+
+def test_multi_block_flash_matches_reference():
+    """seq 48 with q_block 8, kv_block 16: the reference's
+    ``flash_attention_xla`` runs 6 x 3 block pairs with causal skipping,
+    forward and backward; the port's K2 path does not tile by them."""
+    _check_loss_and_grads(48, attn_impl="blocked", q_block=8, kv_block=16)
 
 
 def test_conversion_roundtrip_and_module():
