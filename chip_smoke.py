@@ -43,7 +43,34 @@ Phases, each reported on its own line (any failure raises, exit != 0):
    relative, each leaf within 1e-4 of its largest magnitude);
 7. reference: one flat int8 round of the reduced config on the card and on
    the CPU (the plain versions) agree within one quantization step, with
-   ``naive`` attention and again with ``blocked`` (K2 on the card).
+   ``naive`` attention and again with ``blocked`` (K2 on the card);
+8. kernels / K4: the RG-LRU scan forward and backward bitwise against
+   their plain versions, at the main shape (1, 4096, 2560) f32 and over
+   small ragged shapes (S not a multiple of the unroll, W not a multiple
+   of 32) in f32 and bf16, with and without an initial state; median ms
+   of the kernels (20 timed runs), of the plain loops (5 timed runs: each
+   is 4,096 dependent steps of small launches) and the bytes bound;
+9. flash / hd 256: K2 at recurrentgemma_2b's attention shape (B 1 x S 4096,
+   10 query heads on 1 kv head of 256, window 2048, bf16) and over a sweep
+   at hd 256 (f32 and bf16, G = 10 and 1, window 64 at a ragged S,
+   non-causal), at the tolerances of phase 2; times beside the f32 bound
+   and SDPA with the window as a boolean mask (the log names the kernels
+   SDPA ran);
+10. hybrid: 2 flat uncompressed rounds of full recurrentgemma_2b (3.55 B
+   parameters, 26 layers; cohort 2, 2 local steps, batch 1, seq 4096:
+   16,384 tokens a round) through ``repro_torch.launch.train``; losses
+   finite, K4 forward launched at least rounds x cohort x steps x 18
+   recurrent layers x 2 (the checkpoint recompute) and its backward half
+   that, K2 at least rounds x cohort x steps x 8 attention layers (x 2 for
+   the forward); round seconds, tokens/s, model utilization and peak GiB;
+11. hybrid grads: recurrentgemma_2b at full width with 3 layers
+   (recurrent, recurrent, attention), f32, seq 4096, batch 1: loss and
+   every gradient through K4 and K2 against PyTorch's autograd of their
+   plain forwards on the card (1e-5 relative, 1e-4 of each leaf's largest
+   magnitude);
+12. reference (hybrid): one flat int8 round of reduced recurrentgemma_2b
+   with ``blocked`` attention on the card and on the CPU agree within one
+   quantization step.
 
 Then one JSON line with every kernel's launches, error and times, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, and when
@@ -358,29 +385,109 @@ def visible_pairs(sq, skv, causal, window) -> int:
     return int(ref.visible_mask(sq, skv, causal, window, "cpu").sum())
 
 
-def sdpa_times(q, k, v, do):
+def sdpa_times(q, k, v, do, window: int = 0):
     """The library yardstick: ``scaled_dot_product_attention`` (causal,
-    GQA) forward, and its autograd backward (dq, dk, dv), in ms; its
-    forward's max abs difference from the plain version as information
-    (it computes p in bf16 and is not held to the tolerance)."""
+    GQA; with a window, the causal window as a boolean ``attn_mask``, and
+    PyTorch picks the backend that takes a mask) forward, and its autograd
+    backward (dq, dk, dv), in ms; its forward's max abs difference from the
+    plain version as information (it computes p in bf16 and is not held to
+    the tolerance), and the device kernels one forward call ran."""
     from repro_torch.kernels import ref
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-    fwd_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
-    out = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+    if window:
+        mask = ref.visible_mask(q.shape[1], k.shape[1], True, window, q.device)
+        call = lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)  # noqa: E731
+    else:
+        call = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)  # noqa: E731
+    fwd_ms = time_ms(call)
+    out = call()
     dot = do.transpose(1, 2)
     bwd_ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
                                                  retain_graph=True))
     err = float((out.detach().transpose(1, 2).double()
-                 - ref.flash_attention_ref(q, k, v)[0].double()).abs().max())
-    return fwd_ms, bwd_ms, err
+                 - ref.flash_attention_ref(q, k, v, window=window)[0].double())
+                .abs().max())
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        call()
+        torch.cuda.synchronize()
+    names = sorted({e.key[:60] for e in prof.key_averages()
+                    if e.device_type.name == "CUDA"})
+    return fwd_ms, bwd_ms, err, names
+
+
+def flash_work(q, k, pairs: int) -> dict:
+    """(bytes, FLOP) of each K2 kernel on these inputs: each input read
+    once, each output written once (out_f32 and L are outputs of the
+    training forward); FLOP per visible pair: forward q.k and p.v (4 hd),
+    ``bwd_dq`` recomputes s and dp and forms dq (6 hd), ``bwd_dkdv``
+    recomputes s and dp and forms dv and dk (8 hd)."""
+    hd = q.shape[-1]
+    nq = q.numel() * q.element_size()
+    nk = k.numel() * k.element_size()  # each of k, v (and dk, dv)
+    n32 = q.numel() * 4                # out_f32
+    rows = q.shape[0] * q.shape[1] * q.shape[2] * 4  # L or D
+    return {
+        "flash_attention_fwd": (nq + 2 * nk + nq + n32 + rows, 4 * hd * pairs),
+        "flash_attention_bwd_dq": (nq + 2 * nk + n32 + nq + rows + nq + rows,
+                                   6 * hd * pairs),
+        "flash_attention_bwd_dkdv": (nq + 2 * nk + nq + 2 * rows + 2 * nk,
+                                     8 * hd * pairs),
+    }
+
+
+def flash_main(gen, b, s, hq, hkv, hd, window):
+    """K2 at one main-path shape (bf16, causal): errors against the plain
+    versions, and the times of the kernels, the plain versions and SDPA
+    beside the bounds."""
+    from repro_torch.kernels import ops, ref
+
+    (q, k, v, do, out32, lse, delta), errs = flash_case(
+        gen, b, s, s, hq, hkv, hd, True, window, torch.bfloat16)
+    kw = dict(causal=True, window=window)
+    pairs = b * hq * visible_pairs(s, s, True, window)
+    ms = {
+        "flash_attention_fwd": time_ms(lambda: ops.flash_attention_fwd(q, k, v, **kw)),
+        "flash_attention_bwd_dq": time_ms(lambda: ops.flash_attention_bwd_dq(
+            q, k, v, out32, lse, do, **kw)),
+        "flash_attention_bwd_dkdv": time_ms(lambda: ops.flash_attention_bwd_dkdv(
+            q, k, v, lse, delta, do, **kw)),
+    }
+    plain = {
+        "flash_attention_fwd": time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw)),
+        "flash_attention_bwd_dq": time_ms(lambda: ref.flash_attention_bwd_dq_ref(
+            q, k, v, out32, lse, do, **kw)),
+        "flash_attention_bwd_dkdv": time_ms(lambda: ref.flash_attention_bwd_dkdv_ref(
+            q, k, v, lse, delta, do, **kw)),
+    }
+    lib_fwd, lib_bwd, lib_err, lib_kernels = sdpa_times(q, k, v, do, window)
+    errs_by = {"flash_attention_fwd": max(errs["out"], errs["lse"]),
+               "flash_attention_bwd_dq": max(errs["dq"], errs["delta"]),
+               "flash_attention_bwd_dkdv": max(errs["dk"], errs["dv"])}
+    results = {}
+    shape = (b, s, f"{hq}:{hkv}", hd, window)
+    for name, (nbytes, flop) in flash_work(q, k, pairs).items():
+        b_ms, by = bound(nbytes, flop)
+        results[name] = dict(
+            err=errs_by[name], ms=ms[name], plain_ms=plain[name],
+            library_ms=lib_fwd if name == "flash_attention_fwd" else lib_bwd,
+            bound_ms=b_ms, bound_by=by)
+        log("kernels", name=name, shape=shape, ms=f"{ms[name]:.4f}",
+            plain_ms=f"{plain[name]:.4f}",
+            library_ms=f"{results[name]['library_ms']:.4f}",
+            bound_ms=f"{b_ms:.4f}", bound_by=by, flop=flop, bytes=nbytes,
+            bound_ms_bf16_tensor_cores=f"{flop / BF16_TC_OPS_PER_S * 1e3:.4f}",
+            err=f"{errs_by[name]:.3e}")
+    log("kernels", name="sdpa (information)", shape=shape,
+        fwd_max_abs_diff_vs_plain=f"{lib_err:.3e}",
+        fwd_kernels=json.dumps(lib_kernels))
+    return results
 
 
 def phase_flash(gen):
     """K2 against its plain versions, and its times at the main shapes."""
-    from repro_torch.kernels import ops, ref
-
     for case in FLASH_SWEEP:
         for dtype in (torch.float32, torch.bfloat16):
             _, errs = flash_case(gen, *case, dtype)
@@ -389,56 +496,113 @@ def phase_flash(gen):
                 errs=json.dumps({k: f"{v:.3e}" for k, v in errs.items()}))
     results = {}
     for key, (b, s) in FLASH_MAIN.items():
-        (q, k, v, do, out32, lse, delta), errs = flash_case(
-            gen, b, s, s, 16, 16, 64, True, 0, torch.bfloat16)
-        hq, hd = 16, 64
-        pairs = b * hq * visible_pairs(s, s, True, 0)
-        rows = b * s * hq
-        nb = q.numel() * 2  # bytes of one (B, S, H, hd) bf16 tensor
-        ms = {
-            "flash_attention_fwd": time_ms(lambda: ops.flash_attention_fwd(q, k, v)),
-            "flash_attention_bwd_dq": time_ms(lambda: ops.flash_attention_bwd_dq(
-                q, k, v, out32, lse, do)),
-            "flash_attention_bwd_dkdv": time_ms(lambda: ops.flash_attention_bwd_dkdv(
-                q, k, v, lse, delta, do)),
-        }
-        plain = {
-            "flash_attention_fwd": time_ms(lambda: ref.flash_attention_ref(q, k, v)),
-            "flash_attention_bwd_dq": time_ms(lambda: ref.flash_attention_bwd_dq_ref(
-                q, k, v, out32, lse, do)),
-            "flash_attention_bwd_dkdv": time_ms(lambda: ref.flash_attention_bwd_dkdv_ref(
-                q, k, v, lse, delta, do)),
-        }
-        lib_fwd, lib_bwd, lib_err = sdpa_times(q, k, v, do)
-        # FLOP per visible pair: fwd q.k and p.v (4 hd); bwd_dq recomputes
-        # s and dp and forms dq (6 hd); bwd_dkdv recomputes s and dp and
-        # forms dv and dk (8 hd). Bytes: each input read once, each output
-        # written once (out32 and L are outputs of the training forward).
-        work = {
-            "flash_attention_fwd": (3 * nb + nb + 2 * nb + rows * 4, 4 * hd * pairs),
-            "flash_attention_bwd_dq": (7 * nb + 2 * rows * 4, 6 * hd * pairs),
-            "flash_attention_bwd_dkdv": (4 * nb + 2 * rows * 4 + 2 * nb,
-                                         8 * hd * pairs),
-        }
-        errs_by = {"flash_attention_fwd": max(errs["out"], errs["lse"]),
-                   "flash_attention_bwd_dq": max(errs["dq"], errs["delta"]),
-                   "flash_attention_bwd_dkdv": max(errs["dk"], errs["dv"])}
-        for name, (nbytes, flop) in work.items():
-            b_ms, by = bound(nbytes, flop)
-            results.setdefault(name, {})[key] = dict(
-                err=errs_by[name], ms=ms[name], plain_ms=plain[name],
-                library_ms=lib_fwd if name == "flash_attention_fwd" else lib_bwd,
-                bound_ms=b_ms, bound_by=by)
-            log("kernels", name=name, shape=(b, s, hq, hd), ms=f"{ms[name]:.4f}",
-                plain_ms=f"{plain[name]:.4f}",
-                library_ms=f"{results[name][key]['library_ms']:.4f}",
-                bound_ms=f"{b_ms:.4f}", bound_by=by, flop=flop, bytes=nbytes,
-                bound_ms_bf16_tensor_cores=f"{flop / BF16_TC_OPS_PER_S * 1e3:.4f}",
-                err=f"{errs_by[name]:.3e}")
-        log("kernels", name="sdpa (information)", shape=(b, s, hq, hd),
-            fwd_max_abs_diff_vs_plain=f"{lib_err:.3e}")
-        del q, k, v, do, out32, lse, delta
+        for name, r in flash_main(gen, b, s, 16, 16, 64, 0).items():
+            results.setdefault(name, {})[key] = r
         torch.cuda.empty_cache()
+    return results
+
+
+# K2 at recurrentgemma_2b's local attention: 10 query heads on one kv head
+# of 256, window 2048, at the hybrid rounds' B 1 x S 4096.
+FLASH_HD256_MAIN = (1, 4096, 10, 1, 256, 2048)
+FLASH_HD256_SWEEP = (  # (B, Sq, Skv, Hq, Hkv, hd, causal, window)
+    (1, 300, 300, 10, 1, 256, True, 0),     # MQA, G = 10
+    (2, 100, 100, 2, 2, 256, True, 0),      # G = 1
+    (1, 333, 333, 10, 1, 256, True, 64),    # window, ragged S
+    (1, 24, 56, 4, 1, 256, False, 0),       # non-causal, Sq != Skv
+)
+
+
+def phase_flash_hd256(gen):
+    """K2 at head dim 256 against its plain versions, and its times at the
+    hybrid model's shape."""
+    for case in FLASH_HD256_SWEEP:
+        for dtype in (torch.float32, torch.bfloat16):
+            _, errs = flash_case(gen, *case, dtype)
+            log("flash", name="K2 hd256 sweep", shape=case[:6], causal=case[6],
+                window=case[7], dtype=str(dtype).split(".")[-1],
+                errs=json.dumps({k: f"{v:.3e}" for k, v in errs.items()}))
+    results = flash_main(gen, *FLASH_HD256_MAIN)
+    torch.cuda.empty_cache()
+    return results
+
+
+# K4: the RG-LRU scan at the hybrid model's shape (batch 1, seq 4096,
+# lru_width 2560, f32 as the model calls it), and a ragged sweep.
+LRU_MAIN = (1, 4096, 2560)
+LRU_SWEEP = ((2, 37, 45), (3, 1000, 100), (1, 5, 33), (2, 129, 2560))
+LRU_PLAIN_RUNS = 5
+LRU_SOURCE = "src/repro_torch/kernels/csrc/rglru_scan.cu"
+LRU_REPLACES = {"lru_scan_fwd": "src/repro/kernels/rglru_scan.py:41",
+                # no TPU backward: the reference differentiates its
+                # associative scan
+                "lru_scan_bwd": "src/repro/models/rglru.py:103"}
+
+
+def lru_inputs(gen, b, s, w, dtype, with_h0):
+    dev = torch.device("cuda")
+    a = torch.sigmoid(torch.randn((b, s, w), generator=gen, device=dev))
+    x = torch.randn((b, s, w), generator=gen, device=dev)
+    g = torch.randn((b, s, w), generator=gen, device=dev)
+    h0 = torch.randn((b, w), generator=gen, device=dev) if with_h0 else None
+    return a.to(dtype), x.to(dtype), g.to(dtype), h0
+
+
+def lru_case(gen, b, s, w, dtype, with_h0):
+    """K4 forward and backward bitwise against the plain versions; the
+    backward gets the plain forward's output."""
+    from repro_torch.kernels import ops, ref
+
+    a, x, g, h0 = lru_inputs(gen, b, s, w, dtype, with_h0)
+    what = f"K4 {(b, s, w)} {dtype} h0={with_h0}"
+    h = ops.lru_scan_fwd(a, x, h0)
+    hr = ref.lru_scan_ref(a, x, h0)
+    torch.cuda.synchronize()
+    require_equal((h,), (hr,), f"{what} forward")
+    got = ops.lru_scan_bwd(a, hr, g, h0)
+    want = ref.lru_scan_bwd_ref(a, hr, g, h0)
+    torch.cuda.synchronize()
+    require_equal(got, want, f"{what} backward")
+    return a, x, g, hr
+
+
+def phase_lru(gen):
+    for case in LRU_SWEEP:
+        for dtype in (torch.float32, torch.bfloat16):
+            for with_h0 in (False, True):
+                lru_case(gen, *case, dtype, with_h0)
+    log("kernels", name="K4 sweep", shapes=LRU_SWEEP, dtypes="f32,bf16",
+        h0="with and without", bitwise=True)
+    from repro_torch.kernels import ops, ref
+
+    b, s, w = LRU_MAIN
+    lru_case(gen, b, s, w, torch.float32, True)
+    a, x, g, h = lru_case(gen, b, s, w, torch.float32, False)
+    n, nb = a.numel(), a.numel() * 4
+    work = {  # (bytes, FLOP): inputs read once, outputs written once
+        "lru_scan_fwd": (3 * nb, 2 * n),
+        "lru_scan_bwd": (5 * nb + b * w * 4, 3 * n + b * w),
+    }
+    calls = {"lru_scan_fwd": (lambda: ops.lru_scan_fwd(a, x),
+                              lambda: ref.lru_scan_ref(a, x)),
+             "lru_scan_bwd": (lambda: ops.lru_scan_bwd(a, h, g),
+                              lambda: ref.lru_scan_bwd_ref(a, h, g))}
+    results = {}
+    for name, (nbytes, flop) in work.items():
+        kernel, plain = calls[name]
+        b_ms, by = bound(nbytes, flop)
+        results[name] = dict(
+            err=0.0, ms=time_ms(kernel),
+            plain_ms=time_ms(plain, warmup=1, iters=LRU_PLAIN_RUNS),
+            library_ms=None, bound_ms=b_ms, bound_by=by,
+            source=LRU_SOURCE, replaces=LRU_REPLACES[name])
+        log("kernels", name=name, shape=LRU_MAIN, dtype="float32",
+            bitwise=True, ms=f"{results[name]['ms']:.4f}",
+            plain_ms=f"{results[name]['plain_ms']:.4f}",
+            plain_runs=LRU_PLAIN_RUNS, bound_ms=f"{b_ms:.4f}", bound_by=by,
+            bytes=nbytes)
+    del a, x, g, h
+    torch.cuda.empty_cache()
     return results
 
 
@@ -460,31 +624,68 @@ def require_flash_launches(counts: dict, args, layers: int) -> None:
             f"K2 launched {counts}, need fwd >= {2 * steps}, each bwd >= {steps}")
 
 
+def require_lru_launches(counts: dict, args, layers: int) -> None:
+    """Every recurrent layer of every client step ran the K4 forward twice
+    (once more in the checkpoint recompute) and its backward once."""
+    steps = args.rounds * args.cohort * args.local_steps * layers
+    require(counts["lru_scan_fwd"] >= 2 * steps
+            and counts["lru_scan_bwd"] >= steps,
+            f"K4 launched {counts}, need fwd >= {2 * steps}, bwd >= {steps}")
+
+
+def model_flop(cfg, args, n_params: int) -> float:
+    """Model FLOP of one round, without the remat recompute: 6 x params x
+    tokens, plus 12 x hd x query heads per visible (q, k) pair of every
+    attention layer and sequence (forward 4 hd, backward 8 hd)."""
+    from repro_torch.models import blocks
+
+    tokens = args.cohort * args.local_steps * args.batch * args.seq
+    seqs = args.cohort * args.local_steps * args.batch
+    window = cfg.window_size if cfg.attention == "local" else 0
+    pairs = visible_pairs(args.seq, args.seq, True, window)
+    attn_layers = blocks.layer_kinds(cfg).count("attention")
+    return (6.0 * n_params * tokens
+            + 12.0 * cfg.head_dim * cfg.num_heads * pairs * attn_layers * seqs)
+
+
 def phase_train(phase: str, **over):
-    """Flat int8 rounds of full lm_350m through ``launch.train``."""
+    """Flat rounds of a full-size model through ``launch.train``: lm_350m
+    with int8 deltas, or (``arch``) recurrentgemma_2b."""
     from repro_torch.kernels import ops
     from repro_torch.launch import train
-    from repro_torch.models import registry
+    from repro_torch.models import blocks, registry
 
     args = flat_args(**over)
+    cfg = registry.get_config(args.arch)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     summary, params, _, losses, seconds = train.train(args)
     counts = ops.launch_counts()
     require(all(math.isfinite(v) for v in losses), f"non-finite losses {losses}")
-    need = args.rounds * args.cohort
-    require(counts["quantize"] >= need and counts["dequantize"] >= need,
-            f"int8 kernels launched {counts}, need >= {need} each")
-    require_flash_launches(counts, args, registry.get_config(args.arch).num_layers)
+    if args.compression == "int8":
+        need = args.rounds * args.cohort
+        require(counts["quantize"] >= need and counts["dequantize"] >= need,
+                f"int8 kernels launched {counts}, need >= {need} each")
+    kinds = blocks.layer_kinds(cfg)
+    require_flash_launches(counts, args, kinds.count("attention"))
+    if "recurrent" in kinds:
+        require_lru_launches(counts, args, kinds.count("recurrent"))
     n_params = sum(p.numel() for p in params.values())
     tokens = args.cohort * args.local_steps * args.batch * args.seq
-    log(phase, params=n_params, seq=args.seq, tokens_per_round=tokens,
-        losses=[round(v, 5) for v in losses],
+    extra = {}
+    if args.arch != "lm_350m":
+        flop = model_flop(cfg, args, n_params)
+        extra = dict(model_flop_per_round=f"{flop:.4e}", model_utilization=[
+            f"{flop / v / BF16_TC_OPS_PER_S:.4f}" for v in seconds])
+    log(phase, arch=args.arch, params=n_params, seq=args.seq,
+        tokens_per_round=tokens, losses=[round(v, 5) for v in losses],
         round_s=[round(v, 3) for v in seconds],
-        tokens_per_s=[round(tokens / v, 1) for v in seconds],
+        tokens_per_s=[round(tokens / v, 1) for v in seconds], **extra,
         peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
         launches=json.dumps(counts))
     print(json.dumps(summary), flush=True)
+    del params
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -562,21 +763,24 @@ def phase_hier():
     return counts
 
 
-def phase_grads(seq: int = 4096, layers: int = 2):
-    """lm_350m at full width, ``layers`` layers, f32, batch 1: loss and
-    gradients through the K2 kernels against the same through PyTorch's
-    autograd of K2's plain forward on the card, from the same parameters
-    and tokens."""
+def phase_grads(phase: str = "grads", arch: str = "lm_350m", layers: int = 2,
+                seq: int = 4096):
+    """A full-width model with ``layers`` layers, f32, batch 1: loss and
+    gradients through the kernels (K2, and K4 in recurrent layers) against
+    the same through PyTorch's autograd of their plain forwards on the
+    card, from the same parameters and tokens."""
     import dataclasses
     from unittest import mock
 
     import numpy as np
 
     from repro_torch.kernels import ops, ref
-    from repro_torch.models import registry
+    from repro_torch.models import blocks, registry
 
-    cfg = dataclasses.replace(registry.get_config("lm_350m"),
-                              num_layers=layers, dtype="float32")
+    cfg = dataclasses.replace(registry.get_config(arch), num_layers=layers,
+                              dtype="float32")
+    kinds = blocks.layer_kinds(cfg)
+    n_attn, n_rec = kinds.count("attention"), kinds.count("recurrent")
     params = registry.init_params(cfg, seed=0, device="cuda")
     toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, seq + 1))
     toks = torch.from_numpy(toks.astype(np.int64)).cuda()
@@ -591,12 +795,15 @@ def phase_grads(seq: int = 4096, layers: int = 2):
     ops.reset_launches()
     loss_k, grads_k = loss_and_grads()
     counts = ops.launch_counts()
-    require(counts["flash_attention_fwd"] >= 2 * layers
-            and counts["flash_attention_bwd_dq"] >= layers
-            and counts["flash_attention_bwd_dkdv"] >= layers,
-            f"grads phase: K2 launched {counts}")
+    require(counts["flash_attention_fwd"] >= 2 * n_attn
+            and counts["flash_attention_bwd_dq"] >= n_attn
+            and counts["flash_attention_bwd_dkdv"] >= n_attn
+            and counts["lru_scan_fwd"] >= 2 * n_rec
+            and counts["lru_scan_bwd"] >= n_rec,
+            f"{phase} phase: kernels launched {counts}")
     with mock.patch.object(ops, "flash_attention",
-                           lambda q, k, v, **kw: ref.flash_attention_ref(q, k, v, **kw)[0]):
+                           lambda q, k, v, **kw: ref.flash_attention_ref(q, k, v, **kw)[0]), \
+            mock.patch.object(ops, "lru_scan", ref.lru_scan_ref):
         loss_p, grads_p = loss_and_grads()
     rel = abs(loss_k - loss_p) / abs(loss_p)
     require(rel <= 1e-5, f"loss kernels {loss_k} vs plain {loss_p}")
@@ -608,20 +815,22 @@ def phase_grads(seq: int = 4096, layers: int = 2):
                 "of its largest magnitude > 1e-4")
         if ratio >= worst:
             worst_name, worst = name, ratio
-    log("grads", seq=seq, layers=layers, loss_kernels=loss_k,
+    log(phase, arch=arch, seq=seq, layers=",".join(kinds), loss_kernels=loss_k,
         loss_plain=loss_p, loss_rel_diff=f"{rel:.3e}", leaves=len(grads_p),
-        worst_leaf=worst_name, worst_err_over_max=f"{worst:.3e}")
+        worst_leaf=worst_name, worst_err_over_max=f"{worst:.3e}",
+        launches=json.dumps(counts))
     del params, grads_k, grads_p
     torch.cuda.empty_cache()
 
 
-def phase_reference(attn_impl: str):
+def phase_reference(attn_impl: str, arch: str = "lm_350m"):
     """Reduced config (f32), one flat int8 round from the same parameters
     and data on the card (kernels) and on the CPU (plain versions). They
     agree within the mean over clients of each client delta's int8 step
     (the deltas are quantized one by one, then averaged). ``naive``
     attention holds the int8 kernels; ``blocked`` adds K2's forward and
-    backward."""
+    backward; the hybrid config adds K4 (recurrent layers, f32, seq 64
+    beyond the reduced window of 32)."""
     import functools
 
     from repro_torch import optim
@@ -630,8 +839,9 @@ def phase_reference(attn_impl: str):
     from repro_torch.launch import train
     from repro_torch.models import registry
 
-    args = flat_args(reduced=True, rounds=1, cohort=2, batch=2, seq=64)
-    cfg = registry.get_config("lm_350m").reduced(attn_impl=attn_impl)
+    args = flat_args(arch=arch, reduced=True, rounds=1, cohort=2, batch=2,
+                     seq=64)
+    cfg = registry.get_config(arch).reduced(attn_impl=attn_impl)
     base = registry.init_params(cfg, seed=0, device="cpu")
     sampler = CohortSampler(GroupedCorpus(vocab_size=cfg.vocab_size),
                             cohort_size=args.cohort)
@@ -658,7 +868,7 @@ def phase_reference(attn_impl: str):
     require(worst <= 1.0, f"card vs CPU beyond one int8 step: {worst}")
     require(abs(out["cuda"][1] - out["cpu"][1]) <= 1e-5 * abs(out["cpu"][1]),
             f"loss card {out['cuda'][1]} vs cpu {out['cpu'][1]}")
-    log("reference", attn_impl=attn_impl, loss_card=out["cuda"][1],
+    log("reference", arch=arch, attn_impl=attn_impl, loss_card=out["cuda"][1],
         loss_cpu=out["cpu"][1],
         worst=f"{worst:.4f}", equal_fraction=f"{equal:.6f}")
 
@@ -695,9 +905,18 @@ def main() -> int:
     phase_grads()
     phase_reference("naive")
     phase_reference("blocked")
+    lru = phase_lru(gen)
+    flash256 = phase_flash_hd256(gen)
+    hybrid_counts = phase_train(
+        "hybrid", arch="recurrentgemma_2b", rounds=2, cohort=2, local_steps=2,
+        batch=1, seq=4096, compression="none")
+    phase_grads("hybrid grads", "recurrentgemma_2b", layers=3)
+    phase_reference("blocked", "recurrentgemma_2b")
     launches = {"quantize": flat_counts["quantize"],
                 "dequantize": flat_counts["dequantize"],
-                "reduce_compress_roundtrip": hier_counts["reduce_compress_roundtrip"]}
+                "reduce_compress_roundtrip": hier_counts["reduce_compress_roundtrip"],
+                "lru_scan_fwd": hybrid_counts["lru_scan_fwd"],
+                "lru_scan_bwd": hybrid_counts["lru_scan_bwd"]}
 
     def entry(name, r, n, **extra):
         return {"name": name, "route": "cuda", "source": r["source"],
@@ -709,14 +928,24 @@ def main() -> int:
     line = {"kernels": [entry(name, r, launches[name])
                         for name, r in kernels.items()]}
     for name, by_shape in flash.items():
-        # the seq-512 flat rounds' shape and launches, seq 4096's beside them
+        # the seq-512 flat rounds' shape and launches, seq 4096's and the
+        # hybrid rounds' head dim 256 beside them
         e512, e4096 = (
             entry(name, dict(by_shape[key], **FLASH_SOURCE[name]), n,
                   shape=f"B {b} x S {s} x 16 heads x 64, bf16, causal")
             for key, (b, s), n in (
                 ("seq512", FLASH_MAIN["seq512"], flat_counts[name]),
                 ("seq4096", FLASH_MAIN["seq4096"], long_counts[name])))
-        line["kernels"].append(dict(e512, seq4096=e4096))
+        e256 = entry(name, dict(flash256[name], **FLASH_SOURCE[name]),
+                     hybrid_counts[name],
+                     shape="B 1 x S 4096 x 10:1 heads x 256, bf16, causal, "
+                           "window 2048")
+        line["kernels"].append(dict(e512, seq4096=e4096, hd256=e256))
+    line["kernels"] += [
+        entry(name, r, launches[name],
+              shape=f"{LRU_MAIN} f32 (hybrid rounds)",
+              plain_runs=LRU_PLAIN_RUNS)
+        for name, r in lru.items()]
     log("done", seconds=f"{time.perf_counter() - t_start:.1f}",
         padded_vocab=transformer.padded_vocab(cfg), packed_rows=rows, card=smi)
     print(json.dumps(line), flush=True)

@@ -5,10 +5,11 @@ Laid out module for module beside the JAX package: ``repro_torch.core`` is
 port imports ``torch`` and numpy only — never ``jax`` and nothing of
 ``repro``; the parity tests import both.
 
-This slice ports the paper's §4 training path for the dense LM (lm_350m):
-DrJAX local-SGD rounds, flat and pod-hierarchical, with int8 delta
-compression on hand-written Hopper kernels (``kernels/csrc/*.cu``). What it
-leaves out is listed in each module's docstring and in ROADMAP.md.
+It ports the paper's §4 training path: DrJAX local-SGD rounds, flat and
+pod-hierarchical, with int8 delta compression, for the dense LM (lm_350m)
+and the hybrid RG-LRU + local-attention LM (recurrentgemma_2b), on
+hand-written Hopper kernels (``kernels/csrc/*.cu``). What it leaves out is
+listed in each module's docstring and in ROADMAP.md.
 """
 
 from . import compat

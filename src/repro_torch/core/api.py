@@ -128,11 +128,14 @@ def map_fn(fn: Callable, tree, placement: Optional[str] = None):
     level of the stack (outputs carry all the group axes).
 
     The reference vmaps ``fn``; here the groups run one after another on
-    the one device and the outputs are stacked on new leading axes. The
-    values are those of the vmap (each group sees its own slice), and the
-    memory a group's computation holds is one group's, not all of them:
-    the point on one card, where a whole client's training state is large.
-    The map is differentiable (autograd through the slices and the stack).
+    the one device, and each output leaf is allocated once, stacked, from
+    the first group's result; every group's output is copied into its slot
+    as soon as it is computed. The values are those of the vmap (each group
+    sees its own slice) and equal ``torch.stack`` of the per-group outputs,
+    and the memory a map holds is the stacked outputs plus one group's
+    computation: the point on one card, where a whole client's training
+    state is large. The map is differentiable (autograd through the slices
+    and the slot copies).
     """
     ctx = placement_lib.current_context()
     call = (lambda args: fn(*args)) if isinstance(tree, tuple) else fn
@@ -152,19 +155,29 @@ def map_fn(fn: Callable, tree, placement: Optional[str] = None):
             )
 
     pytree.tree_map(check, tree)
-    outs = []
+    stacked, spec = None, None
     for idx in itertools.product(*(range(n) for n in sizes)):
         sel = (slice(None),) * lead + idx
-        outs.append(call(pytree.tree_map(lambda x: x[sel], tree)))
-
-    def stack(*xs):
-        out = torch.stack(xs, dim=lead)
-        return out.reshape(out.shape[:lead] + sizes + out.shape[lead + 1:])
-
-    flat = [pytree.tree_flatten(o) for o in outs]
-    spec = flat[0][1]
-    leaves = [stack(*parts) for parts in zip(*(f[0] for f in flat))]
-    return pytree.tree_unflatten(leaves, spec)
+        leaves, out_spec = pytree.tree_flatten(
+            call(pytree.tree_map(lambda x: x[sel], tree)))
+        if stacked is None:
+            spec = out_spec
+            stacked = [torch.empty(x.shape[:lead] + sizes + x.shape[lead:],
+                                   dtype=x.dtype, device=x.device)
+                       for x in leaves]
+        elif out_spec != spec:
+            raise ValueError(f"map_fn: group {idx} returned a tree of another "
+                             "structure than group 0")
+        for buf, x in zip(stacked, leaves):
+            slot = buf[sel]
+            if slot.shape != x.shape or buf.dtype != x.dtype:
+                raise ValueError(
+                    f"map_fn: group {idx} returned {x.dtype} "
+                    f"{tuple(x.shape)} where group 0 returned {buf.dtype} "
+                    f"{tuple(slot.shape)}")
+            buf[sel] = x
+        del leaves  # free this group's outputs before the next group runs
+    return pytree.tree_unflatten(stacked, spec)
 
 
 def partition_size(placement: Optional[str] = None) -> int:

@@ -31,7 +31,7 @@ from .. import compat
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("quantize", "reduce_compress", "flash_attention")
+SOURCES = ("quantize", "reduce_compress", "flash_attention", "rglru_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -61,6 +61,13 @@ SIGNATURES = {
                                *_FLASH_TAIL),
         "repro_flash_bwd_dkdv": (_P, _P, _P, _C, _P, _P, _P, _P, _P,
                                  *_FLASH_TAIL),
+    },
+    # (a, b, h0, dtype, h, B, S, W, stream) and
+    # (a, h, g, h0, dtype, da, db, dh0, B, S, W, stream)
+    "rglru_scan": {
+        "repro_lru_scan_fwd": (_P, _P, _P, _C, _P, _C, _C, _C, _P),
+        "repro_lru_scan_bwd": (_P, _P, _P, _P, _C, _P, _P, _P, _C, _C, _C,
+                               _P),
     },
 }
 

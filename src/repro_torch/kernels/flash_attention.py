@@ -21,7 +21,7 @@ import torch
 from . import _build
 from .quantize import DTYPE_CODES
 
-HEAD_DIMS = (16, 32, 64, 80, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 _MAX_GRID_YZ = 65535
 
 

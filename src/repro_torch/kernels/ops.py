@@ -20,6 +20,7 @@ from . import flash_attention as _fa
 from . import quantize as _quant
 from . import reduce_compress as _rc
 from . import ref as _ref
+from . import rglru_scan as _lru
 
 
 def _on_card(t: torch.Tensor, what: str) -> bool:
@@ -160,9 +161,55 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                  v.contiguous(), bool(causal), int(window or 0))
 
 
+def lru_scan_fwd(a, b, h0=None):
+    """K4 forward: ``h_t = a_t * h_{t-1} + b_t`` over axis 1 of (B, S, W),
+    f32 state, -> h in a's dtype."""
+    if not _on_card(a, "lru_scan_fwd"):
+        return _ref.lru_scan_ref(a, b, h0)
+    out = _lru.fwd(a, b, h0)
+    lru_scan_fwd.launches += 1
+    return out
+
+
+def lru_scan_bwd(a, h, g, h0=None):
+    """K4 backward, the reverse scan: -> (da, db, dh0 f32 (B, W))."""
+    if not _on_card(a, "lru_scan_bwd"):
+        return _ref.lru_scan_bwd_ref(a, h, g, h0)
+    out = _lru.bwd(a, h, g, h0)
+    lru_scan_bwd.launches += 1
+    return out
+
+
+class _LruScan(torch.autograd.Function):
+    """The RG-LRU scan with the reverse scan as its backward. Saves a, the
+    output h and h0; works under non-reentrant ``torch.utils.checkpoint``,
+    which runs the forward again in the backward."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h = lru_scan_fwd(a, b, h0)
+        ctx.save_for_backward(a, h, h0)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        a, h, h0 = ctx.saved_tensors
+        da, db, dh0 = lru_scan_bwd(a, h, g.contiguous(), h0)
+        return da, db, None if h0 is None else dh0
+
+
+def lru_scan(a: torch.Tensor, b: torch.Tensor, h0=None) -> torch.Tensor:
+    """``h_t = a_t * h_{t-1} + b_t`` with its backward: a, b (B, S, W), h0
+    (B, W) f32 or None -> h (B, S, W) in a's dtype. On the card the K4
+    kernels, on the CPU their plain versions."""
+    if h0 is not None:
+        h0 = h0.to(torch.float32).contiguous()
+    return _LruScan.apply(a.contiguous(), b.contiguous(), h0)
+
+
 KERNEL_WRAPPERS = (quantize, dequantize, reduce_compress_roundtrip,
                    flash_attention_fwd, flash_attention_bwd_dq,
-                   flash_attention_bwd_dkdv)
+                   flash_attention_bwd_dkdv, lru_scan_fwd, lru_scan_bwd)
 for _fn in KERNEL_WRAPPERS:
     _fn.launches = 0
 

@@ -1,8 +1,8 @@
 """Plain PyTorch versions of the kernels (``repro/kernels/ref.py``).
 
 Each function computes what its kernel computes, op for op, so that the
-kernel can be held to it on the card (bitwise for K1 and K3, within the
-stated f32/bf16 tolerances for K2, whose sums run in another order) and the
+kernel can be held to it on the card (bitwise for K1, K3 and K4, within
+the stated f32/bf16 tolerances for K2, whose sums run in another order) and the
 CPU path can be held to the JAX oracle. The ``ops`` wrappers run these only for CPU tensors.
 """
 
@@ -167,3 +167,54 @@ def flash_attention_bwd_ref(q, k, v, out32, lse, dout, *, causal=True,
     dk, dv = flash_attention_bwd_dkdv_ref(q, k, v, lse, delta, dout,
                                           causal=causal, window=window)
     return dq, dk, dv
+
+
+# --- K4: the RG-LRU linear recurrence ------------------------------------
+
+
+def lru_scan_ref(a: torch.Tensor, b: torch.Tensor, h0=None) -> torch.Tensor:
+    """Sequential ``h_t = a_t * h_{t-1} + b_t`` over axis 1 of (B, S, W):
+    ``repro/kernels/ref.py:lru_scan_ref`` with the optional initial state
+    ``h0`` (B, W) of ``repro/models/rglru.py:lru_scan``. The state is f32;
+    each step rounds the product, then the sum (no fused multiply-add);
+    the output is in ``a``'s dtype. Differentiable (autograd through the
+    loop)."""
+    a32, b32 = a.to(torch.float32), b.to(torch.float32)
+    h = (torch.zeros_like(a32[:, 0]) if h0 is None
+         else h0.to(torch.float32))
+    hs = []
+    for t in range(a.shape[1]):
+        h = a32[:, t] * h + b32[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1).to(a.dtype)
+
+
+def lru_scan_bwd_ref(a: torch.Tensor, h: torch.Tensor, g: torch.Tensor,
+                     h0=None):
+    """The gradient of :func:`lru_scan_ref` as a reverse scan, in f32:
+
+        dh_t = g_t + a_{t+1} * dh_{t+1}   (dh_S = 0)
+        db_t = dh_t,  da_t = dh_t * h_{t-1}   (h_{-1} = h0, or 0)
+        dh0  = a_0 * dh_0
+
+    ``h`` is the forward's output, ``g`` the gradient of the loss with
+    respect to it. Returns (da in ``a``'s dtype, db in ``a``'s dtype, dh0
+    f32 (B, W))."""
+    a32, h32, g32 = (t.to(torch.float32) for t in (a, h, g))
+    s = a.shape[1]
+    dh = torch.zeros_like(a32[:, 0])
+    a_next = torch.zeros_like(dh)
+    das, dbs = [None] * s, [None] * s
+    for t in range(s - 1, -1, -1):
+        dh = g32[:, t] + a_next * dh
+        if t > 0:
+            h_prev = h32[:, t - 1]
+        elif h0 is not None:
+            h_prev = h0.to(torch.float32)
+        else:
+            h_prev = torch.zeros_like(dh)
+        das[t], dbs[t] = dh * h_prev, dh
+        a_next = a32[:, t]
+    dh0 = a_next * dh
+    return (torch.stack(das, dim=1).to(a.dtype),
+            torch.stack(dbs, dim=1).to(a.dtype), dh0)

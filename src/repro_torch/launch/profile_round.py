@@ -1,15 +1,16 @@
 """Where a training round's time goes on the card.
 
-Runs DrJAX local-SGD rounds of full lm_350m (the ``chip_smoke.py`` flat and
-hierarchical settings: cohort 4, 2 local steps, int8; the smoke's long
-rounds are ``--seq 4096 --batch 2``), warms up one round, then
-traces one round with ``torch.profiler`` and prints the round's wall time,
-the device's busy time (the sum of kernel times; one stream, so kernels do
-not overlap) and idle share, and the device time by kernel family and by
-kernel:
+Runs DrJAX local-SGD rounds of a full-size model (default: lm_350m in the
+``chip_smoke.py`` flat and hierarchical settings: cohort 4, 2 local steps,
+int8; the smoke's long rounds are ``--seq 4096 --batch 2``; its hybrid
+rounds are ``--arch recurrentgemma_2b --seq 4096 --batch 1 --cohort 2
+--compression none``), warms up one round, then traces one round with
+``torch.profiler`` and prints the round's wall time, the device's busy time
+(the sum of kernel times; one stream, so kernels do not overlap) and idle
+share, and the device time by kernel family and by kernel:
 
     PYTHONPATH=src python -m repro_torch.launch.profile_round [--pods 2] \
-        [--seq 4096 --batch 2]
+        [--seq 4096 --batch 2] [--arch A --cohort N --compression none]
 
 The same numbers go to ``--out`` as JSON. Needs a card.
 """
@@ -32,6 +33,7 @@ from . import train
 
 FAMILIES = (
     ("flash attention K2 (repro)", ("repro::flash::",)),
+    ("RG-LRU scan K4 (repro)", ("repro::lru::",)),
     ("int8 kernels (repro)", ("quantize_kernel", "dequantize_kernel",
                               "reduce_compress_roundtrip_kernel")),
     ("matmul", ("gemm", "cutlass", "xmma", "cublas", "sm90_", "nvjet")),
@@ -56,12 +58,15 @@ def _device_us(evt) -> float:
     raise RuntimeError("profiler events carry no device time")
 
 
-def profile(pods: int, seq: int = 512, batch: int = 4, rounds_warm: int = 1):
+def profile(pods: int, seq: int = 512, batch: int = 4, rounds_warm: int = 1,
+            arch: str = "lm_350m", cohort: int = 4,
+            compression: str = "int8"):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     args = train.parse_args([
-        "--cohort", "4", "--local-steps", "2", "--batch", str(batch),
-        "--seq", str(seq), "--compression", "int8", "--device", "cuda"])
+        "--arch", arch, "--cohort", str(cohort), "--local-steps", "2",
+        "--batch", str(batch), "--seq", str(seq), "--compression",
+        compression, "--device", "cuda"])
     cfg = registry.get_config(args.arch)
     params = registry.init_params(cfg, seed=0, device="cuda")
     if pods:
@@ -71,7 +76,8 @@ def profile(pods: int, seq: int = 512, batch: int = 4, rounds_warm: int = 1):
             rounds.LocalSGDConfig(
                 partition_size=args.cohort // pods,
                 num_local_steps=args.local_steps, grad_clip=1.0,
-                compression="int8", num_pods=pods))
+                compression=None if compression == "none" else compression,
+                num_pods=pods))
     else:
         round_fn, server_opt = train.build_round_fn(cfg, args)
     state = server_opt.init(params)
@@ -107,7 +113,9 @@ def profile(pods: int, seq: int = 512, batch: int = 4, rounds_warm: int = 1):
         fam[_family(e.key)] += _device_us(e)
     top = sorted(kernels, key=_device_us, reverse=True)[:12]
     return {
+        "arch": cfg.name,
         "form": f"hierarchical {pods}x{args.cohort // pods}" if pods else "flat",
+        "cohort": args.cohort, "compression": args.compression,
         "seq": args.seq, "batch": args.batch,
         "card": torch.cuda.get_device_name(0),
         "round_wall_ms": wall_s * 1e3,
@@ -126,11 +134,15 @@ def main(argv=None):
     ap.add_argument("--pods", type=int, default=0)
     ap.add_argument("--seq", type=int, default=512)
     ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--arch", default="lm_350m", choices=registry.ARCH_IDS)
+    ap.add_argument("--cohort", type=int, default=4)
+    ap.add_argument("--compression", default="int8", choices=("none", "int8"))
     ap.add_argument("--out", default=None)
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_round needs a CUDA card")
-    res = profile(a.pods, a.seq, a.batch)
+    res = profile(a.pods, a.seq, a.batch, arch=a.arch, cohort=a.cohort,
+                  compression=a.compression)
     print(json.dumps(res, indent=1))
     if a.out:
         Path(a.out).parent.mkdir(parents=True, exist_ok=True)

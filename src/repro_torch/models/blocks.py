@@ -1,9 +1,13 @@
-"""Transformer blocks (``repro/models/blocks.py``), attention kind, train mode.
+"""Transformer blocks (``repro/models/blocks.py``), train mode.
 
-``block_apply(cfg, p, x, positions)`` with ``p`` the block's parameters keyed
-``ln1.scale``, ``attn.wq`` ... ``mlp.wo`` (the names of :class:`Block`).
-Left out for later slices: recurrent (RG-LRU) and RWKV blocks, MoE FFNs,
-and the prefill/decode/chunk modes with their caches.
+``block_apply(cfg, kind, p, x, positions)`` with ``kind`` "attention" or
+"recurrent" and ``p`` the block's parameters keyed ``ln1.scale``,
+``attn.wq`` ... (attention) or ``rec.w_in`` ... (recurrent), then
+``ln2.scale`` and ``mlp.wi`` ... (the names of :class:`Block`). Both kinds
+are pre-norm residual blocks with a gated MLP. A local window applies to
+attention layers only.
+Left out for later slices: RWKV blocks, MoE FFNs, and the
+prefill/decode/chunk modes with their caches.
 """
 
 from __future__ import annotations
@@ -13,7 +17,7 @@ from typing import Dict
 import torch
 from torch import nn
 
-from . import attention, common, mlp
+from . import attention, common, mlp, rglru
 
 
 def sub(params: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
@@ -23,22 +27,32 @@ def sub(params: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]
 
 
 def layer_kinds(cfg):
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"repro_torch ports the dense family only; {cfg.name} is "
-            f"{cfg.family}"
-        )
-    return ["attention"] * cfg.num_layers
+    """Per-layer block kinds: the hybrid family repeats ``block_pattern``."""
+    if cfg.family == "dense":
+        return ["attention"] * cfg.num_layers
+    if cfg.family == "hybrid":
+        pat = cfg.block_pattern
+        return [pat[i % len(pat)] for i in range(cfg.num_layers)]
+    raise NotImplementedError(
+        f"repro_torch ports the dense and hybrid families; {cfg.name} is "
+        f"{cfg.family}"
+    )
 
 
-def block_apply(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
+def block_apply(cfg, kind: str, p: Dict[str, torch.Tensor], x: torch.Tensor,
                 positions: torch.Tensor) -> torch.Tensor:
-    window = cfg.window_size if cfg.attention == "local" else 0
     h = common.rmsnorm_apply(p["ln1.scale"], x, cfg.norm_eps)
-    ap = sub(p, "attn.")
-    q, k, v = attention.qkv(cfg, ap, h, positions)
-    attn = attention.self_attention(cfg, q, k, v, causal=True, window=window)
-    x = x + attention.out_proj(ap, attn)
+    if kind == "attention":
+        window = cfg.window_size if cfg.attention == "local" else 0
+        ap = sub(p, "attn.")
+        q, k, v = attention.qkv(cfg, ap, h, positions)
+        attn = attention.self_attention(cfg, q, k, v, causal=True,
+                                        window=window)
+        x = x + attention.out_proj(ap, attn)
+    elif kind == "recurrent":
+        x = x + rglru.apply(cfg, sub(p, "rec."), h)
+    else:
+        raise ValueError(f"block kind {kind!r} is not ported")
     h2 = common.rmsnorm_apply(p["ln2.scale"], x, cfg.norm_eps)
     return x + mlp.apply(cfg, sub(p, "mlp."), h2)
 
@@ -78,9 +92,17 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg, generator: torch.Generator, device=None):
+    """One layer of ``kind`` "attention" (``attn``) or "recurrent" (``rec``)."""
+
+    def __init__(self, cfg, kind: str, generator: torch.Generator,
+                 device=None):
         super().__init__()
         self.ln1 = RMSNorm(cfg.d_model, cfg.torch_dtype, device)
         self.ln2 = RMSNorm(cfg.d_model, cfg.torch_dtype, device)
-        self.attn = Attention(cfg, generator, device)
+        if kind == "attention":
+            self.attn = Attention(cfg, generator, device)
+        elif kind == "recurrent":
+            self.rec = rglru.RGLRU(cfg, generator, device)
+        else:
+            raise ValueError(f"block kind {kind!r} is not ported")
         self.mlp = MLP(cfg, generator, device)

@@ -1,5 +1,6 @@
 """Architecture registry (``repro/models/registry.py``): config lookup,
-parameter init and the loss. This slice registers lm_350m only; the other
+parameter init and the loss. The port registers lm_350m (dense) and
+recurrentgemma_2b (hybrid: RG-LRU and local attention); the other
 architectures, input specs and serve-step builders wait."""
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from .. import compat
 from . import transformer
 from .config import ModelConfig
 
-ARCH_IDS = ("lm_350m",)
+ARCH_IDS = ("lm_350m", "recurrentgemma_2b")
 
 
 def get_config(arch: str) -> ModelConfig:

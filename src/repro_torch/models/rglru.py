@@ -1,0 +1,92 @@
+"""RG-LRU recurrent block (``repro/models/rglru.py``), train mode.
+
+Griffin's recurrent block (RecurrentGemma, arXiv:2402.19427):
+
+    x -- linear_in --+-- causal conv1d(4) -- RG-LRU --+
+                     +-- gelu gate -------------------*-- linear_out
+
+    r_t = sigmoid(W_a u_t + b_a),  i_t = sigmoid(W_x u_t + b_x)
+    a_t = exp(-8 * softplus(lam) * r_t)
+    h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * u_t)
+
+Parameters (the reference's names): ``w_in`` (D, 2W), ``w_out`` (W, D),
+``conv`` (4, W), ``w_a``/``w_x`` (W, W), ``b_a``/``b_x`` (W,) in the model
+dtype, and ``lam`` (W,) in f32. The recurrence runs through
+``kernels.ops.lru_scan`` (K4 forward and its reverse-scan backward on the
+card, their plain versions on the CPU), where the reference runs
+``jax.lax.associative_scan``: the results differ only in the order of f32
+operations.
+
+Left out for the serve slice: decode, prefill and chunked prefill, with
+their conv and LRU states (K4 already takes the initial state ``h0`` that
+chunked prefill needs).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels import ops
+from . import common
+
+F32 = torch.float32
+_C = 8.0
+_CONV_WIDTH = 4
+
+
+class RGLRU(nn.Module):
+    """The block's parameters, drawn from ``generator`` as the reference's
+    ``rglru.init_params`` draws them (other numbers, the same laws)."""
+
+    def __init__(self, cfg, generator: torch.Generator, device=None):
+        super().__init__()
+        d, w, dt = cfg.d_model, cfg.lru_width, cfg.torch_dtype
+        init = lambda shape, dtype=dt, std=None: nn.Parameter(
+            common.normal_init(generator, shape, dtype, std, device=device))
+        self.w_in = init((d, 2 * w))
+        self.w_out = init((w, d))
+        self.conv = init((_CONV_WIDTH, w), std=0.1)
+        self.w_a = init((w, w))
+        self.b_a = nn.Parameter(torch.zeros(w, dtype=dt, device=device))
+        self.w_x = init((w, w))
+        self.b_x = nn.Parameter(torch.zeros(w, dtype=dt, device=device))
+        self.lam = init((w,), F32, 0.5)
+
+
+def _gates(p: Dict[str, torch.Tensor], u: torch.Tensor):
+    """u (..., W), the conv output. Returns the decay a and the gated input,
+    both f32: the gate products in u's dtype, the rest in f32."""
+    r = torch.sigmoid(torch.matmul(u, p["w_a"]).to(F32) + p["b_a"].to(F32))
+    i = torch.sigmoid(torch.matmul(u, p["w_x"]).to(F32) + p["b_x"].to(F32))
+    # softplus as the reference's logaddexp(lam, 0)
+    log_a = -_C * torch.logaddexp(p["lam"], torch.zeros_like(p["lam"])) * r
+    a = torch.exp(log_a)
+    gated = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (i * u.to(F32))
+    return a, gated
+
+
+def _causal_conv(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv of width 4 over (B, S, W), in f32, cast back:
+    ``out_s = sum_t x_{s-3+t} * conv_t`` with zeros before the start."""
+    w = p["conv"].to(F32)
+    s = x.shape[1]
+    xf = F.pad(x.to(F32), (0, 0, _CONV_WIDTH - 1, 0))
+    out = xf[:, 0:s] * w[0]
+    for t in range(1, _CONV_WIDTH):
+        out = out + xf[:, t:t + s] * w[t]
+    return out.to(x.dtype)
+
+
+def apply(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """Train path. x (B, S, D) -> (B, S, D) in x's dtype."""
+    u = torch.matmul(x, p["w_in"])
+    u, gate = torch.chunk(u, 2, dim=-1)
+    u = _causal_conv(p, u)
+    a, bterm = _gates(p, u)
+    h = ops.lru_scan(a, bterm)
+    h = h.to(x.dtype) * common.activation("gelu")(gate)
+    return torch.matmul(h, p["w_out"])

@@ -2,17 +2,20 @@
 
 :class:`TransformerLM` is the ``nn.Module``: it owns the parameters, named
 ``embed.table``, ``final_ln.scale``, ``lm_head.w`` and
-``layers.<i>.{ln1,ln2}.scale`` / ``layers.<i>.attn.w{q,k,v,o}`` /
+``layers.<i>.{ln1,ln2}.scale`` / ``layers.<i>.attn.w{q,k,v,o}`` (attention
+layers) or ``layers.<i>.rec.*`` (recurrent layers of the hybrid family) /
 ``layers.<i>.mlp.w{i,g,o}``. The math is :func:`forward` and
 :func:`loss_fn` over a flat dict of those tensors, so a training round can
 run a client's own copy of the parameters through the same code
 (``TransformerLM.forward`` passes its own). The reference stacks the layers
-on a leading axis for ``lax.scan``; here each layer is its own module and
-the stack is a Python loop. ``remat="full"`` checkpoints each layer
+on a leading axis for ``lax.scan`` (a hybrid stack is a list); here each
+layer is its own module of its kind (``blocks.layer_kinds``) and the stack
+is a Python loop. ``remat="full"`` checkpoints each layer
 (``torch.utils.checkpoint``, non-reentrant).
 
 Left out for later slices: tied embeddings, frontend embeddings (VLM),
-hybrid stacks and the serve paths (prefill, decode, chunked prefill).
+the MoE and RWKV families and the serve paths (prefill, decode, chunked
+prefill).
 """
 
 from __future__ import annotations
@@ -48,22 +51,22 @@ class Readout(nn.Module):
 
 
 class TransformerLM(nn.Module):
-    """The dense LM. Parameters are drawn from ``generator`` (whose device
-    must be ``device``)."""
+    """The dense or hybrid LM. Parameters are drawn from ``generator``
+    (whose device must be ``device``)."""
 
     def __init__(self, cfg, generator: torch.Generator, device=None):
         super().__init__()
         if cfg.tie_embeddings or cfg.frontend != "none":
             raise NotImplementedError(
                 "tied embeddings and frontends are not ported")
-        blocks.layer_kinds(cfg)  # rejects non-dense families
+        kinds = blocks.layer_kinds(cfg)  # rejects the families not ported
         self.cfg = cfg
         pv, d, dt = padded_vocab(cfg), cfg.d_model, cfg.torch_dtype
         self.embed = Embedding(pv, d, dt, generator, device)
         self.final_ln = blocks.RMSNorm(d, dt, device)
         self.lm_head = Readout(d, pv, dt, generator, device)
         self.layers = nn.ModuleList(
-            blocks.Block(cfg, generator, device) for _ in range(cfg.num_layers)
+            blocks.Block(cfg, kind, generator, device) for kind in kinds
         )
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -81,8 +84,9 @@ def forward(cfg, params: Dict[str, torch.Tensor], tokens: torch.Tensor,
     b, s = x.shape[:2]
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
-    for i in range(cfg.num_layers):
-        layer = functools.partial(blocks.block_apply, cfg, layer_params(params, i))
+    for i, kind in enumerate(blocks.layer_kinds(cfg)):
+        layer = functools.partial(blocks.block_apply, cfg, kind,
+                                  layer_params(params, i))
         if cfg.remat == "full" and torch.is_grad_enabled():
             x = checkpoint(layer, x, positions, use_reentrant=False,
                            preserve_rng_state=False)

@@ -41,7 +41,7 @@ def test_kernels_match_plain(card, dtype):
     assert ops.launch_counts() == {
         "quantize": 1, "dequantize": 1, "reduce_compress_roundtrip": 1,
         "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
-        "flash_attention_bwd_dkdv": 0}
+        "flash_attention_bwd_dkdv": 0, "lru_scan_fwd": 0, "lru_scan_bwd": 0}
 
 
 @pytest.mark.cuda
@@ -109,6 +109,9 @@ def _assert_within_bf16_step(got, want):
         (1, 150, 150, 8, 1, 128, True, 0),      # G = 8, hd 128
         (1, 300, 300, 4, 2, 64, True, 100),     # window, ragged
         (1, 24, 56, 4, 2, 32, False, 0),        # non-causal, Sq != Skv
+        (1, 150, 150, 10, 1, 256, True, 64),    # recurrentgemma: MQA, hd 256
+        (2, 70, 70, 2, 2, 256, True, 0),        # hd 256, G = 1
+        (1, 24, 56, 4, 1, 256, False, 0),       # hd 256, non-causal
     ],
 )
 def test_flash_attention_matches_plain(card, b, sq, skv, hq, hkv, hd, causal,
@@ -177,3 +180,65 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take(card):
         fa.fwd(q.half(), k.half(), v.half(), causal=True, window=0)
     with pytest.raises(ValueError, match="Hkv dividing Hq"):
         fa.fwd(q[:, :, :3].contiguous(), k, v, causal=True, window=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("b,s,w", [(1, 1000, 2560), (2, 37, 45), (3, 16, 1)])
+def test_lru_scan_bitwise_to_plain(card, b, s, w, with_h0, dtype):
+    """K4 forward and backward equal their plain versions bitwise (both
+    round the product, then the sum), at ragged S and W."""
+    gen = torch.Generator(device=card).manual_seed(b * s + w)
+    a = torch.sigmoid(torch.randn((b, s, w), generator=gen, device=card)).to(dtype)
+    x = torch.randn((b, s, w), generator=gen, device=card).to(dtype)
+    g = torch.randn((b, s, w), generator=gen, device=card).to(dtype)
+    h0 = torch.randn((b, w), generator=gen, device=card) if with_h0 else None
+    ops.reset_launches()
+    h = ops.lru_scan_fwd(a, x, h0)
+    want_h = ref.lru_scan_ref(a, x, h0)
+    assert h.dtype == dtype and torch.equal(h, want_h)
+    got = ops.lru_scan_bwd(a, want_h, g, h0)
+    want = ref.lru_scan_bwd_ref(a, want_h, g, h0)
+    for gt, wt in zip(got, want):
+        assert gt.dtype == wt.dtype and torch.equal(gt, wt)
+    counts = ops.launch_counts()
+    assert (counts["lru_scan_fwd"], counts["lru_scan_bwd"]) == (1, 1)
+
+
+@pytest.mark.cuda
+def test_lru_scan_autograd_under_checkpoint(card):
+    gen = torch.Generator(device=card).manual_seed(5)
+    a = torch.sigmoid(torch.randn((2, 300, 96), generator=gen, device=card))
+    x = torch.randn((2, 300, 96), generator=gen, device=card)
+    h0 = torch.randn((2, 96), generator=gen, device=card)
+    g = torch.randn((2, 300, 96), generator=gen, device=card)
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in (a, x, h0)]
+        out = torch.utils.checkpoint.checkpoint(fn, *leaves,
+                                                use_reentrant=False)
+        return torch.autograd.grad(out, leaves, g)
+
+    ops.reset_launches()
+    got = grads(ops.lru_scan)
+    assert ops.launch_counts()["lru_scan_fwd"] == 2  # with the recompute
+    want = grads(ref.lru_scan_ref)
+    for gt, wt in zip(got, want):
+        err = float((gt - wt).abs().max())
+        assert err <= 1e-5 * float(wt.abs().max()), err
+
+
+@pytest.mark.cuda
+def test_lru_wrappers_refuse_what_the_kernels_do_not_take(card):
+    from repro_torch.kernels import rglru_scan as kl
+
+    a = torch.rand((1, 8, 4), device=card)
+    with pytest.raises(TypeError):
+        kl.fwd(a, a.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        kl.fwd(a.transpose(1, 2).contiguous().transpose(1, 2), a)
+    with pytest.raises(ValueError, match="h0"):
+        kl.fwd(a, a, torch.zeros((1, 4), device=card, dtype=torch.bfloat16))
+    with pytest.raises(TypeError):
+        kl.fwd(a.half(), a.half())

@@ -120,7 +120,9 @@ def test_cpu_path_launches_nothing():
     x = torch.ones((3, 256))
     ops.dequantize(*ops.quantize(x))
     ops.reduce_compress_roundtrip(torch.ones((2, 3, 256)))
+    a = torch.full((1, 4, 3), 0.5)
+    ops.lru_scan_bwd(a, ops.lru_scan_fwd(a, a), a)
     assert ops.launch_counts() == {
         "quantize": 0, "dequantize": 0, "reduce_compress_roundtrip": 0,
         "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
-        "flash_attention_bwd_dkdv": 0}
+        "flash_attention_bwd_dkdv": 0, "lru_scan_fwd": 0, "lru_scan_bwd": 0}
