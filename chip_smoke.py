@@ -70,7 +70,33 @@ Phases, each reported on its own line (any failure raises, exit != 0):
    magnitude);
 12. reference (hybrid): one flat int8 round of reduced recurrentgemma_2b
    with ``blocked`` attention on the card and on the CPU agree within one
-   quantization step.
+   quantization step;
+13. kernels / K5: the WKV6 forward and backward against their plain
+   versions (the sequential recurrence and its reverse pass) at the main
+   shape (1, 4096, 40, 64) f32, under decays drawn as the model draws them
+   (whose cumulative log-decay passes -88 inside a chunk, where the
+   reference's chunked form overflows) and under the reference test's mild
+   ones, and over a sweep (head dims 16 and 32, ragged S 1000 and 37,
+   batch 2): outputs within 1e-4 (rtol = atol, the reference's WKV
+   tolerance), gradients within 1e-4 of their largest magnitude, all
+   finite; median ms of the kernels (20 timed runs), of the plain loops
+   (3 timed runs: each is 4,096 dependent steps) and the bound;
+14. ssm: 2 flat uncompressed rounds of full rwkv6_3b (3.07 B parameters,
+   32 layers; cohort 2, 2 local steps, batch 1, seq 4096: 16,384 tokens a
+   round) through ``repro_torch.launch.train``; losses finite, K5 forward
+   launched at least rounds x cohort x steps x 32 x 2 (the checkpoint
+   recompute) and its backward half that; round seconds, tokens/s, model
+   utilization and peak GiB;
+15. ssm grads: rwkv6_3b at full width with 2 layers, f32, seq 4096, batch
+   1, seeds 0 and 1: loss and every gradient through K5 against PyTorch's
+   autograd of its plain forward on the card (loss within 1e-5 relative;
+   each leaf within ``SSM_GRAD_TOL`` of its largest magnitude, a limit
+   set from measured readings because the model at init magnifies f32
+   rounding), and a control, the plain forward with a bf16 WKV output,
+   that must read beyond that limit;
+16. reference (ssm): one flat int8 round of reduced rwkv6_3b (one head of
+   64, seq 64) on the card and on the CPU agree within one quantization
+   step.
 
 Then one JSON line with every kernel's launches, error and times, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, and when
@@ -606,6 +632,142 @@ def phase_lru(gen):
     return results
 
 
+# K5: the WKV6 recurrence at rwkv6_3b's shape (batch 1, seq 4096, 40 heads
+# of 64, f32 as the model calls it), and a sweep: head dims 16 and 32,
+# ragged S, batch 2. Each under the model's decay law and the reference
+# test's mild one.
+WKV_MAIN = (1, 4096, 40, 64)
+WKV_SWEEP = ((2, 1000, 2, 32), (2, 37, 3, 16), (1, 300, 2, 64),
+             (2, 129, 3, 64))
+WKV_PLAIN_RUNS = 3
+WKV_SOURCE = "src/repro_torch/kernels/csrc/wkv6.cu"
+WKV_REPLACES = {"wkv6_fwd": "src/repro/kernels/wkv6.py:73",
+                # no TPU backward: the reference differentiates its
+                # chunked jnp form with XLA
+                "wkv6_bwd": "src/repro/models/rwkv.py:142"}
+
+
+def wkv_inputs(gen, b, s, h, n, law):
+    """r, k, v, the output gradient and u (x 0.5) standard normal; logw as
+    the model draws it (``-exp(w0 + lora)``, w0 ~ N(0, 0.5) per channel as
+    ``rwkv.py:47``, lora 0.3 N(0, 1)), whose cumulative log-decay passes
+    -88 inside a 64-step chunk, or mild (``-exp(0.5 N(0, 1))``, the
+    reference's kernel test)."""
+    dev = torch.device("cuda")
+    r, k, v, do = (torch.randn((b, s, h, n), generator=gen, device=dev)
+                   for _ in range(4))
+    if law == "model":
+        w0 = 0.5 * torch.randn((h, n), generator=gen, device=dev)
+        lw = -torch.exp(w0 + 0.3 * torch.randn((b, s, h, n), generator=gen,
+                                               device=dev))
+    else:
+        lw = -torch.exp(0.5 * torch.randn((b, s, h, n), generator=gen,
+                                          device=dev))
+    u = 0.5 * torch.randn((h, n), generator=gen, device=dev)
+    return r, k, v, lw, u, do
+
+
+def wkv_case(gen, b, s, h, n, law):
+    """K5 forward against the sequential plain version (rtol = atol = 1e-4,
+    the reference's WKV tolerance; chunk states within 1e-4 of their
+    largest magnitude) and the backward, given the plain chunk states,
+    against the plain reverse pass (1e-4 of each gradient's largest
+    magnitude); every output finite. Returns the inputs, the plain states
+    and the errors."""
+    from repro_torch.kernels import ops, ref
+
+    r, k, v, lw, u, do = wkv_inputs(gen, b, s, h, n, law)
+    what = f"K5 {(b, s, h, n)} {law} decays"
+    out, states = ops.wkv6_fwd(r, k, v, lw, u)
+    r_out, r_states = ref.wkv6_fwd_ref(r, k, v, lw, u)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(out).all()), f"{what}: non-finite output")
+    errs = {"out": check_close(f"{what} out", out, r_out, 1e-4)}
+    errs["states"] = float((states - r_states).abs().max())
+    require(errs["states"] <= 1e-4 * max(float(r_states.abs().max()), 1.0),
+            f"{what}: states off by {errs['states']}")
+    got = ops.wkv6_bwd(r, k, v, lw, u, r_states, do)
+    want = ref.wkv6_bwd_ref(r, k, v, lw, u, do)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dr", "dk", "dv", "dlogw", "du"), got, want):
+        require(bool(torch.isfinite(g).all()), f"{what}: non-finite {name}")
+        errs[name] = check_grad(f"{what} {name}", g, w, torch.float32)
+    return (r, k, v, lw, u, do, r_states), errs
+
+
+def wkv_work(b, s, h, n):
+    """(bytes, FLOP) of each K5 kernel at (B, S, H, N): each input of the
+    function read once and each output written once (the forward reads r,
+    k, v, logw and u and writes o; the backward reads those and do and
+    writes dr, dk, dv, dlogw and du). The chunk states that the forward
+    writes and the backward reads are this port's choice for its backward,
+    not part of the function, so the bound leaves them out
+    (:func:`wkv_state_bytes`). FLOP per (b, h) and chunk of L steps, the
+    chunked form's products: forward 2 L^2 N (scores and their product
+    with v) + 4 L N^2 (the readout of S and its update); backward
+    5 L^2 N + 8 L N^2."""
+    nb = b * s * h * n * 4
+    nc = -(-s // 64)
+    lens = [min(64, s - 64 * c) for c in range(nc)]
+    fwd = b * h * sum(2 * L * L * n + 4 * L * n * n for L in lens)
+    bwd = b * h * sum(5 * L * L * n + 8 * L * n * n for L in lens)
+    return {"wkv6_fwd": (4 * nb + h * n * 4 + nb, fwd),
+            "wkv6_bwd": (5 * nb + h * n * 4 + 4 * nb + h * n * 4, bwd)}
+
+
+def wkv_state_bytes(b, s, h, n):
+    """Bytes of the chunk states (B, H, ceil(S / 64), N, N) f32 that the K5
+    forward writes beyond the function's output, and the backward reads."""
+    return b * h * -(-s // 64) * n * n * 4
+
+
+def phase_wkv(gen):
+    """K5 against its plain versions, and its times at rwkv6_3b's shape."""
+    from repro_torch.kernels import ops, ref
+
+    for case in WKV_SWEEP:
+        for law in ("model", "mild"):
+            _, errs = wkv_case(gen, *case, law)
+            log("kernels", name="K5 sweep", shape=case, decays=law,
+                errs=json.dumps({k: f"{v:.3e}" for k, v in errs.items()}))
+    (r, k, v, lw, u, do, states), errs = wkv_case(gen, *WKV_MAIN, "mild")
+    log("kernels", name="K5 main", shape=WKV_MAIN, decays="mild",
+        errs=json.dumps({k: f"{v:.3e}" for k, v in errs.items()}))
+    (r, k, v, lw, u, do, states), errs = wkv_case(gen, *WKV_MAIN, "model")
+    b, s, h, n = WKV_MAIN  # the share of (chunk, channel) pairs whose
+    # in-chunk log-decay passes -88.7, where e^{-lcw} leaves f32's range
+    chunk_sums = lw.double().reshape(b, s // 64, 64, h, n).sum(dim=2)
+    over = float((-chunk_sums > 88.7).double().mean())
+    log("kernels", name="K5 main", shape=WKV_MAIN, decays="model",
+        chunk_ends_past_88=f"{over:.3f}",
+        errs=json.dumps({k: f"{v:.3e}" for k, v in errs.items()}))
+    errs_by = {"wkv6_fwd": max(errs["out"], errs["states"]),
+               "wkv6_bwd": max(errs[g] for g in ("dr", "dk", "dv", "dlogw",
+                                                 "du"))}
+    calls = {"wkv6_fwd": (lambda: ops.wkv6_fwd(r, k, v, lw, u),
+                          lambda: ref.wkv6_fwd_ref(r, k, v, lw, u)),
+             "wkv6_bwd": (lambda: ops.wkv6_bwd(r, k, v, lw, u, states, do),
+                          lambda: ref.wkv6_bwd_ref(r, k, v, lw, u, do))}
+    results = {}
+    for name, (nbytes, flop) in wkv_work(*WKV_MAIN).items():
+        kernel, plain = calls[name]
+        b_ms, by = bound(nbytes, flop)
+        results[name] = dict(
+            err=errs_by[name], ms=time_ms(kernel),
+            plain_ms=time_ms(plain, warmup=1, iters=WKV_PLAIN_RUNS),
+            library_ms=None, bound_ms=b_ms, bound_by=by,
+            source=WKV_SOURCE, replaces=WKV_REPLACES[name])
+        log("kernels", name=name, shape=WKV_MAIN, dtype="float32",
+            ms=f"{results[name]['ms']:.4f}",
+            plain_ms=f"{results[name]['plain_ms']:.4f}",
+            plain_runs=WKV_PLAIN_RUNS, bound_ms=f"{b_ms:.4f}", bound_by=by,
+            bytes=nbytes, flop=flop, err=f"{errs_by[name]:.3e}",
+            state_bytes_beyond_bound=wkv_state_bytes(*WKV_MAIN))
+    del r, k, v, lw, u, do, states
+    torch.cuda.empty_cache()
+    return results
+
+
 def flat_args(**over):
     base = dict(arch="lm_350m", reduced=False, algorithm="local_sgd", rounds=3,
                 cohort=4, local_steps=2, batch=4, seq=512, client_lr=0.05,
@@ -633,24 +795,37 @@ def require_lru_launches(counts: dict, args, layers: int) -> None:
             f"K4 launched {counts}, need fwd >= {2 * steps}, bwd >= {steps}")
 
 
+def require_wkv_launches(counts: dict, args, layers: int) -> None:
+    """Every rwkv layer of every client step ran the K5 forward twice (once
+    more in the checkpoint recompute) and its backward once."""
+    steps = args.rounds * args.cohort * args.local_steps * layers
+    require(counts["wkv6_fwd"] >= 2 * steps and counts["wkv6_bwd"] >= steps,
+            f"K5 launched {counts}, need fwd >= {2 * steps}, bwd >= {steps}")
+
+
 def model_flop(cfg, args, n_params: int) -> float:
     """Model FLOP of one round, without the remat recompute: 6 x params x
     tokens, plus 12 x hd x query heads per visible (q, k) pair of every
-    attention layer and sequence (forward 4 hd, backward 8 hd)."""
-    from repro_torch.models import blocks
+    attention layer and sequence (forward 4 hd, backward 8 hd), plus the
+    WKV's own 12 x N^2 x heads per token of every rwkv layer (the state
+    update and readout: forward 4 N^2, backward 8 N^2)."""
+    from repro_torch.models import blocks, rwkv
 
     tokens = args.cohort * args.local_steps * args.batch * args.seq
     seqs = args.cohort * args.local_steps * args.batch
     window = cfg.window_size if cfg.attention == "local" else 0
     pairs = visible_pairs(args.seq, args.seq, True, window)
-    attn_layers = blocks.layer_kinds(cfg).count("attention")
+    kinds = blocks.layer_kinds(cfg)
+    wkv = 12.0 * cfg.rwkv_head_dim ** 2 * rwkv.num_heads(cfg) * tokens
     return (6.0 * n_params * tokens
-            + 12.0 * cfg.head_dim * cfg.num_heads * pairs * attn_layers * seqs)
+            + 12.0 * cfg.head_dim * cfg.num_heads * pairs
+            * kinds.count("attention") * seqs
+            + wkv * kinds.count("rwkv"))
 
 
 def phase_train(phase: str, **over):
     """Flat rounds of a full-size model through ``launch.train``: lm_350m
-    with int8 deltas, or (``arch``) recurrentgemma_2b."""
+    with int8 deltas, or (``arch``) recurrentgemma_2b or rwkv6_3b."""
     from repro_torch.kernels import ops
     from repro_torch.launch import train
     from repro_torch.models import blocks, registry
@@ -670,6 +845,8 @@ def phase_train(phase: str, **over):
     require_flash_launches(counts, args, kinds.count("attention"))
     if "recurrent" in kinds:
         require_lru_launches(counts, args, kinds.count("recurrent"))
+    if "rwkv" in kinds:
+        require_wkv_launches(counts, args, kinds.count("rwkv"))
     n_params = sum(p.numel() for p in params.values())
     tokens = args.cohort * args.local_steps * args.batch * args.seq
     extra = {}
@@ -763,64 +940,132 @@ def phase_hier():
     return counts
 
 
+# ssm grads: the per-leaf limit of K5's gradients against the plain f32
+# version's, in units of each leaf's largest magnitude. rwkv6_3b at init can
+# be ill-conditioned in f32: at seed 0 some heads' WKV outputs have a mean
+# square ~2e-7 against a median ~10, and the group norm (eps 1e-6)
+# magnifies rounding there, so two f32 computations of the gradient that
+# sum in another order differ by more than 1e-4 (the limit of the other
+# models). On an H100, K5 read 8.2e-4 at seed 0 and ~4e-5 at seeds 1 and 2;
+# the control (a WKV with a bf16 output) read 0.11, 8.7e-3 and 1.2e-2. The
+# limit sits about 3x above the first and 3x below the least of the second.
+SSM_GRAD_TOL = 2.5e-3
+
+
 def phase_grads(phase: str = "grads", arch: str = "lm_350m", layers: int = 2,
-                seq: int = 4096):
+                seq: int = 4096, tol: float = 1e-4, seeds=(0,),
+                control: bool = False):
     """A full-width model with ``layers`` layers, f32, batch 1: loss and
-    gradients through the kernels (K2, and K4 in recurrent layers) against
-    the same through PyTorch's autograd of their plain forwards on the
-    card, from the same parameters and tokens."""
+    gradients through the kernels (K2, K4 in recurrent layers, K5 in rwkv
+    layers) against the same through PyTorch's autograd of their plain
+    forwards on the card, from the same parameters and tokens, drawn from
+    each of ``seeds``: the loss within 1e-5 relative, each leaf within
+    ``tol`` of its largest magnitude.
+
+    ``control``: for each seed, the plain forward once more with the WKV's
+    output (and so its gradient) rounded to bf16. Its worst leaf must be
+    farther than ``tol`` from the plain f32 run's, or the limit could not
+    tell a WKV of lower precision from K5."""
+    import contextlib
     import dataclasses
     from unittest import mock
 
     import numpy as np
 
     from repro_torch.kernels import ops, ref
-    from repro_torch.models import blocks, registry
+    from repro_torch.models import blocks, registry, rwkv
 
     cfg = dataclasses.replace(registry.get_config(arch), num_layers=layers,
                               dtype="float32")
     kinds = blocks.layer_kinds(cfg)
     n_attn, n_rec = kinds.count("attention"), kinds.count("recurrent")
-    params = registry.init_params(cfg, seed=0, device="cuda")
-    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, seq + 1))
-    toks = torch.from_numpy(toks.astype(np.int64)).cuda()
-    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    n_rwkv = kinds.count("rwkv")
 
-    def loss_and_grads():
-        p = {k: v.detach().requires_grad_() for k, v in params.items()}
-        loss = registry.loss_fn(cfg, p, batch)
-        grads = torch.autograd.grad(loss, list(p.values()))
-        return float(loss.detach()), dict(zip(p, grads))
+    def worst_leaf(grads, want):
+        """(name, max over leaves of max |grads - want| / max |want|)."""
+        name, worst = "", 0.0
+        for key, w in want.items():
+            w = w.double()
+            top = max(float(w.abs().max()), 1e-30)
+            ratio = float((grads[key].double() - w).abs().max()) / top
+            if ratio >= worst:
+                name, worst = key, ratio
+        return name, worst
 
-    ops.reset_launches()
-    loss_k, grads_k = loss_and_grads()
-    counts = ops.launch_counts()
-    require(counts["flash_attention_fwd"] >= 2 * n_attn
-            and counts["flash_attention_bwd_dq"] >= n_attn
-            and counts["flash_attention_bwd_dkdv"] >= n_attn
-            and counts["lru_scan_fwd"] >= 2 * n_rec
-            and counts["lru_scan_bwd"] >= n_rec,
-            f"{phase} phase: kernels launched {counts}")
-    with mock.patch.object(ops, "flash_attention",
-                           lambda q, k, v, **kw: ref.flash_attention_ref(q, k, v, **kw)[0]), \
-            mock.patch.object(ops, "lru_scan", ref.lru_scan_ref):
-        loss_p, grads_p = loss_and_grads()
-    rel = abs(loss_k - loss_p) / abs(loss_p)
-    require(rel <= 1e-5, f"loss kernels {loss_k} vs plain {loss_p}")
-    worst_name, worst = "", 0.0
-    for name, gp in grads_p.items():
-        err = float((grads_k[name].double() - gp.double()).abs().max())
-        ratio = err / max(float(gp.double().abs().max()), 1e-30)
-        require(ratio <= 1e-4, f"grad {name}: max abs err {err} = {ratio:.3e} "
-                "of its largest magnitude > 1e-4")
-        if ratio >= worst:
-            worst_name, worst = name, ratio
-    log(phase, arch=arch, seq=seq, layers=",".join(kinds), loss_kernels=loss_k,
-        loss_plain=loss_p, loss_rel_diff=f"{rel:.3e}", leaves=len(grads_p),
-        worst_leaf=worst_name, worst_err_over_max=f"{worst:.3e}",
-        launches=json.dumps(counts))
-    del params, grads_k, grads_p
-    torch.cuda.empty_cache()
+    def plain_forwards(wkv6=ref.wkv6_ref):
+        stack = contextlib.ExitStack()
+        stack.enter_context(mock.patch.object(
+            ops, "flash_attention",
+            lambda q, k, v, **kw: ref.flash_attention_ref(q, k, v, **kw)[0]))
+        stack.enter_context(mock.patch.object(ops, "lru_scan", ref.lru_scan_ref))
+        stack.enter_context(mock.patch.object(ops, "wkv6", wkv6))
+        return stack
+
+    for seed in seeds:
+        params = registry.init_params(cfg, seed=seed, device="cuda")
+        toks = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                    (1, seq + 1))
+        toks = torch.from_numpy(toks.astype(np.int64)).cuda()
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+        def loss_and_grads():
+            p = {k: v.detach().clone().requires_grad_()
+                 for k, v in params.items()}
+            loss = registry.loss_fn(cfg, p, batch)
+            grads = torch.autograd.grad(loss, list(p.values()))
+            return float(loss.detach()), dict(zip(p, grads))
+
+        # the spread of the per-head mean squares the group norm divides by
+        mean_squares = []
+
+        def group_norm(x, scale, _norm=rwkv._group_norm):
+            ms = torch.mean(x.detach() ** 2, dim=-1)
+            mean_squares.append((float(ms.min()), float(ms.median())))
+            return _norm(x, scale)
+
+        ops.reset_launches()
+        with mock.patch.object(rwkv, "_group_norm", group_norm):
+            loss_k, grads_k = loss_and_grads()
+        counts = ops.launch_counts()
+        require(counts["flash_attention_fwd"] >= 2 * n_attn
+                and counts["flash_attention_bwd_dq"] >= n_attn
+                and counts["flash_attention_bwd_dkdv"] >= n_attn
+                and counts["lru_scan_fwd"] >= 2 * n_rec
+                and counts["lru_scan_bwd"] >= n_rec
+                and counts["wkv6_fwd"] >= 2 * n_rwkv
+                and counts["wkv6_bwd"] >= n_rwkv,
+                f"{phase} phase: kernels launched {counts}")
+        with plain_forwards():
+            loss_p, grads_p = loss_and_grads()
+        rel = abs(loss_k - loss_p) / abs(loss_p)
+        require(rel <= 1e-5, f"loss kernels {loss_k} vs plain {loss_p}")
+        name, worst = worst_leaf(grads_k, grads_p)
+        require(worst <= tol, f"grad {name}: max abs err {worst:.3e} of its "
+                f"largest magnitude > {tol:.3e}")
+        extra = {}
+        if control:
+            def bf16_wkv(*a):
+                return ref.wkv6_ref(*a).bfloat16().float()
+
+            with plain_forwards(bf16_wkv):
+                _, grads_c = loss_and_grads()
+            c_name, c_worst = worst_leaf(grads_c, grads_p)
+            require(c_worst > tol, f"control (bf16 WKV output) reads "
+                    f"{c_worst:.3e} <= {tol:.3e}: the limit cannot tell it "
+                    f"from the kernels")
+            extra = dict(control_worst_leaf=c_name,
+                         control_err_over_max=f"{c_worst:.3e}")
+            del grads_c
+        if mean_squares:
+            extra["head_mean_square_min_median"] = [
+                (f"{a:.3e}", f"{b:.3e}") for a, b in mean_squares]
+        log(phase, arch=arch, seq=seq, seed=seed, layers=",".join(kinds),
+            loss_kernels=loss_k, loss_plain=loss_p, loss_rel_diff=f"{rel:.3e}",
+            leaves=len(grads_p), worst_leaf=name,
+            worst_err_over_max=f"{worst:.3e}", limit=f"{tol:.1e}", **extra,
+            launches=json.dumps(counts))
+        del params, grads_k, grads_p
+        torch.cuda.empty_cache()
 
 
 def phase_reference(attn_impl: str, arch: str = "lm_350m"):
@@ -830,7 +1075,8 @@ def phase_reference(attn_impl: str, arch: str = "lm_350m"):
     (the deltas are quantized one by one, then averaged). ``naive``
     attention holds the int8 kernels; ``blocked`` adds K2's forward and
     backward; the hybrid config adds K4 (recurrent layers, f32, seq 64
-    beyond the reduced window of 32)."""
+    beyond the reduced window of 32); the ssm config runs K5 (one head of
+    64, seq 64, a whole chunk)."""
     import functools
 
     from repro_torch import optim
@@ -912,11 +1158,20 @@ def main() -> int:
         batch=1, seq=4096, compression="none")
     phase_grads("hybrid grads", "recurrentgemma_2b", layers=3)
     phase_reference("blocked", "recurrentgemma_2b")
+    wkv = phase_wkv(gen)
+    ssm_counts = phase_train(
+        "ssm", arch="rwkv6_3b", rounds=2, cohort=2, local_steps=2, batch=1,
+        seq=4096, compression="none")
+    phase_grads("ssm grads", "rwkv6_3b", layers=2, tol=SSM_GRAD_TOL,
+                seeds=(0, 1), control=True)
+    phase_reference("naive", "rwkv6_3b")
     launches = {"quantize": flat_counts["quantize"],
                 "dequantize": flat_counts["dequantize"],
                 "reduce_compress_roundtrip": hier_counts["reduce_compress_roundtrip"],
                 "lru_scan_fwd": hybrid_counts["lru_scan_fwd"],
-                "lru_scan_bwd": hybrid_counts["lru_scan_bwd"]}
+                "lru_scan_bwd": hybrid_counts["lru_scan_bwd"],
+                "wkv6_fwd": ssm_counts["wkv6_fwd"],
+                "wkv6_bwd": ssm_counts["wkv6_bwd"]}
 
     def entry(name, r, n, **extra):
         return {"name": name, "route": "cuda", "source": r["source"],
@@ -946,6 +1201,11 @@ def main() -> int:
               shape=f"{LRU_MAIN} f32 (hybrid rounds)",
               plain_runs=LRU_PLAIN_RUNS)
         for name, r in lru.items()]
+    line["kernels"] += [
+        entry(name, r, launches[name],
+              shape=f"{WKV_MAIN} f32, model-like decays (ssm rounds)",
+              plain_runs=WKV_PLAIN_RUNS)
+        for name, r in wkv.items()]
     log("done", seconds=f"{time.perf_counter() - t_start:.1f}",
         padded_vocab=transformer.padded_vocab(cfg), packed_rows=rows, card=smi)
     print(json.dumps(line), flush=True)

@@ -31,7 +31,8 @@ from .. import compat
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("quantize", "reduce_compress", "flash_attention", "rglru_scan")
+SOURCES = ("quantize", "reduce_compress", "flash_attention", "rglru_scan",
+           "wkv6")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -68,6 +69,13 @@ SIGNATURES = {
         "repro_lru_scan_fwd": (_P, _P, _P, _C, _P, _C, _C, _C, _P),
         "repro_lru_scan_bwd": (_P, _P, _P, _P, _C, _P, _P, _P, _C, _C, _C,
                                _P),
+    },
+    # (r, k, v, logw, u, out, states, rdec, dvec, B, S, H, N, stream) and
+    # (r, k, v, logw, u, states, dout, dr, dk, dv, dlogw, dstates, du_part,
+    #  du, B, S, H, N, stream)
+    "wkv6": {
+        "repro_wkv6_fwd": (_P,) * 9 + (_C,) * 4 + (_P,),
+        "repro_wkv6_bwd": (_P,) * 14 + (_C,) * 4 + (_P,),
     },
 }
 

@@ -21,6 +21,7 @@ from . import quantize as _quant
 from . import reduce_compress as _rc
 from . import ref as _ref
 from . import rglru_scan as _lru
+from . import wkv6 as _wkv
 
 
 def _on_card(t: torch.Tensor, what: str) -> bool:
@@ -207,9 +208,59 @@ def lru_scan(a: torch.Tensor, b: torch.Tensor, h0=None) -> torch.Tensor:
     return _LruScan.apply(a.contiguous(), b.contiguous(), h0)
 
 
+def wkv6_fwd(r, k, v, logw, u):
+    """K5 forward: the WKV6 recurrence over axis 1 of (B, S, H, N) f32 ->
+    (out f32, states): on the card the state entering each 64-step chunk
+    (B, H, ceil(S / 64), N, N), which the backward kernel reads; on the
+    CPU None (the plain backward runs the recurrence again)."""
+    if not _on_card(r, "wkv6_fwd"):
+        return _ref.wkv6_ref(r, k, v, logw, u), None
+    out = _wkv.fwd(r, k, v, logw, u)
+    wkv6_fwd.launches += 1
+    return out
+
+
+def wkv6_bwd(r, k, v, logw, u, states, dout):
+    """K5 backward, the chunked reverse pass: -> (dr, dk, dv, dlogw, du),
+    f32; du (H, N) summed over batch and chunks in a fixed order."""
+    if not _on_card(r, "wkv6_bwd"):
+        return _ref.wkv6_bwd_ref(r, k, v, logw, u, dout)
+    out = _wkv.bwd(r, k, v, logw, u, states, dout)
+    wkv6_bwd.launches += 1
+    return out
+
+
+class _Wkv6(torch.autograd.Function):
+    """WKV6 with the chunked reverse pass as its backward. Saves the inputs
+    and the chunk states (none on the CPU); works under non-reentrant
+    ``torch.utils.checkpoint``, which runs the forward again in the
+    backward."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u):
+        out, states = wkv6_fwd(r, k, v, logw, u)
+        ctx.save_for_backward(r, k, v, logw, u, states)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        r, k, v, logw, u, states = ctx.saved_tensors
+        return wkv6_bwd(r, k, v, logw, u, states, dout.contiguous())
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         logw: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The RWKV-6 WKV recurrence with its backward: r, k, v, logw
+    (B, S, H, N), u (H, N), all f32 -> out (B, S, H, N) f32, from a zero
+    state. On the card the K5 kernels, on the CPU their plain versions."""
+    return _Wkv6.apply(r.contiguous(), k.contiguous(), v.contiguous(),
+                       logw.contiguous(), u.contiguous())
+
+
 KERNEL_WRAPPERS = (quantize, dequantize, reduce_compress_roundtrip,
                    flash_attention_fwd, flash_attention_bwd_dq,
-                   flash_attention_bwd_dkdv, lru_scan_fwd, lru_scan_bwd)
+                   flash_attention_bwd_dkdv, lru_scan_fwd, lru_scan_bwd,
+                   wkv6_fwd, wkv6_bwd)
 for _fn in KERNEL_WRAPPERS:
     _fn.launches = 0
 

@@ -2,8 +2,8 @@
 
 Each function computes what its kernel computes, op for op, so that the
 kernel can be held to it on the card (bitwise for K1, K3 and K4, within
-the stated f32/bf16 tolerances for K2, whose sums run in another order) and the
-CPU path can be held to the JAX oracle. The ``ops`` wrappers run these only for CPU tensors.
+the stated f32/bf16 tolerances for K2 and K5, whose sums run in another
+order) and the CPU path can be held to the JAX oracle. The ``ops`` wrappers run these only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -218,3 +218,77 @@ def lru_scan_bwd_ref(a: torch.Tensor, h: torch.Tensor, g: torch.Tensor,
     dh0 = a_next * dh
     return (torch.stack(das, dim=1).to(a.dtype),
             torch.stack(dbs, dim=1).to(a.dtype), dh0)
+
+
+# --- K5: the RWKV-6 WKV recurrence ---------------------------------------
+
+WKV_CHUNK = 64  # the K5 kernels' chunk: the forward saves S at each start
+
+
+def wkv6_fwd_ref(r, k, v, logw, u):
+    """Sequential WKV6, ``repro/kernels/ref.py:wkv6_ref`` op for op, in f32:
+
+        o_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T)
+        S_t = diag(exp(logw_t)) S_{t-1} + k_t v_t^T      (S_{-1} = 0)
+
+    r, k, v, logw (B, S, H, N), u (H, N) -> (out (B, S, H, N) f32, states
+    (B, H, ceil(S / 64), N, N) f32): the state entering each 64-step chunk,
+    which the K5 backward reads. Differentiable (autograd through the
+    loop)."""
+    r, k, v, logw = (t.to(torch.float32) for t in (r, k, v, logw))
+    b, s, h, n = r.shape
+    uu = u.to(torch.float32)[None, :, :, None]
+    S = torch.zeros((b, h, n, n), dtype=torch.float32, device=r.device)
+    outs, states = [], []
+    for t in range(s):
+        if t % WKV_CHUNK == 0:
+            states.append(S)
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t], S + uu * kv))
+        S = torch.exp(logw[:, t])[..., None] * S + kv
+    return torch.stack(outs, dim=1), torch.stack(states, dim=2)
+
+
+def wkv6_ref(r, k, v, logw, u):
+    """The WKV6 output alone: (B, S, H, N) f32."""
+    return wkv6_fwd_ref(r, k, v, logw, u)[0]
+
+
+def wkv6_bwd_ref(r, k, v, logw, u, dout):
+    """The gradient of :func:`wkv6_ref` as a reverse pass over the steps,
+    in f32, with G_t = dL/dS_t (G_{S-1} = 0) and w_t = exp(logw_t):
+
+        dr_t = S_{t-1} do_t + u * k_t (v_t . do_t)
+        dk_t = G_t v_t + u * r_t (v_t . do_t)
+        dv_t = G_t^T k_t + (r_t . (u * k_t)) do_t
+        dlogw_t = w_t * rowsum(S_{t-1} * G_t)
+        du = sum over batch and steps of r_t * k_t (v_t . do_t)
+        G_{t-1} = r_t do_t^T + diag(w_t) G_t
+
+    The states S_{t-1} come from the forward run again. Returns (dr, dk,
+    dv, dlogw (B, S, H, N), du (H, N)), all f32."""
+    r, k, v, logw, do = (t.to(torch.float32) for t in (r, k, v, logw, dout))
+    uu = u.to(torch.float32)
+    b, s, h, n = r.shape
+    S = torch.zeros((b, h, n, n), dtype=torch.float32, device=r.device)
+    prev = []
+    for t in range(s):
+        prev.append(S)
+        S = torch.exp(logw[:, t])[..., None] * S + \
+            k[:, t, :, :, None] * v[:, t, :, None, :]
+    G = torch.zeros_like(S)
+    du = torch.zeros_like(uu)
+    grads = [[None] * s for _ in range(4)]
+    for t in range(s - 1, -1, -1):
+        rt, kt, vt, dot = r[:, t], k[:, t], v[:, t], do[:, t]
+        w = torch.exp(logw[:, t])
+        dd = torch.sum(dot * vt, dim=-1, keepdim=True)
+        grads[0][t] = torch.einsum("bhkv,bhv->bhk", prev[t], dot) + uu * kt * dd
+        grads[1][t] = torch.einsum("bhkv,bhv->bhk", G, vt) + uu * rt * dd
+        grads[2][t] = (torch.einsum("bhkv,bhk->bhv", G, kt)
+                       + torch.sum(rt * uu * kt, dim=-1, keepdim=True) * dot)
+        grads[3][t] = w * torch.sum(prev[t] * G, dim=-1)
+        du = du + torch.sum(rt * kt * dd, dim=0)
+        G = rt[..., None] * dot[..., None, :] + w[..., None] * G
+    dr, dk, dv, dlogw = (torch.stack(g, dim=1) for g in grads)
+    return dr, dk, dv, dlogw, du

@@ -4,7 +4,8 @@ Runs DrJAX local-SGD rounds of a full-size model (default: lm_350m in the
 ``chip_smoke.py`` flat and hierarchical settings: cohort 4, 2 local steps,
 int8; the smoke's long rounds are ``--seq 4096 --batch 2``; its hybrid
 rounds are ``--arch recurrentgemma_2b --seq 4096 --batch 1 --cohort 2
---compression none``), warms up one round, then traces one round with
+--compression none``, its ssm rounds the same with ``--arch rwkv6_3b``),
+warms up one round, then traces one round with
 ``torch.profiler`` and prints the round's wall time, the device's busy time
 (the sum of kernel times; one stream, so kernels do not overlap) and idle
 share, and the device time by kernel family and by kernel:
@@ -34,6 +35,7 @@ from . import train
 FAMILIES = (
     ("flash attention K2 (repro)", ("repro::flash::",)),
     ("RG-LRU scan K4 (repro)", ("repro::lru::",)),
+    ("WKV6 K5 (repro)", ("repro::wkv::",)),
     ("int8 kernels (repro)", ("quantize_kernel", "dequantize_kernel",
                               "reduce_compress_roundtrip_kernel")),
     ("matmul", ("gemm", "cutlass", "xmma", "cublas", "sm90_", "nvjet")),

@@ -1,9 +1,9 @@
 """End-to-end training driver (``repro/launch/train.py``).
 
-Trains lm_350m or recurrentgemma_2b (``--arch``) with DrJAX local-SGD /
-FedAvg / DiLoCo rounds, optionally with int8 delta compression, on one CUDA
-card (``--device cuda``, the default; it raises without a card) or, for
-small runs, the CPU (``--device cpu``):
+Trains lm_350m, recurrentgemma_2b or rwkv6_3b (``--arch``) with DrJAX
+local-SGD / FedAvg / DiLoCo rounds, optionally with int8 delta
+compression, on one CUDA card (``--device cuda``, the default; it raises
+without a card) or, for small runs, the CPU (``--device cpu``):
 
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch lm_350m --reduced --algorithm diloco --rounds 20 \
@@ -11,6 +11,10 @@ small runs, the CPU (``--device cpu``):
 
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch recurrentgemma_2b --cohort 2 --local-steps 2 --batch 1 \
+        --seq 4096 --compression none
+
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch rwkv6_3b --cohort 2 --local-steps 2 --batch 1 \
         --seq 4096 --compression none
 
 Same flags and the same final JSON line as the reference. Not ported yet,

@@ -1,13 +1,15 @@
 """Transformer blocks (``repro/models/blocks.py``), train mode.
 
-``block_apply(cfg, kind, p, x, positions)`` with ``kind`` "attention" or
-"recurrent" and ``p`` the block's parameters keyed ``ln1.scale``,
-``attn.wq`` ... (attention) or ``rec.w_in`` ... (recurrent), then
-``ln2.scale`` and ``mlp.wi`` ... (the names of :class:`Block`). Both kinds
-are pre-norm residual blocks with a gated MLP. A local window applies to
-attention layers only.
-Left out for later slices: RWKV blocks, MoE FFNs, and the
-prefill/decode/chunk modes with their caches.
+``block_apply(cfg, kind, p, x, positions)`` with ``kind`` "attention",
+"recurrent" or "rwkv" and ``p`` the block's parameters keyed ``ln1.scale``,
+``attn.wq`` ... (attention), ``rec.w_in`` ... (recurrent) or ``tm.wr`` ...
+(rwkv), then ``ln2.scale`` and, but for rwkv, ``mlp.wi`` ... (the names of
+:class:`Block`). Attention and recurrent blocks are pre-norm residual
+blocks with a gated MLP; an rwkv block is ln1, time mix, residual, ln2,
+channel mix, residual, with no MLP. A local window applies to attention
+layers only.
+Left out for later slices: MoE FFNs, and the prefill/decode/chunk modes
+with their caches and states.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import Dict
 import torch
 from torch import nn
 
-from . import attention, common, mlp, rglru
+from . import attention, common, mlp, rglru, rwkv
 
 
 def sub(params: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
@@ -27,14 +29,17 @@ def sub(params: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]
 
 
 def layer_kinds(cfg):
-    """Per-layer block kinds: the hybrid family repeats ``block_pattern``."""
+    """Per-layer block kinds: the hybrid family repeats ``block_pattern``,
+    the ssm family (RWKV-6) is all rwkv."""
     if cfg.family == "dense":
         return ["attention"] * cfg.num_layers
+    if cfg.family == "ssm":
+        return ["rwkv"] * cfg.num_layers
     if cfg.family == "hybrid":
         pat = cfg.block_pattern
         return [pat[i % len(pat)] for i in range(cfg.num_layers)]
     raise NotImplementedError(
-        f"repro_torch ports the dense and hybrid families; {cfg.name} is "
+        f"repro_torch ports the dense, hybrid and ssm families; {cfg.name} is "
         f"{cfg.family}"
     )
 
@@ -42,6 +47,11 @@ def layer_kinds(cfg):
 def block_apply(cfg, kind: str, p: Dict[str, torch.Tensor], x: torch.Tensor,
                 positions: torch.Tensor) -> torch.Tensor:
     h = common.rmsnorm_apply(p["ln1.scale"], x, cfg.norm_eps)
+    if kind == "rwkv":
+        tp = sub(p, "tm.")
+        x = x + rwkv.time_mix(cfg, tp, h)
+        h2 = common.rmsnorm_apply(p["ln2.scale"], x, cfg.norm_eps)
+        return x + rwkv.channel_mix(cfg, tp, h2)
     if kind == "attention":
         window = cfg.window_size if cfg.attention == "local" else 0
         ap = sub(p, "attn.")
@@ -92,7 +102,8 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    """One layer of ``kind`` "attention" (``attn``) or "recurrent" (``rec``)."""
+    """One layer of ``kind`` "attention" (``attn``), "recurrent" (``rec``) or
+    "rwkv" (``tm``, which holds the channel mix too, and no ``mlp``)."""
 
     def __init__(self, cfg, kind: str, generator: torch.Generator,
                  device=None):
@@ -103,6 +114,9 @@ class Block(nn.Module):
             self.attn = Attention(cfg, generator, device)
         elif kind == "recurrent":
             self.rec = rglru.RGLRU(cfg, generator, device)
+        elif kind == "rwkv":
+            self.tm = rwkv.RWKV(cfg, generator, device)
+            return
         else:
             raise ValueError(f"block kind {kind!r} is not ported")
         self.mlp = MLP(cfg, generator, device)

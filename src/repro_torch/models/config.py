@@ -1,9 +1,9 @@
 """Model configuration (``repro/models/config.py``), carried over as data.
 
 The same frozen dataclass and the same ``reduced()`` as the reference, so a
-config means the same model in both packages. The port runs the dense and
-hybrid families; the MoE, SSM, encoder-decoder and VLM fields are kept so
-configs carry over unchanged, and the model code rejects them.
+config means the same model in both packages. The port runs the dense,
+hybrid and ssm (RWKV-6) families; the MoE, encoder-decoder and VLM fields
+are kept so configs carry over unchanged, and the model code rejects them.
 """
 
 from __future__ import annotations

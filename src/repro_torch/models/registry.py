@@ -1,6 +1,7 @@
 """Architecture registry (``repro/models/registry.py``): config lookup,
-parameter init and the loss. The port registers lm_350m (dense) and
-recurrentgemma_2b (hybrid: RG-LRU and local attention); the other
+parameter init and the loss. The port registers lm_350m (dense),
+recurrentgemma_2b (hybrid: RG-LRU and local attention) and rwkv6_3b (ssm:
+RWKV-6); the other
 architectures, input specs and serve-step builders wait."""
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from .. import compat
 from . import transformer
 from .config import ModelConfig
 
-ARCH_IDS = ("lm_350m", "recurrentgemma_2b")
+ARCH_IDS = ("lm_350m", "recurrentgemma_2b", "rwkv6_3b")
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -3,7 +3,8 @@
 :class:`TransformerLM` is the ``nn.Module``: it owns the parameters, named
 ``embed.table``, ``final_ln.scale``, ``lm_head.w`` and
 ``layers.<i>.{ln1,ln2}.scale`` / ``layers.<i>.attn.w{q,k,v,o}`` (attention
-layers) or ``layers.<i>.rec.*`` (recurrent layers of the hybrid family) /
+layers), ``layers.<i>.rec.*`` (recurrent layers of the hybrid family) or
+``layers.<i>.tm.*`` (rwkv layers of the ssm family, no MLP) /
 ``layers.<i>.mlp.w{i,g,o}``. The math is :func:`forward` and
 :func:`loss_fn` over a flat dict of those tensors, so a training round can
 run a client's own copy of the parameters through the same code
@@ -14,8 +15,7 @@ is a Python loop. ``remat="full"`` checkpoints each layer
 (``torch.utils.checkpoint``, non-reentrant).
 
 Left out for later slices: tied embeddings, frontend embeddings (VLM),
-the MoE and RWKV families and the serve paths (prefill, decode, chunked
-prefill).
+the MoE family and the serve paths (prefill, decode, chunked prefill).
 """
 
 from __future__ import annotations
@@ -51,8 +51,8 @@ class Readout(nn.Module):
 
 
 class TransformerLM(nn.Module):
-    """The dense or hybrid LM. Parameters are drawn from ``generator``
-    (whose device must be ``device``)."""
+    """The dense, hybrid or ssm (RWKV-6) LM. Parameters are drawn from
+    ``generator`` (whose device must be ``device``)."""
 
     def __init__(self, cfg, generator: torch.Generator, device=None):
         super().__init__()

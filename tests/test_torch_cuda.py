@@ -41,7 +41,8 @@ def test_kernels_match_plain(card, dtype):
     assert ops.launch_counts() == {
         "quantize": 1, "dequantize": 1, "reduce_compress_roundtrip": 1,
         "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
-        "flash_attention_bwd_dkdv": 0, "lru_scan_fwd": 0, "lru_scan_bwd": 0}
+        "flash_attention_bwd_dkdv": 0, "lru_scan_fwd": 0, "lru_scan_bwd": 0,
+        "wkv6_fwd": 0, "wkv6_bwd": 0}
 
 
 @pytest.mark.cuda
@@ -242,3 +243,93 @@ def test_lru_wrappers_refuse_what_the_kernels_do_not_take(card):
         kl.fwd(a, a, torch.zeros((1, 4), device=card, dtype=torch.bfloat16))
     with pytest.raises(TypeError):
         kl.fwd(a.half(), a.half())
+
+
+def _wkv_inputs(card, b, s, h, n, law, seed=0):
+    """r, k, v, the output gradient and u standard normal (u x 0.5); logw
+    mild (``-exp(0.5 N(0, 1))``, the reference test's) or as the model
+    draws it (``-exp(w0 + lora)``, w0 ~ N(0, 0.5) per channel), whose
+    cumulative log-decay passes -88 inside a 64-step chunk."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    r, k, v, do = (torch.randn((b, s, h, n), generator=gen, device=card)
+                   for _ in range(4))
+    if law == "mild":
+        lw = -torch.exp(0.5 * torch.randn((b, s, h, n), generator=gen,
+                                          device=card))
+    else:
+        w0 = 0.5 * torch.randn((h, n), generator=gen, device=card)
+        lw = -torch.exp(w0 + 0.3 * torch.randn((b, s, h, n), generator=gen,
+                                               device=card))
+    u = 0.5 * torch.randn((h, n), generator=gen, device=card)
+    return r, k, v, lw, u, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("law", ["mild", "model"])
+@pytest.mark.parametrize("b,s,h,n", [(1, 300, 3, 64), (2, 1000, 2, 32),
+                                     (2, 37, 3, 16), (1, 64, 1, 64)])
+def test_wkv6_matches_plain(card, b, s, h, n, law):
+    """K5 forward within 1e-4 (rtol = atol, the reference's WKV tolerance)
+    of the sequential plain version, its chunk states within 1e-4 of their
+    largest magnitude; the backward, given the plain chunk states, within
+    1e-4 of each gradient's largest magnitude; every output finite."""
+    r, k, v, lw, u, do = _wkv_inputs(card, b, s, h, n, law, seed=b * s + n)
+    ops.reset_launches()
+    out, states = ops.wkv6_fwd(r, k, v, lw, u)
+    r_out, r_states = ref.wkv6_fwd_ref(r, k, v, lw, u)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, r_out, rtol=1e-4, atol=1e-4)
+    err = float((states - r_states).abs().max())
+    assert err <= 1e-4 * max(float(r_states.abs().max()), 1.0), err
+    got = ops.wkv6_bwd(r, k, v, lw, u, r_states, do)
+    want = ref.wkv6_bwd_ref(r, k, v, lw, u, do)
+    for name, g, w in zip(("dr", "dk", "dv", "dlogw", "du"), got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all(), name
+        err = float((g - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max()), (name, err)
+    counts = ops.launch_counts()
+    assert (counts["wkv6_fwd"], counts["wkv6_bwd"]) == (1, 1)
+
+
+@pytest.mark.cuda
+def test_wkv6_autograd_under_checkpoint(card):
+    r, k, v, lw, u, do = _wkv_inputs(card, 2, 200, 2, 64, "model", seed=5)
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in (r, k, v, lw, u)]
+        out = torch.utils.checkpoint.checkpoint(fn, *leaves,
+                                                use_reentrant=False)
+        return torch.autograd.grad(out, leaves, do)
+
+    ops.reset_launches()
+    got = grads(ops.wkv6)
+    counts = ops.launch_counts()
+    assert (counts["wkv6_fwd"], counts["wkv6_bwd"]) == (2, 1)  # the recompute
+    want = grads(ref.wkv6_ref)
+    for gt, wt in zip(got, want):
+        err = float((gt - wt).abs().max())
+        assert err <= 1e-4 * float(wt.abs().max()), err
+    again = grads(ops.wkv6)  # no atomics: the same bits twice
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_wkv6_wrappers_refuse_what_the_kernels_do_not_take(card):
+    from repro_torch.kernels import wkv6 as kw
+
+    r, k, v, lw, u, do = _wkv_inputs(card, 1, 16, 2, 64, "mild")
+    with pytest.raises(ValueError, match="CUDA"):
+        kw.fwd(r.cpu(), k.cpu(), v.cpu(), lw.cpu(), u.cpu())
+    with pytest.raises(TypeError, match="float32"):
+        kw.fwd(r.bfloat16(), k.bfloat16(), v.bfloat16(), lw.bfloat16(), u)
+    with pytest.raises(ValueError, match="head dim"):
+        kw.fwd(*(t[..., :48].contiguous() for t in (r, k, v, lw)),
+               u[:, :48].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        kw.fwd(r.transpose(1, 2), k, v, lw, u)
+    with pytest.raises(ValueError, match="u must be"):
+        kw.fwd(r, k, v, lw, u[:1])
+    _, states = kw.fwd(r, k, v, lw, u)
+    with pytest.raises(ValueError, match="states"):
+        kw.bwd(r, k, v, lw, u, states[:, :1, :, :8], do)

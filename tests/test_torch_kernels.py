@@ -122,7 +122,11 @@ def test_cpu_path_launches_nothing():
     ops.reduce_compress_roundtrip(torch.ones((2, 3, 256)))
     a = torch.full((1, 4, 3), 0.5)
     ops.lru_scan_bwd(a, ops.lru_scan_fwd(a, a), a)
+    w = torch.full((1, 4, 1, 16), -0.5)
+    out, states = ops.wkv6_fwd(w, w, w, w, w[0, 0])
+    ops.wkv6_bwd(w, w, w, w, w[0, 0], states, out)
     assert ops.launch_counts() == {
         "quantize": 0, "dequantize": 0, "reduce_compress_roundtrip": 0,
         "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
-        "flash_attention_bwd_dkdv": 0, "lru_scan_fwd": 0, "lru_scan_bwd": 0}
+        "flash_attention_bwd_dkdv": 0, "lru_scan_fwd": 0, "lru_scan_bwd": 0,
+        "wkv6_fwd": 0, "wkv6_bwd": 0}
