@@ -10,8 +10,10 @@ Phases, each reported on its own line (any failure raises, exit != 0):
    (one process per source, in parallel) into ``build/kernels``;
 2. kernels: each kernel against its plain PyTorch version on the card at
    the shapes of the main path (the packed lm_350m delta, R rows of 256
-   f32; (2, 2, R, 256) for the fused reduce), bitwise, plus a small bf16
-   check; median ms of the kernel, of the plain version and, for
+   f32; (2, 2, R, 256) for the fused reduce and the wire payload K3a, whose
+   (q, s) must also be K3b's; (2, R, 256) payloads for K3c), bitwise, plus
+   a small bf16 check and a K3a/K3c sweep (bf16, R = 1 and 1027, P = 1, 3
+   and 4); median ms of the kernel, of the plain version and, for
    dequantize, of the one library call that computes it (``torch.mul``)
    (CUDA events, >= 20 timed runs after warmup) beside the bytes bound;
    then K2 (flash attention forward, ``bwd_dq`` and ``bwd_dkdv``) against
@@ -33,7 +35,17 @@ Phases, each reported on its own line (any failure raises, exit != 0):
 4. hier: 2 pod-hierarchical rounds (2 pods x 2 clients, fused int8
    reduce+compress), then one more round from the same state unfused; the
    fused and unfused rounds agree within one quantization step per element;
-   the fused rounds launch K2 as often as the flat ones;
+   the fused rounds launch K2 as often as the flat ones. Then the wire
+   step: the last round's client deltas rebuilt and flat-packed, K3a's
+   payload (bitwise to K3b's, its bytes those of ``cross_pod_bytes``) and
+   K3c's cross-pod mean (within the R6 bound of the round's
+   ``reduce_mean@pods``);
+4b. stragglers: 3 rounds of full lm_350m through ``launch.train
+   --stragglers`` (deadline at the 90th percentile, cohort 4, int8): masks
+   that drop clients, finite losses, per-client K1 and no K3b; from the
+   trained state, an all-ones mask bitwise the unmasked round, an all-zero
+   mask leaving the params bitwise unchanged, and a masked hierarchical
+   round (2 x 2, a whole pod dropped) with per-client K1 and no K3b;
 5. long: 2 flat int8 rounds of full lm_350m at seq 4096 (the reference's
    train_4k shape; cohort 4, 2 local steps, batch 2: 65,536 tokens a
    round); losses finite, the same K2 launch counts;
@@ -43,7 +55,8 @@ Phases, each reported on its own line (any failure raises, exit != 0):
    relative, each leaf within 1e-4 of its largest magnitude);
 7. reference: one flat int8 round of the reduced config on the card and on
    the CPU (the plain versions) agree within one quantization step, with
-   ``naive`` attention and again with ``blocked`` (K2 on the card);
+   ``naive`` attention and again with ``blocked`` (K2 on the card), and a
+   masked round of cohort 4;
 8. kernels / K4: the RG-LRU scan forward and backward bitwise against
    their plain versions, at the main shape (1, 4096, 2560) f32 and over
    small ragged shapes (S not a multiple of the unroll, W not a multiple
@@ -293,6 +306,54 @@ def phase_kernels(rows: int, gen):
     del x4, outs, refs
     torch.cuda.empty_cache()
 
+    # K3a reduce_compress, the wire payload, on the same layout with zero
+    # rows as K1a's case has them; its (q, s) must also be K3b's. Then K3c
+    # dequant_accumulate on the P = 2 payloads.
+    x4 = torch.randn((L, G, rows, 256), generator=gen, device=dev) * 1e-3
+    x4[:, :, :7] = 0.0
+    q, s = krc.reduce_compress(x4)
+    qr, sr = ref.reduce_compress_ref(x4)
+    _, qb, sb = krc.reduce_compress_roundtrip(x4)
+    torch.cuda.synchronize()
+    require_equal((q, s), (qr, sr), "reduce_compress")
+    require_equal((q, s), (qb, sb), "reduce_compress vs K3b's payload")
+    err = max_abs_err((q, s), (qr, sr))
+    del qr, sr, qb, sb
+    b, by = bound(G * m * 4 + m + L * rows * 4, (G + 6.0) * m)
+    results["reduce_compress"] = dict(
+        err=err, ms=time_ms(lambda: krc.reduce_compress(x4)),
+        plain_ms=time_ms(lambda: ref.reduce_compress_ref(x4)),
+        library_ms=None, bound_ms=b, bound_by=by,
+        source="src/repro_torch/kernels/csrc/reduce_compress.cu",
+        replaces="src/repro/kernels/reduce_compress.py:84")
+    log("kernels", name="reduce_compress", shape=tuple(x4.shape),
+        bitwise=True, payload_equals_k3b=True,
+        ms=f"{results['reduce_compress']['ms']:.4f}",
+        plain_ms=f"{results['reduce_compress']['plain_ms']:.4f}",
+        library_ms="- (no one call)", bound_ms=f"{b:.4f}")
+    del x4
+    torch.cuda.empty_cache()
+    out = krc.dequant_accumulate(q, s)
+    outr = ref.dequant_accumulate_ref(q, s)
+    torch.cuda.synchronize()
+    require_equal((out,), (outr,), "dequant_accumulate")
+    err = max_abs_err((out,), (outr,))
+    del outr
+    torch.cuda.empty_cache()
+    b, by = bound(L * rows * (256 + 4) + rows * 256 * 4, 2.0 * L * rows * 256)
+    results["dequant_accumulate"] = dict(
+        err=err, ms=time_ms(lambda: krc.dequant_accumulate(q, s)),
+        plain_ms=time_ms(lambda: ref.dequant_accumulate_ref(q, s)),
+        library_ms=None, bound_ms=b, bound_by=by,
+        source="src/repro_torch/kernels/csrc/reduce_compress.cu",
+        replaces="src/repro/kernels/reduce_compress.py:139")
+    log("kernels", name="dequant_accumulate", shape=tuple(q.shape),
+        bitwise=True, ms=f"{results['dequant_accumulate']['ms']:.4f}",
+        plain_ms=f"{results['dequant_accumulate']['plain_ms']:.4f}",
+        library_ms="- (no one call)", bound_ms=f"{b:.4f}")
+    del q, s, out
+    torch.cuda.empty_cache()
+
     # bf16 instances of the same kernels, ragged row count
     xb = (torch.randn((4099, 256), generator=gen, device=dev) * 3).bfloat16()
     qb, sb = kq.quantize(xb)
@@ -306,6 +367,28 @@ def phase_kernels(rows: int, gen):
                   "bf16 reduce_compress_roundtrip")
     torch.cuda.synchronize()
     log("kernels", bf16="bitwise", shapes="(4099,256),(2,3,1027,256)")
+
+    # K3a/K3c sweep: bf16 input, R = 1 and 1027, P = 1, 3 and 4
+    for shape, dtype in (((2, 3, 1027, 256), torch.bfloat16),
+                         ((2, 2, 1, 256), torch.float32),
+                         ((1, 4, 1027, 256), torch.float32)):
+        xs = (torch.randn(shape, generator=gen, device=dev) * 1e-2).to(dtype)
+        xs[:, :, :1] = 0.0
+        q, s = krc.reduce_compress(xs)
+        require_equal((q, s), ref.reduce_compress_ref(xs),
+                      f"reduce_compress {shape} {dtype}")
+        require_equal((q, s), krc.reduce_compress_roundtrip(xs)[1:],
+                      f"reduce_compress {shape} {dtype} vs K3b's payload")
+    for p, r in ((1, 1027), (3, 1027), (4, 1027), (3, 1)):
+        xs = torch.randn((p, r, 256), generator=gen, device=dev) * 1e-2
+        q, s = krc.reduce_compress(xs[:, None])  # p pods of one client
+        require_equal((krc.dequant_accumulate(q, s),),
+                      (ref.dequant_accumulate_ref(q, s),),
+                      f"dequant_accumulate P={p} R={r}")
+    torch.cuda.synchronize()
+    log("kernels", name="K3a/K3c sweep", bitwise=True,
+        reduce_compress="(2,3,1027,256) bf16, (2,2,1,256), (1,4,1027,256)",
+        dequant_accumulate="P 1/3/4 x R 1027, P 3 x R 1")
     return results
 
 
@@ -771,7 +854,9 @@ def phase_wkv(gen):
 def flat_args(**over):
     base = dict(arch="lm_350m", reduced=False, algorithm="local_sgd", rounds=3,
                 cohort=4, local_steps=2, batch=4, seq=512, client_lr=0.05,
-                compression="int8", log_every=1, seed=0, device="cuda")
+                compression="int8", stragglers=False,
+                straggler_deadline_pct=90.0, log_every=1, seed=0,
+                device="cuda")
     base.update(over)
     return argparse.Namespace(**base)
 
@@ -834,7 +919,7 @@ def phase_train(phase: str, **over):
     cfg = registry.get_config(args.arch)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    summary, params, _, losses, seconds = train.train(args)
+    summary, params, _, losses, seconds, _ = train.train(args)
     counts = ops.launch_counts()
     require(all(math.isfinite(v) for v in losses), f"non-finite losses {losses}")
     if args.compression == "int8":
@@ -866,9 +951,10 @@ def phase_train(phase: str, **over):
     return counts
 
 
-def hier_round_fn(cfg, args, pods: int, fused: bool):
+def hier_round_fn(cfg, args, pods: int, fused, straggler: bool = False):
     """The pod-hierarchical int8 round (``pods`` pods of ``args.cohort //
-    pods`` clients), fused reduce+compress or the generic composition."""
+    pods`` clients), fused reduce+compress or the generic composition, or
+    (``straggler``) the masked round, which compresses per client."""
     import functools
 
     from repro_torch.algorithms import rounds
@@ -878,7 +964,8 @@ def hier_round_fn(cfg, args, pods: int, fused: bool):
     client_opt, server_opt = train.optimizers(args)
     round_cfg = rounds.LocalSGDConfig(
         partition_size=args.cohort // pods, num_local_steps=args.local_steps,
-        grad_clip=1.0, compression="int8", num_pods=pods, fused_reduce=fused)
+        grad_clip=1.0, compression="int8", num_pods=pods, fused_reduce=fused,
+        straggler_mask=straggler)
     return rounds.make_hierarchical_local_sgd_round(
         functools.partial(registry.loss_fn, cfg), client_opt, server_opt,
         round_cfg), server_opt
@@ -935,7 +1022,197 @@ def phase_hier():
         round_s=[round(v, 3) for v in seconds], unfused_s=round(unfused_s, 3),
         fused_vs_unfused_worst=f"{worst:.4f}", equal_fraction=f"{equal:.6f}",
         launches=json.dumps(counts))
-    del states, base, params, unfused
+    del unfused
+    torch.cuda.empty_cache()
+    wire_counts = phase_wire(cfg, args, base, base_state,
+                             data(args.rounds - 1), params, server_opt)
+    del states, base, params
+    torch.cuda.empty_cache()
+    return counts, wire_counts
+
+
+def phase_wire(cfg, args, base, base_state, batch, new_params, server_opt):
+    """The [hier] wire step: the last fused round's stacked client deltas (2
+    pods x 2 clients), rebuilt from the state it started from with the
+    round's own client update through ``map_fn``, flat-packed as the round
+    packs them, then K3a (each pod's int8 payload) and K3c (the cross-pod
+    mean of the payloads), as a runtime with a slow cross-pod link would run
+    them on each side of it. K3a's payload must be bitwise to its plain
+    version and to K3b's, and its bytes those of ``cross_pod_bytes``; K3c
+    must be bitwise to its plain version and within P 2^-23 mean_p
+    |q_p s_p| per element (the FMA difference of ROADMAP.md R6) of the
+    round's cross-pod mean, ``reduce_mean@pods`` of K3b's roundtrip
+    partials. That mean, applied by the server optimizer, must give the
+    round's new params within one int8 step (the rebuilt deltas are the
+    round's). Returns the launches of K3a and K3c in this step."""
+    import functools
+
+    from repro_torch import core as drjax
+    from repro_torch.algorithms import rounds
+    from repro_torch.compression import api as compression
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import reduce_compress as krc
+    from repro_torch.launch import train
+    from repro_torch.models import registry
+    from repro_torch.optim import apply_updates
+
+    pods, per = 2, args.cohort // 2
+    client_opt, _ = train.optimizers(args)
+    client = rounds._make_client_update(
+        functools.partial(registry.loss_fn, cfg), client_opt,
+        rounds.LocalSGDConfig(partition_size=per,
+                              num_local_steps=args.local_steps, grad_clip=1.0))
+
+    @drjax.program(placements={"pods": pods, "clients": per})
+    def deltas_of(global_params, round_data):
+        params_b = drjax.broadcast(global_params)
+        return drjax.map_fn(client, (params_b, round_data))[0]
+
+    @drjax.program(placements={"pods": pods, "clients": per})
+    def cross_pod_mean(partials):
+        return drjax.reduce_mean(partials, placement="pods")
+
+    with torch.no_grad():
+        bufs, spec = compression.flat_pack(deltas_of(base, batch), lead_ndim=2)
+    require(list(bufs) == ["float32"], f"packed dtypes {list(bufs)}")
+    buf = bufs["float32"]
+    rows = buf.shape[-2]
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    q, s = ops.reduce_compress(buf)
+    mean = ops.dequant_accumulate(q, s)
+    torch.cuda.synchronize()
+    wire_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    require(counts["reduce_compress"] == 1 and counts["dequant_accumulate"] == 1,
+            f"wire step launched {counts}")
+    require_equal((q, s), ref.reduce_compress_ref(buf), "wire reduce_compress")
+    require_equal((mean,), (ref.dequant_accumulate_ref(q, s),),
+                  "wire dequant_accumulate")
+    back, qb, sb = krc.reduce_compress_roundtrip(buf)
+    require_equal((q, s), (qb, sb), "wire payload vs K3b's")
+    del bufs, buf, qb, sb
+    wire = drjax.cross_pod_bytes(rows * 1024, n=args.cohort,
+                                 num_supergroups=pods, compress="int8")
+    payload = q.numel() + 4 * s.numel()
+    require(payload == wire["hierarchical_bytes"],
+            f"payload {payload} B != cross_pod_bytes {wire['hierarchical_bytes']}")
+    pod_mean = cross_pod_mean(back)
+    del back
+    limit = pods * 2.0 ** -23 * (q.to(torch.float32) * s).abs().mean(dim=0)
+    diff = (mean - pod_mean).abs()
+    excess = float((diff - limit).max())
+    require(excess <= 0, f"K3c vs the round's cross-pod mean beyond the R6 "
+            f"bound by {excess} (max abs diff {float(diff.max())})")
+    worst_r6 = float((diff / limit.clamp_min(1e-30)).max())
+    equal_k3c = float((mean == pod_mean).double().mean())
+    del diff, limit, mean
+    applied = compression.flat_unpack({"float32": pod_mean}, spec, lead_ndim=0)
+    updates, _ = server_opt.update(applied, base_state, base)
+    rebuilt = apply_updates(base, updates)
+    del updates, applied
+    steps = quant_steps({k: new_params[k].float() - base[k].float()
+                         for k in new_params})
+    worst, equal = agree_within_step(new_params, rebuilt, steps, rel=2.0 ** -7)
+    require(worst <= 1.0, f"rebuilt round vs the round beyond one int8 step: "
+            f"{worst}")
+    log("hier", step="wire", packed_rows=rows, payload_bytes=payload,
+        cross_pod_bytes=wire["hierarchical_bytes"],
+        k3a_payload_equals_k3b=True, plain_bitwise=True,
+        k3c_vs_pod_mean_worst_over_r6_bound=f"{worst_r6:.4f}",
+        k3c_vs_pod_mean_equal_fraction=f"{equal_k3c:.6f}",
+        rebuilt_vs_round_worst=f"{worst:.4f}",
+        rebuilt_vs_round_equal_fraction=f"{equal:.6f}",
+        wire_s=round(wire_s, 4), launches=json.dumps(counts))
+    del q, s, pod_mean, rebuilt
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_stragglers():
+    """Straggler-masked rounds of full lm_350m: ``launch.train`` with
+    ``--stragglers`` (deadline at the 90th percentile of the cohort's
+    simulated durations, half the cohort kept), then, from the trained
+    state on the last round's data, the round unmasked, with an all-ones
+    mask (bitwise the unmasked round: 4 is a power of two), with an
+    all-zero mask (params bitwise unchanged, loss 0), and one masked
+    hierarchical int8 round (2 pods x 2 clients) that drops a whole pod
+    (per-client K1, no K3b)."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.data.grouped import CohortSampler, GroupedCorpus
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import registry
+
+    args = flat_args(stragglers=True, straggler_deadline_pct=90.0)
+    cfg = registry.get_config(args.arch)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    summary, params, state, losses, seconds, masks = train.train(args)
+    counts = ops.launch_counts()
+    require(all(math.isfinite(v) for v in losses), f"non-finite losses {losses}")
+    need = args.rounds * args.cohort
+    require(counts["quantize"] == need and counts["dequantize"] == need,
+            f"masked rounds launched {counts}, need K1a/K1b {need} each")
+    require(counts["reduce_compress_roundtrip"] == 0, f"K3b launched {counts}")
+    require_flash_launches(counts, args, cfg.num_layers)
+    kept = [int(m.sum()) for m in masks]
+    require(min(kept) < args.cohort, f"no client dropped in any round: {kept}")
+    log("stragglers", deadline_pct=args.straggler_deadline_pct,
+        masks=[m.int().tolist() for m in masks],
+        losses=[round(v, 5) for v in losses],
+        round_s=[round(v, 3) for v in seconds],
+        peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+        launches=json.dumps(counts))
+    print(json.dumps(summary), flush=True)
+
+    sampler = CohortSampler(GroupedCorpus(vocab_size=cfg.vocab_size),
+                            cohort_size=args.cohort)
+    d = sampler.round_batch(args.rounds - 1, args.local_steps, args.batch,
+                            args.seq, device="cuda")
+    batch = {"tokens": d["tokens"], "labels": d["labels"]}
+    round_fn, _ = train.build_round_fn(cfg, args)
+    plain, _, m_plain = round_fn(params, state, batch)
+    ones, _, m_ones = round_fn(params, state, batch,
+                               torch.ones(args.cohort, device="cuda"))
+    same = [k for k in plain if torch.equal(plain[k], ones[k])]
+    require(len(same) == len(plain)
+            and float(m_plain["loss"]) == float(m_ones["loss"]),
+            f"all-ones mask != unmasked round: {len(plain) - len(same)} "
+            f"leaves differ, loss {float(m_ones['loss'])} vs "
+            f"{float(m_plain['loss'])}")
+    del plain, ones
+    zero, zero_state, m_zero = round_fn(params, state, batch,
+                                        torch.zeros(args.cohort, device="cuda"))
+    require(all(torch.equal(zero[k], params[k]) for k in params),
+            "all-zero mask moved the params")
+    require(float(m_zero["loss"]) == 0.0, f"all-zero loss {float(m_zero['loss'])}")
+    require(all(bool(torch.isfinite(v).all())
+                for v in pytree.tree_leaves(zero_state)),
+            "all-zero mask: non-finite server state")
+    del zero
+
+    hier_fn, _ = hier_round_fn(cfg, args, pods=2, fused=None, straggler=True)
+    pod_mask = torch.tensor([[1.0, 1.0], [0.0, 0.0]], device="cuda")
+    hier_batch = {k: v.reshape((2, 2) + tuple(v.shape[1:]))
+                  for k, v in batch.items()}
+    ops.reset_launches()
+    hier, _, m_hier = hier_fn(params, state, hier_batch, pod_mask)
+    hier_counts = ops.launch_counts()
+    require(all(bool(torch.isfinite(v).all()) for v in hier.values())
+            and math.isfinite(float(m_hier["loss"])),
+            "masked hierarchical round: non-finite params or loss")
+    require(hier_counts["quantize"] == args.cohort
+            and hier_counts["dequantize"] == args.cohort
+            and hier_counts["reduce_compress_roundtrip"] == 0,
+            f"masked hierarchical round launched {hier_counts}: need per-"
+            f"client K1 ({args.cohort} each) and no K3b")
+    log("stragglers", all_ones_equals_unmasked=True,
+        all_zero_params_unchanged=True, all_zero_loss=float(m_zero["loss"]),
+        hier_mask=pod_mask.int().tolist(), hier_loss=float(m_hier["loss"]),
+        hier_launches=json.dumps(hier_counts))
+    del params, hier
     torch.cuda.empty_cache()
     return counts
 
@@ -1068,7 +1345,8 @@ def phase_grads(phase: str = "grads", arch: str = "lm_350m", layers: int = 2,
         torch.cuda.empty_cache()
 
 
-def phase_reference(attn_impl: str, arch: str = "lm_350m"):
+def phase_reference(attn_impl: str, arch: str = "lm_350m",
+                    stragglers: bool = False):
     """Reduced config (f32), one flat int8 round from the same parameters
     and data on the card (kernels) and on the CPU (plain versions). They
     agree within the mean over clients of each client delta's int8 step
@@ -1076,7 +1354,9 @@ def phase_reference(attn_impl: str, arch: str = "lm_350m"):
     attention holds the int8 kernels; ``blocked`` adds K2's forward and
     backward; the hybrid config adds K4 (recurrent layers, f32, seq 64
     beyond the reduced window of 32); the ssm config runs K5 (one head of
-    64, seq 64, a whole chunk)."""
+    64, seq 64, a whole chunk). ``stragglers``: a masked round of cohort 4
+    with ``launch.train``'s first mask, and the mean of the steps of the
+    clients it keeps."""
     import functools
 
     from repro_torch import optim
@@ -1085,9 +1365,14 @@ def phase_reference(attn_impl: str, arch: str = "lm_350m"):
     from repro_torch.launch import train
     from repro_torch.models import registry
 
-    args = flat_args(arch=arch, reduced=True, rounds=1, cohort=2, batch=2,
-                     seq=64)
+    from repro_torch.runtime import StragglerSimulator
+
+    args = flat_args(arch=arch, reduced=True, rounds=1,
+                     cohort=4 if stragglers else 2, batch=2, seq=64,
+                     stragglers=stragglers)
     cfg = registry.get_config(arch).reduced(attn_impl=attn_impl)
+    weights = (train.round_mask(StragglerSimulator(), 0, args, "cpu")
+               if stragglers else torch.ones(args.cohort))
     base = registry.init_params(cfg, seed=0, device="cpu")
     sampler = CohortSampler(GroupedCorpus(vocab_size=cfg.vocab_size),
                             cohort_size=args.cohort)
@@ -1098,7 +1383,9 @@ def phase_reference(attn_impl: str, arch: str = "lm_350m"):
         d = sampler.round_batch(0, args.local_steps, args.batch, args.seq,
                                 device=device)
         batch = {"tokens": d["tokens"], "labels": d["labels"]}
-        new, _, metrics = round_fn(params, server_opt.init(params), batch)
+        mask = weights.to(device) if stragglers else None
+        new, _, metrics = round_fn(params, server_opt.init(params), batch,
+                                   mask)
         out[device] = ({k: v.cpu() for k, v in new.items()},
                        float(metrics["loss"]))
     client = rounds._make_client_update(
@@ -1109,12 +1396,16 @@ def phase_reference(attn_impl: str, arch: str = "lm_350m"):
         deltas = [client(base, {k: batch[k][c].cpu() for k in batch})[0]
                   for c in range(args.cohort)]
     per_client = [quant_steps(dl) for dl in deltas]
-    steps = {k: sum(s[k] for s in per_client) / len(per_client) for k in base}
+    w = weights.tolist()
+    steps = {k: sum(wi * s[k] for wi, s in zip(w, per_client)) / sum(w)
+             for k in base}
     worst, equal = agree_within_step(out["cpu"][0], out["cuda"][0], steps, rel=0.0)
     require(worst <= 1.0, f"card vs CPU beyond one int8 step: {worst}")
     require(abs(out["cuda"][1] - out["cpu"][1]) <= 1e-5 * abs(out["cpu"][1]),
             f"loss card {out['cuda'][1]} vs cpu {out['cpu'][1]}")
-    log("reference", arch=arch, attn_impl=attn_impl, loss_card=out["cuda"][1],
+    log("reference", arch=arch, attn_impl=attn_impl,
+        mask=weights.int().tolist() if stragglers else None,
+        loss_card=out["cuda"][1],
         loss_cpu=out["cpu"][1],
         worst=f"{worst:.4f}", equal_fraction=f"{equal:.6f}")
 
@@ -1145,12 +1436,14 @@ def main() -> int:
     flash = phase_flash(gen)
     flat_counts = phase_train("flat")
     torch.cuda.reset_peak_memory_stats()
-    hier_counts = phase_hier()
+    hier_counts, wire_counts = phase_hier()
     log("hier", peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    phase_stragglers()
     long_counts = phase_train("long", rounds=2, batch=2, seq=4096)
     phase_grads()
     phase_reference("naive")
     phase_reference("blocked")
+    phase_reference("naive", stragglers=True)
     lru = phase_lru(gen)
     flash256 = phase_flash_hd256(gen)
     hybrid_counts = phase_train(
@@ -1168,6 +1461,8 @@ def main() -> int:
     launches = {"quantize": flat_counts["quantize"],
                 "dequantize": flat_counts["dequantize"],
                 "reduce_compress_roundtrip": hier_counts["reduce_compress_roundtrip"],
+                "reduce_compress": wire_counts["reduce_compress"],
+                "dequant_accumulate": wire_counts["dequant_accumulate"],
                 "lru_scan_fwd": hybrid_counts["lru_scan_fwd"],
                 "lru_scan_bwd": hybrid_counts["lru_scan_bwd"],
                 "wkv6_fwd": ssm_counts["wkv6_fwd"],

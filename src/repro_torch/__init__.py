@@ -6,10 +6,11 @@ port imports ``torch`` and numpy only — never ``jax`` and nothing of
 ``repro``; the parity tests import both.
 
 It ports the paper's §4 training path: DrJAX local-SGD rounds, flat and
-pod-hierarchical, with int8 delta compression, for the dense LM (lm_350m)
-and the hybrid RG-LRU + local-attention LM (recurrentgemma_2b), on
-hand-written Hopper kernels (``kernels/csrc/*.cu``). What it leaves out is
-listed in each module's docstring and in ROADMAP.md.
+pod-hierarchical, with int8 delta compression and straggler masks, for
+the dense LM (lm_350m), the hybrid RG-LRU + local-attention LM
+(recurrentgemma_2b) and the RWKV-6 LM (rwkv6_3b), on hand-written Hopper
+kernels (``kernels/csrc/*.cu``). What it leaves out is listed in each
+module's docstring and in ROADMAP.md.
 """
 
 from . import compat

@@ -12,9 +12,11 @@ round itself runs without autograd; each client step takes its gradient
 with ``torch.autograd.grad`` on a detached copy of the client's parameters.
 
 Ported: ``LocalSGDConfig``, the client update, ``make_local_sgd_round`` and
-``make_hierarchical_local_sgd_round`` (unmasked), with int8 compression.
-Left out for later slices: straggler-masked rounds, top-k compression,
-``make_multi_round``, FedSGD and the async rounds.
+``make_hierarchical_local_sgd_round``, with int8 compression and straggler
+masks (``cfg.straggler_mask`` and a ``mask`` argument: the masked
+reduction averages over the groups that finished). Left out for later
+slices: top-k compression, ``make_multi_round``, FedSGD and the async
+rounds.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ class LocalSGDConfig:
     num_local_steps: int = 4
     grad_clip: float = 0.0
     compression: Optional[str] = None  # None | "int8"
+    straggler_mask: bool = False
     # Pod-hierarchical rounds: number of slow-link domains (0 = flat). Then
     # partition_size counts clients PER POD and the round runs under the
     # nested {"pods": num_pods, "clients": partition_size} stack.
@@ -92,20 +95,25 @@ def _make_client_update(loss_fn: Callable, client_opt: Optimizer,
 
 def make_local_sgd_round(loss_fn: Callable, client_opt: Optimizer,
                          server_opt: Optimizer, cfg: LocalSGDConfig):
-    """Returns ``round_fn(global_params, server_state, round_data)``.
+    """Returns ``round_fn(global_params, server_state, round_data[, mask])``.
 
-    ``round_data`` leaves have shape (n, num_local_steps, ...per-step batch).
-    Returns (new_params, new_server_state, metrics).
+    ``round_data`` leaves have shape (n, num_local_steps, ...per-step batch);
+    ``mask`` (n,) f32, used when ``cfg.straggler_mask``, weights the mean
+    over the clients. Returns (new_params, new_server_state, metrics).
     """
     client_update = _make_client_update(loss_fn, client_opt, cfg)
 
     @drjax.program(partition_size=cfg.partition_size)
-    def round_fn(global_params, server_state, round_data):
+    def round_fn(global_params, server_state, round_data, mask=None):
         with torch.no_grad():
             params_b = drjax.broadcast(global_params)
             deltas, losses = drjax.map_fn(client_update, (params_b, round_data))
-            mean_delta = drjax.reduce_mean(deltas)
-            mean_loss = drjax.reduce_mean(losses)
+            if cfg.straggler_mask and mask is not None:
+                mean_delta = drjax.masked_reduce_mean(deltas, mask)
+                mean_loss = drjax.masked_reduce_mean(losses, mask)
+            else:
+                mean_delta = drjax.reduce_mean(deltas)
+                mean_loss = drjax.reduce_mean(losses)
             del deltas
             updates, new_server_state = server_opt.update(
                 mean_delta, server_state, global_params
@@ -121,29 +129,40 @@ def make_hierarchical_local_sgd_round(loss_fn: Callable, client_opt: Optimizer,
                                       cfg: LocalSGDConfig):
     """Pod-hierarchical local SGD under ``{"pods": cfg.num_pods, "clients":
     cfg.partition_size}``. ``round_data`` leaves have shape (num_pods,
-    clients_per_pod, num_local_steps, ...). The aggregation is the two-stage
-    ``hierarchical_reduce_mean`` with ``cfg.compression`` applied to the pod
-    partials (the bytes that cross the slow leg), so the per-client leg runs
-    uncompressed; int8 takes the fused reduce+compress kernel unless
-    ``cfg.fused_reduce`` is False.
+    clients_per_pod, num_local_steps, ...); an optional straggler ``mask``
+    is (num_pods, clients_per_pod). Unmasked, the aggregation is the
+    two-stage ``hierarchical_reduce_mean`` with ``cfg.compression`` applied
+    to the pod partials (the bytes that cross the slow leg), so the
+    per-client leg runs uncompressed; int8 takes the fused reduce+compress
+    kernel unless ``cfg.fused_reduce`` is False. With ``cfg.straggler_mask``
+    the masked reduction spans both levels in one weighted pass, so the
+    round keeps the flat round's per-client compression and takes no pod
+    partial path, fused or not.
     """
     if cfg.num_pods < 1:
         raise ValueError("make_hierarchical_local_sgd_round needs cfg.num_pods >= 1")
-    client_update = _make_client_update(
-        loss_fn, client_opt, dataclasses.replace(cfg, compression=None)
-    )
-    pod_compress = compression.int8_roundtrip if cfg.compression == "int8" else None
+    client_cfg = (cfg if cfg.straggler_mask
+                  else dataclasses.replace(cfg, compression=None))
+    client_update = _make_client_update(loss_fn, client_opt, client_cfg)
+    pod_compress = (compression.int8_roundtrip
+                    if cfg.compression == "int8" and not cfg.straggler_mask
+                    else None)
 
     @drjax.program(placements={"pods": cfg.num_pods,
                                "clients": cfg.partition_size})
-    def round_fn(global_params, server_state, round_data):
+    def round_fn(global_params, server_state, round_data, mask=None):
         with torch.no_grad():
             params_b = drjax.broadcast(global_params)
             deltas, losses = drjax.map_fn(client_update, (params_b, round_data))
-            mean_delta = drjax.hierarchical_reduce_mean(
-                deltas, compress_fn=pod_compress, use_fused=cfg.fused_reduce
-            )
-            mean_loss = drjax.hierarchical_reduce_mean(losses)
+            if cfg.straggler_mask and mask is not None:
+                mean_delta = drjax.masked_reduce_mean(deltas, mask)
+                mean_loss = drjax.masked_reduce_mean(losses, mask)
+            else:
+                mean_delta = drjax.hierarchical_reduce_mean(
+                    deltas, compress_fn=pod_compress,
+                    use_fused=cfg.fused_reduce
+                )
+                mean_loss = drjax.hierarchical_reduce_mean(losses)
             del deltas
             updates, new_server_state = server_opt.update(
                 mean_delta, server_state, global_params

@@ -5,11 +5,13 @@ from .api import (
     broadcast,
     current_context,
     map_fn,
+    masked_reduce_mean,
     partition_size,
     placement_context,
     program,
     reduce_mean,
     reduce_sum,
+    reduce_weighted_mean,
 )
 from .hierarchical import (
     cross_pod_bytes,
@@ -28,9 +30,11 @@ __all__ = [
     "int8_wire_ratio",
     "make_context",
     "map_fn",
+    "masked_reduce_mean",
     "partition_size",
     "placement_context",
     "program",
     "reduce_mean",
     "reduce_sum",
+    "reduce_weighted_mean",
 ]

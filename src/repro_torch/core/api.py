@@ -16,9 +16,10 @@ All ops take trees (dicts, lists, tuples of tensors; ``torch.utils._pytree``)
 whose every leaf carries the leading group axes.
 
 Ported: ``program``, ``broadcast``, ``map_fn``, ``reduce_sum``,
-``reduce_mean``, ``partition_size``. Left out for later slices:
-``reduce_max``, ``reduce_weighted_mean``/``masked_reduce_mean`` (straggler
-rounds), ``stage_transfer``/``stage_map``, and the sharding annotations.
+``reduce_mean``, ``reduce_weighted_mean``, ``masked_reduce_mean`` (the
+straggler rounds' reduction) and ``partition_size``. Left out for later
+slices: ``reduce_max``, ``stage_transfer``/``stage_map``, and the sharding
+annotations.
 """
 
 from __future__ import annotations
@@ -40,6 +41,8 @@ __all__ = [
     "map_fn",
     "reduce_sum",
     "reduce_mean",
+    "reduce_weighted_mean",
+    "masked_reduce_mean",
     "partition_size",
     "current_context",
 ]
@@ -117,6 +120,73 @@ def reduce_mean(tree, placement: Optional[str] = None):
     """Mean over one level's groups, or (default) the whole stack as a
     mean of per-level means (equal group sizes)."""
     return _reduce_tree(tree, prims.reduce_mean, placement)
+
+
+def reduce_weighted_mean(tree, weights, placement: Optional[str] = None):
+    """Weighted mean over groups: ``sum_i w_i x_i / sum_i w_i``.
+
+    ``weights`` holds one entry per group: shape ``(n,)`` under the flat
+    API, or the stack-prefix shape (e.g. ``(P, m)``) when reducing a nested
+    stack (no ``placement``, innermost level first) or an inner placement.
+    Differentiable in both ``tree`` and ``weights``.
+
+    When every weight is zero (a straggler mask that dropped the whole
+    cohort) the result is zeros rather than 0/0 = NaN, so a fully dropped
+    round leaves the server params untouched. The guard is a ``torch.where``
+    over a division by a safe denominator, so the gradients stay finite.
+    """
+    ctx = placement_lib.current_context()
+    weights = torch.as_tensor(weights)
+    if placement is None:
+        chain = tuple(reversed(ctx.names))
+        depth_in, depth_out = ctx.depth, 0
+    else:
+        i = ctx.index_of(placement)
+        chain = (placement,)
+        depth_in, depth_out = i + 1, i
+    expected = tuple(ctx.sizes[:depth_in])
+    if tuple(weights.shape) != expected:
+        raise ValueError(
+            f"reduce_weighted_mean: weights have shape {tuple(weights.shape)}, "
+            f"but the reduction over placement(s) {list(ctx.names[:depth_in])} "
+            f"needs one weight per group: expected shape {expected}."
+        )
+
+    def rsum(x):
+        for name in chain:
+            x = prims.reduce_sum(x, placement=name)
+        return x
+
+    denom = rsum(weights)
+    all_dropped = denom == 0
+    safe_denom = torch.where(all_dropped, torch.ones_like(denom), denom)
+
+    def leaf(x):
+        if x.ndim < depth_in or tuple(x.shape[:depth_in]) != expected:
+            raise ValueError(
+                f"reduce_weighted_mean: weights of shape "
+                f"{tuple(weights.shape)} do not match a leaf of shape "
+                f"{tuple(x.shape)}: the leaf's leading "
+                f"{'axis' if depth_in == 1 else f'{depth_in} axes'} must be "
+                f"the group axes {expected} (one entry per group of "
+                f"placement(s) {list(ctx.names[:depth_in])})."
+            )
+        w = weights.reshape(expected + (1,) * (x.ndim - depth_in))
+        s = rsum(x * w)
+        trail = (1,) * (s.ndim - depth_out)
+        dropped = all_dropped.reshape(tuple(all_dropped.shape) + trail)
+        denom_b = safe_denom.reshape(tuple(safe_denom.shape) + trail)
+        return torch.where(dropped, torch.zeros_like(s), s / denom_b)
+
+    return pytree.tree_map(leaf, tree)
+
+
+def masked_reduce_mean(tree, mask, placement: Optional[str] = None):
+    """Mean over the groups with ``mask == 1`` (the straggler-dropping
+    reduce): ``mask`` enters as the weights of
+    :func:`reduce_weighted_mean`, so the reduction stays differentiable and
+    an all-zero mask yields zeros, not NaN."""
+    return reduce_weighted_mean(tree, mask, placement)
 
 
 def map_fn(fn: Callable, tree, placement: Optional[str] = None):

@@ -53,6 +53,12 @@ SIGNATURES = {
             _P, ctypes.c_int, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float,
             _P,
         ),
+        "repro_reduce_compress": (
+            _P, ctypes.c_int, _P, _P, _I64, _I64, _I64, ctypes.c_float, _P,
+        ),
+        "repro_dequant_accumulate": (
+            _P, _P, _P, _I64, _I64, ctypes.c_float, _P,
+        ),
     },
     # (q, k, v, dtype, ...buffers..., B, Sq, Skv, Hq, Hkv, hd, causal,
     #  window, scale, stream)

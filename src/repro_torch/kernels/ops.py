@@ -92,6 +92,37 @@ def reduce_compress_roundtrip(x: torch.Tensor, *, axis: int = 0,
     return back
 
 
+def reduce_compress(x: torch.Tensor):
+    """The int8 wire payload of a partial mean: (..., G, R, 256) ->
+    (q (..., R, 256) int8, s (..., R, 1) f32), the mean over G quantized
+    per 256-wide row (K3a, ``repro/kernels/ops.py:85``). The leading axes
+    fold into the kernel's L dimension, as in
+    :func:`reduce_compress_roundtrip`."""
+    on_card = _on_card(x, "reduce_compress")
+    if x.ndim < 3:
+        raise ValueError(f"reduce_compress: expected (..., G, R, C), got "
+                         f"{tuple(x.shape)}")
+    lead = tuple(x.shape[:-3])
+    x4 = x.reshape((math.prod(lead),) + tuple(x.shape[-3:]))
+    if on_card:
+        q, s = _rc.reduce_compress(x4.contiguous())
+        reduce_compress.launches += 1
+    else:
+        q, s = _ref.reduce_compress_ref(x4)
+    return q.reshape(lead + q.shape[1:]), s.reshape(lead + s.shape[1:])
+
+
+def dequant_accumulate(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """The cross-pod leg: ((P, R, C) int8, (P, R, 1) f32) -> (R, C) f32, the
+    mean over P of the dequantized payloads (K3c,
+    ``repro/kernels/ops.py:92``)."""
+    if not _on_card(q, "dequant_accumulate"):
+        return _ref.dequant_accumulate_ref(q, scales)
+    out = _rc.dequant_accumulate(q, scales)
+    dequant_accumulate.launches += 1
+    return out
+
+
 def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0):
     """K2 forward: -> (out in q's dtype, out_f32, L (B, Sq, Hq) f32)."""
     if not _on_card(q, "flash_attention_fwd"):
@@ -258,9 +289,9 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 KERNEL_WRAPPERS = (quantize, dequantize, reduce_compress_roundtrip,
-                   flash_attention_fwd, flash_attention_bwd_dq,
-                   flash_attention_bwd_dkdv, lru_scan_fwd, lru_scan_bwd,
-                   wkv6_fwd, wkv6_bwd)
+                   reduce_compress, dequant_accumulate, flash_attention_fwd,
+                   flash_attention_bwd_dq, flash_attention_bwd_dkdv,
+                   lru_scan_fwd, lru_scan_bwd, wkv6_fwd, wkv6_bwd)
 for _fn in KERNEL_WRAPPERS:
     _fn.launches = 0
 

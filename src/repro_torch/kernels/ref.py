@@ -59,6 +59,45 @@ def reduce_compress_roundtrip_ref(x: torch.Tensor):
     return dequantize_ref(q, s, x.dtype), q, s
 
 
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` rounded once to f32, as a fused multiply-add.
+
+    ``a * b`` of an int8-valued and an f32 tensor is exact in f64 (at most
+    31 significant bits). Their f64 sum with ``c`` is rounded to odd (the
+    exact error of the f64 addition, a two-sum, decides whether to step
+    the result off an even last bit), and a value rounded to odd at 53 bits
+    rounds to the nearest f32 as the exact sum would: no double rounding.
+    """
+    prod = a.to(torch.float64) * b.to(torch.float64)
+    acc = c.to(torch.float64)
+    total = prod + acc
+    bb = total - prod
+    err = (prod - (total - bb)) + (acc - bb)
+    even = (total.view(torch.int64) & 1) == 0
+    nudge = (err != 0) & even & torch.isfinite(total)
+    toward = torch.where(err > 0, math.inf, -math.inf).to(total)
+    total = torch.where(nudge, torch.nextafter(total, toward), total)
+    return total.to(torch.float32)
+
+
+def dequant_accumulate_ref(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """((P, R, C) int8, (P, R, 1) f32) -> (R, C) f32: the mean over P of
+    ``q * scale``, as the reference's kernel computes it.
+
+    Not ``sum(q * s) / P``: XLA contracts the reference kernel's product and
+    its sum over P into fused multiply-adds (ROADMAP.md R6), so the kernel
+    and its jitted oracle compute ``acc = q_0 s_0`` (one rounded product),
+    ``acc = fma(q_p, s_p, acc)`` for p = 1..P-1 in order, then ``acc *
+    f32(1 / P)``. This version does the same (:func:`fma_f32`), so it is
+    bitwise to the interpreted Pallas kernel and to the CUDA kernel.
+    """
+    p = q.shape[0]
+    acc = q[0].to(torch.float32) * scales[0]
+    for i in range(1, p):
+        acc = fma_f32(q[i], scales[i], acc)
+    return acc * (1.0 / p)
+
+
 # --- K2: flash attention -------------------------------------------------
 
 NEG_INF = -1e30

@@ -40,9 +40,44 @@ def test_kernels_match_plain(card, dtype):
     assert torch.equal(back, ref.reduce_compress_roundtrip_ref(x4)[0])
     assert ops.launch_counts() == {
         "quantize": 1, "dequantize": 1, "reduce_compress_roundtrip": 1,
+        "reduce_compress": 0, "dequant_accumulate": 0,
         "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
         "flash_attention_bwd_dkdv": 0, "lru_scan_fwd": 0, "lru_scan_bwd": 0,
         "wkv6_fwd": 0, "wkv6_bwd": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wire_kernels_match_plain(card, dtype):
+    """K3a and K3c bitwise to their plain versions, K3a's payload bitwise to
+    K3b's, each launch counted, and a CUDA tensor never takes the plain
+    path."""
+    from unittest import mock
+
+    from repro_torch.kernels import reduce_compress as krc
+
+    gen = torch.Generator(device=card).manual_seed(1)
+    x = torch.randn((2, 3, 1027, 256), generator=gen, device=card).to(dtype)
+    x[:, :, :5] = 0
+    ops.reset_launches()
+    with mock.patch.object(ref, "reduce_compress_ref", side_effect=AssertionError), \
+            mock.patch.object(ref, "dequant_accumulate_ref",
+                              side_effect=AssertionError):
+        q, s = ops.reduce_compress(x)
+        outs = {p: ops.dequant_accumulate(q[:1].expand(p, -1, -1).contiguous(),
+                                          s[:1].expand(p, -1, -1).contiguous())
+                for p in (1, 3, 4)}
+        mean = ops.dequant_accumulate(q, s)
+    assert torch.equal(q, ref.reduce_compress_ref(x)[0])
+    assert torch.equal(s, ref.reduce_compress_ref(x)[1])
+    _, qb, sb = krc.reduce_compress_roundtrip(x)
+    assert torch.equal(q, qb) and torch.equal(s, sb)
+    assert torch.equal(mean, ref.dequant_accumulate_ref(q, s))
+    for p, out in outs.items():
+        qp = q[:1].expand(p, -1, -1)
+        assert torch.equal(out, ref.dequant_accumulate_ref(qp, s[:1].expand(p, -1, -1)))
+    counts = ops.launch_counts()
+    assert counts["reduce_compress"] == 1 and counts["dequant_accumulate"] == 4
 
 
 @pytest.mark.cuda
@@ -56,6 +91,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
         ops.quantize(torch.zeros((256, 8), device=card).t())
     with pytest.raises(TypeError):
         ops.quantize(torch.zeros((4, 256), device=card, dtype=torch.float16))
+    q8 = torch.zeros((2, 4, 256), device=card, dtype=torch.int8)
+    with pytest.raises(ValueError, match="scales"):
+        ops.dequant_accumulate(q8, torch.zeros((2, 4), device=card))
+    with pytest.raises(TypeError):
+        ops.dequant_accumulate(q8.float(), torch.zeros((2, 4, 1), device=card))
 
 
 @pytest.mark.cuda
@@ -69,7 +109,8 @@ def test_round_on_card_matches_cpu(card):
     from repro_torch.models import registry
 
     args = argparse.Namespace(algorithm="local_sgd", cohort=2, local_steps=2,
-                              client_lr=0.05, compression="int8")
+                              client_lr=0.05, compression="int8",
+                              stragglers=False)
     cfg = registry.get_config("lm_350m").reduced()
     base = registry.init_params(cfg, seed=0, device="cpu")
     sampler = CohortSampler(GroupedCorpus(vocab_size=cfg.vocab_size),
