@@ -7,7 +7,9 @@ Phases, each reported on its own line (any failure raises, exit != 0):
 
 1. build: the card's name and power limit (nvidia-smi) and the seconds to
    build every CUDA kernel from ``src/repro_torch/kernels/csrc`` with nvcc
-   (one process per source, in parallel) into ``build/kernels``;
+   (one process per source, in parallel) into ``build/kernels``; for each
+   instantiation of K2's tensor-core kernels, its registers and spills
+   (``nvcc -Xptxas -v``) and its dynamic shared memory;
 2. kernels: each kernel against its plain PyTorch version on the card at
    the shapes of the main path (the packed lm_350m delta, R rows of 256
    f32; (2, 2, R, 256) for the fused reduce and the wire payload K3a, whose
@@ -25,7 +27,14 @@ Phases, each reported on its own line (any failure raises, exit != 0):
    bf16 outputs and gradients within one bf16 step (2^-7 |plain|) plus
    1e-3 of the largest magnitude; with the times of the kernels, the
    plain versions and ``scaled_dot_product_attention`` (forward, and its
-   autograd backward) beside the f32 operations bound;
+   autograd backward) beside the bound: for these bf16 calls the
+   function's FLOP at the bf16 tensor-core rate (or its bytes, if larger),
+   with the f32 SIMT bound of the f32 route beside it. Every K2 case and
+   wrapper is run again under ``torch.profiler`` (one trace per sweep and
+   per main shape, ``kernel_names``): bf16 calls must launch the
+   tensor-core kernels (``repro::flash::tc::``) and no SIMT kernel, f32
+   calls the SIMT kernels; each wrapper's kernel names at the main shapes
+   are logged;
 3. flat: 3 DrJAX local-SGD rounds of full lm_350m (bf16, 24 layers; cohort
    4, 2 local steps, batch 4, seq 512) with int8 delta compression, through
    ``repro_torch.launch.train``; losses finite, quantize/dequantize launched
@@ -66,7 +75,8 @@ Phases, each reported on its own line (any failure raises, exit != 0):
 9. flash / hd 256: K2 at recurrentgemma_2b's attention shape (B 1 x S 4096,
    10 query heads on 1 kv head of 256, window 2048, bf16) and over a sweep
    at hd 256 (f32 and bf16, G = 10 and 1, window 64 at a ragged S,
-   non-causal), at the tolerances of phase 2; times beside the f32 bound
+   non-causal), at the tolerances and route checks of phase 2; times
+   beside the bounds of phase 2
    and SDPA with the window as a boolean mask (the log names the kernels
    SDPA ran);
 10. hybrid: 2 flat uncompressed rounds of full recurrentgemma_2b (3.55 B
@@ -226,7 +236,43 @@ def phase_build():
         _build.KERNELS.library(name)
     log("build", seconds=f"{secs:.2f}", sources=",".join(_build.SOURCES),
         dir=_build.KERNELS.build_dir)
+    for row in tc_resources(_build.KERNELS.logs.get("flash_attention")):
+        log("build", **row)
     return smi
+
+
+def tc_resources(ptxas_log):
+    """Registers and spills (nvcc -Xptxas -v) and dynamic shared memory of
+    every instantiation of K2's tensor-core kernels; nothing when the
+    library was not built by this process."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    lib = _build.KERNELS.library("flash_attention")
+    lines = (ptxas_log or "").splitlines()
+    rows = []
+    for i, line in enumerate(lines):
+        m = re.search(
+            r"Compiling entry function '\S*2tc\d+(tc_\w+?)(?:ILi(\d+)E|E)", line)
+        if not m:
+            continue
+        props = " ".join(lines[i + 1:i + 4])
+        regs = re.search(r"Used (\d+) registers", props)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          props)
+        kernel, hd = m.group(1), m.group(2)
+        which = {"tc_fwd_kernel": 0, "tc_bwd_dq_kernel": 1,
+                 "tc_bwd_dkdv_kernel": 2}.get(kernel)
+        smem = lib.repro_flash_tc_smem(which, int(hd)) if hd else 0
+        rows.append(dict(kernel=kernel, hd=hd or "-",
+                         registers=regs.group(1) if regs else "?",
+                         spill_stores=spill.group(1) if spill else "?",
+                         spill_loads=spill.group(2) if spill else "?",
+                         dynamic_smem_bytes=smem))
+    require(not ptxas_log or len(rows) == 19,
+            f"expected 19 tensor-core kernels in the ptxas report, got {len(rows)}")
+    return rows
 
 
 def phase_kernels(rows: int, gen):
@@ -454,7 +500,8 @@ def flash_case(gen, b, sq, skv, hq, hkv, hd, causal, window, dtype):
     """K2 forward and backward against the plain versions on one input.
     The backward kernels get the plain residuals (out_f32, L) and D, so each
     kernel is held to its own plain version. Returns the inputs, the
-    residuals and the errors."""
+    residuals, the errors and ``kernels``, which runs the three kernels on
+    these inputs again (for ``kernel_names``)."""
     from repro_torch.kernels import ops, ref
 
     dev = torch.device("cuda")
@@ -464,14 +511,18 @@ def flash_case(gen, b, sq, skv, hq, hkv, hd, causal, window, dtype):
     do = torch.randn((b, sq, hq, hd), generator=gen, device=dev).to(dtype)
     kw = dict(causal=causal, window=window)
     what = f"K2 {(b, sq, skv, hq, hkv, hd)} {dtype} causal={causal} w={window}"
-    out, out32, lse = ops.flash_attention_fwd(q, k, v, **kw)
     r_out, r_out32, r_lse = ref.flash_attention_ref(q, k, v, **kw)
-    dq, delta = ops.flash_attention_bwd_dq(q, k, v, r_out32, r_lse, do, **kw)
     r_dq, r_delta = ref.flash_attention_bwd_dq_ref(q, k, v, r_out32, r_lse,
                                                    do, **kw)
-    dk, dv = ops.flash_attention_bwd_dkdv(q, k, v, r_lse, r_delta, do, **kw)
     r_dk, r_dv = ref.flash_attention_bwd_dkdv_ref(q, k, v, r_lse, r_delta,
                                                   do, **kw)
+
+    def kernels():
+        return (ops.flash_attention_fwd(q, k, v, **kw),
+                ops.flash_attention_bwd_dq(q, k, v, r_out32, r_lse, do, **kw),
+                ops.flash_attention_bwd_dkdv(q, k, v, r_lse, r_delta, do, **kw))
+
+    (out, out32, lse), (dq, delta), (dk, dv) = kernels()
     torch.cuda.synchronize()
     errs = {
         "out": (check_close(f"{what} out", out, r_out, 2e-5)
@@ -485,7 +536,7 @@ def flash_case(gen, b, sq, skv, hq, hkv, hd, causal, window, dtype):
     }
     require(out.dtype == dtype and dq.dtype == dtype and dk.dtype == dtype,
             f"{what}: output dtypes")
-    return (q, k, v, do, r_out32, r_lse, r_delta), errs
+    return (q, k, v, do, r_out32, r_lse, r_delta), errs, kernels
 
 
 def visible_pairs(sq, skv, causal, window) -> int:
@@ -500,7 +551,7 @@ def sdpa_times(q, k, v, do, window: int = 0):
     PyTorch picks the backend that takes a mask) forward, and its autograd
     backward (dq, dk, dv), in ms; its forward's max abs difference from the
     plain version as information (it computes p in bf16 and is not held to
-    the tolerance), and the device kernels one forward call ran."""
+    the tolerance); and the forward call (whose kernels the caller traces)."""
     from repro_torch.kernels import ref
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -518,13 +569,7 @@ def sdpa_times(q, k, v, do, window: int = 0):
     err = float((out.detach().transpose(1, 2).double()
                  - ref.flash_attention_ref(q, k, v, window=window)[0].double())
                 .abs().max())
-    acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        call()
-        torch.cuda.synchronize()
-    names = sorted({e.key[:60] for e in prof.key_averages()
-                    if e.device_type.name == "CUDA"})
-    return fwd_ms, bwd_ms, err, names
+    return fwd_ms, bwd_ms, err, call
 
 
 def flash_work(q, k, pairs: int) -> dict:
@@ -547,13 +592,84 @@ def flash_work(q, k, pairs: int) -> dict:
     }
 
 
+TRACE_LEAD_S = 3.0  # idle seconds in a trace before its first call
+TRACE_GAP_S = 0.1   # idle seconds after each call
+TRACE_LAG_S = 6.0   # more idle seconds before the trace ends
+
+
+def kernel_names(calls: dict, attempts: int = 3) -> dict:
+    """{label: sorted names of the device kernels ``calls[label]()`` ran},
+    from one ``torch.profiler`` trace of all the calls in order, each
+    followed by a synchronize and TRACE_GAP_S idle. A call's kernels run
+    back to back, so on the device clock they form one group, and the
+    groups follow the calls' order.
+
+    On the H100 machines a trace of a second or two can lose all its
+    kernel events (most short traces did after a few minutes of work),
+    while traces of several seconds kept every one: hence the idle lead
+    and lag. A trace whose groups do not match the calls one to one is
+    taken again, up to ``attempts`` times, and logged."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    labels = list(calls)
+    for attempt in range(1, attempts + 1):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            time.sleep(TRACE_LEAD_S)
+            for label in labels:
+                calls[label]()
+                torch.cuda.synchronize()
+                time.sleep(TRACE_GAP_S)
+            time.sleep(TRACE_LAG_S)
+        events = sorted((e.time_range.start, e.time_range.end, e.name)
+                        for e in prof.events() if e.device_type.name == "CUDA")
+        groups, end = [], None
+        for start, stop, name in events:  # microseconds
+            if end is None or start - end > TRACE_GAP_S * 1e6 / 2:
+                groups.append(set())
+            groups[-1].add(name)
+            end = stop if end is None else max(end, stop)
+        if len(groups) == len(labels):
+            return {label: sorted(g) for label, g in zip(labels, groups)}
+        log("trace", attempt=attempt, calls=len(labels), groups=len(groups))
+    raise AssertionError(f"kernel_names: {attempts} traces of {len(labels)} "
+                         f"calls did not show one kernel group per call")
+
+
+def require_flash_route(names, dtype, what) -> None:
+    """bf16 K2 runs on the tensor-core kernels (``repro::flash::tc::``) and
+    no SIMT kernel; f32 K2 on the SIMT kernels."""
+    names = [n for n in names if "repro::flash::" in n]
+    tc = [n for n in names if "repro::flash::tc::" in n]
+    if dtype == torch.bfloat16:
+        require(tc and len(tc) == len(names),
+                f"{what}: bf16 K2 must run only tensor-core kernels, ran {names}")
+    else:
+        require(names and not tc,
+                f"{what}: f32 K2 must run the SIMT kernels, ran {names}")
+
+
+def flash_bounds(nbytes: float, flop: float, dtype):
+    """(bound ms, bound_by for the JSON line, what the log calls it): bf16
+    calls at the bf16 tensor-core rate, f32 calls at the f32 SIMT rate,
+    or the bytes where those take longer."""
+    if dtype != torch.bfloat16:
+        b_ms, by = bound(nbytes, flop)
+        return b_ms, by, by
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flop / BF16_TC_OPS_PER_S * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", "bytes"
+    return t_ops, "operations", "bf16 tensor-core ops"
+
+
 def flash_main(gen, b, s, hq, hkv, hd, window):
     """K2 at one main-path shape (bf16, causal): errors against the plain
     versions, and the times of the kernels, the plain versions and SDPA
     beside the bounds."""
     from repro_torch.kernels import ops, ref
 
-    (q, k, v, do, out32, lse, delta), errs = flash_case(
+    (q, k, v, do, out32, lse, delta), errs, case_kernels = flash_case(
         gen, b, s, s, hq, hkv, hd, True, window, torch.bfloat16)
     kw = dict(causal=True, window=window)
     pairs = b * hq * visible_pairs(s, s, True, window)
@@ -571,38 +687,64 @@ def flash_main(gen, b, s, hq, hkv, hd, window):
         "flash_attention_bwd_dkdv": time_ms(lambda: ref.flash_attention_bwd_dkdv_ref(
             q, k, v, lse, delta, do, **kw)),
     }
-    lib_fwd, lib_bwd, lib_err, lib_kernels = sdpa_times(q, k, v, do, window)
+    lib_fwd, lib_bwd, lib_err, lib_call = sdpa_times(q, k, v, do, window)
     errs_by = {"flash_attention_fwd": max(errs["out"], errs["lse"]),
                "flash_attention_bwd_dq": max(errs["dq"], errs["delta"]),
                "flash_attention_bwd_dkdv": max(errs["dk"], errs["dv"])}
-    results = {}
+    calls = {
+        "flash_attention_fwd": lambda: ops.flash_attention_fwd(q, k, v, **kw),
+        "flash_attention_bwd_dq": lambda: ops.flash_attention_bwd_dq(
+            q, k, v, out32, lse, do, **kw),
+        "flash_attention_bwd_dkdv": lambda: ops.flash_attention_bwd_dkdv(
+            q, k, v, lse, delta, do, **kw),
+    }
     shape = (b, s, f"{hq}:{hkv}", hd, window)
+    traced = kernel_names(dict(calls, case=case_kernels, sdpa=lib_call))
+    require_flash_route(traced["case"], q.dtype, f"K2 {shape}")
+    results = {}
     for name, (nbytes, flop) in flash_work(q, k, pairs).items():
-        b_ms, by = bound(nbytes, flop)
+        names = traced[name]
+        require_flash_route(names, q.dtype, f"{name} {shape}")
+        b_ms, by, by_log = flash_bounds(nbytes, flop, q.dtype)
+        f32_ms, _ = bound(nbytes, flop)
         results[name] = dict(
             err=errs_by[name], ms=ms[name], plain_ms=plain[name],
             library_ms=lib_fwd if name == "flash_attention_fwd" else lib_bwd,
-            bound_ms=b_ms, bound_by=by)
+            bound_ms=b_ms, bound_by=by, bound_ms_f32_simt=f32_ms)
         log("kernels", name=name, shape=shape, ms=f"{ms[name]:.4f}",
             plain_ms=f"{plain[name]:.4f}",
             library_ms=f"{results[name]['library_ms']:.4f}",
-            bound_ms=f"{b_ms:.4f}", bound_by=by, flop=flop, bytes=nbytes,
-            bound_ms_bf16_tensor_cores=f"{flop / BF16_TC_OPS_PER_S * 1e3:.4f}",
-            err=f"{errs_by[name]:.3e}")
+            bound_ms=f"{b_ms:.4f}", bound_by=f"'{by_log}'", flop=flop,
+            bytes=nbytes, bound_ms_f32_simt=f"{f32_ms:.4f}",
+            err=f"{errs_by[name]:.3e}", kernels=json.dumps(names))
     log("kernels", name="sdpa (information)", shape=shape,
         fwd_max_abs_diff_vs_plain=f"{lib_err:.3e}",
-        fwd_kernels=json.dumps(lib_kernels))
+        fwd_kernels=json.dumps([n[:60] for n in traced["sdpa"]]))
     return results
+
+
+def flash_sweep(gen, cases, phase: str, name: str) -> None:
+    """K2 against its plain versions over ``cases`` in f32 and bf16; then
+    one trace of every case's kernels: bf16 on the tensor-core kernels,
+    f32 on the SIMT kernels."""
+    calls, dtypes = {}, {}
+    for case in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            _, errs, kernels = flash_case(gen, *case, dtype)
+            dt = str(dtype).split(".")[-1]
+            log(phase, name=name, shape=case[:6], causal=case[6],
+                window=case[7], dtype=dt,
+                errs=json.dumps({k: f"{v:.3e}" for k, v in errs.items()}))
+            calls[f"{case} {dt}"], dtypes[f"{case} {dt}"] = kernels, dtype
+    for label, names in kernel_names(calls).items():
+        require_flash_route(names, dtypes[label], f"K2 {label}")
+    log(phase, name=f"{name} routes", cases=len(calls),
+        bf16="repro::flash::tc:: only", f32="SIMT only")
 
 
 def phase_flash(gen):
     """K2 against its plain versions, and its times at the main shapes."""
-    for case in FLASH_SWEEP:
-        for dtype in (torch.float32, torch.bfloat16):
-            _, errs = flash_case(gen, *case, dtype)
-            log("kernels", name="K2 sweep", shape=case[:6], causal=case[6],
-                window=case[7], dtype=str(dtype).split(".")[-1],
-                errs=json.dumps({k: f"{v:.3e}" for k, v in errs.items()}))
+    flash_sweep(gen, FLASH_SWEEP, "kernels", "K2 sweep")
     results = {}
     for key, (b, s) in FLASH_MAIN.items():
         for name, r in flash_main(gen, b, s, 16, 16, 64, 0).items():
@@ -625,12 +767,7 @@ FLASH_HD256_SWEEP = (  # (B, Sq, Skv, Hq, Hkv, hd, causal, window)
 def phase_flash_hd256(gen):
     """K2 at head dim 256 against its plain versions, and its times at the
     hybrid model's shape."""
-    for case in FLASH_HD256_SWEEP:
-        for dtype in (torch.float32, torch.bfloat16):
-            _, errs = flash_case(gen, *case, dtype)
-            log("flash", name="K2 hd256 sweep", shape=case[:6], causal=case[6],
-                window=case[7], dtype=str(dtype).split(".")[-1],
-                errs=json.dumps({k: f"{v:.3e}" for k, v in errs.items()}))
+    flash_sweep(gen, FLASH_HD256_SWEEP, "flash", "K2 hd256 sweep")
     results = flash_main(gen, *FLASH_HD256_MAIN)
     torch.cuda.empty_cache()
     return results
@@ -1477,18 +1614,25 @@ def main() -> int:
 
     line = {"kernels": [entry(name, r, launches[name])
                         for name, r in kernels.items()]}
+    def flash_entry(name, r, n, shape):
+        # bf16 K2 runs on tensor cores: its bound is at their rate, with the
+        # f32 SIMT bound of the f32 route beside it
+        return entry(name, dict(r, **FLASH_SOURCE[name]), n, shape=shape,
+                     route_detail="tensor cores (bf16, mma.sync, hi/lo split)",
+                     bound_rate="bf16 tensor cores, 989 TFLOP/s",
+                     bound_ms_f32_simt=r["bound_ms_f32_simt"])
+
     for name, by_shape in flash.items():
         # the seq-512 flat rounds' shape and launches, seq 4096's and the
         # hybrid rounds' head dim 256 beside them
         e512, e4096 = (
-            entry(name, dict(by_shape[key], **FLASH_SOURCE[name]), n,
-                  shape=f"B {b} x S {s} x 16 heads x 64, bf16, causal")
+            flash_entry(name, by_shape[key], n,
+                        f"B {b} x S {s} x 16 heads x 64, bf16, causal")
             for key, (b, s), n in (
                 ("seq512", FLASH_MAIN["seq512"], flat_counts[name]),
                 ("seq4096", FLASH_MAIN["seq4096"], long_counts[name])))
-        e256 = entry(name, dict(flash256[name], **FLASH_SOURCE[name]),
-                     hybrid_counts[name],
-                     shape="B 1 x S 4096 x 10:1 heads x 256, bf16, causal, "
+        e256 = flash_entry(name, flash256[name], hybrid_counts[name],
+                           "B 1 x S 4096 x 10:1 heads x 256, bf16, causal, "
                            "window 2048")
         line["kernels"].append(dict(e512, seq4096=e4096, hd256=e256))
     line["kernels"] += [

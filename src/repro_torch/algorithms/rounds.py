@@ -29,6 +29,7 @@ from torch.utils import _pytree as pytree
 
 from .. import core as drjax
 from ..compression import api as compression
+from ..core.primitives import reciprocal
 from ..optim.optimizers import Optimizer, apply_updates, clip_by_global_norm
 
 
@@ -88,7 +89,7 @@ def _make_client_update(loss_fn: Callable, client_opt: Optimizer,
         delta = _tree_sub(params, params0)
         if cfg.compression == "int8":
             delta = compression.int8_roundtrip(delta)
-        return delta, torch.stack(losses).mean()
+        return delta, torch.stack(losses).sum() * reciprocal(len(losses))
 
     return client_update
 

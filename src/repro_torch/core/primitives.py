@@ -10,10 +10,16 @@ JVP and transpose rules. Here broadcast and the plain reductions are
 ordinary differentiable tensor ops along the leading group axes, so
 autograd yields the MapReduce AD transposes directly: the backward of
 ``broadcast@p`` (an ``expand``) is ``reduce_sum@p``, and that of
-``reduce_mean@p`` is ``broadcast@p(ct) / size``. The ``compress="int8"``
+``reduce_mean@p`` is ``broadcast@p(ct * r)``. The ``compress="int8"``
 tagged ``reduce_mean`` is a :class:`torch.autograd.Function` whose forward
 is the fused reduce+compress kernel and whose backward is the same
-``broadcast(ct / size)`` (the int8 roundtrip is straight-through).
+``broadcast(ct * r)`` (the int8 roundtrip is straight-through).
+
+``r`` is ``1 / size`` rounded to f32 once (:func:`reciprocal`): the
+reference's driver always jits, and XLA compiles its ``sum / size`` (and
+the transpose's ``ct / size``) as a product with that reciprocal. A
+division would differ from it in the last bit for sizes that are not
+powers of two.
 
 Left out for later slices: ``reduce_max``, ``stage_transfer`` and the
 batching rules (the port has no ``vmap`` of the primitives).
@@ -70,10 +76,17 @@ def reduce_sum(x: torch.Tensor, placement: Optional[str] = None) -> torch.Tensor
     return x.sum(dim=i)
 
 
+def reciprocal(n: int) -> torch.Tensor:
+    """``1 / n`` rounded to f32 once, as a 0-d CPU tensor. A product with
+    it runs as a scalar product in f32 (bf16 operands too) on either
+    device, as the jitted reference's ``x / n`` does."""
+    return torch.tensor(1.0 / n, dtype=torch.float32)
+
+
 class _FusedReduceMean(torch.autograd.Function):
     """``reduce_mean@p`` tagged ``compress="int8"``: forward is the fused
     single-pass mean + int8 roundtrip (CUDA kernel on the card); backward
-    is ``broadcast@p(ct / size)``, exactly the plain reduce_mean's, so the
+    is ``broadcast@p(ct * r)``, exactly the plain reduce_mean's, so the
     gradient equals the unfused composition's bitwise."""
 
     @staticmethod
@@ -83,7 +96,7 @@ class _FusedReduceMean(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ct):
-        g = (ct / ctx.size).unsqueeze(ctx.axis).expand(ctx.shape)
+        g = (ct * reciprocal(ctx.size)).unsqueeze(ctx.axis).expand(ctx.shape)
         return g, None, None, None
 
 
@@ -95,7 +108,7 @@ def reduce_mean(x: torch.Tensor, placement: Optional[str] = None, *,
     pl, i = _resolve(placement)
     _check_operand_depth(x, i + 1, "reduce_mean")
     if compress is None:
-        return x.sum(dim=i) / pl.size
+        return x.sum(dim=i) * reciprocal(pl.size)
     if compress != "int8":
         raise NotImplementedError(
             f"drjax.reduce_mean: fused compress={compress!r} is only "

@@ -4,14 +4,17 @@ Each ``csrc/<name>.cu`` is compiled at first use into its own shared
 library with a plain C interface:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o build/kernels/<name>-<hash>.so
+         csrc/<name>.cu
 
 into ``build/kernels/`` at the root of the checkout (listed in
 ``.gitignore``). The file name carries a hash of the sources and flags, so an
 edited source is rebuilt and an unchanged one is reused. All sources are
 compiled together, one nvcc process each, on the first call to
 :func:`library`. No fast math: the kernels must divide and round exactly as
-the reference does.
+the reference does. ``-Xptxas -v`` makes nvcc report each kernel's
+registers, spills and shared memory; a build keeps that report per source
+in ``KernelBuild.logs``.
 
 No build failure is caught: a missing nvcc or a compile error raises.
 """
@@ -35,7 +38,7 @@ SOURCES = ("quantize", "reduce_compress", "flash_attention", "rglru_scan",
            "wkv6")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -66,8 +69,9 @@ SIGNATURES = {
         "repro_flash_fwd": (_P, _P, _P, _C, _P, _P, _P, *_FLASH_TAIL),
         "repro_flash_bwd_dq": (_P, _P, _P, _C, _P, _P, _P, _P, _P,
                                *_FLASH_TAIL),
-        "repro_flash_bwd_dkdv": (_P, _P, _P, _C, _P, _P, _P, _P, _P,
+        "repro_flash_bwd_dkdv": (_P, _P, _P, _C, _P, _P, _P, _P, _P, _P,
                                  *_FLASH_TAIL),
+        "repro_flash_tc_smem": (_C, _C),
     },
     # (a, b, h0, dtype, h, B, S, W, stream) and
     # (a, h, g, h0, dtype, da, db, dh0, B, S, W, stream)
@@ -92,6 +96,7 @@ class KernelBuild:
     def __init__(self):
         self.build_dir = BUILD_DIR
         self.build_seconds: Optional[float] = None
+        self.logs: Dict[str, str] = {}
         self._libs: Dict[str, ctypes.CDLL] = {}
         self._lock = threading.Lock()
 
@@ -128,6 +133,7 @@ class KernelBuild:
             errors = []
             for name, out, tmp, proc in procs:
                 log, _ = proc.communicate()
+                self.logs[name] = log
                 if proc.returncode != 0:
                     errors.append(f"nvcc {name}.cu failed:\n{log}")
                 else:

@@ -22,32 +22,79 @@
 //   dv = p^T dout, dp = dout v^T, ds = p * (dp - D) * scale,
 //   dq = ds k, dk = ds^T q, dk and dv summed over the G heads of a kv head.
 //
-// What bounds it on this card: operations. The reference specifies f32
-// arithmetic for both products (f32 operands, f32 accumulation), so the
-// peak that applies is the f32 rate outside the tensor cores (67 TFLOP/s);
-// at lm_350m's shapes (hd 64) a forward does 4 * hd = 256 FLOP per visible
-// (q, k) pair against 4 * hd * 2 bytes of q/k/v/o per row, far above the
-// card's FLOP-per-byte balance.
+// Two routes, chosen by dtype (REPRO_FLASH_DISPATCH):
 //
-// What the design does about it: the (Sq, Skv) scores never reach device
-// memory. Each block owns a tile of TILE rows (64, or 32 at head dim 256,
-// where four 64-row f32 operand tiles would not fit in shared memory) and
-// keeps its operand tiles in shared memory as f32, transposed ([d][row],
-// rows padded to TILE + 4 floats so a thread reads its R = TILE / 16
-// consecutive rows with one 16- or 8-byte load and stores hit four banks
-// apart); each of the 256 threads owns an R x R piece of the TILE x TILE
-// score tile, so one pair of shared loads feeds R * R FMAs.
-// A row's TILE scores live in the 16 lanes of one half-warp, so row max and
-// row sum are shuffles. Tiles that the causal or window rule hides entirely
-// are skipped with the reference's test applied to these tiles, and causal
-// blocks are launched heaviest first. The backward recomputes p from L and
-// is deterministic (no atomics): one kernel computes D and dq per q tile
-// (looping over kv tiles), one computes dk and dv per kv tile (looping over
-// the G query heads and their q tiles). At head dim 256 the forward keeps
-// 64-row tiles (217 KiB of shared memory) and the two backward kernels take
-// 32-row tiles (149 and 153 KiB). Not done yet: tensor cores (mma/wgmma with
-// an f32-exact split), TMA and pipelined loads.
+// bf16: tensor cores (namespace tc, kernels tc_*). The FlashAttention-2
+// structure on mma.sync.m16n8k16 (bf16 operands, f32 accumulators). What
+// bounds it: bf16 tensor-core operations, 989 TFLOP/s dense on the H100
+// SXM; per visible (q, k) pair the function does 4 hd FLOP forward and
+// 14 hd backward (6 hd in bwd_dq, 8 hd in bwd_dkdv).
+// - The products q.k^T and dout.v^T take two bf16 tensors and are exact on
+//   the tensor cores with f32 accumulation. The products p.v, p^T.dout,
+//   ds.k and ds^T.q take an f32 operand (p or ds): rounded once to bf16 it
+//   would leave a relative error near 2^-9 in out_f32, far outside the
+//   2e-5 that the gates hold out_f32, L and D to. So each such operand x
+//   is split in registers into hi = bf16(x) and lo = bf16(x - hi) (x - hi
+//   is exact in f32), and the product takes two MMAs with the same other
+//   operand: about 2^-17 relative error. The split costs 6 hd MMA FLOP per
+//   pair forward (against the function's 4 hd) and 20 hd backward (14 hd).
+// - Tiles. Each warp owns 16 rows of the tile it accumulates for: query
+//   rows in the forward and bwd_dq (4 warps, 64-row q tiles), kv rows in
+//   bwd_dkdv (4 warps along 64 kv rows; at head dim 256 a second set of 4
+//   warps takes the other half of the dk/dv columns and recomputes the
+//   same scores, so the two accumulators stay at 128 registers a thread).
+//   The scores stay in registers: the C fragment of S = Q K^T is re-packed
+//   as the A fragment of P V (and likewise for dS), row max and row sum
+//   are quad shuffles, nothing of the (Sq, Skv) scores reaches shared or
+//   device memory. Fragments come from bf16 tiles in shared memory by
+//   ldmatrix (.trans for the operands read along their rows); rows are
+//   padded by 16 bytes, so the 8 rows an ldmatrix phase reads fall in 8
+//   distinct bank groups. kv tiles (forward, bwd_dq) or q tiles
+//   (bwd_dkdv) stream through a ring of two stages filled by cp.async, the
+//   next tile's copy in flight while the current one is multiplied.
+//   kv-tile rows: 64, 32 at head dim 256 (forward and bwd_dq); bwd_dkdv's
+//   q tiles: 64 rows at head dim <= 64, else 32.
+// - Order of work: tiles the causal or window rule hides entirely are
+//   skipped with the reference's block test; tiles visible everywhere skip
+//   the element mask. The grid is (Hq, B, tiles) so the block scheduler
+//   takes the heaviest causal tiles of every head first.
+// - GQA without atomics: for G = 1 a bwd_dkdv block writes dk and dv. For
+//   G > 1 the grid runs over (query head, kv tile); each block writes its
+//   head's f32 partials to scratch (2, B, Skv, Hq, hd) and tc_sum_heads
+//   sums the G partials of a kv head in the order g = 0..G-1 and rounds
+//   once. Deterministic, and G times the blocks of a loop over heads.
+// Not done yet: wgmma and TMA with warp specialisation (the producer /
+// consumer ring of the usual Hopper attention kernel), which is where the
+// rest of the tensor-core rate is.
+// Resources of the bf16 route (nvcc -Xptxas -v for sm_90a, as chip_smoke.py
+// logs them at [build]; dynamic shared memory from fwd_smem, dq_smem,
+// dkdv_smem): registers per thread, spills, shared memory per block.
+//   head dim          16     32     64     80    128    256
+//   tc_fwd   regs     78     80    104    135    148    255
+//            smem  15360  25600  46080  56320  87040 101376
+//   tc_dq    regs    127    128    168    168    168    245
+//            smem  18432  30720  55296  67584 104448 135168
+//   tc_dkdv  regs    122    164    188    175    249    248
+//            smem  19456  31744  56320  45568  70144 135680
+//   tc_sum_heads: 32 registers, no shared memory.
+// No instantiation spills (0 bytes spill stores and loads in every one).
+// Each score takes an accurate expf (the reference's exp to ~1 ulp), not
+// the faster __expf, whose error grows with |x|.
+//
+// f32: the SIMT kernels below (fwd_kernel, bwd_dq_kernel, bwd_dkdv_kernel).
+// The reference specifies f32 arithmetic for both products (f32 operands,
+// f32 accumulation), so the peak that applies is the f32 rate outside the
+// tensor cores (67 TFLOP/s). The (Sq, Skv) scores never reach device
+// memory. Each block owns a tile of TILE rows (64, or 32 at head dim 256 in
+// the backward) and keeps its operand tiles in shared memory as f32,
+// transposed ([d][row], rows padded to TILE + 4 floats); each of the 256
+// threads owns an R x R piece of the TILE x TILE score tile. A row's TILE
+// scores live in the 16 lanes of one half-warp, so row max and row sum are
+// shuffles. One kernel computes D and dq per q tile, one dk and dv per kv
+// tile (looping over the G query heads and their q tiles).
 #include "common.cuh"
+
+#include <algorithm>
 
 
 namespace repro {
@@ -67,17 +114,11 @@ struct Shape {
   float scale;
 };
 
+// The SIMT kernels run f32 only (bf16 takes the tensor-core route).
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);  // round to nearest even, as the casts
 }
 
 // The reference's block-pair test (flash_attention.py:58-65) on these tiles.
@@ -505,6 +546,686 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// The bf16 route: tensor cores.
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kPad = 8;     // bf16 of padding per shared row (16 bytes)
+constexpr int kStages = 2;  // the cp.async ring
+
+__host__ __device__ constexpr int cdiv(int n, int d) { return (n + d - 1) / d; }
+
+// Tiles per head dim. Forward and bwd_dq: 4 warps of 16 query rows, kv
+// tiles of BKV rows. bwd_dkdv: 4 warps of 16 kv rows (x DS at head dim 256,
+// each set of 4 taking HD / DS of the dk/dv columns), q tiles of BQ rows.
+template <int HD> struct FwdTiles {
+  static constexpr int BQ = 64, BKV = HD > 128 ? 32 : 64, THREADS = 128;
+};
+template <int HD> struct DkdvTiles {
+  static constexpr int BKV = 64, DS = HD > 128 ? 2 : 1;
+  static constexpr int BQ = HD > 64 ? 32 : 64, THREADS = 128 * DS;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, or 16 zero bytes when !valid (src not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
+               "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::
+               "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most one committed group of this thread is in flight.
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Four 8x8 bf16 matrices from shared memory; lane i gives the address of
+// row i % 8 of matrix i / 8.
+__device__ __forceinline__ void ldsm4(uint32_t r[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)) : "memory");
+}
+__device__ __forceinline__ void ldsm4_t(uint32_t r[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)) : "memory");
+}
+
+// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col).
+__device__ __forceinline__ void mma(float c[4], const uint32_t a[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Lane offsets (in bf16) into a tile with row stride LD, for ldsm4:
+// a_off: the A fragment of a 16x16 block of a row-major [m][k] tile;
+// b_off: the B fragments of two n8 blocks (16 rows) x k16 of an [n][k] tile
+//        (registers: b0, b1 of the first n block, then of the second);
+// bt_off: the same from a [k][n] tile, with ldsm4_t.
+__device__ __forceinline__ int a_off(int lane, int ld) {
+  return (lane & 15) * ld + (lane >> 4) * 8;
+}
+__device__ __forceinline__ int b_off(int lane, int ld) {
+  return ((lane >> 4) * 8 + (lane & 7)) * ld + ((lane >> 3) & 1) * 8;
+}
+__device__ __forceinline__ int bt_off(int lane, int ld) {
+  return (((lane >> 3) & 1) * 8 + (lane & 7)) * ld + (lane >> 4) * 8;
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// Two f32 values as bf16 pairs hi = bf16(x) and lo = bf16(x - hi).
+__device__ __forceinline__ void split(float x, float y, uint32_t& hi,
+                                      uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = as_u32(h);
+  lo = as_u32(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+}
+
+// The A fragments (hi and lo) of columns 16 kc .. 16 kc + 15 of a 16-row
+// f32 tile held as C fragments c[n][4] of its n8 blocks.
+template <int N>
+__device__ __forceinline__ void split_a(float (&c)[N][4], int kc,
+                                        uint32_t hi[4], uint32_t lo[4]) {
+  split(c[2 * kc][0], c[2 * kc][1], hi[0], lo[0]);
+  split(c[2 * kc][2], c[2 * kc][3], hi[1], lo[1]);
+  split(c[2 * kc + 1][0], c[2 * kc + 1][1], hi[2], lo[2]);
+  split(c[2 * kc + 1][2], c[2 * kc + 1][3], hi[3], lo[3]);
+}
+
+// ROWS rows of HD bf16 (row stride `stride` elements) into shared memory
+// with row stride HD + kPad; rows >= `rows` are zero-filled.
+template <int HD, int ROWS, int NT>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
+                                          long long stride, int rows) {
+  constexpr int CPR = HD / 8, LD = HD + kPad;
+  for (int c = threadIdx.x; c < ROWS * CPR; c += NT) {
+    const int r = c / CPR, cc = c - r * CPR;
+    const bool ok = r < rows;
+    cp_async16(dst + r * LD + cc * 8, src + (ok ? r * stride : 0) + cc * 8,
+               ok);
+  }
+}
+
+// N f32 values src[r * stride] into dst[r]; zero for r >= rows.
+template <int N, int NT>
+__device__ __forceinline__ void load_vec(float* dst, const float* src,
+                                         int stride, int rows) {
+  for (int r = threadIdx.x; r < N; r += NT) {
+    const bool ok = r < rows;
+    cp_async4(dst + r, src + (ok ? static_cast<long long>(r) * stride : 0),
+              ok);
+  }
+}
+
+// The reference's block-pair test (flash_attention.py:58-65) for a q tile
+// of bq rows at q0 and a kv tile of bkv rows at k0.
+__device__ __forceinline__ bool tiles_visible(const Shape& s, int q0, int bq,
+                                              int k0, int bkv) {
+  if (s.causal && k0 > q0 + bq - 1) return false;
+  if (s.window > 0 && k0 + bkv - 1 <= q0 - s.window) return false;
+  return true;
+}
+
+// Every pair of the two tiles is visible and in range: no element mask.
+__device__ __forceinline__ bool tiles_full(const Shape& s, int q0, int bq,
+                                           int k0, int bkv) {
+  if (q0 + bq > s.Sq || k0 + bkv > s.Skv) return false;
+  if (s.causal && k0 + bkv - 1 > q0) return false;
+  if (s.window > 0 && k0 <= q0 + bq - 1 - s.window) return false;
+  return true;
+}
+
+// The visible kv tiles [t0, t1] of a q tile (a contiguous range).
+template <int BQ, int BKV>
+__device__ __forceinline__ void kv_range(const Shape& s, int q0, int& t0,
+                                         int& t1) {
+  t1 = cdiv(s.Skv, BKV) - 1;
+  if (s.causal) t1 = min(t1, (q0 + BQ - 1) / BKV);
+  t0 = 0;
+  while (t0 <= t1 && !tiles_visible(s, q0, BQ, t0 * BKV, BKV)) ++t0;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// ---------------------------------------------------------------------------
+// Forward. Grid (Hq, B, q tiles), heaviest causal q tile first. Shared
+// memory: Q [BQ][LD]; K, V [kStages][BKV][LD].
+template <int HD>
+__global__ void __launch_bounds__(FwdTiles<HD>::THREADS)
+tc_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, bf16* __restrict__ out,
+              float* __restrict__ out32, float* __restrict__ lse, Shape s) {
+  using C = FwdTiles<HD>;
+  constexpr int BQ = C::BQ, BKV = C::BKV, NT = C::THREADS, LD = HD + kPad;
+  constexpr int NS = BKV / 8, ND = HD / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Ks = Qs + BQ * LD;
+  bf16* Vs = Ks + kStages * BKV * LD;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3, r0 = warp * 16;
+  const int h = blockIdx.x, b = blockIdx.y, hk = h / (s.Hq / s.Hkv);
+  const int q0 = (cdiv(s.Sq, BQ) - 1 - static_cast<int>(blockIdx.z)) * BQ;
+  const long long qs = static_cast<long long>(s.Hq) * HD;
+  const long long ks = static_cast<long long>(s.Hkv) * HD;
+  const long long qbase = (static_cast<long long>(b) * s.Sq + q0) * qs +
+                          static_cast<long long>(h) * HD;
+  const long long kbase = static_cast<long long>(b) * s.Skv * ks +
+                          static_cast<long long>(hk) * HD;
+  int t0, t1;
+  kv_range<BQ, BKV>(s, q0, t0, t1);
+  load_tile<HD, BQ, NT>(Qs, q + qbase, qs, min(BQ, s.Sq - q0));
+  if (t0 <= t1) {
+    const int rows = min(BKV, s.Skv - t0 * BKV);
+    load_tile<HD, BKV, NT>(Ks, k + kbase + t0 * BKV * ks, ks, rows);
+    load_tile<HD, BKV, NT>(Vs, v + kbase + t0 * BKV * ks, ks, rows);
+  }
+  cp_async_commit();
+
+  float o[ND][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+  for (int t = t0; t <= t1; ++t) {
+    const int st = (t - t0) & 1;
+    if (t < t1) {
+      const int k1 = (t + 1) * BKV, rows = min(BKV, s.Skv - k1);
+      load_tile<HD, BKV, NT>(Ks + (st ^ 1) * BKV * LD, k + kbase + k1 * ks,
+                             ks, rows);
+      load_tile<HD, BKV, NT>(Vs + (st ^ 1) * BKV * LD, v + kbase + k1 * ks,
+                             ks, rows);
+    }
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    const bf16* Kt = Ks + st * BKV * LD;
+    const bf16* Vt = Vs + st * BKV * LD;
+    const int k0 = t * BKV;
+
+    float sc[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.0f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < HD; kk += 16) {
+      uint32_t a[4];
+      ldsm4(a, Qs + r0 * LD + kk + a_off(lane, LD));
+#pragma unroll
+      for (int n = 0; n < NS; n += 2) {
+        uint32_t bb[4];
+        ldsm4(bb, Kt + n * 8 * LD + kk + b_off(lane, LD));
+        mma(sc[n], a, bb[0], bb[1]);
+        mma(sc[n + 1], a, bb[2], bb[3]);
+      }
+    }
+    const bool full = tiles_full(s, q0, BQ, k0, BKV);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = __fmul_rn(sc[n][e], s.scale);
+        if (!full && !pair_visible(s, q0 + r0 + g + (e >> 1) * 8,
+                                   k0 + n * 8 + 2 * t4 + (e & 1))) {
+          x = kNegInf;
+        }
+        sc[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float corr[2], rs[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = quad_max(mx[i]);
+      corr[i] = expf(m[i] - mx[i]);
+      m[i] = mx[i];
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[n][e] = expf(sc[n][e] - m[e >> 1]);
+        rs[e >> 1] += sc[n][e];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + quad_sum(rs[i]);
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      o[n][0] *= corr[0]; o[n][1] *= corr[0];
+      o[n][2] *= corr[1]; o[n][3] *= corr[1];
+    }
+    // O += P_hi V + P_lo V
+#pragma unroll
+    for (int kc = 0; kc < BKV / 16; ++kc) {
+      uint32_t hi[4], lo[4];
+      split_a<NS>(sc, kc, hi, lo);
+#pragma unroll
+      for (int n = 0; n < ND; n += 2) {
+        uint32_t bb[4];
+        ldsm4_t(bb, Vt + kc * 16 * LD + n * 8 + bt_off(lane, LD));
+        mma(o[n], hi, bb[0], bb[1]);
+        mma(o[n], lo, bb[0], bb[1]);
+        mma(o[n + 1], hi, bb[2], bb[3]);
+        mma(o[n + 1], lo, bb[2], bb[3]);
+      }
+    }
+    __syncthreads();  // stage st is refilled by the next iteration
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + g + 8 * i;
+    if (q0 + row >= s.Sq) continue;
+    const float ls = fmaxf(l[i], 1e-30f);
+    const long long off = qbase + row * qs;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      const int c = n * 8 + 2 * t4;
+      const float a = __fdiv_rn(o[n][2 * i], ls);
+      const float bv = __fdiv_rn(o[n][2 * i + 1], ls);
+      *reinterpret_cast<__nv_bfloat162*>(out + off + c) =
+          __floats2bfloat162_rn(a, bv);
+      if (out32) {
+        *reinterpret_cast<float2*>(out32 + off + c) = make_float2(a, bv);
+      }
+    }
+    if (t4 == 0) {
+      lse[(static_cast<long long>(b) * s.Sq + q0 + row) * s.Hq + h] =
+          m[i] + logf(ls);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Backward, dq (and D). Grid (Hq, B, q tiles), heaviest causal q tile
+// first. Shared memory: Q, dO [BQ][LD]; K, V [kStages][BKV][LD].
+template <int HD>
+__global__ void __launch_bounds__(FwdTiles<HD>::THREADS)
+tc_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const float* __restrict__ out32,
+                 const bf16* __restrict__ dout, const float* __restrict__ lse,
+                 float* __restrict__ delta, bf16* __restrict__ dq, Shape s) {
+  using C = FwdTiles<HD>;
+  constexpr int BQ = C::BQ, BKV = C::BKV, NT = C::THREADS, LD = HD + kPad;
+  constexpr int NS = BKV / 8, ND = HD / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dOs = Qs + BQ * LD;
+  bf16* Ks = dOs + BQ * LD;
+  bf16* Vs = Ks + kStages * BKV * LD;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3, r0 = warp * 16;
+  const int h = blockIdx.x, b = blockIdx.y, hk = h / (s.Hq / s.Hkv);
+  const int q0 = (cdiv(s.Sq, BQ) - 1 - static_cast<int>(blockIdx.z)) * BQ;
+  const long long qs = static_cast<long long>(s.Hq) * HD;
+  const long long ks = static_cast<long long>(s.Hkv) * HD;
+  const long long qbase = (static_cast<long long>(b) * s.Sq + q0) * qs +
+                          static_cast<long long>(h) * HD;
+  const long long kbase = static_cast<long long>(b) * s.Skv * ks +
+                          static_cast<long long>(hk) * HD;
+  const long long lbase = (static_cast<long long>(b) * s.Sq + q0) * s.Hq + h;
+  const int rows_q = min(BQ, s.Sq - q0);
+  int t0, t1;
+  kv_range<BQ, BKV>(s, q0, t0, t1);
+  load_tile<HD, BQ, NT>(Qs, q + qbase, qs, rows_q);
+  load_tile<HD, BQ, NT>(dOs, dout + qbase, qs, rows_q);
+  if (t0 <= t1) {
+    const int rows = min(BKV, s.Skv - t0 * BKV);
+    load_tile<HD, BKV, NT>(Ks, k + kbase + t0 * BKV * ks, ks, rows);
+    load_tile<HD, BKV, NT>(Vs, v + kbase + t0 * BKV * ks, ks, rows);
+  }
+  cp_async_commit();
+
+  // D = rowsum(f32(dout) * out_f32) of the warp's 16 rows (each row over
+  // the warp's lanes); this thread keeps D and L of rows g and g + 8.
+  float Dr[2] = {0.0f, 0.0f}, Lr[2];
+#pragma unroll 1
+  for (int r = 0; r < 16; ++r) {
+    float part = 0.0f;
+    if (r0 + r < rows_q) {
+      const long long off = qbase + (r0 + r) * qs;
+      for (int d = lane; d < HD; d += 32) {
+        part = fmaf(__bfloat162float(dout[off + d]), out32[off + d], part);
+      }
+    }
+#pragma unroll
+    for (int x = 16; x > 0; x >>= 1) {
+      part += __shfl_xor_sync(0xffffffffu, part, x);
+    }
+    if (r == g) Dr[0] = part;
+    if (r == g + 8) Dr[1] = part;
+    if (lane == 0 && r0 + r < rows_q) delta[lbase + (r0 + r) * s.Hq] = part;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + g + 8 * i;
+    Lr[i] = row < rows_q ? lse[lbase + row * s.Hq] : 0.0f;
+  }
+
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+  }
+  for (int t = t0; t <= t1; ++t) {
+    const int st = (t - t0) & 1;
+    if (t < t1) {
+      const int k1 = (t + 1) * BKV, rows = min(BKV, s.Skv - k1);
+      load_tile<HD, BKV, NT>(Ks + (st ^ 1) * BKV * LD, k + kbase + k1 * ks,
+                             ks, rows);
+      load_tile<HD, BKV, NT>(Vs + (st ^ 1) * BKV * LD, v + kbase + k1 * ks,
+                             ks, rows);
+    }
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    const bf16* Kt = Ks + st * BKV * LD;
+    const bf16* Vt = Vs + st * BKV * LD;
+    const int k0 = t * BKV;
+
+    float sc[NS][4], dp[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.0f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < HD; kk += 16) {
+      uint32_t a[4], ad[4];
+      ldsm4(a, Qs + r0 * LD + kk + a_off(lane, LD));
+      ldsm4(ad, dOs + r0 * LD + kk + a_off(lane, LD));
+#pragma unroll
+      for (int n = 0; n < NS; n += 2) {
+        uint32_t bk[4], bv[4];
+        ldsm4(bk, Kt + n * 8 * LD + kk + b_off(lane, LD));
+        ldsm4(bv, Vt + n * 8 * LD + kk + b_off(lane, LD));
+        mma(sc[n], a, bk[0], bk[1]);
+        mma(sc[n + 1], a, bk[2], bk[3]);
+        mma(dp[n], ad, bv[0], bv[1]);
+        mma(dp[n + 1], ad, bv[2], bv[3]);
+      }
+    }
+    const bool full = tiles_full(s, q0, BQ, k0, BKV);
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        float x = __fmul_rn(sc[n][e], s.scale);
+        if (!full && !pair_visible(s, q0 + r0 + g + 8 * i,
+                                   k0 + n * 8 + 2 * t4 + (e & 1))) {
+          x = kNegInf;
+        }
+        const float p = expf(x - Lr[i]);
+        sc[n][e] = __fmul_rn(p * (dp[n][e] - Dr[i]), s.scale);  // ds
+      }
+    }
+    // dQ += dS_hi K + dS_lo K
+#pragma unroll
+    for (int kc = 0; kc < BKV / 16; ++kc) {
+      uint32_t hi[4], lo[4];
+      split_a<NS>(sc, kc, hi, lo);
+#pragma unroll
+      for (int n = 0; n < ND; n += 2) {
+        uint32_t bb[4];
+        ldsm4_t(bb, Kt + kc * 16 * LD + n * 8 + bt_off(lane, LD));
+        mma(acc[n], hi, bb[0], bb[1]);
+        mma(acc[n], lo, bb[0], bb[1]);
+        mma(acc[n + 1], hi, bb[2], bb[3]);
+        mma(acc[n + 1], lo, bb[2], bb[3]);
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + g + 8 * i;
+    if (row >= rows_q) continue;
+    const long long off = qbase + row * qs;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(dq + off + n * 8 + 2 * t4) =
+          __floats2bfloat162_rn(acc[n][2 * i], acc[n][2 * i + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Backward, dk and dv of one query head. Grid (Hq, B, kv tiles), kv tile 0
+// first (it is seen by every causal q tile). Warp w owns kv rows
+// 16 (w % 4) .. + 15 and dk/dv columns (w / 4) HD / DS .. + HD / DS - 1.
+// For G = 1 it writes dk and dv; for G > 1 the f32 partials of head h to
+// part[0 or 1][b][kv][h][:], summed by tc_sum_heads_kernel. Shared memory:
+// K, V [BKV][LD]; Q, dO [kStages][BQ][LD]; L, D [kStages][BQ] f32.
+template <int HD>
+__global__ void __launch_bounds__(DkdvTiles<HD>::THREADS)
+tc_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, bf16* __restrict__ dk,
+                   bf16* __restrict__ dv, float* __restrict__ part, Shape s) {
+  using C = DkdvTiles<HD>;
+  constexpr int BQ = C::BQ, BKV = C::BKV, NT = C::THREADS, LD = HD + kPad;
+  constexpr int HDW = HD / C::DS, NS = BQ / 8, NDW = HDW / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + BKV * LD;
+  bf16* Qs = Vs + BKV * LD;
+  bf16* dOs = Qs + kStages * BQ * LD;
+  float* Ls = reinterpret_cast<float*>(dOs + kStages * BQ * LD);
+  float* Ds = Ls + kStages * BQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = (warp & 3) * 16, c0 = (warp >> 2) * HDW;
+  const int h = blockIdx.x, b = blockIdx.y, G = s.Hq / s.Hkv, hk = h / G;
+  const int k0 = static_cast<int>(blockIdx.z) * BKV;
+  const long long qs = static_cast<long long>(s.Hq) * HD;
+  const long long ks = static_cast<long long>(s.Hkv) * HD;
+  const long long kbase = (static_cast<long long>(b) * s.Skv + k0) * ks +
+                          static_cast<long long>(hk) * HD;
+  const long long qhead = static_cast<long long>(b) * s.Sq * qs +
+                          static_cast<long long>(h) * HD;
+  const long long lhead = static_cast<long long>(b) * s.Sq * s.Hq + h;
+  const int rows_k = min(BKV, s.Skv - k0);
+  // The visible q tiles [u0, u1] of this kv tile (a contiguous range).
+  int u0 = s.causal ? k0 / BQ : 0, u1 = cdiv(s.Sq, BQ) - 1;
+  while (u0 <= u1 && !tiles_visible(s, u0 * BQ, BQ, k0, BKV)) ++u0;
+  while (u1 >= u0 && !tiles_visible(s, u1 * BQ, BQ, k0, BKV)) --u1;
+
+  auto load_q_tile = [&](int u, int stage) {
+    const int qt0 = u * BQ, rows = min(BQ, s.Sq - qt0);
+    load_tile<HD, BQ, NT>(Qs + stage * BQ * LD, q + qhead + qt0 * qs, qs,
+                          rows);
+    load_tile<HD, BQ, NT>(dOs + stage * BQ * LD, dout + qhead + qt0 * qs, qs,
+                          rows);
+    const long long l0 = lhead + static_cast<long long>(qt0) * s.Hq;
+    load_vec<BQ, NT>(Ls + stage * BQ, lse + l0, s.Hq, rows);
+    load_vec<BQ, NT>(Ds + stage * BQ, delta + l0, s.Hq, rows);
+  };
+  load_tile<HD, BKV, NT>(Ks, k + kbase, ks, rows_k);
+  load_tile<HD, BKV, NT>(Vs, v + kbase, ks, rows_k);
+  if (u0 <= u1) load_q_tile(u0, 0);
+  cp_async_commit();
+
+  float dka[NDW][4], dva[NDW][4];
+#pragma unroll
+  for (int n = 0; n < NDW; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.0f;
+  }
+  for (int u = u0; u <= u1; ++u) {
+    const int st = (u - u0) & 1;
+    if (u < u1) load_q_tile(u + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    const bf16* Qt = Qs + st * BQ * LD;
+    const bf16* dOt = dOs + st * BQ * LD;
+    const float* Lt = Ls + st * BQ;
+    const float* Dt = Ds + st * BQ;
+    const int q0 = u * BQ;
+
+    // S^T = K Q^T and dP^T = V dO^T: 16 kv rows x BQ q columns per warp.
+    float sc[NS][4], dp[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.0f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < HD; kk += 16) {
+      uint32_t a[4], av[4];
+      ldsm4(a, Ks + r0 * LD + kk + a_off(lane, LD));
+      ldsm4(av, Vs + r0 * LD + kk + a_off(lane, LD));
+#pragma unroll
+      for (int n = 0; n < NS; n += 2) {
+        uint32_t bq[4], bo[4];
+        ldsm4(bq, Qt + n * 8 * LD + kk + b_off(lane, LD));
+        ldsm4(bo, dOt + n * 8 * LD + kk + b_off(lane, LD));
+        mma(sc[n], a, bq[0], bq[1]);
+        mma(sc[n + 1], a, bq[2], bq[3]);
+        mma(dp[n], av, bo[0], bo[1]);
+        mma(dp[n + 1], av, bo[2], bo[3]);
+      }
+    }
+    const bool full = tiles_full(s, q0, BQ, k0, BKV);
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = n * 8 + 2 * t4 + (e & 1), qp = q0 + qc;
+        float x = __fmul_rn(sc[n][e], s.scale);
+        if (!full && !pair_visible(s, qp, k0 + r0 + g + 8 * (e >> 1))) {
+          x = kNegInf;
+        }
+        const float p = (full || qp < s.Sq) ? expf(x - Lt[qc]) : 0.0f;
+        dp[n][e] = __fmul_rn(p * (dp[n][e] - Dt[qc]), s.scale);  // ds^T
+        sc[n][e] = p;                                            // p^T
+      }
+    }
+    // dV += P^T_hi dO + P^T_lo dO, dK += dS^T_hi Q + dS^T_lo Q
+#pragma unroll
+    for (int kc = 0; kc < BQ / 16; ++kc) {
+      uint32_t phi[4], plo[4], dhi[4], dlo[4];
+      split_a<NS>(sc, kc, phi, plo);
+      split_a<NS>(dp, kc, dhi, dlo);
+#pragma unroll
+      for (int n = 0; n < NDW; n += 2) {
+        uint32_t bo[4], bq[4];
+        ldsm4_t(bo, dOt + kc * 16 * LD + c0 + n * 8 + bt_off(lane, LD));
+        ldsm4_t(bq, Qt + kc * 16 * LD + c0 + n * 8 + bt_off(lane, LD));
+        mma(dva[n], phi, bo[0], bo[1]);
+        mma(dva[n], plo, bo[0], bo[1]);
+        mma(dva[n + 1], phi, bo[2], bo[3]);
+        mma(dva[n + 1], plo, bo[2], bo[3]);
+        mma(dka[n], dhi, bq[0], bq[1]);
+        mma(dka[n], dlo, bq[0], bq[1]);
+        mma(dka[n + 1], dhi, bq[2], bq[3]);
+        mma(dka[n + 1], dlo, bq[2], bq[3]);
+      }
+    }
+    __syncthreads();
+  }
+  const long long plane =
+      static_cast<long long>(gridDim.y) * s.Skv * s.Hq * HD;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + g + 8 * i;
+    if (row >= rows_k) continue;
+    if (G == 1) {
+      const long long off = kbase + row * ks + c0;
+#pragma unroll
+      for (int n = 0; n < NDW; ++n) {
+        const int c = n * 8 + 2 * t4;
+        *reinterpret_cast<__nv_bfloat162*>(dk + off + c) =
+            __floats2bfloat162_rn(dka[n][2 * i], dka[n][2 * i + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dv + off + c) =
+            __floats2bfloat162_rn(dva[n][2 * i], dva[n][2 * i + 1]);
+      }
+    } else {
+      const long long off =
+          ((static_cast<long long>(b) * s.Skv + k0 + row) * s.Hq + h) * HD +
+          c0;
+#pragma unroll
+      for (int n = 0; n < NDW; ++n) {
+        const int c = n * 8 + 2 * t4;
+        *reinterpret_cast<float2*>(part + off + c) =
+            make_float2(dka[n][2 * i], dka[n][2 * i + 1]);
+        *reinterpret_cast<float2*>(part + plane + off + c) =
+            make_float2(dva[n][2 * i], dva[n][2 * i + 1]);
+      }
+    }
+  }
+}
+
+// dk[b][kv][hk][d] = bf16(sum over g = 0..G-1, in order, of
+// part[0][b][kv][hk * G + g][d]), and dv likewise from part[1].
+__global__ void __launch_bounds__(256)
+tc_sum_heads_kernel(const float* __restrict__ part, bf16* __restrict__ dk,
+                    bf16* __restrict__ dv, long long n, long long plane,
+                    int G, int Hkv, int hd) {
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x; i < n; i += step) {
+    const long long d = i % hd, rest = i / hd;
+    const long long hk = rest % Hkv, bs = rest / Hkv;
+    const long long base = (bs * Hkv * G + hk * G) * hd + d;
+    float a = part[base], c = part[plane + base];
+    for (int j = 1; j < G; ++j) {
+      a += part[base + j * hd];
+      c += part[plane + base + j * hd];
+    }
+    dk[i] = __float2bfloat16_rn(a);
+    dv[i] = __float2bfloat16_rn(c);
+  }
+}
+
+template <int HD> constexpr size_t fwd_smem() {
+  using C = FwdTiles<HD>;
+  return sizeof(bf16) * (C::BQ + 2 * kStages * C::BKV) * (HD + kPad);
+}
+template <int HD> constexpr size_t dq_smem() {
+  using C = FwdTiles<HD>;
+  return sizeof(bf16) * (2 * C::BQ + 2 * kStages * C::BKV) * (HD + kPad);
+}
+template <int HD> constexpr size_t dkdv_smem() {
+  using C = DkdvTiles<HD>;
+  return sizeof(bf16) * (2 * C::BKV + 2 * kStages * C::BQ) * (HD + kPad) +
+         sizeof(float) * 2 * kStages * C::BQ;
+}
+
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
 // Host side: shared memory per kernel, and dispatch over (dtype, head_dim).
 
 template <int HD, int TILE> constexpr size_t fwd_smem() {
@@ -522,6 +1243,10 @@ constexpr size_t kMaxSmem = 232448;
 static_assert(fwd_smem<256, kFwdTile>() <= kMaxSmem, "fwd at hd 256");
 static_assert(dq_smem<256, bwd_tile<256>()>() <= kMaxSmem, "dq at hd 256");
 static_assert(dkdv_smem<256, bwd_tile<256>()>() <= kMaxSmem, "dkdv at hd 256");
+static_assert(tc::fwd_smem<256>() <= kMaxSmem, "tc fwd at hd 256");
+static_assert(tc::dq_smem<256>() <= kMaxSmem, "tc dq at hd 256");
+static_assert(tc::dkdv_smem<256>() <= kMaxSmem, "tc dkdv at hd 256");
+static_assert(tc::dkdv_smem<128>() <= kMaxSmem, "tc dkdv at hd 128");
 
 // Above 48 KB a kernel takes dynamic shared memory only after this call;
 // without it the launch is refused (reported by cudaGetLastError).
@@ -569,7 +1294,8 @@ int launch_dq(const void* q, const void* k, const void* v, const void* out32,
 template <typename T, int HD>
 int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
                 const void* lse, const void* delta, void* dk, void* dv,
-                int B, Shape s, cudaStream_t st) {
+                void* /*part: the bf16 route's*/, int B, Shape s,
+                cudaStream_t st) {
   constexpr int TILE = bwd_tile<HD>();
   constexpr size_t smem = dkdv_smem<HD, TILE>();
   const cudaError_t e = allow_smem(bwd_dkdv_kernel<T, HD, TILE>, smem);
@@ -583,23 +1309,90 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
-// return LAUNCH<T, hd>(args...) for the (dtype, head_dim) of the call.
-#define REPRO_FLASH_CASE(LAUNCH, HD, ...)                                  \
-  case HD: return f32 ? LAUNCH<float, HD>(__VA_ARGS__)                     \
-                      : LAUNCH<__nv_bfloat16, HD>(__VA_ARGS__);
-#define REPRO_FLASH_DISPATCH(LAUNCH, ...)                                  \
+// The bf16 route's launchers (tensor cores).
+template <int HD>
+int launch_tc_fwd(const void* q, const void* k, const void* v, void* out,
+                  void* out32, void* lse, int B, Shape s, cudaStream_t st) {
+  using bf16 = __nv_bfloat16;
+  constexpr size_t smem = tc::fwd_smem<HD>();
+  const cudaError_t e = allow_smem(tc::tc_fwd_kernel<HD>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(s.Hq, B, tiles(s.Sq, tc::FwdTiles<HD>::BQ));
+  tc::tc_fwd_kernel<HD><<<grid, tc::FwdTiles<HD>::THREADS, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out),
+      static_cast<float*>(out32), static_cast<float*>(lse), s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int launch_tc_dq(const void* q, const void* k, const void* v,
+                 const void* out32, const void* dout, const void* lse,
+                 void* delta, void* dq, int B, Shape s, cudaStream_t st) {
+  using bf16 = __nv_bfloat16;
+  constexpr size_t smem = tc::dq_smem<HD>();
+  const cudaError_t e = allow_smem(tc::tc_bwd_dq_kernel<HD>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(s.Hq, B, tiles(s.Sq, tc::FwdTiles<HD>::BQ));
+  tc::tc_bwd_dq_kernel<HD><<<grid, tc::FwdTiles<HD>::THREADS, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const float*>(out32),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<float*>(delta), static_cast<bf16*>(dq), s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// For G > 1, part is f32 scratch of 2 x B x Skv x Hq x hd.
+template <int HD>
+int launch_tc_dkdv(const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* delta,
+                   void* dk, void* dv, void* part, int B, Shape s,
+                   cudaStream_t st) {
+  using bf16 = __nv_bfloat16;
+  using C = tc::DkdvTiles<HD>;
+  const int G = s.Hq / s.Hkv;
+  if (G > 1 && part == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  constexpr size_t smem = tc::dkdv_smem<HD>();
+  cudaError_t e = allow_smem(tc::tc_bwd_dkdv_kernel<HD>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(s.Hq, B, tiles(s.Skv, C::BKV));
+  tc::tc_bwd_dkdv_kernel<HD><<<grid, C::THREADS, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      G > 1 ? static_cast<float*>(part) : nullptr, s);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || G == 1) return static_cast<int>(e);
+  const long long n = static_cast<long long>(B) * s.Skv * s.Hkv * HD;
+  const long long plane = static_cast<long long>(B) * s.Skv * s.Hq * HD;
+  const long long blocks = std::min<long long>((n + 255) / 256, 132LL * 16);
+  tc::tc_sum_heads_kernel<<<static_cast<unsigned int>(blocks), 256, 0, st>>>(
+      static_cast<const float*>(part), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), n, plane, G, s.Hkv, HD);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// return f32 ? SIMT<float, hd>(args...) : TC<hd>(args...) for the
+// (dtype, head_dim) of the call: f32 takes the SIMT kernels, bf16 the
+// tensor-core kernels.
+#define REPRO_FLASH_CASE(SIMT, TC, HD, ...)                                \
+  case HD: return f32 ? SIMT<float, HD>(__VA_ARGS__) : TC<HD>(__VA_ARGS__);
+#define REPRO_FLASH_DISPATCH(SIMT, TC, ...)                                \
   do {                                                                     \
     if (dtype != kF32 && dtype != kBF16) {                                 \
       return static_cast<int>(cudaErrorInvalidValue);                      \
     }                                                                      \
     const bool f32 = dtype == kF32;                                        \
     switch (hd) {                                                          \
-      REPRO_FLASH_CASE(LAUNCH, 16, __VA_ARGS__)                            \
-      REPRO_FLASH_CASE(LAUNCH, 32, __VA_ARGS__)                            \
-      REPRO_FLASH_CASE(LAUNCH, 64, __VA_ARGS__)                            \
-      REPRO_FLASH_CASE(LAUNCH, 80, __VA_ARGS__)                            \
-      REPRO_FLASH_CASE(LAUNCH, 128, __VA_ARGS__)                           \
-      REPRO_FLASH_CASE(LAUNCH, 256, __VA_ARGS__)                           \
+      REPRO_FLASH_CASE(SIMT, TC, 16, __VA_ARGS__)                          \
+      REPRO_FLASH_CASE(SIMT, TC, 32, __VA_ARGS__)                          \
+      REPRO_FLASH_CASE(SIMT, TC, 64, __VA_ARGS__)                          \
+      REPRO_FLASH_CASE(SIMT, TC, 80, __VA_ARGS__)                          \
+      REPRO_FLASH_CASE(SIMT, TC, 128, __VA_ARGS__)                         \
+      REPRO_FLASH_CASE(SIMT, TC, 256, __VA_ARGS__)                         \
       default: return static_cast<int>(cudaErrorInvalidValue);             \
     }                                                                      \
   } while (0)
@@ -612,9 +1405,12 @@ inline Shape make_shape(int Sq, int Skv, int Hq, int Hkv, int causal,
   return s;
 }
 
+// Grid limits: B and Hq <= 65535, and at most 65535 tiles of 32 rows
+// along Sq and Skv (the tensor-core grids' third dimension).
 inline bool bad_shape(int B, int Sq, int Skv, int Hq, int Hkv) {
   return B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
-         B > 65535 || Hq > 65535;
+         B > 65535 || Hq > 65535 || tiles(Sq, 32) > 65535 ||
+         tiles(Skv, 32) > 65535;
 }
 
 }  // namespace flash
@@ -637,7 +1433,8 @@ int repro_flash_fwd(const void* q, const void* k, const void* v, int dtype,
   }
   const Shape s = make_shape(Sq, Skv, Hq, Hkv, causal, window, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  REPRO_FLASH_DISPATCH(launch_fwd, q, k, v, out, out32, lse, B, s, st);
+  REPRO_FLASH_DISPATCH(launch_fwd, launch_tc_fwd, q, k, v, out, out32, lse, B,
+                       s, st);
 }
 
 // Backward, first kernel: delta (B, Sq, Hq) f32 = D, and dq in q's type.
@@ -651,24 +1448,46 @@ int repro_flash_bwd_dq(const void* q, const void* k, const void* v,
   }
   const Shape s = make_shape(Sq, Skv, Hq, Hkv, causal, window, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  REPRO_FLASH_DISPATCH(launch_dq, q, k, v, out32, dout, lse, delta, dq, B, s,
-                       st);
+  REPRO_FLASH_DISPATCH(launch_dq, launch_tc_dq, q, k, v, out32, dout, lse,
+                       delta, dq, B, s, st);
 }
 
 // Backward, second kernel (after the first, which writes delta): dk and dv
-// in k's type.
+// in k's type. part: f32 scratch (2, B, Skv, Hq, hd) for bf16 inputs with
+// Hq > Hkv (the per-head partials), else unused and may be null.
 int repro_flash_bwd_dkdv(const void* q, const void* k, const void* v,
                          int dtype, const void* dout, const void* lse,
-                         const void* delta, void* dk, void* dv, int B,
-                         int Sq, int Skv, int Hq, int Hkv, int hd, int causal,
-                         int window, float scale, void* stream) {
+                         const void* delta, void* dk, void* dv, void* part,
+                         int B, int Sq, int Skv, int Hq, int Hkv, int hd,
+                         int causal, int window, float scale, void* stream) {
   if (bad_shape(B, Sq, Skv, Hq, Hkv)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Shape s = make_shape(Sq, Skv, Hq, Hkv, causal, window, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  REPRO_FLASH_DISPATCH(launch_dkdv, q, k, v, dout, lse, delta, dk, dv, B, s,
-                       st);
+  REPRO_FLASH_DISPATCH(launch_dkdv, launch_tc_dkdv, q, k, v, dout, lse, delta,
+                       dk, dv, part, B, s, st);
+}
+
+// Dynamic shared memory (bytes) of the bf16 route's kernel `which` (0 the
+// forward, 1 bwd_dq, 2 bwd_dkdv) at head dim hd, or -1.
+int repro_flash_tc_smem(int which, int hd) {
+#define REPRO_FLASH_SMEM(HD)                                               \
+  case HD:                                                                 \
+    return which == 0   ? static_cast<int>(tc::fwd_smem<HD>())             \
+           : which == 1 ? static_cast<int>(tc::dq_smem<HD>())              \
+           : which == 2 ? static_cast<int>(tc::dkdv_smem<HD>())            \
+                        : -1;
+  switch (hd) {
+    REPRO_FLASH_SMEM(16)
+    REPRO_FLASH_SMEM(32)
+    REPRO_FLASH_SMEM(64)
+    REPRO_FLASH_SMEM(80)
+    REPRO_FLASH_SMEM(128)
+    REPRO_FLASH_SMEM(256)
+    default: return -1;
+  }
+#undef REPRO_FLASH_SMEM
 }
 
 }  // extern "C"

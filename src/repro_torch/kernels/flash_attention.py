@@ -6,10 +6,13 @@ backward of ``flash_attention_xla``), in the reference's layout: q
 (B, Sq, Hq, hd), k/v (B, Skv, Hkv, hd), f32 or bf16, contiguous, on one
 card. Three kernels: the forward (with the f32 output and the logsumexp L
 that the backward reads), ``bwd_dq`` (D and dq) and ``bwd_dkdv`` (dk and
-dv, after ``bwd_dq``). Each launcher checks what the kernel takes and
-raises on anything else, allocates its outputs with ``torch.empty`` and
-launches on the current stream. CUDA tensors only; ``kernels.ops``
-dispatches CPU tensors to ``kernels.ref`` and counts the launches.
+dv, after ``bwd_dq``). bf16 inputs run on the tensor cores, f32 inputs on
+the SIMT kernels (the source's header says why). Each launcher checks what
+the kernel takes and raises on anything else, allocates its outputs (and,
+for bf16 ``bwd_dkdv`` with Hq > Hkv, the f32 per-head partials that a
+second kernel sums in order) with ``torch.empty`` and launches on the
+current stream. CUDA tensors only; ``kernels.ops`` dispatches CPU tensors
+to ``kernels.ref`` and counts the launches.
 """
 
 from __future__ import annotations
@@ -37,6 +40,8 @@ def _check_qkv(what: str, q, k, v):
             raise ValueError(f"{what}: {name} must be 4-d, got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be 16-byte aligned")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{what}: q, k, v dtypes differ: {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
@@ -60,10 +65,11 @@ def _check_qkv(what: str, q, k, v):
 
 def _check_aux(what: str, name: str, t, shape, dtype, device) -> None:
     if (t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape)
-            or not t.is_contiguous()):
+            or not t.is_contiguous() or t.data_ptr() % 16):
         raise ValueError(
-            f"{what}: {name} must be contiguous {dtype} {tuple(shape)} on "
-            f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
+            f"{what}: {name} must be contiguous, 16-byte aligned {dtype} "
+            f"{tuple(shape)} on {device}, got {t.dtype} {tuple(t.shape)} on "
+            f"{t.device}"
         )
 
 
@@ -123,7 +129,7 @@ def bwd_dq(q, k, v, out32, lse, dout, *, causal: bool, window: int):
 def bwd_dkdv(q, k, v, lse, delta, dout, *, causal: bool, window: int):
     """-> (dk in k's dtype, dv in v's dtype), given D from :func:`bwd_dq`."""
     dims = _check_qkv("flash_attention_bwd_dkdv", q, k, v)
-    b, sq, _, hq, _, _ = dims
+    b, sq, skv, hq, hkv, hd = dims
     for name, t in (("lse", lse), ("delta", delta)):
         _check_aux("flash_attention_bwd_dkdv", name, t, (b, sq, hq),
                    torch.float32, q.device)
@@ -131,11 +137,16 @@ def bwd_dkdv(q, k, v, lse, delta, dout, *, causal: bool, window: int):
                q.device)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    part = None
+    if q.dtype == torch.bfloat16 and hq > hkv:
+        part = torch.empty((2, b, skv, hq, hd), dtype=torch.float32,
+                           device=q.device)
     lib = _build.KERNELS.library("flash_attention")
     with torch.cuda.device(q.device):
         rc = lib.repro_flash_bwd_dkdv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), DTYPE_CODES[q.dtype],
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), *_common(dims, causal, window, _stream(q)))
+            dv.data_ptr(), None if part is None else part.data_ptr(),
+            *_common(dims, causal, window, _stream(q)))
     _build.check(rc, "flash_attention_bwd_dkdv")
     return dk, dv

@@ -173,3 +173,108 @@ def test_cpu_path_launches_nothing_and_odd_devices_raise():
     meta = torch.empty((1, 8, 2, 16), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         ops.flash_attention(meta, meta[:, :, :1], meta[:, :, :1])
+
+
+# --- the bf16 route's arithmetic (csrc/flash_attention.cu, namespace tc) ---
+#
+# On the card, bf16 K2 multiplies on tensor cores: bf16 operands, f32 sums.
+# q.k^T and dout.v^T take two bf16 tensors and are exact there; the products
+# with an f32 operand (p or ds) take it split into hi = bf16(x) and
+# lo = bf16(x - hi), two products summed in f32. This plain emulation of
+# that design is held to the gates the card holds the kernels to.
+
+def _bf16(x):
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _split(x):
+    hi = _bf16(x)
+    return hi, _bf16(x - hi)
+
+
+def _rounded_once(x):
+    return _bf16(x), torch.zeros_like(x)
+
+
+def _emulated_k2(q, k, v, dout, causal, window, split):
+    """(out32, L, D, dq, dk, dv) of the tensor-core design on bf16 inputs:
+    scores and dp from f32 products of the bf16 values, each f32 operand
+    of the other four products through ``split``."""
+    b, sq, hq, hd = q.shape
+    hkv = k.shape[2]
+    scale = 1.0 / np.sqrt(hd)
+    kf, vf = k.float(), v.float()
+    s = ref._scores(q, k, causal, window)                 # (B, Hkv, G, Sq, Skv)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    l = e.sum(dim=-1, keepdim=True)
+    hi, lo = split(e)
+    pv = (torch.einsum("bhgqk,bkhd->bqhgd", hi, vf)
+          + torch.einsum("bhgqk,bkhd->bqhgd", lo, vf))
+    lq = l[..., 0].permute(0, 3, 1, 2)[..., None]         # (B, Sq, Hkv, G, 1)
+    out32 = (pv / torch.clamp_min(lq, 1e-30)).reshape(b, sq, hq, hd)
+    lse = (m + torch.log(torch.clamp_min(l, 1e-30)))[..., 0]
+    lse = lse.permute(0, 3, 1, 2).reshape(b, sq, hq)
+    do = dout.float()
+    delta = (do * out32).sum(-1)
+    p = torch.exp(s - ref._rows(lse, hkv))
+    dp = torch.einsum("bqhgd,bkhd->bhgqk",
+                      do.reshape(b, sq, hkv, hq // hkv, hd), vf)
+    ds = p * (dp - ref._rows(delta, hkv)) * scale
+    qg = q.float().reshape(b, sq, hkv, hq // hkv, hd)
+    dog = do.reshape(b, sq, hkv, hq // hkv, hd)
+
+    def two(eq, x, y):
+        xh, xl = split(x)
+        return torch.einsum(eq, xh, y) + torch.einsum(eq, xl, y)
+
+    dq = two("bhgqk,bkhd->bqhgd", ds, kf).reshape(b, sq, hq, hd)
+    dk = two("bhgqk,bqhgd->bkhd", ds, qg)
+    dv = two("bhgqk,bqhgd->bkhd", p, dog)
+    return out32, lse, delta, dq, dk, dv
+
+
+def _within(got, want, tol):
+    """The card's f32 gate: |got - want| <= tol + tol |want|."""
+    return bool(((got - want).abs() <= tol + tol * want.abs()).all())
+
+
+def _within_bf16_step(got, want):
+    """The card's bf16 gate: one bf16 step plus 1e-3 of the largest."""
+    diff = (got.double() - want.double()).abs()
+    lim = 2.0 ** -7 * want.double().abs() + 1e-3 * want.double().abs().max()
+    return bool((diff <= lim).all())
+
+
+@pytest.mark.parametrize(
+    "b,s,hq,hkv,hd,window",
+    [
+        (1, 512, 2, 2, 64, 0),      # lm_350m's head layout
+        (1, 300, 10, 1, 256, 64),   # recurrentgemma_2b's MQA window
+    ],
+)
+def test_tensor_core_split_meets_the_card_gates(b, s, hq, hkv, hd, window):
+    """The hi/lo split passes the gates of ``chip_smoke.flash_case`` and
+    ``test_torch_cuda.py`` against the plain versions: out32, L and D
+    within rtol = atol = 2e-5, bf16 out and gradients within one bf16
+    step; p and ds rounded once to bf16 fail the out32 gate."""
+    q, k, v, do = (_to_torch(a, torch.bfloat16)
+                   for a in _inputs(hd + s, b, s, s, hq, hkv, hd))
+    kw = dict(causal=True, window=window)
+    want_out, want32, want_lse = ref.flash_attention_ref(q, k, v, **kw)
+    want_dq, want_delta = ref.flash_attention_bwd_dq_ref(
+        q, k, v, want32, want_lse, do, **kw)
+    want_dk, want_dv = ref.flash_attention_bwd_dkdv_ref(
+        q, k, v, want_lse, want_delta, do, **kw)
+
+    out32, lse, delta, dq, dk, dv = _emulated_k2(q, k, v, do, True, window,
+                                                 _split)
+    assert _within(out32, want32, 2e-5)
+    assert _within(lse, want_lse, 2e-5)
+    assert _within(delta, want_delta, 2e-5)
+    assert _within_bf16_step(out32.bfloat16(), want_out)
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert _within_bf16_step(got.bfloat16(), want)
+
+    once32 = _emulated_k2(q, k, v, do, True, window, _rounded_once)[0]
+    assert not _within(once32, want32, 2e-5)

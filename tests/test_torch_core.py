@@ -20,6 +20,9 @@ from repro import compression as jcomp  # noqa: E402
 from repro import core as jdrjax  # noqa: E402
 from repro_torch import compression as tcomp  # noqa: E402
 from repro_torch import core as drjax  # noqa: E402
+from repro.core import primitives as jprims  # noqa: E402
+from repro.kernels import ops as jkops  # noqa: E402
+from repro_torch.core import primitives as tprims  # noqa: E402
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 
@@ -250,3 +253,74 @@ def test_wire_model_matches_reference():
     for kw in ({}, {"compress": "int8"}, {"compress_ratio": 0.5}):
         assert drjax.cross_pod_bytes(1e9, 64, 4, **kw) == \
             jdrjax.cross_pod_bytes(1e9, 64, 4, **kw)
+
+
+# P1: the reference's driver always jits, and XLA compiles reduce_mean's
+# ``sum / n`` (and its transpose's ``ct / n``) as a product with f32(1/n).
+# The port multiplies by the same reciprocal; a division differs from it in
+# the last bit of many elements at n = 3, 5 and 6.
+def _p1_programs(mod, prims, n, compress):
+    @mod.program(partition_size=n)
+    def mean(x):
+        if compress:
+            return prims(x, compress="int8")
+        return mod.reduce_mean(x)
+
+    return mean
+
+
+@pytest.mark.parametrize("compress", [False, True], ids=["plain", "int8_fused"])
+@pytest.mark.parametrize("n", [3, 5, 6, 8])
+def test_p1_reduce_mean_bitwise_to_jitted_reference(n, compress):
+    """Values and gradients bitwise to ``jax.jit`` of the reference, plain
+    and int8-fused. The fused forward is held to the jitted plain mean
+    followed by the reference's int8 row roundtrip, which is what its
+    kernel computes (off the TPU the reference's fused reduce forms the
+    mean another way, ROADMAP R7); its gradient is straight-through."""
+    (x,) = _inputs(100 + n, (n, 4096))
+    ct = np.random.default_rng(n).standard_normal(4096).astype(np.float32)
+    jmean = _p1_programs(jdrjax, jprims.bind_reduce_mean, n, compress)
+    tmean = _p1_programs(drjax, tprims.reduce_mean, n, compress)
+    if compress:
+        plain = _p1_programs(jdrjax, None, n, False)
+        want = jax.jit(lambda v: jkops._roundtrip_rows(plain(v), 0))(x)
+    else:
+        want = jax.jit(jmean)(x)
+    # ct enters as an argument: a closed-over constant would be folded
+    # (divided exactly) at compile time, as no driver's cotangent is.
+    wgrad = jax.jit(jax.grad(lambda v, c: (jmean(v) * c).sum()))(x, ct)
+    xt = torch.tensor(x, requires_grad=True)
+    got = tmean(xt)
+    (ggrad,) = torch.autograd.grad((got * torch.from_numpy(ct)).sum(), xt)
+    np.testing.assert_array_equal(got.detach().numpy(), np.asarray(want))
+    np.testing.assert_array_equal(ggrad.numpy(), np.asarray(wgrad))
+    if not compress and n in (3, 6):  # where a division differs
+        assert (np.asarray(want) != x.sum(0) / np.float32(n)).any()
+
+
+@pytest.mark.parametrize("n", [3, 5, 6])
+def test_p1_bf16_leaves_follow_the_jitted_reference(n):
+    """bf16 leaves (rwkv6_3b's): the jitted reference rounds the sum to
+    bf16, multiplies by f32(1/n) in f32 and rounds once more; its gradient
+    is bf16(f32(ct) * f32(1/n)). The port's value and gradient equal it
+    bitwise. A product with the bf16-rounded reciprocal would not."""
+    (x,) = _inputs(200 + n, (n, 4096))
+    ct = np.random.default_rng(n).standard_normal(4096).astype(np.float32)
+    jx = jnp.asarray(x).astype(jnp.bfloat16)
+    jct = jnp.asarray(ct).astype(jnp.bfloat16)
+    jmean = _p1_programs(jdrjax, None, n, False)
+    want = np.asarray(jax.jit(jmean)(jx).astype(jnp.float32))
+    wgrad = np.asarray(jax.jit(jax.grad(lambda v, c: (jmean(v) * c).sum()))(
+        jx, jct).astype(jnp.float32))
+    xt = torch.tensor(x).bfloat16().requires_grad_()
+    ctt = torch.tensor(ct).bfloat16()
+    got = _p1_programs(drjax, None, n, False)(xt)
+    (ggrad,) = torch.autograd.grad((got * ctt).sum(), xt)
+    assert got.dtype == torch.bfloat16 and ggrad.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.detach().float().numpy(), want)
+    np.testing.assert_array_equal(ggrad.float().numpy(), wgrad)
+    r32 = torch.tensor(1.0 / n, dtype=torch.float32)
+    formula = (xt.detach().sum(0).float() * r32).bfloat16()
+    np.testing.assert_array_equal(formula.float().numpy(), want)
+    bf16_recip = xt.detach().sum(0) * torch.tensor(1.0 / n).bfloat16()
+    assert (bf16_recip.float().numpy() != want).any()

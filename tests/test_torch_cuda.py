@@ -126,6 +126,28 @@ def test_round_on_card_matches_cpu(card):
     assert abs(losses["cuda"] - losses["cpu"]) <= 1e-5 * abs(losses["cpu"])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_reduce_mean_on_card_bitwise_to_cpu(card, dtype):
+    """P1: at n = 3 the card's reduce_mean and its gradient multiply by
+    f32(1/3) as the CPU's do (a division by a Python scalar would take the
+    reciprocal on the card and divide on the CPU)."""
+    from repro_torch import core as drjax
+
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((3, 4096), generator=gen).to(dtype)
+    ct = torch.randn(4096, generator=gen).to(dtype)
+    mean = drjax.program(partition_size=3)(lambda v: drjax.reduce_mean(v))
+    out = {}
+    for dev in ("cpu", card):
+        xl = x.to(dev).requires_grad_()
+        y = mean(xl)
+        (g,) = torch.autograd.grad((y * ct.to(dev)).sum(), xl)
+        out[str(dev)] = (y.detach().cpu(), g.cpu())
+    assert torch.equal(out["cpu"][0], out["cuda"][0])
+    assert torch.equal(out["cpu"][1], out["cuda"][1])
+
+
 def _qkvd(card, b, sq, skv, hq, hkv, hd, dtype, seed=0):
     gen = torch.Generator(device=card).manual_seed(seed)
     return tuple(torch.randn(shape, generator=gen, device=card).to(dtype)
@@ -154,6 +176,8 @@ def _assert_within_bf16_step(got, want):
         (1, 150, 150, 10, 1, 256, True, 64),    # recurrentgemma: MQA, hd 256
         (2, 70, 70, 2, 2, 256, True, 0),        # hd 256, G = 1
         (1, 24, 56, 4, 1, 256, False, 0),       # hd 256, non-causal
+        (1, 1100, 1100, 4, 4, 64, True, 0),     # many kv tiles, ragged tail
+        (1, 1030, 1030, 10, 1, 256, True, 512),  # MQA window: the G-sum
     ],
 )
 def test_flash_attention_matches_plain(card, b, sq, skv, hq, hkv, hd, causal,
@@ -192,18 +216,57 @@ def test_flash_attention_matches_plain(card, b, sq, skv, hq, hkv, hd, causal,
 
 
 @pytest.mark.cuda
-def test_flash_attention_backward_is_deterministic_under_checkpoint(card):
-    q, k, v, do = _qkvd(card, 2, 256, 256, 8, 2, 64, torch.bfloat16, seed=1)
+@pytest.mark.parametrize("shape,window", [
+    ((2, 256, 256, 8, 2, 64), 0),
+    ((1, 700, 700, 10, 1, 256), 256),  # hd 256 MQA: per-head partials
+])
+def test_flash_attention_backward_is_deterministic_under_checkpoint(
+        card, shape, window):
+    q, k, v, do = _qkvd(card, *shape, torch.bfloat16, seed=1)
 
     def grads():
         qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
         out = torch.utils.checkpoint.checkpoint(
-            lambda a, b, c: ops.flash_attention(a, b, c), qg, kg, vg,
-            use_reentrant=False)
+            lambda a, b, c: ops.flash_attention(a, b, c, window=window),
+            qg, kg, vg, use_reentrant=False)
         return torch.autograd.grad(out, (qg, kg, vg), do)
 
     for a, b in zip(grads(), grads()):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 200, 200, 4, 4, 64),
+                                   (1, 150, 150, 10, 1, 256)])
+def test_flash_attention_route_by_dtype(card, shape, dtype):
+    """bf16 K2 launches only the tensor-core kernels (and, for Hq > Hkv,
+    the ordered sum of the per-head partials); f32 K2 only the SIMT
+    kernels. Names from ``torch.profiler``."""
+    import time
+
+    q, k, v, do = _qkvd(card, *shape, dtype)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    # A trace of a second or two can lose its kernel events on the card
+    # machines; traces of several seconds keep them (chip_smoke.kernel_names).
+    with torch.profiler.profile(activities=acts) as prof:
+        time.sleep(1.0)
+        torch.autograd.grad(ops.flash_attention(qg, kg, vg), (qg, kg, vg), do)
+        torch.cuda.synchronize()
+        time.sleep(6.0)
+    names = {e.key for e in prof.key_averages()
+             if e.device_type.name == "CUDA" and "repro::flash::" in e.key}
+    short = {n.split("(")[0].split("::")[-1].split("<")[0] for n in names}
+    if dtype == torch.bfloat16:
+        want = {"tc_fwd_kernel", "tc_bwd_dq_kernel", "tc_bwd_dkdv_kernel"}
+        if shape[3] > shape[4]:
+            want.add("tc_sum_heads_kernel")
+        assert short == want, names
+    else:
+        assert short == {"fwd_kernel", "bwd_dq_kernel", "bwd_dkdv_kernel"}, names
 
 
 @pytest.mark.cuda

@@ -72,7 +72,7 @@ def _opts(mod, algorithm):
     return client, server
 
 
-def _run(setup, algorithm, compression=None, pods=0, cohort=2):
+def _run(setup, algorithm, compression=None, pods=0, cohort=2, jit=False):
     jcfg, tcfg, jparams = setup
     jb, tb = _data(cohort, pods)
     jclient, jserver = _opts(jopt, algorithm)
@@ -92,6 +92,8 @@ def _run(setup, algorithm, compression=None, pods=0, cohort=2):
                    jround_cfg)
     tround = tmake(functools.partial(registry.loss_fn, tcfg), tclient, tserver,
                    tround_cfg)
+    if jit:
+        jround = jax.jit(jround)
     jnew, _, jm = jround(jparams, jserver.init(jparams), jb)
     params = convert.params_from_jax(tcfg, jax.device_get(jparams), device="cpu")
     tnew, tstate, tm = tround(params, tserver.init(params), tb)
@@ -126,6 +128,17 @@ def test_uncompressed_round_matches_reference(setup, algorithm):
     moved = sum(float(np.abs(w - o).max()) for (_, w), (_, o)
                 in zip(_leaves(jnew), _leaves(old)))
     assert moved > 0
+
+
+def test_cohort3_round_matches_jitted_reference(setup):
+    """P1: at a cohort that is not a power of two the reference's driver
+    (which jits) averages with f32(1/3); so does the port."""
+    old, jnew, jloss, tnew, tloss = _run(setup, "local_sgd", cohort=3, jit=True)
+    np.testing.assert_allclose(tloss, jloss, rtol=1e-5)
+    got = dict(_leaves(tnew))
+    for name, want in _leaves(jnew):
+        np.testing.assert_allclose(got[name], want, rtol=0, atol=1e-5,
+                                   err_msg=name)
 
 
 def _quantized_values(setup, cohort, pods):
