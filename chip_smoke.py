@@ -103,7 +103,14 @@ Phases, each reported on its own line (any failure raises, exit != 0):
    batch 2): outputs within 1e-4 (rtol = atol, the reference's WKV
    tolerance), gradients within 1e-4 of their largest magnitude, all
    finite; median ms of the kernels (20 timed runs), of the plain loops
-   (3 timed runs: each is 4,096 dependent steps) and the bound;
+   (3 timed runs: each is 4,096 dependent steps) and the bound of the
+   tensor-core route (bytes at 3.35 TB/s or 3 x FLOP at TF32's
+   495 TFLOP/s, each logged, with the f32 SIMT bound); each K5 CUDA
+   kernel's share of its pass from one ``torch.profiler`` trace, which
+   must show the expected kernels; the TF32 ``HMMA`` count of each K5
+   kernel's SASS (``cuobjdump -sass``: every chunk kernel has some, the
+   scans none) and the blocks an SM holds of each chunk kernel (two at
+   head dim 64);
 14. ssm: 2 flat uncompressed rounds of full rwkv6_3b (3.07 B parameters,
    32 layers; cohort 2, 2 local steps, batch 1, seq 4096: 16,384 tokens a
    round) through ``repro_torch.launch.train``; losses finite, K5 forward
@@ -597,12 +604,12 @@ TRACE_GAP_S = 0.1   # idle seconds after each call
 TRACE_LAG_S = 6.0   # more idle seconds before the trace ends
 
 
-def kernel_names(calls: dict, attempts: int = 3) -> dict:
-    """{label: sorted names of the device kernels ``calls[label]()`` ran},
-    from one ``torch.profiler`` trace of all the calls in order, each
-    followed by a synchronize and TRACE_GAP_S idle. A call's kernels run
-    back to back, so on the device clock they form one group, and the
-    groups follow the calls' order.
+def traced_calls(calls: dict, attempts: int = 3) -> dict:
+    """{label: [(device kernel name, device us), ...]} of the kernels
+    ``calls[label]()`` ran, from one ``torch.profiler`` trace of all the
+    calls in order, each followed by a synchronize and TRACE_GAP_S idle. A
+    call's kernels run back to back, so on the device clock they form one
+    group, and the groups follow the calls' order.
 
     On the H100 machines a trace of a second or two can lose all its
     kernel events (most short traces did after a few minutes of work),
@@ -626,14 +633,32 @@ def kernel_names(calls: dict, attempts: int = 3) -> dict:
         groups, end = [], None
         for start, stop, name in events:  # microseconds
             if end is None or start - end > TRACE_GAP_S * 1e6 / 2:
-                groups.append(set())
-            groups[-1].add(name)
+                groups.append([])
+            groups[-1].append((name, stop - start))
             end = stop if end is None else max(end, stop)
         if len(groups) == len(labels):
-            return {label: sorted(g) for label, g in zip(labels, groups)}
+            return dict(zip(labels, groups))
         log("trace", attempt=attempt, calls=len(labels), groups=len(groups))
-    raise AssertionError(f"kernel_names: {attempts} traces of {len(labels)} "
+    raise AssertionError(f"traced_calls: {attempts} traces of {len(labels)} "
                          f"calls did not show one kernel group per call")
+
+
+def kernel_names(calls: dict, attempts: int = 3) -> dict:
+    """{label: sorted names of the device kernels ``calls[label]()`` ran}
+    (:func:`traced_calls`)."""
+    return {label: sorted({name for name, _ in group})
+            for label, group in traced_calls(calls, attempts).items()}
+
+
+def kernel_split(calls: dict, reps: int = 10) -> dict:
+    """{label: {device kernel name: mean device ms per call}}: each of
+    ``calls`` run ``reps`` times in one trace (:func:`traced_calls`)."""
+    runs = {(label, i): fn for label, fn in calls.items() for i in range(reps)}
+    split = {label: {} for label in calls}
+    for (label, _), group in traced_calls(runs).items():
+        for name, us in group:
+            split[label][name] = split[label].get(name, 0.0) + us / 1e3 / reps
+    return split
 
 
 def require_flash_route(names, dtype, what) -> None:
@@ -865,6 +890,13 @@ WKV_REPLACES = {"wkv6_fwd": "src/repro/kernels/wkv6.py:73",
                 # no TPU backward: the reference differentiates its
                 # chunked jnp form with XLA
                 "wkv6_bwd": "src/repro/models/rwkv.py:142"}
+# the CUDA kernels each wrapper launches (csrc/wkv6.cu): per-chunk terms,
+# the elementwise scan over the chunk states, the per-chunk output or
+# gradients (and du's fixed-order sum)
+WKV_KERNELS = {"wkv6_fwd": {"state_kernel", "scan_kernel", "out_kernel"},
+               "wkv6_bwd": {"xterm_kernel", "scan_kernel", "grad_kernel",
+                            "du_sum_kernel"}}
+TF32_TC_OPS_PER_S = 495e12  # H100 SXM TF32 tensor cores, dense
 
 
 def wkv_inputs(gen, b, s, h, n, law):
@@ -903,6 +935,9 @@ def wkv_case(gen, b, s, h, n, law):
     torch.cuda.synchronize()
     require(bool(torch.isfinite(out).all()), f"{what}: non-finite output")
     errs = {"out": check_close(f"{what} out", out, r_out, 1e-4)}
+    # the largest |out - plain| / (1e-4 + 1e-4 |plain|): 1 is the gate
+    errs["out_of_gate"] = float(((out.double() - r_out.double()).abs() / (
+        1e-4 + 1e-4 * r_out.double().abs())).max())
     errs["states"] = float((states - r_states).abs().max())
     require(errs["states"] <= 1e-4 * max(float(r_states.abs().max()), 1.0),
             f"{what}: states off by {errs['states']}")
@@ -912,7 +947,17 @@ def wkv_case(gen, b, s, h, n, law):
     for name, g, w in zip(("dr", "dk", "dv", "dlogw", "du"), got, want):
         require(bool(torch.isfinite(g).all()), f"{what}: non-finite {name}")
         errs[name] = check_grad(f"{what} {name}", g, w, torch.float32)
+        errs["grads_of_gate"] = max(errs.get("grads_of_gate", 0.0), errs[name] / (
+            1e-4 * max(float(w.double().abs().max()), 1e-30)))
     return (r, k, v, lw, u, do, r_states), errs
+
+
+def short_kernel_name(name: str) -> str:
+    """``void ns::kernel<64>(float const*, ...)`` -> ``kernel<64>``."""
+    import re
+
+    m = re.search(r"(\w+(?:<[^()]*>)?)\(", name)
+    return m.group(1) if m else name
 
 
 def wkv_work(b, s, h, n):
@@ -941,10 +986,60 @@ def wkv_state_bytes(b, s, h, n):
     return b * h * -(-s // 64) * n * n * 4
 
 
+def wkv_sass() -> dict:
+    """{kernel<N>: number of TF32 tensor-core instructions} in the SASS of
+    the K5 library (``cuobjdump -sass``, beside nvcc): each chunk kernel
+    must run its products as ``HMMA.1688.F32.TF32`` and the scans and the du
+    sum none."""
+    import re
+
+    from repro_torch import compat
+    from repro_torch.kernels import _build
+
+    tool = Path(compat.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(_build.KERNELS.path("wkv6"))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : \S*wkv\d+(\w+?_kernel)(?:IL[ib](\d+)E)?", line)
+        if m:
+            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            counts[name] = 0
+        elif name and re.search(r"\bHMMA\.1688\.F32\.TF32\b", line):
+            counts[name] += 1
+    for kernel, n in counts.items():
+        chunk = kernel.split("<")[0] in ("state_kernel", "out_kernel",
+                                         "xterm_kernel", "grad_kernel")
+        require(n > 0 if chunk else n == 0,
+                f"{kernel}: {n} TF32 HMMA instructions in its SASS")
+    require(len(counts) == 15, f"K5 SASS holds the kernels {sorted(counts)}")
+    return counts
+
+
+def wkv_occupancy() -> dict:
+    """{N: blocks an SM holds of state, out, xterm and grad kernels}; the
+    chunk kernels at N = 64 must fit two."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    lib = _build.KERNELS.library("wkv6")
+    found = {}
+    for n in (16, 32, 64):
+        blocks = (ctypes.c_int * 4)()
+        require(lib.repro_wkv6_occupancy(n, blocks) == 0, f"occupancy N={n}")
+        found[f"N{n}"] = dict(zip(("state", "out", "xterm", "grad"), blocks))
+    require(min(found["N64"].values()) >= 2,
+            f"K5 chunk kernels at N = 64 hold {found['N64']} blocks an SM")
+    return {k: json.dumps(v) for k, v in found.items()}
+
+
 def phase_wkv(gen):
     """K5 against its plain versions, and its times at rwkv6_3b's shape."""
     from repro_torch.kernels import ops, ref
 
+    log("kernels", name="K5 SASS", tf32_hmma=json.dumps(wkv_sass()))
+    log("kernels", name="K5 blocks an SM holds", **wkv_occupancy())
     for case in WKV_SWEEP:
         for law in ("model", "mild"):
             _, errs = wkv_case(gen, *case, law)
@@ -971,7 +1066,13 @@ def phase_wkv(gen):
     results = {}
     for name, (nbytes, flop) in wkv_work(*WKV_MAIN).items():
         kernel, plain = calls[name]
-        b_ms, by = bound(nbytes, flop)
+        # the products run on TF32 tensor cores in three passes (3xTF32):
+        # the route's bound is its bytes or three times its FLOP at that
+        # rate; the f32 SIMT bound of the same work is logged beside it
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 3 * flop / TF32_TC_OPS_PER_S * 1e3
+        b_ms, by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                    else (t_ops, "operations"))
         results[name] = dict(
             err=errs_by[name], ms=time_ms(kernel),
             plain_ms=time_ms(plain, warmup=1, iters=WKV_PLAIN_RUNS),
@@ -983,6 +1084,25 @@ def phase_wkv(gen):
             plain_runs=WKV_PLAIN_RUNS, bound_ms=f"{b_ms:.4f}", bound_by=by,
             bytes=nbytes, flop=flop, err=f"{errs_by[name]:.3e}",
             state_bytes_beyond_bound=wkv_state_bytes(*WKV_MAIN))
+        log("kernels", name=name, route="tensor cores (3xTF32 mma.sync)",
+            bound_ms_bytes=f"{t_bytes:.4f}", bytes_rate="HBM3, 3.35 TB/s",
+            bound_ms_tf32x3=f"{t_ops:.4f}",
+            ops_rate="3 x FLOP at TF32 tensor cores, 495 TFLOP/s",
+            bound_ms_f32_simt=f"{bound(nbytes, flop)[0]:.4f}",
+            f32_simt_rate="f32 outside the tensor cores, 67 TFLOP/s")
+    split = kernel_split({name: kernel for name, (kernel, _) in calls.items()})
+    for name, by_kernel in split.items():
+        traced = sum(by_kernel.values())
+        results[name]["split_ms"] = {short_kernel_name(k): ms
+                                     for k, ms in by_kernel.items()}
+        log("kernels", name=f"{name} split", shape=WKV_MAIN,
+            traced_ms=f"{traced:.4f}", kernels=json.dumps({
+                short_kernel_name(k): f"{ms:.4f} ms ({ms / traced:.1%})"
+                for k, ms in by_kernel.items()}))
+        ran = {short_kernel_name(k).split("<")[0] for k in by_kernel}
+        require(ran == WKV_KERNELS[name],
+                f"{name} ran the kernels {sorted(ran)}, expected "
+                f"{sorted(WKV_KERNELS[name])}")
     del r, k, v, lw, u, do, states
     torch.cuda.empty_cache()
     return results
@@ -1643,7 +1763,10 @@ def main() -> int:
     line["kernels"] += [
         entry(name, r, launches[name],
               shape=f"{WKV_MAIN} f32, model-like decays (ssm rounds)",
-              plain_runs=WKV_PLAIN_RUNS)
+              plain_runs=WKV_PLAIN_RUNS,
+              route_detail="tensor cores (3xTF32 mma.sync m16n8k8)",
+              bound_rate="HBM3 3.35 TB/s, or 3 x FLOP at TF32 tensor cores "
+              "495 TFLOP/s", split_ms=r["split_ms"])
         for name, r in wkv.items()]
     log("done", seconds=f"{time.perf_counter() - t_start:.1f}",
         padded_vocab=transformer.padded_vocab(cfg), packed_rows=rows, card=smi)

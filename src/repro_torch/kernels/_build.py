@@ -80,12 +80,13 @@ SIGNATURES = {
         "repro_lru_scan_bwd": (_P, _P, _P, _P, _C, _P, _P, _P, _C, _C, _C,
                                _P),
     },
-    # (r, k, v, logw, u, out, states, rdec, dvec, B, S, H, N, stream) and
-    # (r, k, v, logw, u, states, dout, dr, dk, dv, dlogw, dstates, du_part,
-    #  du, B, S, H, N, stream)
+    # (r, k, v, logw, u, out, states, dvec, B, S, H, N, stream),
+    # (r, k, v, logw, u, states, dout, dr, dk, dv, dlogw, dstates, dvec,
+    #  du_part, du, B, S, H, N, stream) and (N, int blocks[4])
     "wkv6": {
-        "repro_wkv6_fwd": (_P,) * 9 + (_C,) * 4 + (_P,),
-        "repro_wkv6_bwd": (_P,) * 14 + (_C,) * 4 + (_P,),
+        "repro_wkv6_fwd": (_P,) * 8 + (_C,) * 4 + (_P,),
+        "repro_wkv6_bwd": (_P,) * 15 + (_C,) * 4 + (_P,),
+        "repro_wkv6_occupancy": (_C, _P),
     },
 }
 
@@ -107,6 +108,10 @@ class KernelBuild:
                 h.update(src.name.encode())
                 h.update(src.read_bytes())
         return self.build_dir / f"{name}-{h.hexdigest()[:16]}.so"
+
+    def path(self, name: str) -> Path:
+        """Where the library of ``csrc/<name>.cu`` is (or will be) built."""
+        return self._target(name)
 
     def build_all(self) -> float:
         """Compile every source whose library is missing, in parallel.

@@ -54,6 +54,18 @@ def num_chunks(s: int) -> int:
     return -(-s // WKV_CHUNK)
 
 
+def _chunk_vectors(b, h, s, n, device):
+    return torch.empty((b, h, num_chunks(s), n), dtype=torch.float32,
+                       device=device)
+
+
+def _aligned(*tensors):
+    """The tensors, each copied if its data is not 16-byte aligned (the
+    kernels stage rows with 16-byte copies; a contiguous view can start
+    anywhere in its storage)."""
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors)
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -66,16 +78,14 @@ def fwd(r, k, v, logw, u):
     out = torch.empty_like(r)
     states = torch.empty((b, h, num_chunks(s), n, n), dtype=torch.float32,
                          device=r.device)
-    # scratch: r_i e^{lcw_{i-1}}, and each chunk's e^{lcw_last}
-    rdec = torch.empty_like(r)
-    dvec = torch.empty((b, h, num_chunks(s), n), dtype=torch.float32,
-                       device=r.device)
+    dvec = _chunk_vectors(b, h, s, n, r.device)  # scratch: e^{lcw_last}
+    r, k, v, logw, u = _aligned(r, k, v, logw, u)
     lib = _build.KERNELS.library("wkv6")
     with torch.cuda.device(r.device):
         rc = lib.repro_wkv6_fwd(r.data_ptr(), k.data_ptr(), v.data_ptr(),
                                 logw.data_ptr(), u.data_ptr(), out.data_ptr(),
-                                states.data_ptr(), rdec.data_ptr(),
-                                dvec.data_ptr(), b, s, h, n, _stream(r))
+                                states.data_ptr(), dvec.data_ptr(), b, s, h,
+                                n, _stream(r))
     _build.check(rc, "wkv6_fwd")
     return out, states
 
@@ -92,8 +102,10 @@ def bwd(r, k, v, logw, u, states, dout):
                          f"{tuple(states.shape)} on {states.device}")
     dr, dk, dv, dlogw = (torch.empty_like(r) for _ in range(4))
     dstates = torch.empty_like(states)
-    du_part = torch.empty((b, h, n), dtype=torch.float32, device=r.device)
+    # scratch: each chunk's e^{lcw_last} and its share of du
+    dvec, du_part = (_chunk_vectors(b, h, s, n, r.device) for _ in range(2))
     du = torch.empty((h, n), dtype=torch.float32, device=r.device)
+    r, k, v, logw, u, states, dout = _aligned(r, k, v, logw, u, states, dout)
     lib = _build.KERNELS.library("wkv6")
     with torch.cuda.device(r.device):
         rc = lib.repro_wkv6_bwd(r.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -101,7 +113,7 @@ def bwd(r, k, v, logw, u, states, dout):
                                 states.data_ptr(), dout.data_ptr(),
                                 dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                                 dlogw.data_ptr(), dstates.data_ptr(),
-                                du_part.data_ptr(), du.data_ptr(), b, s, h,
-                                n, _stream(r))
+                                dvec.data_ptr(), du_part.data_ptr(),
+                                du.data_ptr(), b, s, h, n, _stream(r))
     _build.check(rc, "wkv6_bwd")
     return dr, dk, dv, dlogw, du

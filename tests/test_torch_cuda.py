@@ -370,8 +370,13 @@ def _wkv_inputs(card, b, s, h, n, law, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("law", ["mild", "model"])
-@pytest.mark.parametrize("b,s,h,n", [(1, 300, 3, 64), (2, 1000, 2, 32),
-                                     (2, 37, 3, 16), (1, 64, 1, 64)])
+@pytest.mark.parametrize("b,s,h,n", [
+    (1, 300, 3, 64), (2, 1000, 2, 32), (2, 37, 3, 16), (1, 64, 1, 64),
+    # S that ends inside a 16-step sub-chunk or just past a chunk
+    (2, 1, 2, 64), (1, 15, 2, 64), (2, 17, 1, 32), (1, 63, 2, 64),
+    (1, 65, 2, 16),
+    # the narrow tiles at the main path's length
+    (1, 4096, 2, 16), (1, 4096, 2, 32)])
 def test_wkv6_matches_plain(card, b, s, h, n, law):
     """K5 forward within 1e-4 (rtol = atol, the reference's WKV tolerance)
     of the sequential plain version, its chunk states within 1e-4 of their
@@ -416,6 +421,37 @@ def test_wkv6_autograd_under_checkpoint(card):
     again = grads(ops.wkv6)  # no atomics: the same bits twice
     for a, b in zip(got, again):
         assert torch.equal(a, b)
+    # du sums per-chunk partials over (batch, chunk) in a fixed order, and
+    # dlogw sums within each chunk: both bitwise from one call to the next
+    _, states = ops.wkv6_fwd(r, k, v, lw, u)
+    first = ops.wkv6_bwd(r, k, v, lw, u, states, do)
+    for _ in range(3):
+        dlogw, du = ops.wkv6_bwd(r, k, v, lw, u, states, do)[3:]
+        assert torch.equal(dlogw, first[3]) and torch.equal(du, first[4])
+
+
+@pytest.mark.cuda
+def test_wkv6_takes_unaligned_views(card):
+    """Contiguous views that start off a 16-byte boundary, the chunk states
+    included, give the results of aligned copies."""
+    b, s, h, n = 1, 130, 2, 32
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, device=card)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16
+        return view
+
+    inputs = _wkv_inputs(card, b, s, h, n, "model", seed=3)
+    r, k, v, lw, u, do = (shifted(t) for t in inputs)
+    out, states = ops.wkv6_fwd(r, k, v, lw, u)
+    want_out, want_states = ops.wkv6_fwd(*(t.clone() for t in (r, k, v, lw, u)))
+    assert torch.equal(out, want_out) and torch.equal(states, want_states)
+    got = ops.wkv6_bwd(r, k, v, lw, u, shifted(states), do)
+    want = ops.wkv6_bwd(*(t.clone() for t in (r, k, v, lw, u, states, do)))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.cuda
