@@ -68,10 +68,18 @@ Phases, each reported on its own line (any failure raises, exit != 0):
    masked round of cohort 4;
 8. kernels / K4: the RG-LRU scan forward and backward bitwise against
    their plain versions, at the main shape (1, 4096, 2560) f32 and over
-   small ragged shapes (S not a multiple of the unroll, W not a multiple
-   of 32) in f32 and bf16, with and without an initial state; median ms
-   of the kernels (20 timed runs), of the plain loops (5 timed runs: each
-   is 4,096 dependent steps of small launches) and the bytes bound;
+   ragged shapes (S shorter than a tile and not a multiple of it, W not a
+   multiple of 32, 2 and 3 batch rows at a ragged S) in f32 and bf16,
+   with and without an initial state; each launch on the route it must
+   take (TMA where a row of W values is a 16-byte multiple: the main
+   shape and (2, 4100, 2560); SIMT at W 45, 33 and 1), counted by the
+   launchers and seen by kernel name in one ``torch.profiler`` trace of
+   every case; the TMA kernels' ``UTMALDG``/``UTMASTG`` in the SASS (none
+   in the SIMT kernels) and every kernel's registers and ring; median ms
+   of the kernels (20 timed runs, the host's launch path included), of
+   the plain loops (5 timed runs: each is 4,096 dependent steps of small
+   launches) and the bytes bound; each pass's CUDA kernel time from one
+   trace (``kernel_split``), and the host microseconds a launch takes;
 9. flash / hd 256: K2 at recurrentgemma_2b's attention shape (B 1 x S 4096,
    10 query heads on 1 kv head of 256, window 2048, bf16) and over a sweep
    at hd 256 (f32 and bf16, G = 10 and 1, window 64 at a ragged S,
@@ -84,8 +92,9 @@ Phases, each reported on its own line (any failure raises, exit != 0):
    16,384 tokens a round) through ``repro_torch.launch.train``; losses
    finite, K4 forward launched at least rounds x cohort x steps x 18
    recurrent layers x 2 (the checkpoint recompute) and its backward half
-   that, K2 at least rounds x cohort x steps x 8 attention layers (x 2 for
-   the forward); round seconds, tokens/s, model utilization and peak GiB;
+   that, every K4 launch on the TMA route, K2 at least rounds x cohort x
+   steps x 8 attention layers (x 2 for the forward); round seconds,
+   tokens/s, model utilization and peak GiB;
 11. hybrid grads: recurrentgemma_2b at full width with 3 layers
    (recurrent, recurrent, attention), f32, seq 4096, batch 1: loss and
    every gradient through K4 and K2 against PyTorch's autograd of their
@@ -799,15 +808,27 @@ def phase_flash_hd256(gen):
 
 
 # K4: the RG-LRU scan at the hybrid model's shape (batch 1, seq 4096,
-# lru_width 2560, f32 as the model calls it), and a ragged sweep.
+# lru_width 2560, f32 as the model calls it), and a ragged sweep: W not a
+# multiple of 32 (45, 33, 1; 100, a TMA width in f32 only), S shorter than
+# a tile and not a multiple of it, several batch rows.
 LRU_MAIN = (1, 4096, 2560)
-LRU_SWEEP = ((2, 37, 45), (3, 1000, 100), (1, 5, 33), (2, 129, 2560))
+LRU_SWEEP = ((2, 37, 45), (3, 1000, 100), (1, 5, 33), (2, 129, 2560),
+             (3, 16, 1), (2, 4100, 2560))
+LRU_TMA_SHAPES = (LRU_MAIN, (2, 4100, 2560))  # must take the TMA route
+LRU_SIMT_WIDTHS = (45, 33, 1)                  # must take the SIMT route
 LRU_PLAIN_RUNS = 5
 LRU_SOURCE = "src/repro_torch/kernels/csrc/rglru_scan.cu"
 LRU_REPLACES = {"lru_scan_fwd": "src/repro/kernels/rglru_scan.py:41",
                 # no TPU backward: the reference differentiates its
                 # associative scan
                 "lru_scan_bwd": "src/repro/models/rglru.py:103"}
+
+
+def lru_route(w: int, dtype) -> str:
+    """The route K4 must take on fresh (aligned) tensors of width w: TMA
+    when a row of W values is a multiple of 16 bytes, else SIMT."""
+    size = torch.empty((), dtype=dtype).element_size()
+    return "tma" if w * size % 16 == 0 else "simt"
 
 
 def lru_inputs(gen, b, s, w, dtype, with_h0):
@@ -821,11 +842,14 @@ def lru_inputs(gen, b, s, w, dtype, with_h0):
 
 def lru_case(gen, b, s, w, dtype, with_h0):
     """K4 forward and backward bitwise against the plain versions; the
-    backward gets the plain forward's output."""
+    backward gets the plain forward's output. Each launch must take the
+    route :func:`lru_route` names (the launchers' route counts)."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rglru_scan as kl
 
     a, x, g, h0 = lru_inputs(gen, b, s, w, dtype, with_h0)
     what = f"K4 {(b, s, w)} {dtype} h0={with_h0}"
+    kl.reset_route_launches()
     h = ops.lru_scan_fwd(a, x, h0)
     hr = ref.lru_scan_ref(a, x, h0)
     torch.cuda.synchronize()
@@ -834,17 +858,141 @@ def lru_case(gen, b, s, w, dtype, with_h0):
     want = ref.lru_scan_bwd_ref(a, hr, g, h0)
     torch.cuda.synchronize()
     require_equal(got, want, f"{what} backward")
+    route = lru_route(w, dtype)
+    require(kl.ROUTE_LAUNCHES[route] == 2,
+            f"{what}: launches by route {kl.ROUTE_LAUNCHES}, expected {route}")
     return a, x, g, hr
 
 
+def lru_sass() -> dict:
+    """{kernel<type>: (UTMALDG, UTMASTG) count} in the SASS of the
+    K4 library (``cuobjdump -sass``): every TMA kernel loads and stores
+    through the TMA, the SIMT kernels never."""
+    import re
+
+    from repro_torch import compat
+    from repro_torch.kernels import _build
+
+    tool = Path(compat.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run(
+        [str(tool), "-sass", str(_build.KERNELS.path("rglru_scan"))],
+        capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : \S*lru\d+(\w+?_kernel)I(f|13__nv_bfloat16)",
+                      line)
+        if m:
+            name = f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'}>"
+            counts[name] = [0, 0]
+        elif name and re.search(r"\bUTMALDG\b", line):
+            counts[name][0] += 1
+        elif name and re.search(r"\bUTMASTG\b", line):
+            counts[name][1] += 1
+    for kernel, (ld, st) in counts.items():
+        tma = kernel.startswith("tma_")
+        require(ld > 0 and st > 0 if tma else ld == st == 0,
+                f"{kernel}: {ld} UTMALDG and {st} UTMASTG in its SASS")
+    require(len(counts) == 8, f"K4 SASS holds the kernels {sorted(counts)}")
+    return counts
+
+
+def lru_resources(ptxas_log) -> list:
+    """Registers and spills (nvcc -Xptxas -v) of every K4 kernel, with the
+    dynamic shared memory of each TMA ring (``repro_lru_ring_smem``);
+    nothing when the library was not built by this process."""
+    import re
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.quantize import DTYPE_CODES
+
+    lib = _build.KERNELS.library("rglru_scan")
+    lines = (ptxas_log or "").splitlines()
+    rows = []
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '\S*lru\d+(\w+?_kernel)"
+                      r"I(f|13__nv_bfloat16)", line)
+        if not m:
+            continue
+        props = " ".join(lines[i + 1:i + 4])
+        regs = re.search(r"Used (\d+) registers", props)
+        spill = re.search(r"(\d+) bytes spill stores", props)
+        kernel = m.group(1)
+        dt = torch.float32 if m.group(2) == "f" else torch.bfloat16
+        smem = (lib.repro_lru_ring_smem(DTYPE_CODES[dt],
+                                        int(kernel.endswith("bwd_kernel")))
+                if kernel.startswith("tma_") else 0)
+        rows.append(dict(kernel=kernel, dtype=str(dt).split(".")[-1],
+                         registers=regs.group(1) if regs else "?",
+                         spill_stores=spill.group(1) if spill else "?",
+                         dynamic_smem_bytes=smem))
+    require(not ptxas_log or len(rows) == 8,
+            f"expected 8 K4 kernels in the ptxas report, got {len(rows)}")
+    return rows
+
+
+def lru_routes_traced(gen) -> dict:
+    """One ``torch.profiler`` trace of K4's forward and backward at every
+    sweep case (f32 and bf16) and the main shape: each must run only the
+    kernels of its route (``repro::lru::tma_`` or ``repro::lru::simt_``),
+    both passes, and the launchers must have counted that route."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rglru_scan as kl
+
+    cases = [(case, dtype) for case in LRU_SWEEP
+             for dtype in (torch.float32, torch.bfloat16)]
+    cases.append((LRU_MAIN, torch.float32))
+    inputs = {(case, dtype): lru_inputs(gen, *case, dtype, True)
+              for case, dtype in cases}
+
+    def run(key):
+        a, x, g, h0 = inputs[key]
+        return lambda: ops.lru_scan_bwd(a, ops.lru_scan_fwd(a, x, h0), g, h0)
+
+    kl.reset_route_launches()
+    names = kernel_names({key: run(key) for key in inputs})
+    want = {"tma": 0, "simt": 0}
+    routes = {}
+    for (case, dtype), ran in names.items():
+        route = lru_route(case[2], dtype)
+        want[route] += 2
+        short = {short_kernel_name(n).split("<")[0] for n in ran
+                 if "repro::lru::" in n}
+        require(short == {f"{route}_fwd_kernel", f"{route}_bwd_kernel"},
+                f"K4 {case} {dtype}: expected the {route} kernels, ran {ran}")
+        routes[f"{case} {str(dtype).split('.')[-1]}"] = route
+    # a trace taken again (traced_calls) runs every call again
+    runs = kl.ROUTE_LAUNCHES["tma"] // max(want["tma"], 1)
+    require(runs >= 1 and kl.ROUTE_LAUNCHES == {r: runs * n
+                                                for r, n in want.items()},
+            f"K4 route counts {kl.ROUTE_LAUNCHES}, the trace shows {want}")
+    del inputs
+    return routes
+
+
 def phase_lru(gen):
+    """K4 against its plain versions on both routes, the routes by kernel
+    name, and the times at recurrentgemma_2b's shape."""
+    from repro_torch.kernels import _build, ops, ref
+
+    for shape in LRU_TMA_SHAPES:
+        require(lru_route(shape[2], torch.float32) == "tma"
+                and lru_route(shape[2], torch.bfloat16) == "tma",
+                f"K4 {shape} must take the TMA route")
+    for w in LRU_SIMT_WIDTHS:
+        require(lru_route(w, torch.float32) == "simt"
+                and lru_route(w, torch.bfloat16) == "simt",
+                f"K4 at W {w} must take the SIMT route")
+    for row in lru_resources(_build.KERNELS.logs.get("rglru_scan")):
+        log("build", **row)
+    log("kernels", name="K4 SASS", utmaldg_utmastg=json.dumps(lru_sass()))
     for case in LRU_SWEEP:
         for dtype in (torch.float32, torch.bfloat16):
             for with_h0 in (False, True):
                 lru_case(gen, *case, dtype, with_h0)
     log("kernels", name="K4 sweep", shapes=LRU_SWEEP, dtypes="f32,bf16",
         h0="with and without", bitwise=True)
-    from repro_torch.kernels import ops, ref
+    log("kernels", name="K4 routes (torch.profiler)",
+        routes=json.dumps(lru_routes_traced(gen)))
 
     b, s, w = LRU_MAIN
     lru_case(gen, b, s, w, torch.float32, True)
@@ -866,12 +1014,42 @@ def phase_lru(gen):
             err=0.0, ms=time_ms(kernel),
             plain_ms=time_ms(plain, warmup=1, iters=LRU_PLAIN_RUNS),
             library_ms=None, bound_ms=b_ms, bound_by=by,
-            source=LRU_SOURCE, replaces=LRU_REPLACES[name])
+            source=LRU_SOURCE, replaces=LRU_REPLACES[name],
+            route_detail="TMA rings (cp.async.bulk.tensor, mbarriers), "
+            "32 chains a block; SIMT for unaligned widths")
         log("kernels", name=name, shape=LRU_MAIN, dtype="float32",
-            bitwise=True, ms=f"{results[name]['ms']:.4f}",
+            bitwise=True, route="tma",
+            ms=f"{results[name]['ms']:.4f}",
             plain_ms=f"{results[name]['plain_ms']:.4f}",
             plain_runs=LRU_PLAIN_RUNS, bound_ms=f"{b_ms:.4f}", bound_by=by,
             bytes=nbytes)
+    # each pass's CUDA kernels from one trace
+    traced = {name: kernel for name, (kernel, _) in calls.items()}
+    for name, by_kernel in kernel_split(traced).items():
+        kernel_ms = sum(by_kernel.values())
+        ran = {short_kernel_name(k) for k in by_kernel}
+        want = {name.replace("lru_scan_", "tma_") + "_kernel<float>"}
+        require(ran == want, f"{name} ran the kernels {sorted(ran)}, "
+                f"expected {sorted(want)}")
+        results[name]["split_ms"] = {short_kernel_name(k): ms
+                                     for k, ms in by_kernel.items()}
+        log("kernels", name=f"{name} split", shape=LRU_MAIN,
+            kernel_ms=f"{kernel_ms:.4f}",
+            tb_per_s=f"{work[name][0] / kernel_ms / 1e9:.3f}",
+            bound_share=f"{results[name]['bound_ms'] / kernel_ms:.3f}",
+            kernels=json.dumps({
+                short_kernel_name(k): f"{ms:.4f} ms ({ms / kernel_ms:.1%})"
+                for k, ms in by_kernel.items()}))
+    for name, (kernel, _) in calls.items():
+        # the host's launch path: back-to-back calls queue on the card
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            kernel()
+        host_us = (time.perf_counter() - t0) / 50 * 1e6
+        torch.cuda.synchronize()
+        log("kernels", name=f"{name} host", calls=50,
+            host_us_per_call=f"{host_us:.1f}")
     del a, x, g, h
     torch.cuda.empty_cache()
     return results
@@ -1130,11 +1308,18 @@ def require_flash_launches(counts: dict, args, layers: int) -> None:
 
 def require_lru_launches(counts: dict, args, layers: int) -> None:
     """Every recurrent layer of every client step ran the K4 forward twice
-    (once more in the checkpoint recompute) and its backward once."""
+    (once more in the checkpoint recompute) and its backward once, and
+    every K4 launch took the TMA route."""
+    from repro_torch.kernels import rglru_scan as kl
+
     steps = args.rounds * args.cohort * args.local_steps * layers
     require(counts["lru_scan_fwd"] >= 2 * steps
             and counts["lru_scan_bwd"] >= steps,
             f"K4 launched {counts}, need fwd >= {2 * steps}, bwd >= {steps}")
+    launched = counts["lru_scan_fwd"] + counts["lru_scan_bwd"]
+    require(kl.ROUTE_LAUNCHES == {"tma": launched, "simt": 0},
+            f"K4 launches by route {kl.ROUTE_LAUNCHES}: all {launched} must "
+            f"take the TMA route")
 
 
 def require_wkv_launches(counts: dict, args, layers: int) -> None:
@@ -1758,7 +1943,8 @@ def main() -> int:
     line["kernels"] += [
         entry(name, r, launches[name],
               shape=f"{LRU_MAIN} f32 (hybrid rounds)",
-              plain_runs=LRU_PLAIN_RUNS)
+              plain_runs=LRU_PLAIN_RUNS,
+              route_detail=r["route_detail"], split_ms=r["split_ms"])
         for name, r in lru.items()]
     line["kernels"] += [
         entry(name, r, launches[name],

@@ -12,9 +12,12 @@ into ``build/kernels/`` at the root of the checkout (listed in
 edited source is rebuilt and an unchanged one is reused. All sources are
 compiled together, one nvcc process each, on the first call to
 :func:`library`. No fast math: the kernels must divide and round exactly as
-the reference does. ``-Xptxas -v`` makes nvcc report each kernel's
-registers, spills and shared memory; a build keeps that report per source
-in ``KernelBuild.logs``.
+the reference does. No source links libcuda (``-lcuda``):
+``rglru_scan.cu`` encodes its TMA tensor maps with libcuda's
+``cuTensorMapEncodeTiled``, which it looks up at run time through the
+CUDA runtime's ``cudaGetDriverEntryPoint``. ``-Xptxas -v`` makes nvcc report
+each kernel's registers, spills and shared memory; a build keeps that
+report per source in ``KernelBuild.logs``.
 
 No build failure is caught: a missing nvcc or a compile error raises.
 """
@@ -73,12 +76,14 @@ SIGNATURES = {
                                  *_FLASH_TAIL),
         "repro_flash_tc_smem": (_C, _C),
     },
-    # (a, b, h0, dtype, h, B, S, W, stream) and
-    # (a, h, g, h0, dtype, da, db, dh0, B, S, W, stream)
+    # (a, b, h0, dtype, h, B, S, W, tma, stream),
+    # (a, h, g, h0, dtype, da, db, dh0, B, S, W, tma, stream): tma 0 is the
+    # SIMT route, 1 the TMA route; and (dtype, backward)
     "rglru_scan": {
-        "repro_lru_scan_fwd": (_P, _P, _P, _C, _P, _C, _C, _C, _P),
+        "repro_lru_scan_fwd": (_P, _P, _P, _C, _P, _C, _C, _C, _C, _P),
         "repro_lru_scan_bwd": (_P, _P, _P, _P, _C, _P, _P, _P, _C, _C, _C,
-                               _P),
+                               _C, _P),
+        "repro_lru_ring_smem": (_C, _C),
     },
     # (r, k, v, logw, u, out, states, dvec, B, S, H, N, stream),
     # (r, k, v, logw, u, states, dout, dr, dk, dv, dlogw, dstates, dvec,

@@ -297,8 +297,11 @@ for _fn in KERNEL_WRAPPERS:
 
 
 def reset_launches() -> None:
+    """Every wrapper's count to 0, and K4's launches by route
+    (``rglru_scan.ROUTE_LAUNCHES``)."""
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+    _lru.reset_route_launches()
 
 
 def launch_counts() -> Dict[str, int]:

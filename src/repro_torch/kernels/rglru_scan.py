@@ -4,10 +4,17 @@ The counterpart of ``repro/kernels/rglru_scan.py::lru_scan`` (the forward
 ``h_t = a_t * h_{t-1} + b_t``, with an optional f32 initial state ``h0``)
 and its backward, the reverse scan of ``ref.lru_scan_bwd_ref``. a, b
 (B, S, W), f32 or bf16, contiguous, on one card. Each launcher checks what
-the kernel takes and raises on anything else, allocates its outputs with
-``torch.empty`` and launches on the current stream. CUDA tensors only;
-``kernels.ops`` dispatches CPU tensors to ``kernels.ref`` and counts the
-launches.
+the kernels take and raises on anything else, allocates its outputs with
+``torch.empty``, picks the route (:func:`route`) and launches on the
+current stream. CUDA tensors only; ``kernels.ops`` dispatches CPU tensors
+to ``kernels.ref`` and counts the launches.
+
+Two routes, both bitwise equal to the plain versions: the TMA route
+(``tma_fwd_kernel``, ``tma_bwd_kernel``: shared-memory rings fed by the
+Tensor Memory Accelerator) where every tensor it maps is 16-byte aligned
+and a row of W values is a multiple of 16 bytes, else the SIMT route
+(``simt_fwd_kernel``, ``simt_bwd_kernel``). :data:`ROUTE_LAUNCHES` counts
+the launches of each.
 """
 
 from __future__ import annotations
@@ -18,6 +25,27 @@ from . import _build
 from .quantize import DTYPE_CODES
 
 _MAX_GRID_Y = 65535
+
+TMA_ALIGN = 16  # bytes: data pointers and a row of W values
+
+ROUTE_LAUNCHES = {"tma": 0, "simt": 0}
+
+
+def reset_route_launches() -> None:
+    for key in ROUTE_LAUNCHES:
+        ROUTE_LAUNCHES[key] = 0
+
+
+def route(*tensors: torch.Tensor) -> str:
+    """``"tma"`` if the TMA route takes these (B, S, W) tensors, the
+    inputs and outputs it maps: a row of W values a multiple of 16 bytes
+    and every data pointer 16-byte aligned. Else ``"simt"``."""
+    first = tensors[0]
+    row_bytes = first.shape[-1] * first.element_size()
+    if row_bytes % TMA_ALIGN == 0 and all(t.data_ptr() % TMA_ALIGN == 0
+                                          for t in tensors):
+        return "tma"
+    return "simt"
 
 
 def _check(what: str, tensors, h0):
@@ -63,12 +91,14 @@ def fwd(a, b, h0=None):
     """-> h (B, S, W) in a's dtype."""
     dims = _check("lru_scan_fwd", (("a", a), ("b", b)), h0)
     h = torch.empty_like(a)
+    r = route(a, b, h)
     lib = _build.KERNELS.library("rglru_scan")
     with torch.cuda.device(a.device):
         rc = lib.repro_lru_scan_fwd(a.data_ptr(), b.data_ptr(), _ptr(h0),
                                     DTYPE_CODES[a.dtype], h.data_ptr(), *dims,
-                                    _stream(a))
+                                    int(r == "tma"), _stream(a))
     _build.check(rc, "lru_scan_fwd")
+    ROUTE_LAUNCHES[r] += 1
     return h
 
 
@@ -78,11 +108,14 @@ def bwd(a, h, g, h0=None):
     da = torch.empty_like(a)
     db = torch.empty_like(a)
     dh0 = torch.empty((b, w), dtype=torch.float32, device=a.device)
+    r = route(a, h, g, da, db)
     lib = _build.KERNELS.library("rglru_scan")
     with torch.cuda.device(a.device):
         rc = lib.repro_lru_scan_bwd(a.data_ptr(), h.data_ptr(), g.data_ptr(),
                                     _ptr(h0), DTYPE_CODES[a.dtype],
                                     da.data_ptr(), db.data_ptr(),
-                                    dh0.data_ptr(), *a.shape, _stream(a))
+                                    dh0.data_ptr(), *a.shape,
+                                    int(r == "tma"), _stream(a))
     _build.check(rc, "lru_scan_bwd")
+    ROUTE_LAUNCHES[r] += 1
     return da, db, dh0

@@ -7,6 +7,10 @@ on a card machine without one:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import functools
+import importlib.util
+from pathlib import Path
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -287,18 +291,58 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take(card):
         fa.fwd(q[:, :, :3].contiguous(), k, v, causal=True, window=0)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("with_h0", [False, True])
-@pytest.mark.parametrize("b,s,w", [(1, 1000, 2560), (2, 37, 45), (3, 16, 1)])
-def test_lru_scan_bitwise_to_plain(card, b, s, w, with_h0, dtype):
-    """K4 forward and backward equal their plain versions bitwise (both
-    round the product, then the sum), at ragged S and W."""
-    gen = torch.Generator(device=card).manual_seed(b * s + w)
+def _lru_inputs(card, b, s, w, dtype, with_h0, seed):
+    gen = torch.Generator(device=card).manual_seed(seed)
     a = torch.sigmoid(torch.randn((b, s, w), generator=gen, device=card)).to(dtype)
     x = torch.randn((b, s, w), generator=gen, device=card).to(dtype)
     g = torch.randn((b, s, w), generator=gen, device=card).to(dtype)
     h0 = torch.randn((b, w), generator=gen, device=card) if with_h0 else None
+    return a, x, g, h0
+
+
+@functools.cache
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _lru_route(w, dtype):
+    """The route K4 takes for fresh (aligned) tensors, by the smoke's
+    oracle (``chip_smoke.lru_route``), not the launchers' own rule."""
+    return _chip_smoke().lru_route(w, dtype)
+
+
+def _lru_check(a, x, g, h0):
+    """K4 forward and backward through the launchers, bitwise against the
+    plain versions; returns the route counts of the two launches."""
+    from repro_torch.kernels import rglru_scan as kl
+
+    kl.reset_route_launches()
+    h = kl.fwd(a, x, h0)
+    want_h = ref.lru_scan_ref(a, x, h0)
+    assert h.dtype == a.dtype and torch.equal(h, want_h)
+    got = kl.bwd(a, want_h, g, h0)
+    want = ref.lru_scan_bwd_ref(a, want_h, g, h0)
+    for gt, wt in zip(got, want):
+        assert gt.dtype == wt.dtype and torch.equal(gt, wt)
+    return dict(kl.ROUTE_LAUNCHES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("b,s,w", [(1, 1000, 2560), (2, 37, 45), (3, 16, 1),
+                                   (1, 4096, 2560), (2, 129, 2560),
+                                   (3, 1000, 100), (2, 37, 2560)])
+def test_lru_scan_bitwise_to_plain(card, b, s, w, with_h0, dtype):
+    """K4 forward and backward equal their plain versions bitwise (both
+    round the product, then the sum), at ragged S and W, on the route the
+    shape and dtype take: TMA for W 2560 (and W 100 in f32), SIMT for W
+    45, 1 and 100 in bf16. (2, 37, 2560) is shorter than one tile."""
+    a, x, g, h0 = _lru_inputs(card, b, s, w, dtype, with_h0, b * s + w)
     ops.reset_launches()
     h = ops.lru_scan_fwd(a, x, h0)
     want_h = ref.lru_scan_ref(a, x, h0)
@@ -309,6 +353,51 @@ def test_lru_scan_bitwise_to_plain(card, b, s, w, with_h0, dtype):
         assert gt.dtype == wt.dtype and torch.equal(gt, wt)
     counts = ops.launch_counts()
     assert (counts["lru_scan_fwd"], counts["lru_scan_bwd"]) == (1, 1)
+    from repro_torch.kernels import rglru_scan as kl
+
+    assert kl.ROUTE_LAUNCHES[_lru_route(w, dtype)] == 2, kl.ROUTE_LAUNCHES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lru_scan_tma_ragged_width_bitwise(card, dtype):
+    """The TMA route at a ragged S and a W that is not a multiple of a
+    block's 32 chains, on three batch rows."""
+    w = 2568  # aligned in f32 and bf16, 8 past a multiple of 32
+    a, x, g, h0 = _lru_inputs(card, 3, 300, w, dtype, True, 32)
+    assert _lru_check(a, x, g, h0) == {"tma": 2, "simt": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lru_scan_unaligned_view_takes_simt(card, dtype):
+    """A contiguous view whose data pointer is 4 bytes off 16-byte
+    alignment takes the SIMT route and stays bitwise."""
+    b, s, w = 2, 300, 2560
+    n = b * s * w
+    a, x, g, h0 = _lru_inputs(card, b, s, w, dtype, True, 11)
+
+    def shifted(t):
+        off = 4 // t.element_size()
+        buf = torch.empty(n + off, dtype=t.dtype, device=card)
+        view = buf[off:].view(b, s, w)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16 == 4
+        return view
+
+    a, x, g = shifted(a), shifted(x), shifted(g)
+    assert _lru_check(a, x, g, h0) == {"tma": 0, "simt": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 4096, 2560), (2, 45, 45)])
+def test_lru_scan_repeats_bitwise(card, shape):
+    """Two calls on the same inputs give the same bits, on either route."""
+    a, x, g, h0 = _lru_inputs(card, *shape, torch.float32, True, 3)
+    first = (ops.lru_scan_fwd(a, x, h0),) + ops.lru_scan_bwd(a, x, g, h0)
+    second = (ops.lru_scan_fwd(a, x, h0),) + ops.lru_scan_bwd(a, x, g, h0)
+    for p, q in zip(first, second):
+        assert torch.equal(p, q)
 
 
 @pytest.mark.cuda
@@ -347,6 +436,35 @@ def test_lru_wrappers_refuse_what_the_kernels_do_not_take(card):
         kl.fwd(a, a, torch.zeros((1, 4), device=card, dtype=torch.bfloat16))
     with pytest.raises(TypeError):
         kl.fwd(a.half(), a.half())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [2560, 45])
+def test_lru_wrappers_refuse_on_both_routes(card, w):
+    """What neither route takes is refused before any launch, whether the
+    shape would go to TMA (W 2560) or to SIMT (W 45): f16 and f64,
+    non-contiguous inputs, an empty S and a bad h0."""
+    from repro_torch.kernels import rglru_scan as kl
+
+    a = torch.rand((2, 70, w), device=card)
+    g = torch.rand((2, 70, w), device=card)
+    kl.reset_route_launches()
+    for bad in (torch.float16, torch.float64):
+        with pytest.raises(TypeError):
+            kl.fwd(a.to(bad), a.to(bad))
+        with pytest.raises(TypeError):
+            kl.bwd(a.to(bad), a.to(bad), g.to(bad))
+    strided = torch.rand((2, w, 70), device=card).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        kl.fwd(strided, a)
+    with pytest.raises(ValueError, match="contiguous"):
+        kl.bwd(a, strided, g)
+    empty = a[:, :0]
+    with pytest.raises(ValueError, match="S, W > 0"):
+        kl.fwd(empty, empty)
+    with pytest.raises(ValueError, match="h0"):
+        kl.bwd(a, a, g, torch.zeros((2, w + 1), device=card))
+    assert kl.ROUTE_LAUNCHES == {"tma": 0, "simt": 0}
 
 
 def _wkv_inputs(card, b, s, h, n, law, seed=0):
