@@ -135,7 +135,38 @@ Phases, each reported on its own line (any failure raises, exit != 0):
    that must read beyond that limit;
 16. reference (ssm): one flat int8 round of reduced rwkv6_3b (one head of
    64, seq 64) on the card and on the CPU agree within one quantization
-   step.
+   step;
+17. ckpt: checkpointing and recovery of full lm_350m through
+   ``launch.train`` (flat int8 FedAvg, so the server state holds an f32
+   momentum of every parameter; cohort 4, 2 local steps, batch 4, seq
+   512), in fresh directories under the temporary directory (its
+   filesystem and free space logged; too little space fails): run A, 4
+   rounds with ``--ckpt-every 2``; run B, the same with ``--fail-at 3``:
+   1 restart, restored from step 2, 4 rounds completed, 1 replayed, and
+   params and server state bitwise A's; K1a, K1b and K2 launches of both
+   runs (the replay's included). On B's directory: step 4 restored with
+   CPU example leaves equals the state's host copy bitwise; a corrupted
+   step 4 falls back to step 2 (the sha256 of run A's step 2); a save
+   killed before LATEST advances stays invisible. Logs the checkpoint's
+   leaves and bytes and the seconds of its host copy, its write with
+   fsync, its sha256 and a restore;
+18. topk: 2 flat rounds of full lm_350m through ``launch.train
+   --compression topk`` (fraction 0.01): finite losses, K2 in every layer,
+   no K1 or K3 launch; one client's delta rebuilt, sparsified on the card
+   and on its CPU copy, bitwise, with exactly k entries (or every nonzero,
+   when fewer) in each of the reference's leaves (a uniform stack's
+   layers as one leaf); the sparsify time of the whole delta (CUDA
+   events, 20 runs); then one hierarchical 2 x 2 top-k round: no K1 or K3
+   launch, and each leaf of the applied update moves at most the k
+   entries its (2, ...) pod partial keeps;
+19. algorithms: at lm_350m's full width, a FedSGD round with learned
+   weights (cohort 4, batch 4, seq 512) whose loss has a finite, nonzero
+   gradient in the 4 weights; ``make_multi_round`` of 2 local-SGD int8
+   rounds bitwise the same rounds one at a time; 2 asynchronous rounds
+   with finite losses; then, on reduced lm_350m with ``blocked``
+   attention, a FedSGD round with learned weights and 2 asynchronous
+   rounds on the card and on the CPU within 1e-5. Each of the three
+   phases logs its seconds, and ``[new phases]`` their sum.
 
 Then one JSON line with every kernel's launches, error and times, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, and when
@@ -147,6 +178,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -1291,7 +1323,7 @@ def flat_args(**over):
                 cohort=4, local_steps=2, batch=4, seq=512, client_lr=0.05,
                 compression="int8", stragglers=False,
                 straggler_deadline_pct=90.0, log_every=1, seed=0,
-                device="cuda")
+                device="cuda", ckpt_dir=None, ckpt_every=20, fail_at=[])
     base.update(over)
     return argparse.Namespace(**base)
 
@@ -1361,7 +1393,10 @@ def phase_train(phase: str, **over):
     cfg = registry.get_config(args.arch)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    summary, params, _, losses, seconds, _ = train.train(args)
+    result = train.train(args)
+    summary, params, losses, seconds = (result.summary, result.params,
+                                        result.losses, result.seconds)
+    del result
     counts = ops.launch_counts()
     require(all(math.isfinite(v) for v in losses), f"non-finite losses {losses}")
     if args.compression == "int8":
@@ -1591,7 +1626,11 @@ def phase_stragglers():
     cfg = registry.get_config(args.arch)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    summary, params, state, losses, seconds, masks = train.train(args)
+    result = train.train(args)
+    summary, params, state, losses, seconds, masks = (
+        result.summary, result.params, result.server_state, result.losses,
+        result.seconds, result.masks)
+    del result
     counts = ops.launch_counts()
     require(all(math.isfinite(v) for v in losses), f"non-finite losses {losses}")
     need = args.rounds * args.cohort
@@ -1852,6 +1891,438 @@ def phase_reference(attn_impl: str, arch: str = "lm_350m",
         worst=f"{worst:.4f}", equal_fraction=f"{equal:.6f}")
 
 
+# ---------------------------------------------------------------------------
+# ckpt, topk and algorithms: lm_350m at full width (24 layers, bf16)
+# ---------------------------------------------------------------------------
+
+INT8_KERNELS = ("quantize", "dequantize", "reduce_compress_roundtrip",
+                "reduce_compress", "dequant_accumulate")
+
+
+def filesystem_of(path: str) -> tuple:
+    """(mount point, type) of the filesystem that holds ``path``."""
+    real = os.path.realpath(path)
+    best = ("", "?")
+    with open("/proc/mounts") as f:
+        for line in f:
+            mnt, fstype = line.split()[1:3]
+            inside = real == mnt or real.startswith(mnt.rstrip("/") + "/")
+            if inside and len(mnt) >= len(best[0]):
+                best = (mnt, fstype)
+    return best
+
+
+def manifest(directory: str, step: int) -> dict:
+    with open(os.path.join(directory, f"step_{step:09d}", "manifest.json")) as f:
+        return json.load(f)
+
+
+def differing_leaves(a, b) -> list:
+    """Paths of the leaves in which two trees of tensors (one device)
+    differ in dtype, shape or bits."""
+    from torch.utils import _pytree as pytree
+
+    la, lb = pytree.tree_flatten_with_path(a)[0], pytree.tree_leaves(b)
+    require(len(la) == len(lb), f"trees of {len(la)} and {len(lb)} leaves")
+    return [pytree.keystr(path) for (path, x), y in zip(la, lb)
+            if not (x.dtype == y.dtype and x.shape == y.shape
+                    and torch.equal(x, y))]
+
+
+def phase_ckpt(n_params: int):
+    """Checkpointing and recovery of flat int8 FedAvg rounds (server
+    momentum: an f32 tree beside the bf16 params) through ``launch.train``:
+    run A, 4 rounds with a checkpoint every 2; run B, the same with a
+    failure at round 3, which restores step 2 and replays round 2. B must
+    end bitwise equal to A. Then on B's directory: the checkpoint restored
+    with CPU example leaves equals the state's host copy; a corrupted step
+    4 falls back to step 2, whose sha256 of every leaf are A's own step
+    2's; a save killed before LATEST advances stays invisible. The
+    directories live under the temporary directory and are removed."""
+    import shutil
+    import tempfile
+
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="repro_ckpt_")
+    try:
+        mount, fstype = filesystem_of(root)
+        free = shutil.disk_usage(root).free
+        state_bytes = n_params * (2 + 4) + 4  # bf16 params, f32 momentum, step
+        # A: steps 2 and 4; B: steps 2 and 4, the rewrite of the corrupted
+        # step and the killed step 5; one more for the filesystem's slack
+        need = 7 * state_bytes
+        log("ckpt", dir=root, filesystem=f"{mount} ({fstype})", free_bytes=free,
+            need_bytes=need)
+        require(free >= need, f"{free} bytes free under {root}, need {need}")
+        runs, counts, secs = {}, {}, {}
+        for name, fail_at in (("A", []), ("B", [3])):
+            args = flat_args(algorithm="fedavg", rounds=4, ckpt_every=2,
+                             fail_at=fail_at, ckpt_dir=os.path.join(root, name))
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            runs[name] = train.train(args)
+            secs[name] = time.perf_counter() - t0
+            counts[name] = ops.launch_counts()
+        a, b = runs["A"], runs["B"]
+        require(all(math.isfinite(v) for v in a.losses + b.losses),
+                f"non-finite losses {a.losses} {b.losses}")
+        require(a.recovery["restarts"] == 0, f"run A: {a.recovery}")
+        require(b.recovery["restarts"] == 1 and b.recovery["restored_from"] == [2]
+                and b.recovery["completed_steps"] == 4
+                and b.recovery["replayed_steps"] == 1,
+                f"run B: {b.recovery}, need 1 restart from step 2, 4 completed "
+                "and 1 replayed")
+        require(len(b.losses) == 5 and b.losses[2] == b.losses[3] == a.losses[2]
+                and b.losses[4] == a.losses[3],
+                f"losses A {a.losses} B {b.losses}")
+        for name, rounds_run in (("A", 4), ("B", 5)):
+            need_k1 = rounds_run * args.cohort
+            c = counts[name]
+            require(c["quantize"] == need_k1 and c["dequantize"] == need_k1,
+                    f"run {name} launched {c}, need K1a/K1b {need_k1} each")
+            require_flash_launches(c, flat_args(rounds=rounds_run), 24)
+        a_losses = a.losses
+        state_a = {"params": a.params, "server": a.server_state}
+        state_b = {"params": b.params, "server": b.server_state}
+        bad = differing_leaves(state_a, state_b)
+        require(not bad, f"--fail-at 3 replay differs from the uninterrupted "
+                f"run in {len(bad)} leaves: {bad[:8]}")
+        del runs, a, state_a
+
+        mgr = CheckpointManager(os.path.join(root, "B"), keep_last_n=3)
+        cpu_state = pytree.tree_map(lambda t: t.cpu(), state_b)
+        t0 = time.perf_counter()
+        restored, meta = mgr.restore(4, cpu_state)
+        restore_cpu_s = time.perf_counter() - t0
+        bad = differing_leaves(restored, cpu_state)
+        require(not bad and meta["step"] == 4,
+                f"card-written step 4 restored on the host differs in {bad[:8]}")
+        del restored
+        mgr.inject_fault(4, "corrupt")
+        step, fell_back, _ = mgr.restore_latest(cpu_state)
+        # restore_latest verified every leaf against B's manifest of step
+        # 2; equal manifests make it run A's own step 2, bit for bit
+        hashes = {name: [leaf["sha256"] for leaf in manifest(
+            os.path.join(root, name), 2)["leaves"]] for name in ("A", "B")}
+        require(step == 2 and hashes["A"] == hashes["B"],
+                f"corrupt step 4: restore_latest gave step {step}; step 2's "
+                f"sha256 equal in A and B: {hashes['A'] == hashes['B']}")
+        del fell_back, cpu_state
+        mgr.kill_writer_at_byte("pre-latest")
+        mgr.save(5, state_b)
+        require(5 in mgr.killed_writes and mgr.latest_step() == 4
+                and 5 in mgr._complete_steps(),
+                f"kill@pre-latest: killed {mgr.killed_writes}, latest "
+                f"{mgr.latest_step()}")
+        save = mgr.last_save
+        log("ckpt", runs="A 4 rounds, B 4 rounds --fail-at 3 (--ckpt-every 2)",
+            losses_a=[round(v, 5) for v in a_losses],
+            losses_b=[round(v, 5) for v in b.losses],
+            round_s_b=[round(v, 3) for v in b.seconds],
+            run_s={k: round(v, 2) for k, v in secs.items()},
+            recovery_b=json.dumps(b.recovery), replay_bitwise=True,
+            launches_a={k: counts["A"][k] for k in (
+                "quantize", "dequantize", "flash_attention_fwd",
+                "flash_attention_bwd_dq", "flash_attention_bwd_dkdv")},
+            launches_b={k: counts["B"][k] for k in (
+                "quantize", "dequantize", "flash_attention_fwd",
+                "flash_attention_bwd_dq", "flash_attention_bwd_dkdv")})
+        log("ckpt", leaves=save["leaves"], bytes=save["bytes"],
+            host_copy_s=f"{save['host_copy_s']:.3f}",
+            write_fsync_s=f"{save['write_s']:.3f}",
+            sha256_s=f"{save['hash_s']:.3f}",
+            restore_host_s=f"{restore_cpu_s:.3f}",
+            corrupt_falls_back_to=2, pre_latest_kill_invisible=True,
+            seconds=f"{time.perf_counter() - t_phase:.1f}")
+        del b, state_b
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def reference_leaves(tree: dict) -> dict:
+    """The reference's leaves of a port dict: each name's layers stacked
+    (a uniform stack, as ``topk_sparsify_layers`` groups them), the rest
+    one by one. name -> list of port keys."""
+    from repro_torch.compression.api import _uniform_layers
+
+    groups = _uniform_layers(tree) or {}
+    grouped = {k for keys in groups.values() for k in keys}
+    return dict(groups, **{k: [k] for k in tree if k not in grouped})
+
+
+def phase_topk():
+    """Top-k rounds of lm_350m: 2 flat rounds through ``launch.train
+    --compression topk`` (fraction 0.01), finite, with no K1 or K3 launch;
+    one client's delta rebuilt and sparsified on the card and on the CPU,
+    bitwise, each of the reference's leaves keeping exactly k entries (or
+    its nonzeros, when fewer); then one hierarchical 2 x 2 top-k round,
+    whose pod partials are sparsified: each leaf of the applied update
+    changes at most k of the (2, ...) partial's entries, with no K1 or K3
+    launch."""
+    import functools
+
+    from repro_torch.algorithms import rounds
+    from repro_torch.compression import topk_sparsify_layers
+    from repro_torch.data.grouped import CohortSampler, GroupedCorpus
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import registry
+
+    t_phase = time.perf_counter()
+    fraction = 0.01
+    args = flat_args(rounds=2, compression="topk")
+    cfg = registry.get_config(args.arch)
+    ops.reset_launches()
+    result = train.train(args)
+    counts = ops.launch_counts()
+    require(all(math.isfinite(v) for v in result.losses),
+            f"non-finite losses {result.losses}")
+    require(all(counts[k] == 0 for k in INT8_KERNELS),
+            f"top-k rounds launched int8 kernels: {counts}")
+    require_flash_launches(counts, args, cfg.num_layers)
+    losses, seconds = result.losses, result.seconds
+    del result
+
+    params = registry.init_params(cfg, seed=args.seed, device="cuda")
+    loss_fn = functools.partial(registry.loss_fn, cfg)
+    client_opt, server_opt = train.optimizers(args)
+    client = rounds._make_client_update(loss_fn, client_opt, rounds.LocalSGDConfig(
+        partition_size=args.cohort, num_local_steps=args.local_steps,
+        grad_clip=1.0))
+    sampler = CohortSampler(GroupedCorpus(vocab_size=cfg.vocab_size),
+                            cohort_size=args.cohort)
+    d = sampler.round_batch(0, args.local_steps, args.batch, args.seq,
+                            device="cuda")
+    with torch.no_grad():
+        delta, _ = client(params, {k: d[k][0] for k in ("tokens", "labels")})
+    sparse = topk_sparsify_layers(delta, fraction)
+    t0 = time.perf_counter()
+    sparse_cpu = topk_sparsify_layers({k: v.cpu() for k, v in delta.items()},
+                                      fraction)
+    cpu_s = time.perf_counter() - t0
+    bad = [k for k in delta if not torch.equal(sparse[k].cpu(), sparse_cpu[k])]
+    require(not bad, f"top-k card != CPU in {len(bad)} leaves: {bad[:8]}")
+    del sparse_cpu
+    groups = reference_leaves(delta)
+    for name, keys in groups.items():
+        n = sum(delta[k].numel() for k in keys)
+        k = max(int(n * fraction), 1)
+        nnz = sum(int(torch.count_nonzero(delta[key])) for key in keys)
+        kept = sum(int(torch.count_nonzero(sparse[key])) for key in keys)
+        require(kept == min(k, nnz), f"{name}: kept {kept}, k {k}, nnz {nnz}")
+    sparsify_ms = time_ms(lambda: topk_sparsify_layers(delta, fraction),
+                          warmup=3, iters=20)
+    delta_elems = sum(v.numel() for v in delta.values())
+    del delta, sparse
+
+    hier = rounds.make_hierarchical_local_sgd_round(
+        loss_fn, client_opt, server_opt, rounds.LocalSGDConfig(
+            partition_size=2, num_local_steps=args.local_steps, grad_clip=1.0,
+            compression="topk", topk_fraction=fraction, num_pods=2))
+    batch = {k: d[k].reshape((2, 2) + tuple(d[k].shape[1:]))
+             for k in ("tokens", "labels")}
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    new, _, m = hier(params, server_opt.init(params), batch)
+    hier_loss = float(m["loss"])
+    hier_s = time.perf_counter() - t0
+    hier_counts = ops.launch_counts()
+    require(math.isfinite(hier_loss), f"hierarchical top-k loss {hier_loss}")
+    require(all(hier_counts[k] == 0 for k in INT8_KERNELS),
+            f"hierarchical top-k round launched int8 kernels: {hier_counts}")
+    changed_total = 0
+    for name, keys in groups.items():
+        k = max(int(2 * sum(params[key].numel() for key in keys) * fraction), 1)
+        changed = sum(int((new[key] != params[key]).sum()) for key in keys)
+        require(changed <= k, f"{name}: {changed} entries moved, the pod "
+                f"partials keep {k}")
+        changed_total += changed
+    require(changed_total > 0, "the hierarchical top-k round moved nothing")
+    log("topk", fraction=fraction, losses=[round(v, 5) for v in losses],
+        round_s=[round(v, 3) for v in seconds], delta_elements=delta_elems,
+        reference_leaves=len(groups), card_equals_cpu=True,
+        sparsify_ms=f"{sparsify_ms:.3f}", sparsify_cpu_s=f"{cpu_s:.2f}",
+        launches=json.dumps({k: counts[k] for k in INT8_KERNELS}),
+        hier_loss=round(hier_loss, 5), hier_s=round(hier_s, 3),
+        hier_moved=changed_total,
+        hier_launches=json.dumps({k: hier_counts[k] for k in INT8_KERNELS}),
+        seconds=f"{time.perf_counter() - t_phase:.1f}")
+    del params, new
+    torch.cuda.empty_cache()
+
+
+def phase_algorithms():
+    """The other rounds at lm_350m's full width: a FedSGD round with
+    learned weights (cohort 4, batch 4, seq 512) whose loss has a finite,
+    nonzero gradient in the 4 weights; ``make_multi_round`` of 2 local-SGD
+    int8 rounds bitwise equal to the same rounds one at a time; 2
+    asynchronous rounds with finite losses. Then, on reduced lm_350m with
+    ``blocked`` attention (K2 on the card), a FedSGD round with learned
+    weights and two asynchronous rounds on the card and on the CPU agree
+    within 1e-5 (loss relative, weights' gradient, params and pending
+    delta absolute)."""
+    import functools
+
+    from repro_torch import optim
+    from repro_torch.algorithms import async_rounds, rounds
+    from repro_torch.data.grouped import CohortSampler, GroupedCorpus
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import registry
+
+    t_phase = time.perf_counter()
+    args = flat_args(rounds=2)
+    cfg = registry.get_config(args.arch)
+    loss_fn = functools.partial(registry.loss_fn, cfg)
+    params = registry.init_params(cfg, seed=args.seed, device="cuda")
+    sampler = CohortSampler(GroupedCorpus(vocab_size=cfg.vocab_size),
+                            cohort_size=args.cohort)
+
+    def data(r, steps=args.local_steps):
+        d = sampler.round_batch(r, steps, args.batch, args.seq, device="cuda")
+        return {k: d[k] for k in ("tokens", "labels")}
+
+    server = optim.fedavg_momentum(1.0)
+    fedsgd = rounds.make_fedsgd_round(
+        loss_fn, server, rounds.LocalSGDConfig(partition_size=args.cohort,
+                                               num_local_steps=1),
+        learned_weights=True)
+    w = torch.zeros(args.cohort, device="cuda", requires_grad=True)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    _, _, m = fedsgd(params, server.init(params),
+                     {k: v[:, 0] for k, v in data(0, 1).items()}, w)
+    (grad_w,) = torch.autograd.grad(m["loss"], w)
+    fedsgd_s = time.perf_counter() - t0
+    fedsgd_loss = float(m["loss"].detach())
+    fed_counts = ops.launch_counts()
+    del m
+    require(bool(torch.isfinite(grad_w).all()) and bool((grad_w != 0).any()),
+            f"FedSGD learned weights: gradient {grad_w.tolist()}")
+    require(fed_counts["flash_attention_fwd"] >= args.cohort * cfg.num_layers,
+            f"FedSGD launched {fed_counts}")
+
+    round_fn, server_opt = train.build_round_fn(cfg, args)
+    batches = [data(r) for r in range(2)]
+    stacked = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+    t0 = time.perf_counter()
+    mp, ms, mm = rounds.make_multi_round(round_fn, 2)(
+        params, server_opt.init(params), stacked)
+    multi_losses = mm["loss"].tolist()
+    multi_s = time.perf_counter() - t0
+    p, s = params, server_opt.init(params)
+    single_losses = []
+    for b in batches:
+        p, s, m1 = round_fn(p, s, b)
+        single_losses.append(float(m1["loss"]))
+    bad = differing_leaves({"p": mp, "s": ms}, {"p": p, "s": s})
+    require(not bad and multi_losses == single_losses,
+            f"multi-round != single rounds: losses {multi_losses} vs "
+            f"{single_losses}, {len(bad)} leaves differ {bad[:8]}")
+    del mp, ms, p, s, stacked
+
+    client_opt, server_opt = train.optimizers(args)
+    async_round, init_pending = async_rounds.make_async_local_sgd_round(
+        loss_fn, client_opt, server_opt, rounds.LocalSGDConfig(
+            partition_size=args.cohort, num_local_steps=args.local_steps,
+            grad_clip=1.0))
+    p, pending, s = params, init_pending(params), server_opt.init(params)
+    async_losses, async_s = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        p, pending, s, m2 = async_round(p, pending, s, b)
+        async_losses.append(float(m2["loss"]))
+        async_s.append(time.perf_counter() - t0)
+    require(all(math.isfinite(v) for v in async_losses),
+            f"async losses {async_losses}")
+    del p, pending, s, params, batches
+    torch.cuda.empty_cache()
+    worst = phase_algorithms_reference()
+    log("algorithms", fedsgd_loss=round(fedsgd_loss, 5),
+        fedsgd_grad_w=[f"{v:.4g}" for v in grad_w.tolist()],
+        fedsgd_s=round(fedsgd_s, 3), multi_losses=multi_losses,
+        multi_equals_single=True, multi_s=round(multi_s, 3),
+        async_losses=[round(v, 5) for v in async_losses],
+        async_s=[round(v, 3) for v in async_s],
+        reduced_card_vs_cpu=json.dumps(worst),
+        seconds=f"{time.perf_counter() - t_phase:.1f}")
+
+
+def phase_algorithms_reference() -> dict:
+    """Reduced lm_350m (``blocked`` attention: K2 on the card), from the
+    same parameters and data on the card and on the CPU: a FedSGD round
+    with learned weights and two asynchronous rounds. Returns the worst
+    differences, each required within 1e-5."""
+    import functools
+
+    from repro_torch import optim
+    from repro_torch.algorithms import async_rounds, rounds
+    from repro_torch.data.grouped import CohortSampler, GroupedCorpus
+    from repro_torch.models import registry
+
+    cfg = registry.get_config("lm_350m").reduced(attn_impl="blocked")
+    loss_fn = functools.partial(registry.loss_fn, cfg)
+    base = registry.init_params(cfg, seed=0, device="cpu")
+    sampler = CohortSampler(GroupedCorpus(vocab_size=cfg.vocab_size),
+                            cohort_size=4)
+    w0 = torch.tensor([0.3, -0.2, 0.0, 0.5])
+    out = {}
+    for device in ("cuda", "cpu"):
+        params = {k: v.to(device) for k, v in base.items()}
+
+        def data(r, steps):
+            d = sampler.round_batch(r, steps, 2, 64, device=device)
+            return {k: d[k] for k in ("tokens", "labels")}
+
+        fedsgd = rounds.make_fedsgd_round(
+            loss_fn, optim.fedavg_momentum(1.0),
+            rounds.LocalSGDConfig(partition_size=4, num_local_steps=1),
+            learned_weights=True)
+        w = w0.to(device).requires_grad_(True)
+        new, _, m = fedsgd(params, optim.fedavg_momentum(1.0).init(params),
+                           {k: v[:, 0] for k, v in data(0, 1).items()}, w)
+        (g,) = torch.autograd.grad(m["loss"], w)
+        res = {"fedsgd_loss": float(m["loss"].detach()), "grad_w": g.cpu(),
+               "fedsgd_params": {k: v.detach().cpu() for k, v in new.items()}}
+        server = optim.fedavg_momentum(1.0)
+        async_round, init_pending = async_rounds.make_async_local_sgd_round(
+            loss_fn, optim.sgd(0.05), server,
+            rounds.LocalSGDConfig(partition_size=4, num_local_steps=2,
+                                  grad_clip=1.0))
+        p, pending, s = params, init_pending(params), server.init(params)
+        for r in range(2):
+            p, pending, s, m = async_round(p, pending, s, data(r, 2))
+        res.update(async_loss=float(m["loss"]),
+                   async_params={k: v.cpu() for k, v in p.items()},
+                   async_pending={k: v.cpu() for k, v in pending.items()})
+        out[device] = res
+    card, cpu = out["cuda"], out["cpu"]
+
+    def tree_diff(a, b):
+        return max(float((a[k].double() - b[k].double()).abs().max()) for k in a)
+
+    worst = {
+        "fedsgd_loss_rel": abs(card["fedsgd_loss"] - cpu["fedsgd_loss"])
+        / abs(cpu["fedsgd_loss"]),
+        "grad_w": float((card["grad_w"] - cpu["grad_w"]).abs().max()),
+        "fedsgd_params": tree_diff(card["fedsgd_params"], cpu["fedsgd_params"]),
+        "async_loss_rel": abs(card["async_loss"] - cpu["async_loss"])
+        / abs(cpu["async_loss"]),
+        "async_params": tree_diff(card["async_params"], cpu["async_params"]),
+        "async_pending": tree_diff(card["async_pending"], cpu["async_pending"]),
+    }
+    require(all(v <= 1e-5 for v in worst.values()),
+            f"reduced card vs CPU beyond 1e-5: {worst}")
+    return {k: f"{v:.3g}" for k, v in worst.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; no card",
@@ -1872,6 +2343,7 @@ def main() -> int:
     cfg = registry.get_config("lm_350m")
     shapes_params = registry.init_params(cfg, seed=0, device="cuda")
     rows = sum(-(-p.numel() // 256) for p in shapes_params.values())
+    n_params = sum(p.numel() for p in shapes_params.values())
     del shapes_params
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernels = phase_kernels(rows, gen)
@@ -1900,6 +2372,11 @@ def main() -> int:
     phase_grads("ssm grads", "rwkv6_3b", layers=2, tol=SSM_GRAD_TOL,
                 seeds=(0, 1), control=True)
     phase_reference("naive", "rwkv6_3b")
+    t_new = time.perf_counter()
+    phase_ckpt(n_params)
+    phase_topk()
+    phase_algorithms()
+    log("new phases", seconds=f"{time.perf_counter() - t_new:.1f}")
     launches = {"quantize": flat_counts["quantize"],
                 "dequantize": flat_counts["dequantize"],
                 "reduce_compress_roundtrip": hier_counts["reduce_compress_roundtrip"],

@@ -1,4 +1,4 @@
-"""MapReduce training rounds: local SGD / FedAvg / DiLoCo
+"""MapReduce training rounds: local SGD / FedAvg / DiLoCo / FedSGD
 (``repro/algorithms/rounds.py``), the paper's §4 workload:
 
     params_b = drjax.broadcast(global_params)           # server -> groups
@@ -10,18 +10,21 @@
 batches, for any ``loss_fn(params, batch)`` over a dict of tensors. The
 round itself runs without autograd; each client step takes its gradient
 with ``torch.autograd.grad`` on a detached copy of the client's parameters.
+FedSGD with learned weights is the exception: its weighted means run with
+autograd on, so the round's outputs are differentiable in the weights.
 
-Ported: ``LocalSGDConfig``, the client update, ``make_local_sgd_round`` and
-``make_hierarchical_local_sgd_round``, with int8 compression and straggler
-masks (``cfg.straggler_mask`` and a ``mask`` argument: the masked
-reduction averages over the groups that finished). Left out for later
-slices: top-k compression, ``make_multi_round``, FedSGD and the async
-rounds.
+Ported: ``LocalSGDConfig``, the client update, ``make_local_sgd_round``,
+``make_hierarchical_local_sgd_round``, ``make_multi_round`` and
+``make_fedsgd_round``, with int8 or top-k compression and straggler masks
+(``cfg.straggler_mask`` and a ``mask`` argument: the masked reduction
+averages over the groups that finished). The asynchronous rounds are in
+``async_rounds.py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional
 
 import torch
@@ -38,7 +41,8 @@ class LocalSGDConfig:
     partition_size: int
     num_local_steps: int = 4
     grad_clip: float = 0.0
-    compression: Optional[str] = None  # None | "int8"
+    compression: Optional[str] = None  # None | "int8" | "topk"
+    topk_fraction: float = 0.01
     straggler_mask: bool = False
     # Pod-hierarchical rounds: number of slow-link domains (0 = flat). Then
     # partition_size counts clients PER POD and the round runs under the
@@ -49,9 +53,10 @@ class LocalSGDConfig:
     fused_reduce: Optional[bool] = None
 
     def __post_init__(self):
-        if self.compression not in (None, "int8"):
-            raise NotImplementedError(
-                f"compression={self.compression!r} is not ported (int8 only)"
+        if self.compression not in (None, "int8", "topk"):
+            raise ValueError(
+                f"compression={self.compression!r}: expected None, 'int8' "
+                "or 'topk'"
             )
 
 
@@ -61,9 +66,29 @@ def _tree_sub(a, b):
     )
 
 
+def _value_and_grad(loss_fn: Callable, params, batch):
+    """(loss, grads) of ``loss_fn`` at ``params``, both detached: the
+    gradient of a detached copy, so the caller may run without autograd."""
+    with torch.enable_grad():
+        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        loss = loss_fn(leaves, batch)
+        grads = dict(zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values()))))
+    return loss.detach(), grads
+
+
+def _compress(delta, cfg: LocalSGDConfig):
+    if cfg.compression == "int8":
+        return compression.int8_roundtrip(delta)
+    if cfg.compression == "topk":
+        return compression.topk_sparsify_layers(delta, cfg.topk_fraction)
+    return delta
+
+
 def _make_client_update(loss_fn: Callable, client_opt: Optimizer,
                         cfg: LocalSGDConfig):
-    """num_local_steps optimizer steps on one group's batches -> (delta, loss)."""
+    """num_local_steps optimizer steps on one group's batches -> (delta,
+    loss), the delta compressed as ``cfg.compression`` says."""
 
     def client_update(params0, client_data):
         opt_state = client_opt.init(params0)
@@ -72,23 +97,15 @@ def _make_client_update(loss_fn: Callable, client_opt: Optimizer,
         losses = []
         for t in range(steps):
             batch = pytree.tree_map(lambda x: x[t], client_data)
-            with torch.enable_grad():
-                leaves = {k: v.detach().requires_grad_(True)
-                          for k, v in params.items()}
-                loss = loss_fn(leaves, batch)
-                grads = dict(zip(leaves, torch.autograd.grad(
-                    loss, list(leaves.values()))))
-            del leaves
+            loss, grads = _value_and_grad(loss_fn, params, batch)
             if cfg.grad_clip:
                 grads, _ = clip_by_global_norm(grads, cfg.grad_clip)
             updates, opt_state = client_opt.update(grads, opt_state, params)
             del grads
             params = apply_updates(params, updates)
             del updates
-            losses.append(loss.detach())
-        delta = _tree_sub(params, params0)
-        if cfg.compression == "int8":
-            delta = compression.int8_roundtrip(delta)
+            losses.append(loss)
+        delta = _compress(_tree_sub(params, params0), cfg)
         return delta, torch.stack(losses).sum() * reciprocal(len(losses))
 
     return client_update
@@ -135,7 +152,8 @@ def make_hierarchical_local_sgd_round(loss_fn: Callable, client_opt: Optimizer,
     two-stage ``hierarchical_reduce_mean`` with ``cfg.compression`` applied
     to the pod partials (the bytes that cross the slow leg), so the
     per-client leg runs uncompressed; int8 takes the fused reduce+compress
-    kernel unless ``cfg.fused_reduce`` is False. With ``cfg.straggler_mask``
+    kernel unless ``cfg.fused_reduce`` is False, top-k the generic
+    composition (no fused kernel). With ``cfg.straggler_mask``
     the masked reduction spans both levels in one weighted pass, so the
     round keeps the flat round's per-client compression and takes no pod
     partial path, fused or not.
@@ -145,9 +163,14 @@ def make_hierarchical_local_sgd_round(loss_fn: Callable, client_opt: Optimizer,
     client_cfg = (cfg if cfg.straggler_mask
                   else dataclasses.replace(cfg, compression=None))
     client_update = _make_client_update(loss_fn, client_opt, client_cfg)
-    pod_compress = (compression.int8_roundtrip
-                    if cfg.compression == "int8" and not cfg.straggler_mask
-                    else None)
+    pod_compress = None
+    if not cfg.straggler_mask:
+        if cfg.compression == "int8":
+            pod_compress = compression.int8_roundtrip
+        elif cfg.compression == "topk":
+            pod_compress = functools.partial(
+                compression.topk_sparsify_layers, fraction=cfg.topk_fraction,
+                layer_axis=1)
 
     @drjax.program(placements={"pods": cfg.num_pods,
                                "clients": cfg.partition_size})
@@ -168,6 +191,74 @@ def make_hierarchical_local_sgd_round(loss_fn: Callable, client_opt: Optimizer,
             updates, new_server_state = server_opt.update(
                 mean_delta, server_state, global_params
             )
+            new_params = apply_updates(global_params, updates)
+        return new_params, new_server_state, {"loss": mean_loss}
+
+    return round_fn
+
+
+def make_multi_round(round_fn: Callable, num_rounds: int, *,
+                     jit: bool = False, donate: bool = True) -> Callable:
+    """``num_rounds`` rounds of ``round_fn`` as one trainer
+    ``(params, server_state, all_data) -> (params, server_state, metrics)``.
+
+    ``all_data`` leaves carry a leading ``num_rounds`` axis; each metric
+    comes back stacked along a leading rounds axis, as the reference's
+    ``lax.scan`` stacks it. The rounds run one after another, each the
+    same call as on its own. ``jit`` and ``donate`` select the reference's
+    compilation and buffer donation; they have no meaning here and are
+    accepted so callers carry over.
+    """
+    del jit, donate
+
+    def trainer(params, server_state, all_data):
+        metrics = []
+        for r in range(num_rounds):
+            round_data = pytree.tree_map(lambda x: x[r], all_data)
+            params, server_state, m = round_fn(params, server_state,
+                                               round_data)
+            metrics.append(m)
+        return params, server_state, pytree.tree_map(
+            lambda *xs: torch.stack(xs), *metrics)
+
+    return trainer
+
+
+def make_fedsgd_round(loss_fn: Callable, server_opt: Optimizer,
+                      cfg: LocalSGDConfig, *, learned_weights: bool = False):
+    """Single-local-step gradient averaging (FedSGD):
+    ``round_fn(global_params, server_state, batches[, weights])``, with
+    ``batches`` leaves of shape (n, ...per-client batch).
+
+    With ``learned_weights=True`` the reduction weights are a trainable
+    input, the self-tuning reduction of paper §6: the means run as
+    ``reduce_weighted_mean`` with weights ``softmax(weights) * n`` and with
+    autograd on, so the round's loss (and its new params) carry a gradient
+    to ``weights`` when they require one.
+    """
+
+    def client_grad(params, batch):
+        loss, grads = _value_and_grad(loss_fn, params, batch)
+        return grads, loss
+
+    @drjax.program(partition_size=cfg.partition_size)
+    def round_fn(global_params, server_state, batches, weights=None):
+        with torch.no_grad():
+            params_b = drjax.broadcast(global_params)
+            grads, losses = drjax.map_fn(client_grad, (params_b, batches))
+        learned = learned_weights and weights is not None
+        with torch.set_grad_enabled(learned):
+            if learned:
+                w = torch.softmax(weights, dim=0) * cfg.partition_size
+                mean_grad = drjax.reduce_weighted_mean(grads, w)
+                mean_loss = drjax.reduce_weighted_mean(losses, w)
+            else:
+                mean_grad = drjax.reduce_mean(grads)
+                mean_loss = drjax.reduce_mean(losses)
+            del grads
+            neg = pytree.tree_map(lambda g: -g, mean_grad)
+            updates, new_server_state = server_opt.update(
+                neg, server_state, global_params)
             new_params = apply_updates(global_params, updates)
         return new_params, new_server_state, {"loss": mean_loss}
 

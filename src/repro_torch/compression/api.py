@@ -11,12 +11,18 @@ the cotangent unchanged, so the gradient of a compressed program equals the
 uncompressed one's, which lets ``core/hierarchical.py`` swap in the fused
 reduce+compress kernel without changing derivatives.
 
-Left out for later slices: ``topk_sparsify`` and ``ErrorFeedback``.
+``topk_sparsify`` keeps exactly ``k`` entries of each leaf, ties broken
+by lowest index as ``lax.top_k`` breaks them, with the same bits on either
+device; ``topk_sparsify_layers`` applies it to a parameter dict over the
+reference's leaves (a uniform stack's layers as one leaf).
+``ErrorFeedback`` keeps the residual (x - C(x)) and adds it to the next
+value it compresses (Seide et al. 2014).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -179,3 +185,92 @@ def int8_roundtrip(tree):
 # ``drjax_fused_compress = "int8"`` may be replaced by the fused single-pass
 # reduce+compress kernel (same straight-through backward, same wire format).
 int8_roundtrip.drjax_fused_compress = "int8"
+
+
+def _topk_leaf(x: torch.Tensor, fraction: float) -> torch.Tensor:
+    """Exactly ``k = max(int(n * fraction), 1)`` entries of ``x`` by
+    magnitude, in f32, the rest zero, cast back to ``x``'s dtype.
+
+    ``torch.topk`` promises no order among ties, but its values are well
+    defined: the k-th of them is the cutoff. Every entry above it is kept,
+    and of the entries equal to it the first ``k - #above`` by flat index
+    (a cumulative count over the equality mask), which is the set
+    ``lax.top_k`` selects (ties to the lower index), on either device.
+    """
+    flat = x.reshape(-1).to(torch.float32)
+    k = max(int(flat.numel() * fraction), 1)
+    mag = flat.abs()
+    cutoff = torch.topk(mag, k, sorted=False).values.min()
+    above = mag > cutoff
+    at = mag == cutoff
+    keep = above | (at & (torch.cumsum(at, 0) <= k - above.sum()))
+    sparse = torch.where(keep, flat, torch.zeros_like(flat))
+    return sparse.reshape(x.shape).to(x.dtype)
+
+
+def topk_sparsify(tree, fraction: float = 0.01):
+    """Keep the top ``fraction`` of the entries of each leaf by magnitude
+    (magnitude pruning)."""
+    return pytree.tree_map(lambda x: _topk_leaf(x, fraction), tree)
+
+
+def _uniform_layers(tree) -> Optional[Dict[str, list]]:
+    """For a flat dict of ``layers.{i}.{name}`` leaves whose layers all
+    hold the same names, shapes and dtypes: name -> its keys in layer
+    order. None otherwise."""
+    if not isinstance(tree, dict):
+        return None
+    layers: Dict[int, Dict[str, Any]] = {}
+    for key, x in tree.items():
+        m = re.fullmatch(r"layers\.(\d+)\.(.+)", key)
+        if m:
+            layers.setdefault(int(m.group(1)), {})[m.group(2)] = (
+                tuple(x.shape), x.dtype)
+    if not layers or sorted(layers) != list(range(len(layers))):
+        return None
+    if any(layers[i] != layers[0] for i in layers):
+        return None
+    return {name: [f"layers.{i}.{name}" for i in range(len(layers))]
+            for name in layers[0]}
+
+
+def topk_sparsify_layers(tree, fraction: float = 0.01, layer_axis: int = 0):
+    """:func:`topk_sparsify` of a flat parameter dict over the reference's
+    leaves. The reference keeps a uniform stack's layers as one leaf with a
+    layers axis (``scan_layers``), so its fraction counts over all layers
+    of a parameter together. Here, when every layer holds the same names,
+    shapes and dtypes, each name's layers are stacked at ``layer_axis`` (0
+    for a parameter or delta, 1 for a pod partial that leads with the pods
+    axis), sparsified as one leaf and split again; a mixed stack (kept by
+    the reference as a list of per-layer trees) and every other leaf go
+    one leaf at a time."""
+    groups = _uniform_layers(tree)
+    if groups is None:
+        return topk_sparsify(tree, fraction)
+    grouped = {k for keys in groups.values() for k in keys}
+    out = {k: _topk_leaf(x, fraction) for k, x in tree.items()
+           if k not in grouped}
+    for keys in groups.values():
+        sparse = _topk_leaf(
+            torch.stack([tree[k] for k in keys], dim=layer_axis), fraction)
+        out.update(zip(keys, sparse.unbind(layer_axis)))
+    return {k: out[k] for k in tree}
+
+
+class ErrorFeedback:
+    """Residual accumulator for biased compressors."""
+
+    @staticmethod
+    def init(tree):
+        return pytree.tree_map(
+            lambda x: torch.zeros_like(x, dtype=torch.float32), tree)
+
+    @staticmethod
+    def compress(tree, residual, compressor, *args):
+        """(compressor(x + residual), the new residual) with x in f32."""
+        corrected = pytree.tree_map(lambda x, r: x.to(torch.float32) + r,
+                                    tree, residual)
+        compressed = compressor(corrected, *args)
+        new_residual = pytree.tree_map(
+            lambda c, comp: c - comp.to(torch.float32), corrected, compressed)
+        return compressed, new_residual

@@ -11,6 +11,10 @@ keeps its own dtype (the hybrid's f32 ``lam`` beside bf16 weights).
 ``params_to_numpy`` is the inverse, for comparisons. Neither imports JAX:
 a numpy bf16 array (ml_dtypes) is read through a ``uint16`` view, and bf16
 tensors come back as exact f32 numpy arrays.
+
+``state_to_numpy`` and ``state_from_jax`` do the same for the whole
+training state (params and server optimizer state), keeping every leaf's
+dtype, for checkpoints that either package restores.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ from .models import blocks
 
 
 def _to_tensor(a, device) -> torch.Tensor:
+    if torch.is_tensor(a):
+        return a.detach().to(device, copy=True)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
@@ -57,7 +63,8 @@ def params_from_jax(cfg, tree, device="cuda") -> Dict[str, torch.Tensor]:
                 out[f"layers.{i}.{name}"] = _to_tensor(leaf, device)
         return out
     for name, leaf in _flatten(layers):
-        leaf = np.asarray(leaf)
+        if not torch.is_tensor(leaf):
+            leaf = np.asarray(leaf)
         if leaf.shape[0] != cfg.num_layers:
             raise ValueError(
                 f"layers.{name}: leading axis {leaf.shape[0]} is not "
@@ -87,28 +94,84 @@ def _insert(tree: dict, name: str, value) -> None:
     tree[leaf] = value
 
 
-def params_to_numpy(cfg, params: Dict[str, torch.Tensor]):
-    """The port's dict back to the reference's nested tree, layers stacked
-    or listed as the reference keeps them (bf16 leaves as exact f32 numpy
-    arrays)."""
+def _layout(cfg, params: Dict[str, object], stack):
+    """The port's flat dict (leaves already converted) as the reference's
+    nested tree, layers stacked by ``stack`` or listed as the reference
+    keeps them."""
     tree: dict = {}
     per_layer = [dict() for _ in range(cfg.num_layers)]
-    for name, t in params.items():
+    for name, leaf in params.items():
         if name.startswith("layers."):
             _, idx, rest = name.split(".", 2)
-            per_layer[int(idx)][rest] = _numpy(t)
+            per_layer[int(idx)][rest] = leaf
         else:
-            _insert(tree, name, _numpy(t))
+            _insert(tree, name, leaf)
     if _stacked(cfg):
         layers: dict = {}
         for rest in per_layer[0]:
-            _insert(layers, rest, np.stack([lp[rest] for lp in per_layer]))
+            _insert(layers, rest, stack([lp[rest] for lp in per_layer]))
         tree["layers"] = layers
     else:
         tree["layers"] = []
         for lp in per_layer:
             layer: dict = {}
-            for rest, arr in lp.items():
-                _insert(layer, rest, arr)
+            for rest, leaf in lp.items():
+                _insert(layer, rest, leaf)
             tree["layers"].append(layer)
     return tree
+
+
+def params_to_numpy(cfg, params: Dict[str, torch.Tensor]):
+    """The port's dict back to the reference's nested tree, layers stacked
+    or listed as the reference keeps them (bf16 leaves as exact f32 numpy
+    arrays)."""
+    return _layout(cfg, {k: _numpy(t) for k, t in params.items()}, np.stack)
+
+
+def _host(t: torch.Tensor):
+    """A NumPy array of the tensor's dtype, or for bf16 (which NumPy lacks)
+    a CPU bf16 tensor."""
+    t = t.detach().cpu()
+    return t if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def _stack_host(leaves):
+    if torch.is_tensor(leaves[0]):
+        return torch.stack(leaves)
+    return np.stack(leaves)
+
+
+def state_to_numpy(cfg, state) -> dict:
+    """The training state ``{"params": ..., "server": ...}`` in the
+    reference's layout, every leaf on the host in its own dtype: the params
+    and each tree of the server state (``mu``, ``m``, ``v``) nested with the
+    layers stacked as the reference stacks them, the server's ``step`` an
+    int32 scalar. Leaves are NumPy arrays, except bf16 leaves, which NumPy
+    cannot hold: those are CPU bf16 tensors. Saved by the port's
+    ``CheckpointManager``, the tree restores through the reference's
+    ``CheckpointManager.restore`` bitwise, with the reference's sha256 of
+    every leaf."""
+
+    def tree(value):
+        if isinstance(value, dict):
+            return _layout(cfg, {k: _host(t) for k, t in value.items()},
+                           _stack_host)
+        return _host(value)
+
+    return {"params": tree(state["params"]),
+            "server": {k: tree(v) for k, v in state["server"].items()}}
+
+
+def state_from_jax(cfg, tree, device="cuda") -> dict:
+    """Inverse of :func:`state_to_numpy`: the reference's training state (or
+    the port's restore of a checkpoint in its layout), with NumPy, ml_dtypes
+    bf16 or tensor leaves, as the port's ``{"params", "server"}`` on
+    ``device``."""
+
+    def leaf(value):
+        if isinstance(value, dict):
+            return params_from_jax(cfg, value, device)
+        return _to_tensor(value, compat.resolve_device(device))
+
+    return {"params": leaf(tree["params"]),
+            "server": {k: leaf(v) for k, v in tree["server"].items()}}

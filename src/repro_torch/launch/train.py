@@ -27,32 +27,51 @@ clients that finished:
         --reduced --rounds 2 --cohort 4 --local-steps 2 --compression int8 \
         --stragglers --device cpu
 
-Same flags and the same final JSON line as the reference. Not ported yet,
-and rejected: ``--ckpt-dir``/``--ckpt-every``, ``--fail-at``, ``--chaos``
-and ``--compression topk`` (checkpointing and recovery come in a later
-slice).
+Every round runs through ``runtime.run_with_recovery`` with a
+``CheckpointManager`` in ``--ckpt-dir`` (default ``/tmp/repro_ckpt``; at
+start it resumes from whatever that directory holds, as the reference
+does), a checkpoint every ``--ckpt-every`` rounds (20) and after the last,
+and ``--fail-at`` rounds at which a simulated device failure restores the
+newest checkpoint and replays from there. A round's data and straggler mask
+depend on its index alone, so the replay is exact:
+
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --reduced --rounds 4 --cohort 4 --local-steps 2 --compression int8 \
+        --ckpt-dir /tmp/ckpt_demo --ckpt-every 2 --fail-at 3 --device cpu
+
+``--compression topk`` sparsifies each client's delta to its top 1% by
+magnitude (``LocalSGDConfig.topk_fraction``).
+
+Same flags, defaults and final JSON line as the reference, except
+``--chaos``, which is rejected (the chaos soak is not ported yet). One
+difference from the reference: the programmatic :func:`train` takes
+``args.ckpt_dir = None`` to run the rounds without a checkpoint manager
+(no flag sets it); ``--fail-at`` then raises, since nothing could be
+restored.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import json
 import logging
 import time
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from .. import compat, optim
 from ..algorithms.rounds import LocalSGDConfig, make_local_sgd_round
+from ..checkpoint import CheckpointManager
 from ..data.grouped import CohortSampler, GroupedCorpus
 from ..models import registry
+from ..runtime.failure import FailureInjector, run_with_recovery
 from ..runtime.stragglers import StragglerSimulator, straggler_mask
 
 logger = logging.getLogger(__name__)
-
-NOT_PORTED = ("--ckpt-dir", "--ckpt-every", "--fail-at", "--chaos")
 
 
 def optimizers(args):
@@ -99,21 +118,19 @@ def parse_args(argv=None):
                     choices=("none", "int8", "topk"))
     ap.add_argument("--stragglers", action="store_true")
     ap.add_argument("--straggler-deadline-pct", type=float, default=90.0)
+    ap.add_argument("--ckpt-dir", default="/tmp/repro_ckpt")
+    ap.add_argument("--ckpt-every", type=int, default=20)
+    ap.add_argument("--fail-at", type=int, nargs="*", default=[],
+                    help="inject simulated failures at these rounds")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
-    for flag in NOT_PORTED:
-        ap.add_argument(flag, nargs="*", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--chaos", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    given = [f for f in NOT_PORTED
-             if getattr(args, f[2:].replace("-", "_")) is not None]
-    if given or args.compression == "topk":
-        ap.error(
-            f"not ported to repro_torch yet: "
-            f"{', '.join(given + (['--compression topk'] if args.compression == 'topk' else []))} "
-            "(checkpoint, recovery, chaos and top-k come in a later slice)"
-        )
+    if args.chaos:
+        ap.error("--chaos is not ported to repro_torch yet (the chaos soak "
+                 "comes in a later slice)")
     return args
 
 
@@ -128,11 +145,32 @@ def round_mask(strag: StragglerSimulator, round_idx: int, args, device):
                           device=device)
 
 
-def train(args):
-    """Run ``args.rounds`` flat rounds. Returns (summary, params,
-    server_state, per-round losses, per-round wall seconds, per-round
-    straggler masks or None). A round's seconds end when its loss reaches
-    the host, which waits for the device."""
+@dataclasses.dataclass
+class TrainResult:
+    """What :func:`train` returns. ``losses``, ``seconds`` and ``masks``
+    hold one entry for every round that ran, in the order they ran, a
+    replayed round again each time; ``masks`` is None without
+    ``--stragglers``. ``recovery`` holds ``run_with_recovery``'s stats
+    (``replayed_steps`` counts the replays) and ``restored_from``, the step
+    each failure restored (None for a restart from scratch)."""
+
+    summary: dict
+    params: dict
+    server_state: dict
+    losses: List[float]
+    seconds: List[float]
+    masks: Optional[List[torch.Tensor]]
+    recovery: dict
+
+
+def train(args) -> TrainResult:
+    """Run ``args.rounds`` flat rounds, through ``run_with_recovery`` and a
+    ``CheckpointManager(args.ckpt_dir)``, or with ``args.ckpt_dir`` None
+    straight, without checkpoints. A round's seconds end when its loss
+    reaches the host, which waits for the device."""
+    if args.ckpt_dir is None and args.fail_at:
+        raise ValueError("--fail-at needs a checkpoint directory to recover "
+                         "from; args.ckpt_dir is None")
     device = compat.resolve_device(args.device)
     cfg = registry.get_config(args.arch)
     if args.reduced:
@@ -145,11 +183,14 @@ def train(args):
     sampler = CohortSampler(GroupedCorpus(vocab_size=cfg.vocab_size),
                             cohort_size=args.cohort)
     strag = StragglerSimulator() if args.stragglers else None
+    injector = FailureInjector(args.fail_at)
     n_params = sum(p.numel() for p in params.values())
     logger.info("arch=%s params=%.2fM cohort=%d local_steps=%d device=%s",
                 cfg.name, n_params / 1e6, args.cohort, args.local_steps, device)
     history, seconds, masks = [], [], []
-    for round_idx in range(args.rounds):
+
+    def round_step(round_idx, state):
+        injector.check(round_idx)
         data = sampler.round_batch(round_idx, args.local_steps, args.batch,
                                    args.seq, device=device)
         batch = {"tokens": data["tokens"], "labels": data["labels"]}
@@ -158,24 +199,44 @@ def train(args):
         if strag is not None:
             mask = round_mask(strag, round_idx, args, device)
             masks.append(mask)
-        params, server_state, metrics = round_fn(params, server_state, batch,
-                                                 mask)
+        new_params, new_server, metrics = round_fn(
+            state["params"], state["server"], batch, mask)
         loss = float(metrics["loss"])
         seconds.append(time.perf_counter() - t0)
         history.append(loss)
         if round_idx % args.log_every == 0:
             logger.info("round %d loss %.4f (%.2fs)", round_idx, loss,
                         seconds[-1])
+        return {"params": new_params, "server": new_server}
+
+    state = {"params": params, "server": server_state}
+    del params, server_state
+    if args.ckpt_dir is None:
+        for round_idx in range(args.rounds):
+            state = round_step(round_idx, state)
+        stats = {"restarts": 0, "scratch_restarts": 0,
+                 "completed_steps": args.rounds, "replayed_steps": 0,
+                 "backoff_s": 0.0, "restored_from": []}
+    else:
+        mgr = CheckpointManager(args.ckpt_dir, keep_last_n=3)
+        restored = []
+        state, stats = run_with_recovery(
+            round_step, state, args.rounds, mgr,
+            checkpoint_every=args.ckpt_every,
+            on_recovery=lambda restart, step: restored.append(step))
+        stats["restored_from"] = restored
+    logger.info("done: %d rounds, %d restarts, final loss %.4f", args.rounds,
+                stats["restarts"], history[-1] if history else float("nan"))
     summary = {
         "arch": cfg.name,
         "algorithm": args.algorithm,
         "rounds": args.rounds,
-        "restarts": 0,
+        "restarts": stats["restarts"],
         "first_loss": history[0] if history else None,
         "final_loss": history[-1] if history else None,
     }
-    return (summary, params, server_state, history, seconds,
-            masks if strag is not None else None)
+    return TrainResult(summary, state["params"], state["server"], history,
+                       seconds, masks if strag is not None else None, stats)
 
 
 def main(argv=None):
@@ -183,8 +244,7 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    summary, *_ = train(args)
-    print(json.dumps(summary))
+    print(json.dumps(train(args).summary))
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-"""Optimizers over trees of tensors (client and server side)."""
+"""Optimizers over trees of tensors (client and server side) and
+learning-rate schedules."""
 
 from .optimizers import (
     Optimizer,
@@ -8,7 +9,9 @@ from .optimizers import (
     global_norm,
     sgd,
 )
-from .server import diloco_optimizer, fedavg_momentum
+from .schedules import constant, cosine_decay, linear_warmup
+from .server import diloco_optimizer, fedadam, fedavg_momentum
 
 __all__ = ["Optimizer", "adamw", "apply_updates", "clip_by_global_norm",
-           "diloco_optimizer", "fedavg_momentum", "global_norm", "sgd"]
+           "constant", "cosine_decay", "diloco_optimizer", "fedadam",
+           "fedavg_momentum", "global_norm", "linear_warmup", "sgd"]

@@ -4,18 +4,22 @@
 ``update(grads, state, params) -> (updates, state)`` where ``updates`` are
 deltas to add to params (already negated). Moments and updates are f32;
 :func:`apply_updates` adds in f32 and casts back to the param dtype
-(bf16 params, f32 arithmetic). Every function returns new tensors.
+(bf16 params, f32 arithmetic). Every function returns new tensors. A
+learning rate may be a schedule (``schedules.py``) of the step count.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Union
 
 import torch
 from torch.utils import _pytree as pytree
 
 F32 = torch.float32
+
+# A learning rate: a constant, or a function of the int32 step tensor.
+Schedule = Union[float, Callable[[torch.Tensor], torch.Tensor]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,24 +51,45 @@ def clip_by_global_norm(tree, max_norm: float):
     return pytree.tree_map(lambda l: (l.to(F32) * scale).to(l.dtype), tree), norm
 
 
-def sgd(lr: float) -> Optimizer:
-    """Plain SGD (the reference's momentum and Nesterov options have no
-    caller in this slice)."""
+def _lr_at(lr: Schedule, step: torch.Tensor):
+    """The learning rate at ``step`` (the int32 count after this update): a
+    schedule's f32 value, or the constant itself (a Python float scales a
+    f32 tensor in f32, as the reference's f32 scalar does)."""
+    return lr(step) if callable(lr) else lr
+
+
+def sgd(lr: Schedule, momentum: float = 0.0,
+        nesterov: bool = False) -> Optimizer:
+    """SGD, with f32 heavy-ball momentum (``nesterov``: the lookahead
+    ``momentum * mu + g``) when ``momentum`` is set."""
 
     def init(params):
-        return {"step": _step0(params)}
+        state = {"step": _step0(params)}
+        if momentum:
+            state["mu"] = _zeros_f32(params)
+        return state
 
     def update(grads, state, params=None):
-        upd = pytree.tree_map(lambda g: -lr * g.to(F32), grads)
-        return upd, {"step": state["step"] + 1}
+        step = state["step"] + 1
+        lr_t = _lr_at(lr, step)
+        if momentum:
+            mu = pytree.tree_map(lambda m, g: momentum * m + g.to(F32),
+                                 state["mu"], grads)
+            upd = (pytree.tree_map(lambda m, g: momentum * m + g.to(F32),
+                                   mu, grads) if nesterov else mu)
+            new_state = {"step": step, "mu": mu}
+        else:
+            upd = pytree.tree_map(lambda g: g.to(F32), grads)
+            new_state = {"step": step}
+        return pytree.tree_map(lambda u: -lr_t * u, upd), new_state
 
     return Optimizer(init, update)
 
 
-def adamw(lr: float, b1: float = 0.9, b2: float = 0.95,
-          eps: float = 1e-8) -> Optimizer:
-    """Adam with f32 moments (params may be bf16). The reference's decoupled
-    weight decay has no caller in this slice."""
+def adamw(lr: Schedule, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+          weight_decay: float = 0.0) -> Optimizer:
+    """AdamW with f32 moments (params may be bf16) and decoupled weight
+    decay (``weight_decay * p`` added to the Adam direction)."""
 
     def init(params):
         return {"step": _step0(params), "m": _zeros_f32(params),
@@ -72,6 +97,7 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.95,
 
     def update(grads, state, params):
         step = state["step"] + 1
+        lr_t = _lr_at(lr, step)
         t = step.to(F32)
         c1 = 1.0 - torch.pow(torch.tensor(b1, dtype=F32, device=t.device), t)
         c2 = 1.0 - torch.pow(torch.tensor(b2, dtype=F32, device=t.device), t)
@@ -81,9 +107,14 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.95,
             lambda v_, g: b2 * v_ + (1 - b2) * torch.square(g.to(F32)),
             state["v"], grads)
 
-        upd = pytree.tree_map(
-            lambda m_, v_: -lr * ((m_ / c1) / (torch.sqrt(v_ / c2) + eps)), m, v)
-        return upd, {"step": step, "m": m, "v": v}
+        def upd(m_, v_, p):
+            u = (m_ / c1) / (torch.sqrt(v_ / c2) + eps)
+            if weight_decay:
+                u = u + weight_decay * p.to(F32)
+            return -lr_t * u
+
+        return (pytree.tree_map(upd, m, v, params),
+                {"step": step, "m": m, "v": v})
 
     return Optimizer(init, update)
 

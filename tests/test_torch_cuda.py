@@ -591,3 +591,106 @@ def test_wkv6_wrappers_refuse_what_the_kernels_do_not_take(card):
     _, states = kw.fwd(r, k, v, lw, u)
     with pytest.raises(ValueError, match="states"):
         kw.bwd(r, k, v, lw, u, states[:, :1, :, :8], do)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_topk_on_card_bitwise_to_cpu(card, dtype):
+    """``topk_sparsify`` selects the same entries, ties included, on the
+    card as on the CPU: a bf16-rounded tensor with many ties at the
+    cutoff, and a stacked-layer dict."""
+    from repro_torch.compression import topk_sparsify, topk_sparsify_layers
+
+    gen = torch.Generator(device=card).manual_seed(3)
+    x = (torch.randn((1 << 20,), generator=gen, device=card) * 1e-3)
+    x = x.to(torch.bfloat16).to(dtype)
+    for fraction in (0.01, 0.05, 0.5):
+        got = topk_sparsify(x, fraction)
+        want = topk_sparsify(x.cpu(), fraction)
+        assert got.dtype == dtype
+        assert torch.equal(got.cpu(), want)
+        k = max(int(x.numel() * fraction), 1)
+        assert int(torch.count_nonzero(got)) == min(k, int(torch.count_nonzero(x)))
+    tree = {f"layers.{i}.w": torch.randn((64, 300), generator=gen, device=card)
+            for i in range(3)}
+    got = topk_sparsify_layers(tree, 0.01)
+    want = topk_sparsify_layers({k: v.cpu() for k, v in tree.items()}, 0.01)
+    assert all(torch.equal(got[k].cpu(), want[k]) for k in tree)
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_card(card, tmp_path):
+    """A state on the card (bf16 params, f32 moments, an int32 step) saved
+    asynchronously restores bitwise onto the card and onto the host."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    gen = torch.Generator(device=card).manual_seed(4)
+    state = {"params": {"w": torch.randn((257, 33), generator=gen,
+                                         device=card).to(torch.bfloat16)},
+             "server": {"step": torch.tensor(3, dtype=torch.int32, device=card),
+                        "mu": {"w": torch.randn((257, 33), generator=gen,
+                                                device=card)}}}
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(2, state, blocking=False)
+    mgr.wait()
+    for example, device in ((state, card), (
+            {"params": {"w": torch.zeros((257, 33), dtype=torch.bfloat16)},
+             "server": {"step": torch.zeros((), dtype=torch.int32),
+                        "mu": {"w": torch.zeros((257, 33))}}},
+            torch.device("cpu"))):
+        step, got, _ = mgr.restore_latest(example)
+        assert step == 2
+        for a, b in ((got["params"]["w"], state["params"]["w"]),
+                     (got["server"]["step"], state["server"]["step"]),
+                     (got["server"]["mu"]["w"], state["server"]["mu"]["w"])):
+            assert a.device.type == device.type and a.dtype == b.dtype
+            assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compression", ["int8", "topk"])
+def test_fail_at_replay_bitwise_on_card(card, tmp_path, compression):
+    """Reduced lm_350m with ``blocked`` attention (K2 on the card), the
+    ``launch.train``'s FedAvg round and recovery loop, 4 rounds with a checkpoint
+    every 2: a failure at round 3 restores step 2 and replays; params and
+    server state end bitwise equal to the uninterrupted run."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data.grouped import CohortSampler, GroupedCorpus
+    from repro_torch.launch import train
+    from repro_torch.models import registry
+    from repro_torch.runtime import FailureInjector, run_with_recovery
+
+    cfg = registry.get_config("lm_350m").reduced(attn_impl="blocked")
+    args = train.parse_args(["--cohort", "4", "--local-steps", "2",
+                             "--algorithm", "fedavg", "--compression",
+                             compression])
+    round_fn, server_opt = train.build_round_fn(cfg, args)
+    sampler = CohortSampler(GroupedCorpus(vocab_size=cfg.vocab_size),
+                            cohort_size=4)
+    runs = {}
+    for name, fail_at in (("clean", []), ("failed", [3])):
+        params = registry.init_params(cfg, seed=0, device=card)
+        injector = FailureInjector(fail_at)
+        losses = []
+
+        def step_fn(r, state):
+            injector.check(r)
+            d = sampler.round_batch(r, 2, 2, 64, device=card)
+            p, s, m = round_fn(state["params"], state["server"],
+                               {k: d[k] for k in ("tokens", "labels")})
+            losses.append(float(m["loss"]))
+            return {"params": p, "server": s}
+
+        runs[name] = run_with_recovery(
+            step_fn, {"params": params, "server": server_opt.init(params)}, 4,
+            CheckpointManager(str(tmp_path / name)), checkpoint_every=2)
+        runs[name] += (losses,)
+    (clean, _, clean_losses), (failed, stats, losses) = runs["clean"], runs["failed"]
+    assert stats["restarts"] == 1 and stats["replayed_steps"] == 1
+    assert losses[3] == losses[2] == clean_losses[2]
+    a, b = pytree.tree_leaves(clean), pytree.tree_leaves(failed)
+    assert len(a) == len(b)
+    assert all(x.device.type == "cuda" and torch.equal(x, y)
+               for x, y in zip(a, b))

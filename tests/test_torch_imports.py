@@ -44,6 +44,10 @@ def test_imports_without_jax():
         "repro_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)
         for p in PORT.rglob("*.py") if p.name != "__init__.py"
     )
+    assert {"repro_torch.algorithms.async_rounds",
+            "repro_torch.checkpoint.manager", "repro_torch.data.synthetic",
+            "repro_torch.optim.schedules",
+            "repro_torch.runtime.failure"} <= set(modules)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"  # any `import jax` now raises

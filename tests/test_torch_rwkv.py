@@ -415,12 +415,15 @@ def test_r5_reduced_model_at_seq_64(monkeypatch):
         np.testing.assert_allclose(g, jgrads[name], err_msg=name, **TOL)
 
 
-def test_train_cli_rwkv_reduced_on_cpu():
+def test_train_cli_rwkv_reduced_on_cpu(tmp_path):
+    """A fresh run: its own ``--ckpt-dir``, since ``launch.train`` resumes
+    from whatever its checkpoint directory holds."""
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch", ARCH,
          "--reduced", "--device", "cpu", "--rounds", "2", "--cohort", "2",
-         "--local-steps", "1", "--seq", "64", "--log-every", "1"],
+         "--local-steps", "1", "--seq", "64", "--log-every", "1",
+         "--ckpt-dir", str(tmp_path)],
         env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     line = json.loads(out.stdout.strip().splitlines()[-1])

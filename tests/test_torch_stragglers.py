@@ -314,19 +314,34 @@ def test_all_ones_mask_is_the_unmasked_round_bitwise(setup):
         assert torch.equal(a[k], b[k]), k
 
 
-def test_train_runs_stragglers_on_cpu(capsys):
+def test_train_runs_stragglers_on_cpu(capsys, tmp_path):
     train.main(["--reduced", "--rounds", "2", "--cohort", "4",
                 "--local-steps", "2", "--compression", "int8", "--stragglers",
-                "--device", "cpu"])
+                "--ckpt-dir", str(tmp_path), "--device", "cpu"])
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert set(summary) == {"arch", "algorithm", "rounds", "restarts",
                             "first_loss", "final_loss"}
     assert summary["rounds"] == 2 and np.isfinite(summary["final_loss"])
 
 
-@pytest.mark.parametrize("flag", [["--fail-at", "3"], ["--chaos"],
-                                  ["--ckpt-dir", "x"],
-                                  ["--compression", "topk"]])
+@pytest.mark.parametrize("flag", [["--chaos"]])
 def test_train_still_rejects_unported_flags(flag):
     with pytest.raises(SystemExit):
         train.parse_args(flag)
+
+
+@pytest.mark.parametrize("flag", [["--fail-at", "1"], ["--ckpt-every", "1"],
+                                  ["--compression", "topk"]],
+                         ids=["fail_at", "ckpt_every", "topk"])
+def test_train_takes_the_ported_flags(flag, tmp_path, capsys):
+    """The flags the earlier slices rejected now parse, with the reference's
+    defaults, and run: a failure at round 1 is recovered."""
+    defaults = train.parse_args([])
+    assert (defaults.ckpt_dir, defaults.ckpt_every, defaults.fail_at) == (
+        "/tmp/repro_ckpt", 20, [])
+    train.main(["--reduced", "--rounds", "2", "--cohort", "2",
+                "--local-steps", "1", "--ckpt-dir", str(tmp_path),
+                "--device", "cpu", *flag])
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["restarts"] == (1 if flag[0] == "--fail-at" else 0)
+    assert np.isfinite(summary["final_loss"])
