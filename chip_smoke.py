@@ -49,6 +49,25 @@ Phases, each reported on its own line (any failure raises, exit != 0):
    payload (bitwise to K3b's, its bytes those of ``cross_pod_bytes``) and
    K3c's cross-pod mean (within the R6 bound of the round's
    ``reduce_mean@pods``);
+4a. plan: the MapReduce plan IR (paper §5) on [hier]'s round: full
+   lm_350m's 2 x 2 fused-int8 round traced (``core.interpreter.trace``),
+   planned (``build_plan``; its communication skeleton must be
+   ``PLAN_SKELETON``, which ``tests/test_torch_plan.py`` pins to the
+   reference's) with no constant the size of an activation; one round of
+   ``run_plan`` bitwise the direct round from the same inputs, with the
+   same launches (K3b once, K2 forward / ``bwd_dq`` / ``bwd_dkdv`` 384 /
+   192 / 192); the compiled plan (``runtime.executor``: one CUDA graph,
+   params and server state donated) three rounds bitwise three
+   ``run_plan`` rounds, built once, its replays outside the launch
+   counters and running the ``repro`` kernels by name in one
+   ``torch.profiler`` trace of a replay; the plan built again from a new
+   trace a cache hit; ``to_beam`` of the round compiling with every name
+   defined (Beam itself is not installed: the pipeline is not run); the
+   seconds of trace, ``build_plan``, graph build and capture, the median
+   round seconds of the direct round, ``run_plan`` and a replay, node
+   counts and peak memory; then reduced lm_350m's flat int8 round (K1 in
+   its group stage) with ``run_plan`` bitwise the direct round and the
+   compiled plan bitwise ``run_plan``;
 4b. stragglers: 3 rounds of full lm_350m through ``launch.train
    --stragglers`` (deadline at the 90th percentile, cohort 4, int8): masks
    that drop clients, finite losses, per-client K1 and no K3b; from the
@@ -271,13 +290,18 @@ def agree_within_step(a: dict, b: dict, steps: dict, rel: float) -> tuple:
     return worst, equal / total
 
 
-def phase_build():
-    from repro_torch.kernels import _build
-
-    smi = subprocess.run(
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+
+    smi = card_line()
     print(smi, flush=True)
     secs = _build.KERNELS.build_all()
     for name in _build.SOURCES:
@@ -1606,6 +1630,352 @@ def phase_wire(cfg, args, base, base_state, batch, new_params, server_opt):
     return counts
 
 
+# The communication skeleton of the pod-hierarchical fused-int8 round:
+# tests/test_torch_plan.py pins it, at reduced lm_350m, to the reference's
+# plan of the same round.
+PLAN_SKELETON = (
+    ("COMM", ("BROADCAST@clients", "BROADCAST@pods")),
+    "GROUP_COMPUTE",
+    ("COMM", ("REDUCE_MEAN@clients[int8]", "REDUCE_MEAN@pods")),
+    "SERVER_COMPUTE",
+    ("COMM", ("REDUCE_MEAN@clients", "REDUCE_MEAN@pods")),
+    "SERVER_COMPUTE",
+)
+
+
+def comm_label(stage) -> str:
+    """``BROADCAST@pods``, ``REDUCE_MEAN@clients[int8]``: a communication
+    stage's kind (a reduction's op), addressed placement and tag."""
+    kind = stage.kind if stage.kind == "BROADCAST" else stage.op.upper()
+    tag = f"[{stage.compress}]" if getattr(stage, "compress", None) else ""
+    return f"{kind}@{stage.placement}{tag}"
+
+
+def plan_skeleton(plan) -> tuple:
+    """A plan's stages with each maximal run of communication stages as one
+    block of the labels it holds (its stage count follows the number of
+    parameter leaves, which the two packages differ in; the kinds and
+    placements do not)."""
+    out = []
+    for s in plan.stages:
+        if s.kind in ("BROADCAST", "REDUCE"):
+            if out and isinstance(out[-1], list):
+                out[-1].append(comm_label(s))
+            else:
+                out.append([comm_label(s)])
+        else:
+            out.append(s.kind)
+    return tuple(("COMM", tuple(sorted(set(e)))) if isinstance(e, list) else e
+                 for e in out)
+
+
+def beam_undefined_names(text: str) -> list:
+    """The generated names ``to_beam`` text uses before it defines them
+    (the reference test's check, ``tests/test_interpreter_controlflow.py
+    :53-72``); the text must also compile."""
+    import re
+
+    compile(text, "<to_beam>", "exec")
+    pattern = re.compile(r"\b(?:t|o|r|bc|g|s|c|lit|x|undef|i|in_)\d+\b"
+                         r"|\b(?:carry|ys)[\d_]+\b|\bnum_iters_[\w]+\b")
+    defined, bad = set(), []
+    if "undef" in text or "(bug?)" in text:
+        bad.append("undef")
+    for line in text.splitlines():
+        code = line.split("#")[0]
+        m = re.match(r"\s*(?:for\s+(\w+)\s+in\b|([A-Za-z_]\w*)\s*=[^=])",
+                     code)
+        lhs = (m.group(1) or m.group(2)) if m else None
+        bad += [t.group(0) for t in pattern.finditer(code)
+                if t.group(0) != lhs and t.group(0) not in defined]
+        if lhs:
+            defined.add(lhs)
+    return bad
+
+
+def graph_constants(gm) -> list:
+    """(name, numel) of every tensor constant of a traced graph and of the
+    sub-graphs it applies."""
+    out = []
+    for mod_name, mod in gm.named_modules():
+        if not hasattr(mod, "graph"):
+            continue
+        for node in mod.graph.nodes:
+            if node.op == "get_attr":
+                val = getattr(mod, node.target)
+                if isinstance(val, torch.Tensor):
+                    out.append((f"{mod_name}.{node.target}".lstrip("."),
+                                val.numel()))
+    return out
+
+
+def graph_nodes(gm) -> int:
+    return sum(len(m.graph.nodes) for _, m in gm.named_modules()
+               if hasattr(m, "graph"))
+
+
+def round_depths(params, state, data, data_depth: int) -> list:
+    """Lattice depths of a round's flat inputs, declared: params and server
+    state at the server, the round data at ``data_depth`` (the depth
+    heuristic would misplace a leaf whose leading dim equals a group
+    count)."""
+    from torch.utils import _pytree as pytree
+
+    return ([0] * len(pytree.tree_leaves((params, state)))
+            + [data_depth] * len(pytree.tree_leaves(data)))
+
+
+def equal_leaves(a, b) -> bool:
+    return len(a) == len(b) and all(
+        x.shape == y.shape and x.dtype == y.dtype and bool(torch.equal(x, y))
+        for x, y in zip(a, b))
+
+
+def phase_plan():
+    """[plan]: full lm_350m's pod-hierarchical fused-int8 round (the [hier]
+    phase's: 2 pods x 2 clients, seq 512, batch 4, 2 local steps) traced,
+    planned and run by ``run_plan`` bitwise to the direct round with the
+    same K2 and K3b launches, then compiled into one CUDA graph whose three
+    rounds are bitwise three ``run_plan`` rounds; ``to_beam`` of the round;
+    a reduced flat int8 round the same way (K1 in its group stage)."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.core import interpreter as interp
+    from repro_torch.data.grouped import CohortSampler, GroupedCorpus
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.runtime import executor
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    args = flat_args(rounds=3)
+    cfg = registry.get_config(args.arch)
+    params = registry.init_params(cfg, seed=args.seed, device="cuda")
+    round_fn, server_opt = hier_round_fn(cfg, args, pods=2, fused=True)
+    state = server_opt.init(params)
+    sampler = CohortSampler(GroupedCorpus(vocab_size=cfg.vocab_size),
+                            cohort_size=args.cohort)
+
+    def data(r):
+        d = sampler.round_batch(r, args.local_steps, args.batch, args.seq,
+                                device="cuda")
+        return {k: d[k].reshape((2, 2) + tuple(d[k].shape[1:]))
+                for k in ("tokens", "labels")}
+
+    def flat(p, s, d):
+        return pytree.tree_leaves((p, s, d))
+
+    n_carry = len(pytree.tree_leaves((params, state)))
+    spec = pytree.tree_structure((params, state))
+
+    def carry_of(outs):
+        return pytree.tree_unflatten(list(outs[:n_carry]), spec)
+
+    t0 = time.perf_counter()
+    gm = interp.trace(round_fn, params, state, data(0))
+    trace_s = time.perf_counter() - t0
+    consts = graph_constants(gm)
+    largest = max((n for _, n in consts), default=0)
+    activation = args.batch * args.seq
+    require(largest < activation,
+            f"trace holds a constant of {largest} elements: {consts}")
+    depths = round_depths(params, state, data(0), 2)
+    t0 = time.perf_counter()
+    plan = interp.build_plan(gm, {"pods": 2, "clients": 2},
+                             partitioned_invars=depths)
+    plan.check_locality()
+    build_s = time.perf_counter() - t0
+    skeleton = plan_skeleton(plan)
+    require(skeleton == PLAN_SKELETON,
+            f"plan skeleton {skeleton} != pinned {PLAN_SKELETON}")
+    comm_lines = [ln.strip() for ln in plan.to_text().splitlines()
+                  if "BROADCAST" in ln or "REDUCE" in ln]
+    kinds = {}
+    for s in plan.stages:
+        key = (s.kind if s.kind not in ("BROADCAST", "REDUCE")
+               else comm_label(s))
+        kinds[key] = kinds.get(key, 0) + 1
+    log("plan", step="build", trace_s=f"{trace_s:.2f}",
+        build_plan_s=f"{build_s:.2f}", nodes=graph_nodes(gm),
+        stages=len(plan.stages), stage_kinds=json.dumps(kinds),
+        largest_constant=largest, skeleton=json.dumps(skeleton))
+    log("plan", step="skeleton", first=comm_lines[0], last=" | ".join(
+        comm_lines[-4:]), lines=len(comm_lines))
+
+    # run_plan against the direct round, one round from the same inputs
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    direct = pytree.tree_leaves(round_fn(params, state, data(0)))
+    torch.cuda.synchronize()
+    direct_first_s = time.perf_counter() - t0
+    direct_counts = ops.launch_counts()
+    ops.reset_launches()
+    oracle = interp.run_plan(plan, *flat(params, state, data(0)))
+    plan_counts = ops.launch_counts()
+    require(equal_leaves(oracle, direct), "run_plan != the direct round")
+    steps = args.cohort * args.local_steps * cfg.num_layers
+    want = {"reduce_compress_roundtrip": 1, "flash_attention_fwd": 2 * steps,
+            "flash_attention_bwd_dq": steps, "flash_attention_bwd_dkdv": steps}
+    require(all(plan_counts[k] == v for k, v in want.items())
+            and plan_counts == direct_counts,
+            f"launches through the plan {plan_counts}, direct "
+            f"{direct_counts}, want {want}")
+    del direct, oracle
+    peak_run = torch.cuda.max_memory_allocated()
+
+    # three run_plan rounds (the oracle chain) and the direct rounds' times
+    po, so = params, state
+    oracle_rounds, plan_s = [], []
+    for r in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = interp.run_plan(plan, *flat(po, so, data(r)))
+        torch.cuda.synchronize()
+        plan_s.append(time.perf_counter() - t0)
+        oracle_rounds.append(outs)
+        po, so = carry_of(outs)
+    direct_s, pd, sd = [], params, state
+    for r in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pd, sd, _ = round_fn(pd, sd, data(r))
+        torch.cuda.synchronize()
+        direct_s.append(time.perf_counter() - t0)
+    del pd, sd
+
+    # the compiled plan: one CUDA graph, carried state donated
+    executor.clear_executor_cache()
+    pc = {k: v.clone() for k, v in params.items()}
+    sc = pytree.tree_map(lambda t: t.clone(), state)
+    t0 = time.perf_counter()
+    compiled = plan.compile(device="cuda", donate_argnums=range(n_carry))
+    graph_build_s = time.perf_counter() - t0
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    for r in range(3):
+        outs = compiled(*flat(pc, sc, data(r)))
+        if r == 0:
+            torch.cuda.synchronize()
+            capture_s = time.perf_counter() - t0
+        require(equal_leaves(outs, oracle_rounds[r]),
+                f"compiled round {r} != run_plan round {r}")
+    capture_counts = ops.launch_counts()
+    require(compiled.trace_count == 1,
+            f"trace_count {compiled.trace_count} after 3 rounds")
+    ops.reset_launches()
+    replay_s = []
+    for r in range(3, 6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        compiled(*flat(pc, sc, data(r)))
+        torch.cuda.synchronize()
+        replay_s.append(time.perf_counter() - t0)
+    require(sum(ops.launch_counts().values()) == 0,
+            f"a replay went through the launch counters: {ops.launch_counts()}")
+    del oracle_rounds
+    replay_args = flat(pc, sc, data(6))
+    names = kernel_names({"replay": lambda: compiled(*replay_args)})["replay"]
+    require(any("repro::flash::tc::" in n for n in names)
+            and any("reduce_compress_kernel" in n for n in names),
+            f"one replay ran no repro kernel by name: {names[:20]}")
+    size = executor.executor_cache_size()
+    t0 = time.perf_counter()
+    plan2 = interp.build_plan(interp.trace(round_fn, params, state, data(0)),
+                              {"pods": 2, "clients": 2},
+                              partitioned_invars=depths)
+    retrace_s = time.perf_counter() - t0
+    compiled2 = plan2.compile(device="cuda", donate_argnums=range(n_carry))
+    compiled2(*flat(pc, sc, data(7)))
+    require(executor.executor_cache_size() == size
+            and compiled2.trace_count == 1
+            and compiled2.fingerprint == compiled.fingerprint,
+            "a plan built again from a new trace missed the executor cache")
+    beam = plan.to_beam()
+    bad = beam_undefined_names(beam)
+    require(not bad, f"to_beam uses undefined names {bad[:5]}")
+    fns = plan.stage_fns()
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median
+    log("plan", step="rounds", direct_s=f"{med(direct_s):.4f}",
+        run_plan_s=f"{med(plan_s):.4f}", replay_s=f"{med(replay_s):.4f}",
+        direct_first_s=f"{direct_first_s:.3f}",
+        graph_build_s=f"{graph_build_s:.3f}", capture_s=f"{capture_s:.3f}",
+        retrace_and_plan_s=f"{retrace_s:.2f}", trace_count=compiled.trace_count,
+        cache_entries=size, units=compiled.num_units,
+        stage_units=compiled.num_stage_units,
+        launches=json.dumps({k: v for k, v in plan_counts.items() if v}),
+        capture_launches=json.dumps({k: v for k, v in capture_counts.items()
+                                     if v}),
+        peak_run_plan_gib=f"{peak_run / 2**30:.2f}",
+        peak_gib=f"{peak / 2**30:.2f}")
+    log("plan", step="beam", chars=len(beam), stage_fns=len(fns),
+        replay_kernels=len(names))
+    del compiled, compiled2, plan, plan2, gm, params, state, pc, sc, po, so
+    executor.clear_executor_cache()
+    torch.cuda.empty_cache()
+    reduced = phase_plan_flat_reduced()
+    log("plan", seconds=f"{time.perf_counter() - t_phase:.1f}", **reduced,
+        card=json.dumps(card_line()))
+    return plan_counts
+
+
+def phase_plan_flat_reduced() -> dict:
+    """The reduced flat int8 round: K1a/K1b nodes in its group stage's map
+    body, ``run_plan`` bitwise to the direct round, the compiled plan
+    bitwise to ``run_plan``."""
+    import functools
+
+    from torch.utils import _pytree as pytree
+
+    from repro_torch import optim
+    from repro_torch.algorithms import rounds
+    from repro_torch.core import interpreter as interp
+    from repro_torch.data.grouped import CohortSampler, GroupedCorpus
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+
+    cfg = registry.get_config("lm_350m").reduced()
+    params = registry.init_params(cfg, seed=0, device="cuda")
+    server = optim.fedavg_momentum(1.0)
+    round_fn = rounds.make_local_sgd_round(
+        functools.partial(registry.loss_fn, cfg), optim.sgd(0.05), server,
+        rounds.LocalSGDConfig(partition_size=4, num_local_steps=2,
+                              grad_clip=1.0, compression="int8"))
+    state = server.init(params)
+    d = CohortSampler(GroupedCorpus(vocab_size=256), cohort_size=4
+                      ).round_batch(0, 2, 2, 64, device="cuda")
+    data = {k: d[k] for k in ("tokens", "labels")}
+    gm = interp.trace(round_fn, params, state, data)
+    plan = interp.build_plan(gm, 4, partitioned_invars=round_depths(
+        params, state, data, 1))
+    body_ops = []
+    for s in plan.stages:
+        if s.kind == "GROUP_COMPUTE":
+            for n in s.nodes:
+                for g in interp._subgraphs(n, gm):
+                    body_ops += [interp._op_name(m) for m in g.graph.nodes
+                                 if m.op == "call_function"]
+    require(body_ops.count("quantize") >= 1 and body_ops.count("dequantize") >= 1,
+            "the flat int8 round's group stage holds no K1 node")
+    flat = pytree.tree_leaves((params, state, data))
+    ops.reset_launches()
+    direct = pytree.tree_leaves(round_fn(params, state, data))
+    direct_counts = ops.launch_counts()
+    ops.reset_launches()
+    oracle = interp.run_plan(plan, *flat)
+    require(equal_leaves(oracle, direct), "reduced flat int8: run_plan != direct")
+    counts = ops.launch_counts()
+    require(counts == direct_counts and counts["quantize"] >= 4
+            and counts["dequantize"] >= 4,
+            f"reduced flat int8: K1 launches {counts}, direct {direct_counts}")
+    compiled = plan.compile(device="cuda")
+    require(equal_leaves(compiled(*flat), oracle),
+            "reduced flat int8: compiled != run_plan")
+    return {"reduced_flat_k1_nodes": body_ops.count("quantize"),
+            "reduced_flat_units": compiled.num_units}
+
+
 def phase_stragglers():
     """Straggler-masked rounds of full lm_350m: ``launch.train`` with
     ``--stragglers`` (deadline at the 90th percentile of the cohort's
@@ -2352,6 +2722,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     hier_counts, wire_counts = phase_hier()
     log("hier", peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    plan_counts = phase_plan()
     phase_stragglers()
     long_counts = phase_train("long", rounds=2, batch=2, seq=4096)
     phase_grads()
@@ -2431,6 +2802,9 @@ def main() -> int:
               bound_rate="HBM3 3.35 TB/s, or 3 x FLOP at TF32 tensor cores "
               "495 TFLOP/s", split_ms=r["split_ms"])
         for name, r in wkv.items()]
+    for e in line["kernels"]:
+        if plan_counts.get(e["name"]):
+            e["plan_launches"] = plan_counts[e["name"]]
     log("done", seconds=f"{time.perf_counter() - t_start:.1f}",
         padded_vocab=transformer.padded_vocab(cfg), packed_rows=rows, card=smi)
     print(json.dumps(line), flush=True)

@@ -1,5 +1,6 @@
-"""DrJAX core for PyTorch: placements, primitives, the user API and the
-hierarchical reduction. ``from repro_torch import core as drjax``."""
+"""DrJAX core for PyTorch: placements, primitives, the user API, the
+hierarchical reduction and the MapReduce plan IR (``trace``,
+``build_plan``, ``run_plan``). ``from repro_torch import core as drjax``."""
 
 from .api import (
     broadcast,
@@ -9,6 +10,7 @@ from .api import (
     partition_size,
     placement_context,
     program,
+    reduce_max,
     reduce_mean,
     reduce_sum,
     reduce_weighted_mean,
@@ -18,12 +20,22 @@ from .hierarchical import (
     hierarchical_reduce_mean,
     int8_wire_ratio,
 )
+from .interpreter import (
+    MapReducePlan,
+    build_plan,
+    count_primitives,
+    run_plan,
+    trace,
+)
 from .placement import Placement, PlacementContext, make_context
 
 __all__ = [
+    "MapReducePlan",
     "Placement",
     "PlacementContext",
     "broadcast",
+    "build_plan",
+    "count_primitives",
     "cross_pod_bytes",
     "current_context",
     "hierarchical_reduce_mean",
@@ -34,7 +46,10 @@ __all__ = [
     "partition_size",
     "placement_context",
     "program",
+    "reduce_max",
     "reduce_mean",
     "reduce_sum",
     "reduce_weighted_mean",
+    "run_plan",
+    "trace",
 ]

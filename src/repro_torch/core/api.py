@@ -15,11 +15,11 @@ Placements nest (``placements={"pods": 2, "clients": 4}``); with no
 All ops take trees (dicts, lists, tuples of tensors; ``torch.utils._pytree``)
 whose every leaf carries the leading group axes.
 
-Ported: ``program``, ``broadcast``, ``map_fn``, ``reduce_sum``,
-``reduce_mean``, ``reduce_weighted_mean``, ``masked_reduce_mean`` (the
+Ported: ``program``, ``broadcast``, ``map_fn`` (recorded as one group
+body under ``interpreter.trace``), ``reduce_sum``, ``reduce_mean``,
+``reduce_max``, ``reduce_weighted_mean``, ``masked_reduce_mean`` (the
 straggler rounds' reduction) and ``partition_size``. Left out for later
-slices: ``reduce_max``, ``stage_transfer``/``stage_map``, and the sharding
-annotations.
+slices: ``stage_transfer``/``stage_map``, and the sharding annotations.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ __all__ = [
     "broadcast",
     "map_fn",
     "reduce_sum",
+    "reduce_max",
     "reduce_mean",
     "reduce_weighted_mean",
     "masked_reduce_mean",
@@ -116,6 +117,13 @@ def reduce_sum(tree, placement: Optional[str] = None):
     return _reduce_tree(tree, prims.reduce_sum, placement)
 
 
+def reduce_max(tree, placement: Optional[str] = None):
+    """Max over one level's groups, or (default) the whole stack, innermost
+    level first; the gradient is the reference's subgradient (split evenly
+    over tied arg-max groups)."""
+    return _reduce_tree(tree, prims.reduce_max, placement)
+
+
 def reduce_mean(tree, placement: Optional[str] = None):
     """Mean over one level's groups, or (default) the whole stack as a
     mean of per-level means (equal group sizes)."""
@@ -189,6 +197,183 @@ def masked_reduce_mean(tree, mask, placement: Optional[str] = None):
     return reduce_weighted_mean(tree, mask, placement)
 
 
+def map_groups(body: Callable, sizes, lead: int, *leaves, n_mapped=None):
+    """Run ``body`` (one group's flat leaves -> a flat list of outputs) on
+    every group's slice of the first ``n_mapped`` leaves (default: all;
+    group axes ``sizes`` at axis ``lead``; the other leaves go to every
+    group whole), one group after another, and stack the outputs.
+
+    Each output leaf is allocated once, from the first group's result,
+    and every group's output is copied into its slot as soon as it is
+    computed: the memory a map holds is the stacked outputs plus one
+    group's computation. This is the execution of a direct ``map_fn`` and
+    of a recorded map node alike (the node's target)."""
+    sizes = tuple(sizes)
+    n = len(leaves) if n_mapped is None else n_mapped
+    mapped, whole = leaves[:n], leaves[n:]
+    stacked = None
+    for idx in itertools.product(*(range(k) for k in sizes)):
+        sel = (slice(None),) * lead + idx
+        outs = body(*(x[sel] for x in mapped), *whole)
+        if stacked is None:
+            stacked = [torch.empty(x.shape[:lead] + sizes + x.shape[lead:],
+                                   dtype=x.dtype, device=x.device)
+                       for x in outs]
+        elif len(outs) != len(stacked):
+            raise ValueError(f"map_fn: group {idx} returned {len(outs)} "
+                             f"leaves where group 0 returned {len(stacked)}")
+        for buf, x in zip(stacked, outs):
+            slot = buf[sel]
+            if slot.shape != x.shape or buf.dtype != x.dtype:
+                raise ValueError(
+                    f"map_fn: group {idx} returned {x.dtype} "
+                    f"{tuple(x.shape)} where group 0 returned {buf.dtype} "
+                    f"{tuple(slot.shape)}")
+            buf[sel] = x
+        del outs  # free this group's outputs before the next group runs
+    return stacked
+
+
+def _under_trace() -> bool:
+    from torch.fx.experimental import proxy_tensor
+
+    return proxy_tensor.get_proxy_mode() is not None
+
+
+def _in_functorch_transform() -> bool:
+    return torch._C._functorch.peek_interpreter_stack() is not None
+
+
+def _stack_groups(body: Callable, sizes, lead: int, *leaves):
+    """``map_groups`` under a ``torch.func`` transform, where the slot
+    copies into an untransformed buffer are not allowed: the same values
+    as ``torch.stack`` of the per-group outputs."""
+    per_group = [body(*(x[(slice(None),) * lead + idx] for x in leaves))
+                 for idx in itertools.product(*(range(n) for n in sizes))]
+    return [torch.stack(parts, dim=lead).reshape(
+                parts[0].shape[:lead] + tuple(sizes) + parts[0].shape[lead:])
+            for parts in zip(*per_group)]
+
+
+class _RecordedMap(torch.autograd.Function):
+    """A map recorded under a tracer: ``body`` is traced once, on group 0's
+    slice, into a sub-graph, and the outer graph gets one node
+    ``map_groups(body_graph, sizes, lead, *leaves)``. Its backward is
+    another such node, over the body's vjp traced the same way (the
+    forward recomputed inside, the arithmetic of the direct map's
+    backward), so an outer gradient (MAML) flows through the map and the
+    gradient program stays group-elementwise."""
+
+    @staticmethod
+    def forward(ctx, body, sizes, lead, *leaves):
+        ctx.body, ctx.sizes, ctx.lead = body, sizes, lead
+        ctx.needs = tuple(x.requires_grad for x in leaves)
+        ctx.save_for_backward(*leaves)
+        outs = tuple(_emit_map_node(body, sizes, lead, leaves))
+        ctx.out_meta = [(o.shape, o.dtype, o.device) for o in outs]
+        return outs
+
+    @staticmethod
+    def backward(ctx, *cts):
+        leaves = ctx.saved_tensors
+        needs, body = ctx.needs, ctx.body
+        n = len(leaves)
+
+        def vjp(*args):
+            ins = [x.detach().requires_grad_(need)
+                   for x, need in zip(args[:n], needs)]
+            with torch.enable_grad():
+                outs = body(*ins)
+            pairs = [(o, c) for o, c in zip(outs, args[n:])
+                     if o.requires_grad]
+            wrt = [x for x in ins if x.requires_grad]
+            grads = torch.autograd.grad([o for o, _ in pairs], wrt,
+                                        [c for _, c in pairs],
+                                        allow_unused=True)
+            grads = iter(grads)
+            out = []
+            for x in ins:
+                if x.requires_grad:
+                    g = next(grads)
+                    out.append(torch.zeros_like(x) if g is None else g)
+            return out
+
+        cts = [torch.zeros(shape, dtype=dtype, device=device) if c is None
+               else c for c, (shape, dtype, device) in zip(cts, ctx.out_meta)]
+        grads = iter(_emit_map_node(vjp, ctx.sizes, ctx.lead,
+                                    list(leaves) + cts))
+        return (None, None, None) + tuple(next(grads) if need else None
+                                          for need in needs)
+
+
+def _emit_map_node(body, sizes, lead, leaves):
+    """Trace ``body`` on group 0's slice of ``leaves`` into a sub-graph of
+    the current trace and record one ``map_groups`` node over ``leaves``;
+    returns the node's outputs (fake tensors of the stacked shapes).
+
+    A value of the traced program that ``body`` closes over is lifted into
+    an input of the sub-graph, which the node passes to every group whole
+    (the vmap of an unbatched value). A gradient does not flow into such a
+    value: one that requires it raises, to be passed as a mapped argument
+    instead."""
+    from torch._higher_order_ops.utils import reenter_make_fx
+    from torch.fx.experimental import proxy_tensor
+
+    mode = proxy_tensor.get_proxy_mode()
+    with proxy_tensor.disable_proxy_modes_tracing():
+        example = [x[(slice(None),) * lead + (0,) * len(sizes)].detach()
+                   .requires_grad_(x.requires_grad) for x in leaves]
+    body_graph = reenter_make_fx(lambda *xs: list(body(*xs)))(*example)
+    closed = _lift_closed_over(body_graph, mode.tracer)
+    root = mode.tracer.root
+    name = f"map_body_{sum(1 for k in root._modules if k.startswith('map_body_'))}"
+    root.register_module(name, body_graph)
+    args = (body_graph, tuple(sizes), lead) + tuple(leaves) + tuple(closed)
+    proxy = mode.tracer.create_proxy(
+        "call_function", map_groups,
+        tuple(mode.tracer.unwrap_proxy(a) if isinstance(a, torch.Tensor)
+              else a for a in args), {"n_mapped": len(leaves)})
+    (out_node,) = [n for n in body_graph.graph.nodes if n.op == "output"]
+    lead_shape = tuple(leaves[0].shape[:lead])
+    with proxy_tensor.disable_proxy_modes_tracing():
+        outs = [a.meta["val"].new_empty(lead_shape + tuple(sizes)
+                                        + tuple(a.meta["val"].shape))
+                for a in out_node.args[0]]
+    return proxy_tensor.track_tensor_tree(outs, proxy, constant=None,
+                                          tracer=mode.tracer)
+
+
+def _lift_closed_over(body_graph, tracer) -> list:
+    """Turn the sub-graph's constants that are values of the outer trace
+    into trailing inputs; returns those values."""
+    from torch.fx.experimental import proxy_tensor
+
+    placeholders = [n for n in body_graph.graph.nodes if n.op == "placeholder"]
+    closed = []
+    for node in list(body_graph.graph.nodes):
+        if node.op != "get_attr":
+            continue
+        val = getattr(body_graph, node.target)
+        if not isinstance(val, torch.Tensor) or proxy_tensor.get_proxy_slot(
+                val, tracer, None) is None:
+            continue
+        if val.requires_grad:
+            raise NotImplementedError(
+                "map_fn: the mapped function closes over a traced value "
+                "that requires grad; pass it as a mapped argument")
+        with body_graph.graph.inserting_after(placeholders[-1]):
+            ph = body_graph.graph.placeholder(f"closed_{len(closed)}")
+        ph.meta = dict(node.meta)
+        node.replace_all_uses_with(ph)
+        body_graph.graph.erase_node(node)
+        delattr(body_graph, node.target)
+        placeholders.append(ph)
+        closed.append(val)
+    if closed:
+        body_graph.recompile()
+    return closed
+
+
 def map_fn(fn: Callable, tree, placement: Optional[str] = None):
     """Apply ``fn`` to every group's slice and stack the results.
 
@@ -198,17 +383,29 @@ def map_fn(fn: Callable, tree, placement: Optional[str] = None):
     level of the stack (outputs carry all the group axes).
 
     The reference vmaps ``fn``; here the groups run one after another on
-    the one device, and each output leaf is allocated once, stacked, from
-    the first group's result; every group's output is copied into its slot
-    as soon as it is computed. The values are those of the vmap (each group
-    sees its own slice) and equal ``torch.stack`` of the per-group outputs,
-    and the memory a map holds is the stacked outputs plus one group's
-    computation: the point on one card, where a whole client's training
-    state is large. The map is differentiable (autograd through the slices
-    and the slot copies).
+    the one device (:func:`map_groups`): the values are those of the vmap
+    (each group sees its own slice) and equal ``torch.stack`` of the
+    per-group outputs, and the memory a map holds is the stacked outputs
+    plus one group's computation: the point on one card, where a whole
+    client's training state is large. The map is differentiable (autograd
+    through the slices and the slot copies); under a ``torch.func``
+    transform (vmap, grad) the outputs are stacked instead.
+
+    While a program is traced (``interpreter.trace``), the map records
+    ``fn`` once, as a sub-graph applied to every group (collapsed over a
+    nested stack, as the reference's ``map_fn`` at
+    ``repro/core/api.py:340-370``), in one ``map_groups`` node that
+    executes as the same per-group loop, so a plan's values are bitwise
+    the direct map's. ``torch._higher_order_ops.map`` was tried first and
+    does not serve: its eager entry compiles the body with dynamo, which
+    refuses ``torch.autograd.grad`` inside it, and its ``map_impl`` runs
+    the body below the autograd key, where a client step's
+    ``torch.autograd.grad`` finds no graph. This node runs the body at the
+    autograd level (``autograd.grad`` and non-reentrant checkpoint inside
+    it trace as plain ops) and is an ``autograd.Function``, so an outer
+    gradient flows through it.
     """
     ctx = placement_lib.current_context()
-    call = (lambda args: fn(*args)) if isinstance(tree, tuple) else fn
     if placement is None:
         lead = 0
         sizes = ctx.sizes
@@ -225,29 +422,26 @@ def map_fn(fn: Callable, tree, placement: Optional[str] = None):
             )
 
     pytree.tree_map(check, tree)
-    stacked, spec = None, None
-    for idx in itertools.product(*(range(n) for n in sizes)):
-        sel = (slice(None),) * lead + idx
-        leaves, out_spec = pytree.tree_flatten(
-            call(pytree.tree_map(lambda x: x[sel], tree)))
-        if stacked is None:
-            spec = out_spec
-            stacked = [torch.empty(x.shape[:lead] + sizes + x.shape[lead:],
-                                   dtype=x.dtype, device=x.device)
-                       for x in leaves]
-        elif out_spec != spec:
-            raise ValueError(f"map_fn: group {idx} returned a tree of another "
+    leaves, in_spec = pytree.tree_flatten(tree)
+    out_specs = []
+
+    def body(*group_leaves):
+        args = pytree.tree_unflatten(list(group_leaves), in_spec)
+        out = fn(*args) if isinstance(tree, tuple) else fn(args)
+        out_leaves, spec = pytree.tree_flatten(out)
+        if out_specs and spec != out_specs[0]:
+            raise ValueError("map_fn: a group returned a tree of another "
                              "structure than group 0")
-        for buf, x in zip(stacked, leaves):
-            slot = buf[sel]
-            if slot.shape != x.shape or buf.dtype != x.dtype:
-                raise ValueError(
-                    f"map_fn: group {idx} returned {x.dtype} "
-                    f"{tuple(x.shape)} where group 0 returned {buf.dtype} "
-                    f"{tuple(slot.shape)}")
-            buf[sel] = x
-        del leaves  # free this group's outputs before the next group runs
-    return pytree.tree_unflatten(stacked, spec)
+        out_specs.append(spec)
+        return out_leaves
+
+    if prims.is_recording() and _under_trace():
+        stacked = _RecordedMap.apply(body, sizes, lead, *leaves)
+    elif _in_functorch_transform():
+        stacked = _stack_groups(body, sizes, lead, *leaves)
+    else:
+        stacked = map_groups(body, sizes, lead, *leaves)
+    return pytree.tree_unflatten(list(stacked), out_specs[0])
 
 
 def partition_size(placement: Optional[str] = None) -> int:

@@ -5,15 +5,44 @@ Every primitive is placement-addressed: for a placement at stack index
 and inserts that placement's group axis at position ``i``; ``reduce_*``
 removes it.
 
-In the reference each primitive is a JAX ``Primitive`` with hand-written
-JVP and transpose rules. Here broadcast and the plain reductions are
-ordinary differentiable tensor ops along the leading group axes, so
-autograd yields the MapReduce AD transposes directly: the backward of
-``broadcast@p`` (an ``expand``) is ``reduce_sum@p``, and that of
-``reduce_mean@p`` is ``broadcast@p(ct * r)``. The ``compress="int8"``
-tagged ``reduce_mean`` is a :class:`torch.autograd.Function` whose forward
-is the fused reduce+compress kernel and whose backward is the same
-``broadcast(ct * r)`` (the int8 roundtrip is straight-through).
+Two forms, one arithmetic:
+
+* **Direct** (the default): broadcast and the plain reductions are
+  ordinary differentiable tensor ops along the leading group axes, so
+  autograd yields the MapReduce AD transposes directly: the backward of
+  ``broadcast@p`` (an ``expand``) is ``reduce_sum@p``, and that of
+  ``reduce_mean@p`` is ``broadcast@p(ct * r)``. ``broadcast`` stays an
+  ``expand`` view, so broadcasting a whole model's parameters to every
+  group costs no memory.
+* **Recorded** (inside :func:`recording`, which ``interpreter.trace``
+  enters): each primitive calls its registered op in the ``drjax``
+  namespace (``torch.ops.drjax.broadcast``, ``reduce_sum``,
+  ``reduce_mean``, ``reduce_max``), so a traced program holds it as one
+  node whose arguments carry the placement stack, the addressed level and
+  the ``compress``/``qaxis`` tags, as the reference's eqn params do. The
+  ops' autograd (``autograd.Function`` classes with ``setup_context``, so
+  ``torch.func`` transforms take them; the op's own
+  ``register_autograd`` does not compose with them) is written in the
+  same op set, so a traced
+  gradient program holds only ``drjax`` communication nodes: the backward
+  of ``drjax.broadcast@p`` is ``drjax.reduce_sum@p``, of
+  ``drjax.reduce_sum@p`` ``drjax.broadcast@p``, of ``drjax.reduce_mean@p``
+  ``drjax.broadcast@p(ct * r)``, and of ``drjax.reduce_max@p`` the
+  reference's subgradient (the tangent split evenly over tied arg-max
+  groups) carried by ``drjax.broadcast``. Their batching rules move the
+  vmapped axis to the end, as the reference's do, so ``torch.func.vmap``
+  keeps the primitive.
+
+Why the two forms: a registered op may not return a view of its input, so
+``drjax.broadcast`` materializes its result. Recording only while a trace
+is taken keeps the direct rounds' memory what it was (a view), and a
+recorded plan's ``broadcast`` node pays for the copy only where a plan is
+run.
+
+``compress="int8"`` on ``reduce_mean`` runs the fused reduce + int8
+roundtrip (the ``repro.reduce_compress_roundtrip`` kernel op on the card);
+its gradient is the plain ``reduce_mean``'s (the roundtrip is
+straight-through), bitwise.
 
 ``r`` is ``1 / size`` rounded to f32 once (:func:`reciprocal`): the
 reference's driver always jits, and XLA compiles its ``sum / size`` (and
@@ -21,18 +50,53 @@ the transpose's ``ct / size``) as a product with that reciprocal. A
 division would differ from it in the last bit for sizes that are not
 powers of two.
 
-Left out for later slices: ``reduce_max``, ``stage_transfer`` and the
-batching rules (the port has no ``vmap`` of the primitives).
+Left out for later slices: ``stage_transfer``.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
 
 from ..kernels import ops as kernel_ops
 from . import placement as placement_lib
+
+COMM_OPS = ("broadcast", "reduce_sum", "reduce_mean", "reduce_max")
+
+# A module global, not a thread-local: the autograd engine runs a traced
+# backward on its device threads, which must record as well.
+_RECORDING = False
+
+
+@contextlib.contextmanager
+def recording():
+    """Inside this context the primitives call their ``drjax`` ops (one
+    graph node each under a tracer) instead of the direct tensor ops."""
+    global _RECORDING
+    prev, _RECORDING = _RECORDING, True
+    try:
+        yield
+    finally:
+        _RECORDING = prev
+
+
+def is_recording() -> bool:
+    return _RECORDING
+
+
+def stack_spec(ctx: placement_lib.PlacementContext) -> str:
+    """The placement stack as an op argument: ``"pods:2,clients:4"``."""
+    return ",".join(f"{p.name}:{p.size}" for p in ctx.placements)
+
+
+def parse_stack(spec: str) -> Tuple[Tuple[str, int], ...]:
+    out = []
+    for entry in spec.split(","):
+        name, size = entry.rsplit(":", 1)
+        out.append((name, int(size)))
+    return tuple(out)
 
 
 def _resolve(placement: Optional[str]) -> Tuple[placement_lib.Placement, int]:
@@ -59,23 +123,6 @@ def _check_operand_depth(x: torch.Tensor, depth: int, prim: str) -> None:
             )
 
 
-def broadcast(x: torch.Tensor, placement: Optional[str] = None) -> torch.Tensor:
-    """One ``broadcast@placement``: depth-i operand -> depth-(i+1) result.
-
-    An ``expand`` view: no copy, and autograd's backward is the sum over
-    the new axis (``reduce_sum@placement``)."""
-    x = torch.as_tensor(x)
-    pl, i = _resolve(placement)
-    _check_operand_depth(x, i, "broadcast")
-    return x.unsqueeze(i).expand(x.shape[:i] + (pl.size,) + x.shape[i:])
-
-
-def reduce_sum(x: torch.Tensor, placement: Optional[str] = None) -> torch.Tensor:
-    _, i = _resolve(placement)
-    _check_operand_depth(x, i + 1, "reduce_sum")
-    return x.sum(dim=i)
-
-
 def reciprocal(n: int) -> torch.Tensor:
     """``1 / n`` rounded to f32 once, as a 0-d CPU tensor. A product with
     it runs as a scalar product in f32 (bf16 operands too) on either
@@ -83,11 +130,202 @@ def reciprocal(n: int) -> torch.Tensor:
     return torch.tensor(1.0 / n, dtype=torch.float32)
 
 
+def _size(stack: str, index: int) -> int:
+    return parse_stack(stack)[index][1]
+
+
+def _expand(x: torch.Tensor, i: int, n: int) -> torch.Tensor:
+    return x.unsqueeze(i).expand(x.shape[:i] + (n,) + x.shape[i:])
+
+
+# ---------------------------------------------------------------------------
+# the registered ops (recorded form)
+# ---------------------------------------------------------------------------
+
+
+@torch.library.custom_op("drjax::broadcast", mutates_args=())
+def _broadcast_op(x: torch.Tensor, stack: str, index: int) -> torch.Tensor:
+    return _expand(x, index, _size(stack, index)).clone()
+
+
+@torch.library.custom_op("drjax::reduce_sum", mutates_args=())
+def _reduce_sum_op(x: torch.Tensor, stack: str, index: int) -> torch.Tensor:
+    return x.sum(dim=index)
+
+
+@torch.library.custom_op("drjax::reduce_mean", mutates_args=())
+def _reduce_mean_op(x: torch.Tensor, stack: str, index: int,
+                    compress: Optional[str] = None,
+                    qaxis: int = -1) -> torch.Tensor:
+    if compress is None:
+        return x.sum(dim=index) * reciprocal(_size(stack, index))
+    return kernel_ops.reduce_compress_roundtrip(x, axis=index, qaxis=qaxis)
+
+
+@torch.library.custom_op("drjax::reduce_max", mutates_args=())
+def _reduce_max_op(x: torch.Tensor, stack: str, index: int) -> torch.Tensor:
+    return x.amax(dim=index)
+
+
+@_broadcast_op.register_fake
+def _(x, stack, index):
+    n = _size(stack, index)
+    return x.new_empty(x.shape[:index] + (n,) + x.shape[index:])
+
+
+def _reduced_fake(x, stack, index, *rest):
+    return x.new_empty(x.shape[:index] + x.shape[index + 1:])
+
+
+for _op in (_reduce_sum_op, _reduce_mean_op, _reduce_max_op):
+    _op.register_fake(_reduced_fake)
+
+
+class _Comm(torch.autograd.Function):
+    """Base of the ops' autograd: ``forward`` runs the op (one graph node
+    under a tracer), ``backward`` the transposed primitive through its own
+    Function, so second order stays in the set. ``setup_context`` and the
+    generated vmap rule (from the ops' batching rules) make them
+    ``torch.func`` transforms' as well."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.stack, ctx.index = inputs[1], inputs[2]
+
+
+class _Broadcast(_Comm):
+    @staticmethod
+    def forward(x, stack, index):
+        return torch.ops.drjax.broadcast(x, stack, index)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _ReduceSum.apply(ct, ctx.stack, ctx.index), None, None
+
+
+class _ReduceSum(_Comm):
+    @staticmethod
+    def forward(x, stack, index):
+        return torch.ops.drjax.reduce_sum(x, stack, index)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _Broadcast.apply(ct, ctx.stack, ctx.index), None, None
+
+
+class _ReduceMean(_Comm):
+    @staticmethod
+    def forward(x, stack, index, compress, qaxis):
+        return torch.ops.drjax.reduce_mean(x, stack, index, compress, qaxis)
+
+    @staticmethod
+    def backward(ctx, ct):
+        r = reciprocal(_size(ctx.stack, ctx.index))
+        return (_Broadcast.apply(ct * r, ctx.stack, ctx.index),
+                None, None, None, None)
+
+
+class _ReduceMax(_Comm):
+    @staticmethod
+    def forward(x, stack, index):
+        return torch.ops.drjax.reduce_max(x, stack, index)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _Comm.setup_context(ctx, inputs, output)
+        ctx.save_for_backward(inputs[0], output)
+
+    @staticmethod
+    def backward(ctx, ct):
+        """The reference's subgradient (``primitives.py:310-330``): the
+        tangent goes to the arg-max groups, split evenly over ties; reverse
+        mode stays in the primitive set through ``broadcast``."""
+        x, out = ctx.saved_tensors
+        i = ctx.index
+        hit = (x == out.unsqueeze(i)).to(x.dtype)
+        hit = hit / torch.clamp_min(hit.sum(dim=i, keepdim=True), 1)
+        return hit * _Broadcast.apply(ct, ctx.stack, i), None, None
+
+
+def _last(x, d):
+    return x.movedim(d, -1), x.ndim - 1
+
+
+@torch.library.register_vmap("drjax::broadcast")
+def _broadcast_vmap(info, in_dims, x, stack, index):
+    (d, _, _) = in_dims
+    if d is None:
+        return torch.ops.drjax.broadcast(x, stack, index), None
+    x, _ = _last(x, d)
+    out = torch.ops.drjax.broadcast(x, stack, index)
+    return out, out.ndim - 1
+
+
+def _reduction_vmap(op):
+    def rule(info, in_dims, x, stack, index, *rest):
+        d = in_dims[0]
+        if d is None:
+            return op(x, stack, index, *rest), None
+        # The batch axis lands at the end, so a from-the-end quant axis
+        # moves one step deeper (the reference's rule, ``:207-265``).
+        if rest and rest[0] is not None and rest[1] < 0:
+            rest = (rest[0], rest[1] - 1)
+        x, _ = _last(x, d)
+        out = op(x, stack, index, *rest)
+        return out, out.ndim - 1
+
+    return rule
+
+
+for _name in ("reduce_sum", "reduce_mean", "reduce_max"):
+    torch.library.register_vmap(
+        f"drjax::{_name}", _reduction_vmap(getattr(torch.ops.drjax, _name)))
+
+
+# ---------------------------------------------------------------------------
+# the primitives
+# ---------------------------------------------------------------------------
+
+
+def broadcast(x: torch.Tensor, placement: Optional[str] = None) -> torch.Tensor:
+    """One ``broadcast@placement``: depth-i operand -> depth-(i+1) result.
+
+    Direct: an ``expand`` view, no copy, and autograd's backward is the sum
+    over the new axis (``reduce_sum@placement``)."""
+    x = torch.as_tensor(x)
+    pl, i = _resolve(placement)
+    _check_operand_depth(x, i, "broadcast")
+    if _RECORDING:
+        return _Broadcast.apply(
+            x, stack_spec(placement_lib.current_context()), i)
+    return _expand(x, i, pl.size)
+
+
+def reduce_sum(x: torch.Tensor, placement: Optional[str] = None) -> torch.Tensor:
+    _, i = _resolve(placement)
+    _check_operand_depth(x, i + 1, "reduce_sum")
+    if _RECORDING:
+        return _ReduceSum.apply(
+            x, stack_spec(placement_lib.current_context()), i)
+    return x.sum(dim=i)
+
+
+def reduce_max(x: torch.Tensor, placement: Optional[str] = None) -> torch.Tensor:
+    """Max over one placement's groups; its gradient goes to the arg-max
+    groups, split evenly over ties (the reference's subgradient)."""
+    _, i = _resolve(placement)
+    _check_operand_depth(x, i + 1, "reduce_max")
+    return _ReduceMax.apply(x, stack_spec(placement_lib.current_context()), i)
+
+
 class _FusedReduceMean(torch.autograd.Function):
     """``reduce_mean@p`` tagged ``compress="int8"``: forward is the fused
-    single-pass mean + int8 roundtrip (CUDA kernel on the card); backward
-    is ``broadcast@p(ct * r)``, exactly the plain reduce_mean's, so the
-    gradient equals the unfused composition's bitwise."""
+    single-pass mean + int8 roundtrip (the ``repro.reduce_compress_roundtrip``
+    op: the CUDA kernel on the card); backward is ``broadcast@p(ct * r)``,
+    exactly the plain reduce_mean's, so the gradient equals the unfused
+    composition's bitwise."""
 
     @staticmethod
     def forward(ctx, x, axis: int, size: int, qaxis: int):
@@ -107,11 +345,14 @@ def reduce_mean(x: torch.Tensor, placement: Optional[str] = None, *,
     per-row scales): the hierarchical fast path."""
     pl, i = _resolve(placement)
     _check_operand_depth(x, i + 1, "reduce_mean")
-    if compress is None:
-        return x.sum(dim=i) * reciprocal(pl.size)
-    if compress != "int8":
+    if compress not in (None, "int8"):
         raise NotImplementedError(
             f"drjax.reduce_mean: fused compress={compress!r} is only "
             "implemented for int8 (the hierarchical fast path)."
         )
+    if _RECORDING:
+        return _ReduceMean.apply(
+            x, stack_spec(placement_lib.current_context()), i, compress, qaxis)
+    if compress is None:
+        return x.sum(dim=i) * reciprocal(pl.size)
     return _FusedReduceMean.apply(x, i, pl.size, qaxis)

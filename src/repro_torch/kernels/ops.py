@@ -1,18 +1,31 @@
-"""Public kernel entry points with their launch counters.
+"""Public kernel entry points: registered ops with their launch counters.
 
-Dispatch rule: a CUDA tensor launches the hand-written kernel (or the
-launcher raises); a CPU tensor runs the plain PyTorch version in
-``kernels.ref``. There is no other fallback: a build or launch failure
-propagates. Each wrapper carries ``launches``, a plain integer that grows
-by one exactly where the kernel is launched, so a run can show that its
-main path went through the kernels (:func:`reset_launches`,
-:func:`launch_counts`).
+Every kernel is a ``torch.library`` op in the ``repro`` namespace
+(``torch.ops.repro.quantize``, ``flash_attention_fwd``, ...) with three
+implementations: the CUDA one launches the hand-written kernel (or the
+launcher raises), the CPU one runs the plain PyTorch version in
+``kernels.ref``, and the fake one gives the output shapes to a tracer.
+There is no other fallback: a build or launch failure propagates. Being
+ops, the kernels stay visible to a tracer: a traced round holds each
+launch as one ``repro`` node (a ctypes launch would be invisible, and its
+output a constant of the trace).
+
+Each Python wrapper below goes through its op whenever a dispatch mode is
+active (a tracer, fake tensors); otherwise it calls the same CUDA or CPU
+implementation directly, since the dispatcher's Python round trip added
+0.01-0.03 ms to the event times of the smaller kernels on the card
+(``scripts/compare_parent.sh``, PERF.md §6). Each wrapper carries ``launches``, a plain integer that the
+CUDA implementation grows by one exactly where the kernel is launched, so
+a run can show that its main path went through the kernels
+(:func:`reset_launches`, :func:`launch_counts`). A replay of a captured
+CUDA graph launches the kernels without running this Python, so it does
+not count.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -23,32 +36,256 @@ from . import ref as _ref
 from . import rglru_scan as _lru
 from . import wkv6 as _wkv
 
+Tensor = torch.Tensor
 
-def _on_card(t: torch.Tensor, what: str) -> bool:
-    if t.device.type == "cuda":
-        return True
-    if t.device.type == "cpu":
-        return False
-    raise ValueError(f"{what}: unsupported device {t.device}")
+
+# Defined through ``torch.library.Library``, not ``custom_op``, whose
+# wrapper layers cost several times the dispatch itself. The ops have no
+# autograd kernel: the ``autograd.Function`` classes below call them in
+# their forward and backward, where grad mode is off.
+_LIB = torch.library.Library("repro", "DEF")
+_IMPLS: Dict[str, Dict[str, Callable]] = {}
+
+
+def _op(name: str, schema: str, plain, card, fake) -> None:
+    """Register ``repro::name(schema)``: ``plain`` on CPU tensors, ``card``
+    on CUDA tensors (counted on the wrapper of the same name), ``fake``
+    for tracing."""
+    _LIB.define(name + schema)
+
+    def launch(*args):
+        out = card(*args)
+        globals()[name].launches += 1
+        return out
+
+    _LIB.impl(name, plain, "CPU")
+    _LIB.impl(name, launch, "CUDA")
+    torch.library.register_fake(f"repro::{name}", fake, lib=_LIB)
+    _IMPLS[name] = {"cpu": plain, "cuda": launch}
+
+
+def _call(name: str, *args):
+    """Kernel op ``name`` on ``args``: through the dispatcher (one graph
+    node) under an active dispatch mode, else its implementation for the
+    first argument's device, called directly."""
+    if torch._C._len_torch_dispatch_stack():
+        return getattr(torch.ops.repro, name)(*args)
+    impl = _IMPLS[name].get(args[0].device.type)
+    if impl is None:
+        raise ValueError(f"{name}: unsupported device {args[0].device}")
+    return impl(*args)
+
+
+def _empty0(like: Tensor) -> Tensor:
+    """A 0-element f32 tensor: an op output that stands for "none"."""
+    return like.new_empty((0,), dtype=torch.float32)
+
+
+# -- K1: per-row int8 --------------------------------------------------------
+
+
+def _quantize_plain(x: Tensor) -> Tuple[Tensor, Tensor]:
+    return _ref.quantize_ref(x)
+
+
+def _quantize_fake(x):
+    return (x.new_empty(x.shape, dtype=torch.int8),
+            x.new_empty((x.shape[0], 1), dtype=torch.float32))
+
+
+_op("quantize", "(Tensor x) -> (Tensor, Tensor)", _quantize_plain,
+    _quant.quantize, _quantize_fake)
+
+
+def _dequantize_plain(q: Tensor, scales: Tensor, dtype: torch.dtype) -> Tensor:
+    return _ref.dequantize_ref(q, scales, dtype)
+
+
+_op("dequantize", "(Tensor q, Tensor scales, ScalarType dtype) -> Tensor",
+    _dequantize_plain, _quant.dequantize,
+    lambda q, scales, dtype: q.new_empty(q.shape, dtype=dtype))
+
+
+# -- K3: reduce + compress -------------------------------------------------
+
+
+def _rc_roundtrip_plain(x4: Tensor) -> Tensor:
+    return _ref.reduce_compress_roundtrip_ref(x4)[0]
+
+
+def _rc_roundtrip_card(x4):
+    return _rc.reduce_compress_roundtrip(x4.contiguous())[0]
+
+
+_op("reduce_compress_roundtrip", "(Tensor x4) -> Tensor", _rc_roundtrip_plain,
+    _rc_roundtrip_card,
+    lambda x4: x4.new_empty((x4.shape[0],) + tuple(x4.shape[2:])))
+
+
+def _rc_plain(x4: Tensor) -> Tuple[Tensor, Tensor]:
+    return _ref.reduce_compress_ref(x4)
+
+
+def _rc_fake(x4):
+    l, _, r, c = x4.shape
+    return (x4.new_empty((l, r, c), dtype=torch.int8),
+            x4.new_empty((l, r, 1), dtype=torch.float32))
+
+
+_op("reduce_compress", "(Tensor x4) -> (Tensor, Tensor)", _rc_plain,
+    lambda x4: _rc.reduce_compress(x4.contiguous()), _rc_fake)
+
+
+def _dequant_accumulate_plain(q: Tensor, scales: Tensor) -> Tensor:
+    return _ref.dequant_accumulate_ref(q, scales)
+
+
+_op("dequant_accumulate", "(Tensor q, Tensor scales) -> Tensor",
+    _dequant_accumulate_plain, _rc.dequant_accumulate,
+    lambda q, scales: q.new_empty(q.shape[1:], dtype=torch.float32))
+
+
+# -- K2: flash attention ---------------------------------------------------
+
+
+def _no_alias(out, out32, lse):
+    """An op's outputs may not alias each other: for f32, where the f32
+    output is the output itself, the op returns a 0-element tensor in its
+    place and the wrapper puts the output back."""
+    return out, (_empty0(out) if out32 is out else out32), lse
+
+
+def _fa_fwd_plain(q: Tensor, k: Tensor, v: Tensor, causal: bool,
+                  window: int) -> Tuple[Tensor, Tensor, Tensor]:
+    return _no_alias(*_ref.flash_attention_ref(q, k, v, causal=causal,
+                                               window=window))
+
+
+def _fa_fwd_card(q, k, v, causal, window):
+    return _no_alias(*_fa.fwd(q, k, v, causal=causal, window=window))
+
+
+def _fa_fwd_fake(q, k, v, causal, window):
+    b, sq, hq, _ = q.shape
+    out32 = (_empty0(q) if q.dtype == torch.float32
+             else q.new_empty(q.shape, dtype=torch.float32))
+    return (q.new_empty(q.shape), out32,
+            q.new_empty((b, sq, hq), dtype=torch.float32))
+
+
+_op("flash_attention_fwd", "(Tensor q, Tensor k, Tensor v, bool causal, "
+    "int window) -> (Tensor, Tensor, Tensor)", _fa_fwd_plain, _fa_fwd_card,
+    _fa_fwd_fake)
+
+
+def _fa_dq_plain(q: Tensor, k: Tensor, v: Tensor, out32: Tensor, lse: Tensor,
+                 dout: Tensor, causal: bool,
+                 window: int) -> Tuple[Tensor, Tensor]:
+    return _ref.flash_attention_bwd_dq_ref(q, k, v, out32, lse, dout,
+                                           causal=causal, window=window)
+
+
+def _fa_dq_card(q, k, v, out32, lse, dout, causal, window):
+    return _fa.bwd_dq(q, k, v, out32, lse, dout, causal=causal, window=window)
+
+
+_op("flash_attention_bwd_dq", "(Tensor q, Tensor k, Tensor v, Tensor out32, "
+    "Tensor lse, Tensor dout, bool causal, int window) -> (Tensor, Tensor)",
+    _fa_dq_plain, _fa_dq_card,
+    lambda q, k, v, out32, lse, dout, causal, window: (
+        q.new_empty(q.shape), lse.new_empty(lse.shape)))
+
+
+def _fa_dkdv_plain(q: Tensor, k: Tensor, v: Tensor, lse: Tensor,
+                   delta: Tensor, dout: Tensor, causal: bool,
+                   window: int) -> Tuple[Tensor, Tensor]:
+    return _ref.flash_attention_bwd_dkdv_ref(q, k, v, lse, delta, dout,
+                                             causal=causal, window=window)
+
+
+def _fa_dkdv_card(q, k, v, lse, delta, dout, causal, window):
+    return _fa.bwd_dkdv(q, k, v, lse, delta, dout, causal=causal,
+                        window=window)
+
+
+_op("flash_attention_bwd_dkdv", "(Tensor q, Tensor k, Tensor v, Tensor lse, "
+    "Tensor delta, Tensor dout, bool causal, int window) -> (Tensor, Tensor)",
+    _fa_dkdv_plain, _fa_dkdv_card,
+    lambda q, k, v, lse, delta, dout, causal, window: (
+        k.new_empty(k.shape), v.new_empty(v.shape)))
+
+
+# -- K4: the RG-LRU scan ---------------------------------------------------
+
+
+def _lru_fwd_plain(a: Tensor, b: Tensor, h0: Optional[Tensor]) -> Tensor:
+    return _ref.lru_scan_ref(a, b, h0)
+
+
+_op("lru_scan_fwd", "(Tensor a, Tensor b, Tensor? h0) -> Tensor",
+    _lru_fwd_plain, _lru.fwd,
+    lambda a, b, h0: a.new_empty(a.shape))
+
+
+def _lru_bwd_plain(a: Tensor, h: Tensor, g: Tensor,
+                   h0: Optional[Tensor]) -> Tuple[Tensor, Tensor, Tensor]:
+    return _ref.lru_scan_bwd_ref(a, h, g, h0)
+
+
+_op("lru_scan_bwd", "(Tensor a, Tensor h, Tensor g, Tensor? h0) -> "
+    "(Tensor, Tensor, Tensor)", _lru_bwd_plain, _lru.bwd,
+    lambda a, h, g, h0: (a.new_empty(a.shape), a.new_empty(a.shape),
+                         a.new_empty((a.shape[0], a.shape[2]),
+                                     dtype=torch.float32)))
+
+
+# -- K5: WKV6 --------------------------------------------------------------
+
+
+def _wkv_fwd_plain(r: Tensor, k: Tensor, v: Tensor, logw: Tensor,
+                   u: Tensor) -> Tuple[Tensor, Tensor]:
+    return _ref.wkv6_ref(r, k, v, logw, u), _empty0(r)
+
+
+def _wkv_fwd_fake(r, k, v, logw, u):
+    if r.device.type != "cuda":
+        return r.new_empty(r.shape), _empty0(r)
+    b, s, h, n = r.shape
+    return r.new_empty(r.shape), r.new_empty(
+        (b, h, _wkv.num_chunks(s), n, n), dtype=torch.float32)
+
+
+_op("wkv6_fwd", "(Tensor r, Tensor k, Tensor v, Tensor logw, Tensor u) -> "
+    "(Tensor, Tensor)", _wkv_fwd_plain, _wkv.fwd, _wkv_fwd_fake)
+
+
+def _wkv_bwd_plain(r: Tensor, k: Tensor, v: Tensor, logw: Tensor, u: Tensor,
+                   states: Optional[Tensor], dout: Tensor
+                   ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    return _ref.wkv6_bwd_ref(r, k, v, logw, u, dout)
+
+
+_op("wkv6_bwd", "(Tensor r, Tensor k, Tensor v, Tensor logw, Tensor u, "
+    "Tensor? states, Tensor dout) -> (Tensor, Tensor, Tensor, Tensor, Tensor)",
+    _wkv_bwd_plain, _wkv.bwd,
+    lambda r, k, v, logw, u, states, dout: tuple(
+        t.new_empty(t.shape) for t in (r, k, v, logw, u)))
+
+
+# ---------------------------------------------------------------------------
+# the wrappers
+# ---------------------------------------------------------------------------
 
 
 def quantize(x: torch.Tensor):
     """(R, C) -> (q int8 (R, C), scale f32 (R, 1)): per-row symmetric int8."""
-    if not _on_card(x, "quantize"):
-        return _ref.quantize_ref(x)
-    out = _quant.quantize(x)
-    quantize.launches += 1
-    return out
+    return _call("quantize", x)
 
 
 def dequantize(q: torch.Tensor, scales: torch.Tensor,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Inverse of :func:`quantize`: ``(q * scale)`` in ``dtype``."""
-    if not _on_card(q, "dequantize"):
-        return _ref.dequantize_ref(q, scales, dtype)
-    out = _quant.dequantize(q, scales, dtype)
-    dequantize.launches += 1
-    return out
+    return _call("dequantize", q, scales, dtype)
 
 
 def reduce_compress_roundtrip(x: torch.Tensor, *, axis: int = 0,
@@ -60,36 +297,51 @@ def reduce_compress_roundtrip(x: torch.Tensor, *, axis: int = 0,
     (``core/hierarchical.py`` fast path), as ``repro/kernels/ops.py:137-192``
     canonicalizes it: the quant axis goes last, the axes before ``axis``
     fold into the kernel's L dimension (instead of a vmap over pods), the
-    rest into R rows of ``C`` values: ``(L, G, R, C)``. A quant axis among
-    the leading pod axes (``qaxis < axis``) is not ported, on either
-    device: the fast path never binds it.
+    rest into R rows of ``C`` values: ``(L, G, R, C)``, one launch of the
+    ``repro.reduce_compress_roundtrip`` op.
+
+    A quant axis among the leading pod axes (``qaxis < axis``) has no
+    kernel, as in the reference (``repro/kernels/ops.py:137-142``), which
+    runs its ``_reduce_compress_roundtrip_jnp`` on every device:
+    :func:`_roundtrip_lead_qaxis` computes that form with plain tensor ops
+    on either device.
     """
-    on_card = _on_card(x, "reduce_compress_roundtrip")
     part_ndim = x.ndim - 1
     if part_ndim < 1:
         raise ValueError("reduce_compress_roundtrip needs a non-group axis")
     axis = axis % x.ndim
     qaxis = qaxis % part_ndim
     if qaxis < axis:
-        raise NotImplementedError(
-            "reduce_compress_roundtrip: a quant axis before the reduced axis "
-            "is not ported"
-        )
+        return _roundtrip_lead_qaxis(x, axis, qaxis)
     lead = tuple(x.shape[:axis])
     g = x.shape[axis]
     if qaxis != part_ndim - 1:
         x = x.movedim(qaxis + 1, -1)
     trail = tuple(x.shape[axis + 1:])
     x4 = x.reshape(math.prod(lead), g, math.prod(trail[:-1]), trail[-1])
-    if on_card:
-        back, _, _ = _rc.reduce_compress_roundtrip(x4.contiguous())
-        reduce_compress_roundtrip.launches += 1
-    else:
-        back, _, _ = _ref.reduce_compress_roundtrip_ref(x4)
+    back = _call("reduce_compress_roundtrip", x4)
     back = back.reshape(lead + trail)
     if qaxis != part_ndim - 1:
         back = back.movedim(-1, qaxis)
     return back
+
+
+def _roundtrip_lead_qaxis(x: torch.Tensor, axis: int,
+                          qaxis: int) -> torch.Tensor:
+    """``repro/kernels/ops.py:_reduce_compress_roundtrip_jnp`` for a quant
+    axis before the reduced axis: the mean over ``axis`` as an f32 sum
+    times the f32 reciprocal of G, in ``x``'s dtype, then the roundtrip of
+    ``kernels.ref`` with one scale per row along ``qaxis``. For bf16 this
+    is the reference's arithmetic. For f32 with L^2 G <= 2^22 the
+    reference takes the mean as a gemm with weights 1/G (ROADMAP R7), whose
+    partial can differ from this one in the last bit, and so its int8 codes
+    by one step."""
+    g = x.shape[axis]
+    part = (x.to(torch.float32).sum(dim=axis) * (1.0 / g)).to(x.dtype)
+    moved = part.movedim(qaxis, -1)
+    q, s = _ref.quantize_ref(moved.reshape(-1, moved.shape[-1]))
+    back = _ref.dequantize_ref(q, s, part.dtype).reshape(moved.shape)
+    return back.movedim(-1, qaxis)
 
 
 def reduce_compress(x: torch.Tensor):
@@ -98,17 +350,12 @@ def reduce_compress(x: torch.Tensor):
     per 256-wide row (K3a, ``repro/kernels/ops.py:85``). The leading axes
     fold into the kernel's L dimension, as in
     :func:`reduce_compress_roundtrip`."""
-    on_card = _on_card(x, "reduce_compress")
     if x.ndim < 3:
         raise ValueError(f"reduce_compress: expected (..., G, R, C), got "
                          f"{tuple(x.shape)}")
     lead = tuple(x.shape[:-3])
     x4 = x.reshape((math.prod(lead),) + tuple(x.shape[-3:]))
-    if on_card:
-        q, s = _rc.reduce_compress(x4.contiguous())
-        reduce_compress.launches += 1
-    else:
-        q, s = _ref.reduce_compress_ref(x4)
+    q, s = _call("reduce_compress", x4)
     return q.reshape(lead + q.shape[1:]), s.reshape(lead + s.shape[1:])
 
 
@@ -116,43 +363,29 @@ def dequant_accumulate(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """The cross-pod leg: ((P, R, C) int8, (P, R, 1) f32) -> (R, C) f32, the
     mean over P of the dequantized payloads (K3c,
     ``repro/kernels/ops.py:92``)."""
-    if not _on_card(q, "dequant_accumulate"):
-        return _ref.dequant_accumulate_ref(q, scales)
-    out = _rc.dequant_accumulate(q, scales)
-    dequant_accumulate.launches += 1
-    return out
+    return _call("dequant_accumulate", q, scales)
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0):
-    """K2 forward: -> (out in q's dtype, out_f32, L (B, Sq, Hq) f32)."""
-    if not _on_card(q, "flash_attention_fwd"):
-        return _ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-    out = _fa.fwd(q, k, v, causal=causal, window=window)
-    flash_attention_fwd.launches += 1
-    return out
+    """K2 forward: -> (out in q's dtype, out_f32, L (B, Sq, Hq) f32); for
+    f32 inputs ``out_f32`` is ``out`` itself."""
+    out, out32, lse = _call("flash_attention_fwd", q, k, v, bool(causal),
+                            int(window or 0))
+    return out, out if out32.numel() == 0 else out32, lse
 
 
 def flash_attention_bwd_dq(q, k, v, out32, lse, dout, *, causal: bool = True,
                            window: int = 0):
     """K2 backward, first half: -> (dq, D = rowsum(dout * out_f32))."""
-    if not _on_card(q, "flash_attention_bwd_dq"):
-        return _ref.flash_attention_bwd_dq_ref(q, k, v, out32, lse, dout,
-                                               causal=causal, window=window)
-    out = _fa.bwd_dq(q, k, v, out32, lse, dout, causal=causal, window=window)
-    flash_attention_bwd_dq.launches += 1
-    return out
+    return _call("flash_attention_bwd_dq", q, k, v, out32, lse, dout,
+                 bool(causal), int(window or 0))
 
 
 def flash_attention_bwd_dkdv(q, k, v, lse, delta, dout, *,
                              causal: bool = True, window: int = 0):
     """K2 backward, second half: -> (dk, dv), given D."""
-    if not _on_card(q, "flash_attention_bwd_dkdv"):
-        return _ref.flash_attention_bwd_dkdv_ref(q, k, v, lse, delta, dout,
-                                                 causal=causal, window=window)
-    out = _fa.bwd_dkdv(q, k, v, lse, delta, dout, causal=causal,
-                       window=window)
-    flash_attention_bwd_dkdv.launches += 1
-    return out
+    return _call("flash_attention_bwd_dkdv", q, k, v, lse, delta, dout,
+                 bool(causal), int(window or 0))
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -196,20 +429,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def lru_scan_fwd(a, b, h0=None):
     """K4 forward: ``h_t = a_t * h_{t-1} + b_t`` over axis 1 of (B, S, W),
     f32 state, -> h in a's dtype."""
-    if not _on_card(a, "lru_scan_fwd"):
-        return _ref.lru_scan_ref(a, b, h0)
-    out = _lru.fwd(a, b, h0)
-    lru_scan_fwd.launches += 1
-    return out
+    return _call("lru_scan_fwd", a, b, h0)
 
 
 def lru_scan_bwd(a, h, g, h0=None):
     """K4 backward, the reverse scan: -> (da, db, dh0 f32 (B, W))."""
-    if not _on_card(a, "lru_scan_bwd"):
-        return _ref.lru_scan_bwd_ref(a, h, g, h0)
-    out = _lru.bwd(a, h, g, h0)
-    lru_scan_bwd.launches += 1
-    return out
+    return _call("lru_scan_bwd", a, h, g, h0)
 
 
 class _LruScan(torch.autograd.Function):
@@ -244,21 +469,14 @@ def wkv6_fwd(r, k, v, logw, u):
     (out f32, states): on the card the state entering each 64-step chunk
     (B, H, ceil(S / 64), N, N), which the backward kernel reads; on the
     CPU None (the plain backward runs the recurrence again)."""
-    if not _on_card(r, "wkv6_fwd"):
-        return _ref.wkv6_ref(r, k, v, logw, u), None
-    out = _wkv.fwd(r, k, v, logw, u)
-    wkv6_fwd.launches += 1
-    return out
+    out, states = _call("wkv6_fwd", r, k, v, logw, u)
+    return out, None if states.numel() == 0 else states
 
 
 def wkv6_bwd(r, k, v, logw, u, states, dout):
     """K5 backward, the chunked reverse pass: -> (dr, dk, dv, dlogw, du),
     f32; du (H, N) summed over batch and chunks in a fixed order."""
-    if not _on_card(r, "wkv6_bwd"):
-        return _ref.wkv6_bwd_ref(r, k, v, logw, u, dout)
-    out = _wkv.bwd(r, k, v, logw, u, states, dout)
-    wkv6_bwd.launches += 1
-    return out
+    return _call("wkv6_bwd", r, k, v, logw, u, states, dout)
 
 
 class _Wkv6(torch.autograd.Function):

@@ -1,0 +1,469 @@
+"""Compiled plan executor (``repro/runtime/executor.py``).
+
+``run_plan`` (the §5 oracle) walks a plan node by node from Python, the
+host owning control flow: the reference semantics, and on one card a
+round whose device waits on the host between launches. This module
+compiles a plan for repeated rounds:
+
+* :func:`fuse_stages`: adjacent ``GROUP_COMPUTE``/``SERVER_COMPUTE``
+  stages merge into one :class:`FusedCompute` unit, as the reference
+  fuses them inside one executable.
+* :func:`compile_plan` / ``plan.compile()`` -> :class:`CompiledPlan`. The
+  plan's stages split into units: a run of local and communication stages
+  is one unit, an FX ``GraphModule`` over the run's nodes; a loop
+  (``while`` or ``scan``) or a ``cond`` is a host unit that runs its
+  sub-plans' units, a loop's body once per iteration. On the CPU the
+  units run as they are, bitwise equal to :func:`run_plan` (the same nodes
+  in the same order). On the card each unit is captured once into a
+  ``torch.cuda.CUDAGraph`` after a warm-up run (which also builds the
+  kernels, outside the capture) and replayed; each call copies its inputs
+  into the unit's static buffers. A round with no host control flow is
+  therefore one CUDA graph, the counterpart of the reference's one
+  executable. A ``while`` reads its predicate on the host and replays its
+  body's graph; a ``scan`` replays its body's graph once per iteration; a
+  ``cond`` reads its branch index on the host. What the executor cannot
+  capture (a node that reads a value on the host, such as ``.item()``,
+  inside a unit) raises at compile time; nothing falls back to eager
+  execution.
+* An executable cache keyed by ``(plan fingerprint, device, argument
+  shapes and dtypes, donation)``: a plan built again from a new trace of
+  the same program is a hit and captures nothing new
+  (:func:`plan_fingerprint` hashes the canonical graph code, placements,
+  stage skeleton and constant bytes).
+* Donation: ``donate_argnums`` marks carried arguments (params, server
+  state), and the plan returns its carry first: donated argument ``i``
+  takes output ``i``, which must have its shape and dtype. After a call
+  each donated argument holds its output's value, updated in place, and
+  is returned in that output's place: what JAX's buffer donation buys (no
+  second copy of the carried state). Outputs that share memory with a
+  donated argument (an input passed through) are copied before the first
+  write. No other input is written.
+
+Left out for later slices: ``ElasticHierarchicalRound`` (the
+per-placement-level cache split) and the per-stage sharding constraints
+(no-ops on one card).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+import torch.fx as fx
+
+from ..core import interpreter as interp
+
+__all__ = [
+    "CompiledPlan",
+    "FusedCompute",
+    "TraceCounter",
+    "clear_executor_cache",
+    "compile_plan",
+    "executor_cache_size",
+    "fingerprint_parts",
+    "fuse_stages",
+    "plan_fingerprint",
+]
+
+# Nodes that read a device value on the host: a CUDA graph cannot hold them.
+_HOST_READS = {"_local_scalar_dense", "item", "nonzero", "masked_select",
+               "unique", "_unique2", "unique_consecutive", "unique_dim"}
+
+
+class TraceCounter:
+    """Counts how many times a wrapped function runs: wrapped around an
+    executable's build, it counts builds (1 after the first round, and
+    no more across rounds)."""
+
+    def __init__(self):
+        self.count = 0
+
+    def wrap(self, fn: Callable) -> Callable:
+        def wrapped(*args, **kwargs):
+            self.count += 1
+            return fn(*args, **kwargs)
+
+        return wrapped
+
+
+# ---------------------------------------------------------------------------
+# fingerprints
+# ---------------------------------------------------------------------------
+
+
+def _graph_code(gm: fx.GraphModule, prefix: str = "") -> List[str]:
+    """The generated code of a graph and of every sub-graph it applies,
+    depth-first by attribute name: canonical for one program's traces."""
+    out = [prefix + gm.code]
+    for name, sub in sorted(gm.named_children()):
+        if isinstance(sub, fx.GraphModule):
+            out.extend(_graph_code(sub, f"{prefix}{name}."))
+    return out
+
+
+def fingerprint_parts(plan) -> List[Tuple[str, bytes]]:
+    """The named byte components :func:`plan_fingerprint` hashes, in
+    order: placements, input/output depths, the graph code, the stage
+    skeleton and every constant's shape, dtype and bytes."""
+    parts: List[Tuple[str, bytes]] = [
+        ("placements", str(plan.placements).encode()),
+        ("partitioned_invars", str(plan.partitioned_invars).encode()),
+        ("partitioned_outvars", str(plan.partitioned_outvars).encode()),
+        ("graph", "\n".join(_graph_code(plan.gm)).encode()),
+        ("stage_skeleton", "|".join(
+            f"{name}:{s.kind}" for name, s, _ in plan.named_stages()).encode()),
+    ]
+    for i, (_, val) in enumerate(interp._const_table(plan)):
+        t = val.detach().cpu().contiguous().reshape(-1)
+        parts.append((f"const[{i}]",
+                      str((tuple(val.shape), str(t.dtype))).encode()
+                      + t.view(torch.uint8).numpy().tobytes()))
+    return parts
+
+
+def plan_fingerprint(plan) -> str:
+    """Structural hash of a plan: two plans built from separate traces of
+    the same program at the same shapes share it."""
+    h = hashlib.sha1()
+    for _, data in fingerprint_parts(plan):
+        h.update(data)
+    return h.hexdigest()
+
+
+# ---------------------------------------------------------------------------
+# stage fusion
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class FusedCompute:
+    """A maximal run of adjacent LocalCompute stages, fused into one unit."""
+
+    nodes: List[fx.Node]
+    kinds: Tuple[str, ...]
+
+    @property
+    def kind(self) -> str:
+        return "FUSED_COMPUTE"
+
+
+def fuse_stages(stages: Sequence[Any]) -> List[Any]:
+    """Merge adjacent LocalCompute stages (any placement) into FusedCompute."""
+    out: List[Any] = []
+    for s in stages:
+        if isinstance(s, interp.LocalCompute):
+            if out and isinstance(out[-1], FusedCompute):
+                out[-1].nodes.extend(s.nodes)
+                out[-1].kinds = out[-1].kinds + (s.kind,)
+            else:
+                out.append(FusedCompute(nodes=list(s.nodes), kinds=(s.kind,)))
+        else:
+            out.append(s)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# units
+# ---------------------------------------------------------------------------
+
+
+def _inline(stage) -> bool:
+    """Does ``stage`` run inside a captured unit (no host control flow)?"""
+    return isinstance(stage, (interp.LocalCompute, interp.Broadcast,
+                              interp.Reduce))
+
+
+def _runs(io) -> List[List[int]]:
+    """The plan's units, as runs of stage indices: each maximal run of
+    inline stages, and each control stage alone."""
+    runs: List[List[int]] = []
+    for i, (stage, _, _) in enumerate(io):
+        if _inline(stage) and runs and _inline(io[runs[-1][-1]][0]):
+            runs[-1].append(i)
+        else:
+            runs.append([i])
+    return runs
+
+
+def _sub_plans(stage) -> List[Any]:
+    if isinstance(stage, interp.CondStage):
+        return list(stage.branch_plans)
+    return [p for p in (stage.cond_plan, stage.body_plan) if p]
+
+
+def _check(plan, device: str) -> int:
+    """The plan's structure, checked without building anything: raises
+    where a unit for ``device`` cannot be captured, else returns the
+    number of units at the plan's top level."""
+    io = plan.stage_io()
+    runs = _runs(io)
+    for run in runs:
+        stages = [io[i][0] for i in run]
+        if not _inline(stages[0]):
+            for sub in _sub_plans(stages[0]):
+                _check(sub, device)
+        elif device == "cuda":
+            _check_capturable(plan, stages)
+    return len(runs)
+
+
+def _check_capturable(plan, stages) -> None:
+    for stage in stages:
+        nodes = (stage.nodes if isinstance(stage, interp.LocalCompute)
+                 else [stage.node])
+        for n in nodes:
+            name = interp._op_name(n)
+            if name in _HOST_READS:
+                raise NotImplementedError(
+                    f"compile_plan: node {n.name} ({name}) reads a device "
+                    "value on the host, which a CUDA graph cannot capture")
+            for sub in interp._subgraphs(n, plan.gm):
+                for m in sub.graph.nodes:
+                    if (m.op == "call_function"
+                            and interp._op_name(m) in _HOST_READS):
+                        raise NotImplementedError(
+                            f"compile_plan: node {m.name} inside "
+                            f"{n.name} reads a device value on the host, "
+                            "which a CUDA graph cannot capture")
+
+
+class _Graphed:
+    """``fn(*tensors) -> list of tensors`` captured into one CUDA graph at
+    its first call, after a warm-up run on a side stream (kernel builds and
+    first-call setup stay outside the capture); every call copies its
+    inputs into the static buffers and replays."""
+
+    def __init__(self, fn: Callable):
+        self.fn = fn
+        self.graph = None
+        self.static_in: List[torch.Tensor] = []
+        self.static_out: List[Any] = []
+
+    def __call__(self, *args):
+        if self.graph is None:
+            self._capture(args)
+        for s, a in zip(self.static_in, args):
+            s.copy_(a)
+        self.graph.replay()
+        return self.static_out
+
+    def _capture(self, args):
+        for a in args:
+            if not isinstance(a, torch.Tensor) or a.device.type != "cuda":
+                raise TypeError("a captured unit takes CUDA tensors only, "
+                                f"got {type(a).__name__}")
+        self.static_in = [a.detach().clone() for a in args]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            self.fn(*self.static_in)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="global"):
+            self.static_out = list(self.fn(*self.static_in))
+        self.graph = graph
+
+
+class _Program:
+    """A plan compiled into units, run on flat inputs."""
+
+    def __init__(self, plan, device: str):
+        self.plan = plan
+        self.device = device
+        self.units: List[Tuple[Callable, List[fx.Node], List[fx.Node]]] = []
+        io = plan.stage_io()
+        final = {a for a in plan.out_atoms if isinstance(a, fx.Node)}
+        runs = _runs(io)
+        for k, run in enumerate(runs):
+            stages = [io[i][0] for i in run]
+            defined = set()
+            for s in stages:
+                defined.update(interp._stage_writes(s))
+            ins: List[fx.Node] = []
+            for i in run:
+                for a in io[i][1]:
+                    if a not in defined and a not in ins:
+                        ins.append(a)
+            later = set(final)
+            for other in runs[k + 1:]:
+                for i in other:
+                    later.update(io[i][1])
+            outs = [w for s in stages for w in interp._stage_writes(s)
+                    if w in later]
+            self.units.append((self._unit(stages, ins, outs), ins, outs))
+
+    def _unit(self, stages, ins, outs) -> Callable:
+        if not _inline(stages[0]):
+            return self._host(stages[0], outs)
+        nodes = [n for s in stages for n in
+                 (s.nodes if isinstance(s, interp.LocalCompute) else [s.node])]
+        fn = interp.stage_module(self.plan.gm, nodes, ins, outs)
+        return _Graphed(fn) if self.device == "cuda" else fn
+
+    def _host(self, stage, outs) -> Callable:
+        """A loop (a ``while``'s predicate read on the host, a ``scan``'s
+        body once per iteration) or a ``cond`` (branch index read on the
+        host): the sub-plans run as compiled programs of their own."""
+        subs = {id(p): _Program(p, self.device) for p in _sub_plans(stage)}
+        ins = interp._control_inputs(stage)
+
+        def execute(plan, args):
+            return [_own(v) for v in subs[id(plan)](list(args))]
+
+        def run(*vals):
+            env = dict(zip(ins, vals))
+
+            def read(a):
+                return _read(self.plan.gm, env, a)
+
+            if isinstance(stage, interp.LoopStage):
+                res = interp._run_loop(stage, read, execute)
+            else:
+                res = interp._run_cond(stage, read, execute)
+            picked = {stage.node: res}
+            for g in stage.getitems:
+                picked[g] = res[g.args[1]]
+            return [picked[o] for o in outs]
+
+        return run
+
+    def __call__(self, args: Sequence[Any]) -> List[Any]:
+        env: Dict[fx.Node, Any] = dict(zip(self.plan.invars, args))
+        for fn, ins, outs in self.units:
+            vals = fn(*[env[a] for a in ins])
+            env.update(zip(outs, vals))
+        return [_read(self.plan.gm, env, a) for a in self.plan.out_atoms]
+
+
+def _read(root, env, a):
+    """A node's value in a unit program: an input or a unit's output, a
+    constant of the graph, or a literal."""
+    if not isinstance(a, fx.Node):
+        return a
+    if a.op == "get_attr":
+        return interp._attr(root, a.target)
+    return env[a]
+
+
+def _own(v):
+    """A value that outlives the next replay of the graph that made it."""
+    return v.clone() if isinstance(v, torch.Tensor) and v.is_cuda else v
+
+
+# ---------------------------------------------------------------------------
+# cache + CompiledPlan
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class _CacheEntry:
+    program: _Program
+    counter: TraceCounter
+
+
+_EXEC_CACHE: Dict[Any, _CacheEntry] = {}
+
+
+def clear_executor_cache() -> None:
+    _EXEC_CACHE.clear()
+
+
+def executor_cache_size() -> int:
+    return len(_EXEC_CACHE)
+
+
+def _arg_key(args) -> Tuple:
+    return tuple((tuple(a.shape), str(a.dtype)) if isinstance(a, torch.Tensor)
+                 else (type(a).__name__, a) for a in args)
+
+
+class CompiledPlan:
+    """A plan compiled for repeated rounds on one device (lazily, per
+    argument shapes). ``trace_count`` is how many times the active entry
+    was built: 1 after the first round, and no more across rounds.
+    ``num_units`` counts its executable units (captured graphs and host
+    control units), ``num_stage_units`` the plan's stages after fusion."""
+
+    def __init__(self, plan, *, device: str, donate_argnums=()):
+        if device not in ("cpu", "cuda"):
+            raise ValueError(f"compile_plan: unsupported device {device!r}")
+        self.plan = plan
+        self.device = device
+        self.donate_argnums = tuple(donate_argnums)
+        self.fingerprint = plan_fingerprint(plan)
+        self._entry: Optional[_CacheEntry] = None
+        # Structure is checked now: a plan that cannot be captured raises
+        # here, at compile time, not at its first round.
+        self.num_units = _check(plan, device)
+
+    def _entry_for(self, args) -> _CacheEntry:
+        key = (self.fingerprint, self.device, _arg_key(args),
+               self.donate_argnums)
+        entry = _EXEC_CACHE.get(key)
+        if entry is None:
+            counter = TraceCounter()
+            program = counter.wrap(lambda: _Program(self.plan, self.device))()
+            entry = _CacheEntry(program=program, counter=counter)
+            _EXEC_CACHE[key] = entry
+        self._entry = entry
+        return entry
+
+    def __call__(self, *args):
+        for a in args:
+            if isinstance(a, torch.Tensor) and a.device.type != self.device:
+                raise ValueError(f"compiled for {self.device}, got a tensor "
+                                 f"on {a.device}")
+        outs = list(self._entry_for(args).program(list(args)))
+        if self.donate_argnums:
+            outs = self._donate(args, outs)
+        if self.device == "cuda":
+            donated = set(self.donate_argnums)
+            outs = [o if j in donated else _own(o) for j, o in enumerate(outs)]
+        return outs
+
+    def _donate(self, args, outs) -> List[Any]:
+        """Donated argument ``i`` takes output ``i`` in place. Outputs that
+        share memory with a donated argument are copied first, so no value
+        is read after an earlier write overwrote it."""
+        for i in self.donate_argnums:
+            arg = args[i]
+            o = outs[i] if i < len(outs) else None
+            if not (isinstance(arg, torch.Tensor) and isinstance(o, torch.Tensor)
+                    and o.shape == arg.shape and o.dtype == arg.dtype):
+                raise ValueError(
+                    f"donated argument {i} takes output {i}, which must be a "
+                    f"tensor of its shape and dtype: got {_describe(arg)} and "
+                    f"{_describe(o)}")
+        written = {args[i].untyped_storage().data_ptr()
+                   for i in self.donate_argnums}
+        outs = [o.clone() if isinstance(o, torch.Tensor)
+                and o.untyped_storage().data_ptr() in written else o
+                for o in outs]
+        for i in self.donate_argnums:
+            args[i].copy_(outs[i])
+            outs[i] = args[i]
+        return outs
+
+    @property
+    def trace_count(self) -> int:
+        return self._entry.counter.count if self._entry is not None else 0
+
+    @property
+    def num_stage_units(self) -> int:
+        """Dispatch units after fusing adjacent local stages."""
+        return len(fuse_stages(self.plan.stages))
+
+
+def _describe(v) -> str:
+    if isinstance(v, torch.Tensor):
+        return f"{tuple(v.shape)} {v.dtype}"
+    return "no output" if v is None else type(v).__name__
+
+
+def compile_plan(plan, *, device: str = "cuda", donate_argnums=()) -> CompiledPlan:
+    """Compile a MapReducePlan for ``device`` (the card unless the caller
+    asks for the CPU). The plan returns its carry first: each argument in
+    ``donate_argnums`` is updated in place with the output of its index."""
+    return CompiledPlan(plan, device=device, donate_argnums=donate_argnums)

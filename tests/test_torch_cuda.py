@@ -86,9 +86,17 @@ def test_wire_kernels_match_plain(card, dtype):
 
 @pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
-    x4 = torch.zeros((2, 3, 4, 256), device=card)
-    with pytest.raises(NotImplementedError):
-        ops.reduce_compress_roundtrip(x4, axis=1, qaxis=0)
+    # A quant axis before the reduced axis has no kernel (as in the
+    # reference): the plain form runs on the card, launching nothing, and
+    # gives the CPU's result within one int8 step of each row.
+    x4 = torch.randn((2, 3, 4, 256), device=card,
+                     generator=torch.Generator(device=card).manual_seed(2))
+    ops.reset_launches()
+    got = ops.reduce_compress_roundtrip(x4, axis=1, qaxis=0)
+    assert sum(ops.launch_counts().values()) == 0
+    want = ops.reduce_compress_roundtrip(x4.cpu(), axis=1, qaxis=0)
+    step = x4.cpu().mean(dim=1).abs().amax(dim=0, keepdim=True) / 127
+    assert bool(((got.cpu() - want).abs() <= step * 1.0001).all())
     with pytest.raises(ValueError, match="256"):
         ops.quantize(torch.zeros((4, 128), device=card))
     with pytest.raises(ValueError, match="contiguous"):
@@ -694,3 +702,133 @@ def test_fail_at_replay_bitwise_on_card(card, tmp_path, compression):
     assert len(a) == len(b)
     assert all(x.device.type == "cuda" and torch.equal(x, y)
                for x, y in zip(a, b))
+
+
+def _graph_replay(fn, args):
+    """``fn(*args)`` captured into a CUDA graph after a warm-up on a side
+    stream, then replayed once on fresh copies of ``args``."""
+    static = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="global"):
+        outs = fn(*static)
+    graph.replay()
+    torch.cuda.synchronize()
+    return outs
+
+
+@pytest.mark.cuda
+def test_kernel_ops_replay_from_a_graph(card):
+    """Every kernel op captured in a CUDA graph (global capture mode: K2's
+    and K5's per-launch ``cudaFuncSetAttribute``, K4's host-encoded TMA
+    maps) and replayed equals its eager launch bitwise."""
+    from torch.utils import _pytree as pytree
+
+    gen = torch.Generator(device=card).manual_seed(7)
+
+    def rnd(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=card) * scale).to(dtype)
+
+    x = rnd(515, 256, scale=1e-2)
+    q, s = ops.quantize(x)
+    qkv = rnd(2, 128, 4, 64, dtype=torch.bfloat16)
+    out, out32, lse = ops.flash_attention_fwd(qkv, qkv, qkv)
+    _, delta = ops.flash_attention_bwd_dq(qkv, qkv, qkv, out32, lse, qkv)
+    a, b = rnd(1, 300, 2560).sigmoid(), rnd(1, 300, 2560)
+    h = ops.lru_scan_fwd(a, b)
+    r = rnd(1, 130, 2, 64, scale=0.3)
+    logw = -torch.exp(rnd(1, 130, 2, 64, scale=0.3)) * 0.3
+    u = rnd(2, 64, scale=0.3)
+    wo, states = ops.wkv6_fwd(r, r, r, logw, u)
+    x4 = rnd(2, 2, 300, 256, scale=1e-2)
+    qp, sp = ops.reduce_compress(x4)
+    calls = {
+        "quantize": (ops.quantize, (x,)),
+        "dequantize": (ops.dequantize, (q, s)),
+        "reduce_compress_roundtrip": (lambda t: ops.reduce_compress_roundtrip(
+            t, axis=1), (x4,)),
+        "reduce_compress": (ops.reduce_compress, (x4,)),
+        "dequant_accumulate": (ops.dequant_accumulate, (qp, sp)),
+        "flash_attention_fwd": (ops.flash_attention_fwd, (qkv, qkv, qkv)),
+        "flash_attention_bwd_dq": (ops.flash_attention_bwd_dq,
+                                   (qkv, qkv, qkv, out32, lse, qkv)),
+        "flash_attention_bwd_dkdv": (ops.flash_attention_bwd_dkdv,
+                                     (qkv, qkv, qkv, lse, delta, qkv)),
+        "lru_scan_fwd": (ops.lru_scan_fwd, (a, b)),
+        "lru_scan_bwd": (ops.lru_scan_bwd, (a, h, b)),
+        "wkv6_fwd": (ops.wkv6_fwd, (r, r, r, logw, u)),
+        "wkv6_bwd": (ops.wkv6_bwd, (r, r, r, logw, u, states, wo)),
+    }
+    assert set(calls) == {f.__name__ for f in ops.KERNEL_WRAPPERS}
+    for name, (fn, args) in calls.items():
+        eager = [t for t in pytree.tree_leaves(fn(*args))
+                 if isinstance(t, torch.Tensor)]
+        replayed = [t for t in pytree.tree_leaves(_graph_replay(fn, args))
+                    if isinstance(t, torch.Tensor)]
+        assert len(eager) == len(replayed), name
+        for e, g in zip(eager, replayed):
+            assert torch.equal(e, g), name
+
+
+@pytest.mark.cuda
+def test_reduced_round_cuda_graph_bitwise_to_run_plan(card):
+    """Reduced lm_350m's hierarchical fused-int8 round (``blocked``
+    attention: K2 on the card, and K3b): ``run_plan`` bitwise the direct
+    round with the same launches, and two rounds of the compiled plan (one
+    CUDA graph, params and server state donated) bitwise two ``run_plan``
+    rounds, built once."""
+    import functools
+
+    from torch.utils import _pytree as pytree
+
+    from repro_torch import optim
+    from repro_torch.algorithms import rounds
+    from repro_torch.core import interpreter as interp
+    from repro_torch.data.grouped import CohortSampler, GroupedCorpus
+    from repro_torch.models import registry
+
+    cfg = registry.get_config("lm_350m").reduced(attn_impl="blocked")
+    params = registry.init_params(cfg, seed=0, device=card)
+    server = optim.fedavg_momentum(1.0)
+    round_fn = rounds.make_hierarchical_local_sgd_round(
+        functools.partial(registry.loss_fn, cfg), optim.sgd(0.05), server,
+        rounds.LocalSGDConfig(partition_size=2, num_local_steps=2,
+                              grad_clip=1.0, compression="int8", num_pods=2))
+    state = server.init(params)
+    sampler = CohortSampler(GroupedCorpus(vocab_size=cfg.vocab_size),
+                            cohort_size=4)
+
+    def data(r):
+        d = sampler.round_batch(r, 2, 2, 64, device=card)
+        return {k: d[k].reshape((2, 2) + tuple(d[k].shape[1:]))
+                for k in ("tokens", "labels")}
+
+    n_carry = len(pytree.tree_leaves((params, state)))
+    depths = [0] * n_carry + [2] * 2
+    plan = interp.build_plan(interp.trace(round_fn, params, state, data(0)),
+                             {"pods": 2, "clients": 2},
+                             partitioned_invars=depths)
+    ops.reset_launches()
+    direct = pytree.tree_leaves(round_fn(params, state, data(0)))
+    counts = ops.launch_counts()
+    ops.reset_launches()
+    oracle = interp.run_plan(plan, *pytree.tree_leaves((params, state, data(0))))
+    assert ops.launch_counts() == counts
+    assert counts["reduce_compress_roundtrip"] == 1
+    assert counts["flash_attention_fwd"] > 0
+    assert all(torch.equal(a, b) for a, b in zip(oracle, direct))
+    compiled = plan.compile(device="cuda", donate_argnums=range(n_carry))
+    carried = [t.clone() for t in pytree.tree_leaves((params, state))]
+    spec = pytree.tree_structure((params, state))
+    po, so = params, state
+    for r in range(2):
+        want = interp.run_plan(plan, *pytree.tree_leaves((po, so, data(r))))
+        got = compiled(*carried, *pytree.tree_leaves(data(r)))
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert all(x is y for x, y in zip(got[:n_carry], carried))
+        po, so = pytree.tree_unflatten(list(want[:n_carry]), spec)
+    assert compiled.trace_count == 1

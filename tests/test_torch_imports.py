@@ -33,7 +33,10 @@ def _imported_roots(path: Path):
 
 
 def test_no_jax_or_reference_imports():
-    bad = [(str(f.relative_to(REPO)), root) for f in _port_files()
+    files = _port_files()
+    assert {PORT / "core" / "interpreter.py",
+            PORT / "runtime" / "executor.py"} <= set(files)
+    bad = [(str(f.relative_to(REPO)), root) for f in files
            for root in _imported_roots(f)
            if root in ("jax", "jaxlib", "repro", "flax", "optax")]
     assert bad == []
@@ -46,7 +49,8 @@ def test_imports_without_jax():
     )
     assert {"repro_torch.algorithms.async_rounds",
             "repro_torch.checkpoint.manager", "repro_torch.data.synthetic",
-            "repro_torch.optim.schedules",
+            "repro_torch.optim.schedules", "repro_torch.core.interpreter",
+            "repro_torch.runtime.executor",
             "repro_torch.runtime.failure"} <= set(modules)
     code = (
         "import sys\n"

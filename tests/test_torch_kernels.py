@@ -100,14 +100,13 @@ def test_reduce_compress_roundtrip_vs_kernel(shape, dtype):
 @pytest.mark.parametrize("axis,qaxis", [(1, -1), (0, -1), (1, 1), (2, 0)])
 def test_reduce_compress_roundtrip_canonicalization(axis, qaxis):
     """The ops wrapper's (L, G, R, C) folding against the reference's ops
-    wrapper's Pallas kernel. A quant axis among the lead axes is not ported
-    and raises on every device."""
+    wrapper's Pallas kernel. A quant axis among the lead axes has no
+    kernel in either package: both run the plain form, held in
+    ``test_reduce_compress_roundtrip_lead_qaxis``."""
     x = np.random.default_rng(axis * 7 + qaxis % 3).standard_normal((2, 2, 6, 256))
     x = (x * 1e-2).astype(np.float32)
     if qaxis % 3 < axis:
-        with pytest.raises(NotImplementedError, match="quant axis"):
-            ops.reduce_compress_roundtrip(torch.from_numpy(x), axis=axis,
-                                          qaxis=qaxis)
+        test_reduce_compress_roundtrip_lead_qaxis(axis, qaxis, jnp.float32)
         return
     want = jops.reduce_compress_roundtrip(jnp.asarray(x), axis=axis, qaxis=qaxis,
                                           backend="pallas", interpret=True)
@@ -115,6 +114,32 @@ def test_reduce_compress_roundtrip_canonicalization(axis, qaxis):
                                         qaxis=qaxis)
     assert tuple(got.shape) == tuple(want.shape)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("axis,qaxis,dtype", [(2, 0, jnp.float32),
+                                              (2, 1, jnp.float32),
+                                              (1, 0, jnp.float32),
+                                              (2, 0, jnp.bfloat16)])
+def test_reduce_compress_roundtrip_lead_qaxis(axis, qaxis, dtype):
+    """A quant axis before the reduced axis, against the reference's
+    ``ops.reduce_compress_roundtrip`` (its plain form on every backend).
+    bf16 is bitwise: the same f32 sum times 1/G. f32 is within one int8
+    step of each row's scale: the reference takes that mean as a gemm with
+    weights 1/G (ROADMAP R7), the port as a sum times 1/G."""
+    x = np.random.default_rng(axis * 7 + qaxis).standard_normal((2, 2, 6, 256))
+    jx = jnp.asarray((x * 1e-2).astype(np.float32), dtype)
+    want = ref_numpy(jops.reduce_compress_roundtrip(
+        jx, axis=axis, qaxis=qaxis, backend="pallas", interpret=True))
+    got = to_numpy(ops.reduce_compress_roundtrip(to_torch(jx), axis=axis,
+                                                 qaxis=qaxis))
+    assert got.shape == want.shape
+    if dtype == jnp.bfloat16:
+        np.testing.assert_array_equal(got, want)
+        return
+    part = np.moveaxis(np.asarray(jx, np.float32).mean(axis=axis), qaxis, -1)
+    step = np.abs(part).max(axis=-1, keepdims=True) / 127.0
+    diff = np.abs(np.moveaxis(got, qaxis, -1) - np.moveaxis(want, qaxis, -1))
+    assert np.all(diff <= step * (1 + 1e-5) + 1e-6)
 
 
 def _payload_input(shape, dtype, zero_rows, seed):
