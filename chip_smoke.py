@@ -65,10 +65,33 @@ Phases, each reported on its own line (any failure raises, exit != 0):
    defined (Beam itself is not installed: the pipeline is not run); the
    seconds of trace, ``build_plan``, graph build and capture, the median
    round seconds of the direct round, ``run_plan`` and a replay, node
-   counts and peak memory; then reduced lm_350m's flat int8 round (K1 in
-   its group stage) with ``run_plan`` bitwise the direct round and the
-   compiled plan bitwise ``run_plan``;
-4b. stragglers: 3 rounds of full lm_350m through ``launch.train
+   counts and peak memory; the static analyses (``plan.analyze`` with the
+   carry donated, its comm model cross-validated by one ``run_plan``
+   round on the card that measures what each comm stage carried): no
+   error, the ``reduce_mean@pods`` stage over the packed delta priced at
+   exactly the bytes of K3a's payload measured by the wire step, the
+   compiled plan's donation report clean, the findings by code, the DCN
+   and ICI bytes and the analysis seconds logged; then reduced lm_350m's
+   flat int8 round (K1 in its group stage) with ``run_plan`` bitwise the
+   direct round and the compiled plan bitwise ``run_plan``;
+4b. elastic: full lm_350m at [hier]'s shapes through
+   ``make_elastic_hierarchical_round`` (2 clients a pod, bf16 K2 in every
+   layer): steps at 3, 2 and 3 pods, each bitwise the direct unfused
+   hierarchical round at that pod count, the per-client leg traced once
+   (one CUDA graph, replayed per pod) and two cross-pod legs at the end;
+   the seconds of each step beside the direct round's, the one-time
+   trace (with ``build_plan`` and ``compile_plan``) of the per-client leg
+   and the rest of the first step (captures and runs) and the peak GiB;
+   then one masked step at full width and 2 layers (3 pods, one client
+   and one whole pod masked) within 1e-6 relative of the flat masked
+   round over the same finishers;
+4c. loop: lm_350m at full width with 2 layers, 2 flat int8 rounds of
+   cohort 4 through ``make_multi_round``: one ``LOOP[scan]`` stage of
+   trip count 2, ``run_plan`` bitwise the direct trainer, the compiled
+   plan (carry donated, the body's CUDA graph replayed once per round)
+   bitwise ``run_plan``, built once; seconds per round replayed and
+   direct;
+4d. stragglers: 3 rounds of full lm_350m through ``launch.train
    --stragglers`` (deadline at the 90th percentile, cohort 4, int8): masks
    that drop clients, finite losses, per-client K1 and no K3b; from the
    trained state, an all-ones mask bitwise the unmasked round, an all-zero
@@ -1525,11 +1548,12 @@ def phase_hier():
         launches=json.dumps(counts))
     del unfused
     torch.cuda.empty_cache()
-    wire_counts = phase_wire(cfg, args, base, base_state,
-                             data(args.rounds - 1), params, server_opt)
+    wire_counts, payload = phase_wire(cfg, args, base, base_state,
+                                      data(args.rounds - 1), params,
+                                      server_opt)
     del states, base, params
     torch.cuda.empty_cache()
-    return counts, wire_counts
+    return counts, wire_counts, payload
 
 
 def phase_wire(cfg, args, base, base_state, batch, new_params, server_opt):
@@ -1545,7 +1569,8 @@ def phase_wire(cfg, args, base, base_state, batch, new_params, server_opt):
     round's cross-pod mean, ``reduce_mean@pods`` of K3b's roundtrip
     partials. That mean, applied by the server optimizer, must give the
     round's new params within one int8 step (the rebuilt deltas are the
-    round's). Returns the launches of K3a and K3c in this step."""
+    round's). Returns the launches of K3a and K3c in this step and the
+    payload's bytes."""
     import functools
 
     from repro_torch import core as drjax
@@ -1627,7 +1652,7 @@ def phase_wire(cfg, args, base, base_state, batch, new_params, server_opt):
         wire_s=round(wire_s, 4), launches=json.dumps(counts))
     del q, s, pod_mean, rebuilt
     torch.cuda.empty_cache()
-    return counts
+    return counts, payload
 
 
 # The communication skeleton of the pod-hierarchical fused-int8 round:
@@ -1731,13 +1756,18 @@ def equal_leaves(a, b) -> bool:
         for x, y in zip(a, b))
 
 
-def phase_plan():
+def phase_plan(wire_payload: int):
     """[plan]: full lm_350m's pod-hierarchical fused-int8 round (the [hier]
     phase's: 2 pods x 2 clients, seq 512, batch 4, 2 local steps) traced,
     planned and run by ``run_plan`` bitwise to the direct round with the
     same K2 and K3b launches, then compiled into one CUDA graph whose three
     rounds are bitwise three ``run_plan`` rounds; ``to_beam`` of the round;
-    a reduced flat int8 round the same way (K1 in its group stage)."""
+    the static analyses (``plan.analyze`` with the carry donated, its comm
+    model cross-validated by one round on the card): no error, the DCN stage over the
+    packed delta priced at ``wire_payload``, the bytes of K3a's payload
+    that the [hier] wire step measured, and a clean donation report of the
+    compiled plan; a reduced flat int8 round the same way (K1 in its group
+    stage)."""
     from torch.utils import _pytree as pytree
 
     from repro_torch.core import interpreter as interp
@@ -1895,6 +1925,8 @@ def phase_plan():
     bad = beam_undefined_names(beam)
     require(not bad, f"to_beam uses undefined names {bad[:5]}")
     fns = plan.stage_fns()
+    analysis = plan_analysis(plan, compiled, n_carry, wire_payload,
+                             flat(pc, sc, data(8)))
     peak = torch.cuda.max_memory_allocated()
     med = statistics.median
     log("plan", step="rounds", direct_s=f"{med(direct_s):.4f}",
@@ -1911,6 +1943,7 @@ def phase_plan():
         peak_gib=f"{peak / 2**30:.2f}")
     log("plan", step="beam", chars=len(beam), stage_fns=len(fns),
         replay_kernels=len(names))
+    log("plan", step="analyze", **analysis)
     del compiled, compiled2, plan, plan2, gm, params, state, pc, sc, po, so
     executor.clear_executor_cache()
     torch.cuda.empty_cache()
@@ -1918,6 +1951,49 @@ def phase_plan():
     log("plan", seconds=f"{time.perf_counter() - t_phase:.1f}", **reduced,
         card=json.dumps(card_line()))
     return plan_counts
+
+
+def plan_analysis(plan, compiled, n_carry: int, wire_payload: int,
+                  args) -> dict:
+    """``plan.analyze`` of the full-size hierarchical round with its carry
+    donated and its comm model cross-validated by one ``run_plan`` round
+    on ``args`` (each comm stage's bytes a run, the int8 one packed by
+    K1a, and its number of runs, held to the model): no error;
+    the ``reduce_mean@pods`` stage over the packed int8 delta (the one DCN
+    stage in int8+scales) priced at exactly the K3a payload bytes the
+    wire step measured; the compiled plan's donation report clean."""
+    t0 = time.perf_counter()
+    static = plan.analyze(donate_argnums=tuple(range(n_carry)))
+    analyze_s = time.perf_counter() - t0
+    require(static.ok, f"plan.analyze found errors: {static}")
+    t0 = time.perf_counter()
+    report = plan.analyze(donate_argnums=tuple(range(n_carry)),
+                          cross_validate=True, device="cuda", args=args)
+    torch.cuda.synchronize()
+    cross_s = time.perf_counter() - t0
+    require(report.ok and report.findings == static.findings,
+            f"the cross-validation found errors: {report}")
+    cost = report.comm_cost
+    packed = [c for c in cost.per_stage if c.link == "dcn"
+              and c.wire_format == "int8+scales"]
+    require(len(packed) == 1 and packed[0].op == "reduce_mean"
+            and packed[0].placement == "pods"
+            and packed[0].wire_bytes == wire_payload,
+            f"DCN int8 stages {[c.to_dict() for c in packed]}, want one "
+            f"reduce_mean@pods of {wire_payload} B")
+    donation = compiled.donation_report()
+    require(not donation.findings, f"donation report: {donation}")
+    codes: dict = {}
+    for f in report.findings:
+        codes[f.code] = codes.get(f.code, 0) + 1
+    return dict(analyze_s=f"{analyze_s:.3f}",
+                analyze_cross_validated_s=f"{cross_s:.3f}", ok=report.ok,
+                codes=json.dumps(codes), dcn_bytes=int(cost.dcn_bytes),
+                ici_bytes=int(cost.ici_bytes),
+                dcn_packed_stage=packed[0].stage,
+                dcn_packed_bytes=int(packed[0].wire_bytes),
+                wire_step_payload=wire_payload, comm_stages=len(
+                    cost.per_stage), donation_findings=0)
 
 
 def phase_plan_flat_reduced() -> dict:
@@ -1974,6 +2050,268 @@ def phase_plan_flat_reduced() -> dict:
             "reduced flat int8: compiled != run_plan")
     return {"reduced_flat_k1_nodes": body_ops.count("quantize"),
             "reduced_flat_units": compiled.num_units}
+
+
+ELASTIC_PODS = (3, 2, 3)  # the [elastic] steps' pod counts
+
+
+def free_graphs() -> None:
+    """Drop the executor's cached programs (their CUDA graphs' memory
+    pools and static buffers) before the next phase."""
+    import gc
+
+    from repro_torch.runtime import executor
+
+    executor.clear_executor_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def relative_worst(a: dict, b: dict) -> float:
+    """max over leaves of max |a - b| / max |b|: 0 when bitwise."""
+    worst = 0.0
+    for k in b:
+        x, y = a[k].float(), b[k].float()
+        scale = float(y.abs().max())
+        worst = max(worst, float((x - y).abs().max()) / max(scale, 1e-30))
+    return worst
+
+
+def phase_elastic():
+    """[elastic]: full lm_350m at the [hier] shapes (seq 512, batch 4, 2
+    local steps, 2 clients per pod, bf16 K2 in every layer) through
+    ``make_elastic_hierarchical_round``: three steps at 3, 2 and 3 pods,
+    each bitwise the direct unfused hierarchical round at that pod count
+    from the same state, with one trace of the per-client leg throughout
+    and two cross-pod legs at the end. Then one masked step at full width
+    and 2 layers (3 pods, one client and one whole pod masked) within 1e-6
+    relative of the flat masked round over the same finishers."""
+    import dataclasses
+    import functools
+
+    from repro_torch.algorithms import rounds
+    from repro_torch.data.grouped import CohortSampler, GroupedCorpus
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import registry
+    from repro_torch.runtime.elastic import make_elastic_hierarchical_round
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    args = flat_args()
+    per, most = 2, max(ELASTIC_PODS)
+    cfg = registry.get_config(args.arch)
+    loss_fn = functools.partial(registry.loss_fn, cfg)
+    client_opt, server_opt = train.optimizers(args)
+    round_cfg = rounds.LocalSGDConfig(partition_size=per,
+                                      num_local_steps=args.local_steps,
+                                      grad_clip=1.0)
+    sampler = CohortSampler(GroupedCorpus(vocab_size=cfg.vocab_size),
+                            cohort_size=most * per)
+
+    def data(r, pods):
+        d = sampler.round_batch(r, args.local_steps, args.batch, args.seq,
+                                device="cuda")
+        return {k: d[k].reshape((most, per) + tuple(d[k].shape[1:]))[:pods]
+                for k in ("tokens", "labels")}
+
+    params = registry.init_params(cfg, seed=args.seed, device="cuda")
+    state = server_opt.init(params)
+    elastic = make_elastic_hierarchical_round(loss_fn, client_opt,
+                                              server_opt, round_cfg)
+    ops.reset_launches()
+    step_s, direct_s, traces = [], [], []
+    for r, pods in enumerate(ELASTIC_PODS):
+        batch = data(r, pods)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p_e, s_e, m_e = elastic.step(params, state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if r == 0:
+            counts = ops.launch_counts()
+        direct_fn = rounds.make_hierarchical_local_sgd_round(
+            loss_fn, client_opt, server_opt,
+            dataclasses.replace(round_cfg, num_pods=pods))
+        t0 = time.perf_counter()
+        p_d, s_d, m_d = direct_fn(params, state, batch)
+        torch.cuda.synchronize()
+        direct_s.append(time.perf_counter() - t0)
+        bad = differing_leaves({"p": p_e, "s": s_e, "m": m_e},
+                               {"p": p_d, "s": s_d, "m": m_d})
+        require(not bad, f"elastic step {r} at {pods} pods != the direct "
+                f"hierarchical round: {len(bad)} leaves differ {bad[:6]}")
+        traces.append(elastic.client_trace_count)
+        params, state = p_e, s_e
+        del p_d, s_d, batch
+    trace_s = elastic.client_trace_s
+    require(traces == [1] * len(ELASTIC_PODS)
+            and elastic.cross_compile_count == 2,
+            f"client traces {traces}, cross legs "
+            f"{elastic.cross_compile_count}, want [1, 1, 1] and 2")
+    layers = cfg.num_layers
+    require(counts["flash_attention_fwd"] >= per * args.local_steps * layers
+            and counts["flash_attention_bwd_dq"] >= per * args.local_steps
+            * layers, f"elastic launched {counts}")
+    peak = torch.cuda.max_memory_allocated()
+    del params, state, elastic, p_e, s_e
+    free_graphs()
+    masked = elastic_masked(dataclasses.replace(cfg, num_layers=2), args)
+    free_graphs()
+    log("elastic", pods=list(ELASTIC_PODS), bitwise=True,
+        client_traces=traces, cross_legs=2,
+        step_s=[f"{v:.3f}" for v in step_s],
+        direct_s=[f"{v:.3f}" for v in direct_s],
+        client_trace_s=f"{trace_s:.3f}",
+        first_step_capture_and_run_s=f"{step_s[0] - trace_s:.3f}",
+        peak_gib=f"{peak / 2**30:.2f}",
+        launches=json.dumps({k: v for k, v in counts.items() if v}),
+        **masked, seconds=f"{time.perf_counter() - t_phase:.1f}",
+        card=json.dumps(card_line()))
+    return counts
+
+
+def elastic_masked(cfg, args) -> dict:
+    """One straggler-masked elastic step (3 pods x 2 clients, client 1 of
+    pod 0 and all of pod 1 masked) against the flat masked round over the
+    six clients with the same mask."""
+    import functools
+
+    from repro_torch.algorithms import rounds
+    from repro_torch.data.grouped import CohortSampler, GroupedCorpus
+    from repro_torch.launch import train
+    from repro_torch.models import registry
+    from repro_torch.runtime.elastic import make_elastic_hierarchical_round
+
+    loss_fn = functools.partial(registry.loss_fn, cfg)
+    client_opt, server_opt = train.optimizers(args)
+    params = registry.init_params(cfg, seed=args.seed, device="cuda")
+    state = server_opt.init(params)
+    elastic = make_elastic_hierarchical_round(
+        loss_fn, client_opt, server_opt,
+        rounds.LocalSGDConfig(partition_size=2,
+                              num_local_steps=args.local_steps,
+                              grad_clip=1.0, straggler_mask=True),
+        straggler_mask=True)
+    flat = rounds.make_local_sgd_round(
+        loss_fn, client_opt, server_opt,
+        rounds.LocalSGDConfig(partition_size=6,
+                              num_local_steps=args.local_steps,
+                              grad_clip=1.0, straggler_mask=True))
+    d = CohortSampler(GroupedCorpus(vocab_size=cfg.vocab_size),
+                      cohort_size=6).round_batch(0, args.local_steps,
+                                                 args.batch, args.seq,
+                                                 device="cuda")
+    flat_data = {k: d[k] for k in ("tokens", "labels")}
+    mask = torch.tensor([[1.0, 0.0], [0.0, 0.0], [1.0, 1.0]], device="cuda")
+    t0 = time.perf_counter()
+    p_e, _, m_e = elastic.step(params, state, {
+        "data": {k: v.reshape((3, 2) + tuple(v.shape[1:]))
+                 for k, v in flat_data.items()}, "mask": mask})
+    torch.cuda.synchronize()
+    masked_s = time.perf_counter() - t0
+    p_f, _, m_f = flat(params, state, flat_data, mask.reshape(6))
+    worst = relative_worst(p_e, p_f)
+    loss_rel = abs(float(m_e["loss"]) - float(m_f["loss"])) / abs(
+        float(m_f["loss"]))
+    require(worst <= 1e-6 and loss_rel <= 1e-6
+            and float(m_e["finishers"]) == 3.0,
+            f"masked elastic vs flat masked: params {worst}, loss {loss_rel}, "
+            f"finishers {float(m_e['finishers'])}")
+    del params, state, p_e, p_f
+    torch.cuda.empty_cache()
+    return dict(masked_layers=cfg.num_layers,
+                masked_params_worst_rel=f"{worst:.3e}",
+                masked_loss_rel=f"{loss_rel:.3e}", masked_finishers=3,
+                masked_step_s=f"{masked_s:.3f}")
+
+
+def phase_loop():
+    """[loop]: lm_350m at full width with 2 layers, flat int8 rounds of
+    cohort 4, 2 rounds through ``make_multi_round``: traced and planned as
+    one ``LOOP[scan]`` stage of trip count 2, ``run_plan`` bitwise the
+    direct trainer, the compiled plan (carry donated; its body replayed
+    once per round) bitwise ``run_plan`` with one build."""
+    import dataclasses
+
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.algorithms import rounds
+    from repro_torch.core import interpreter as interp
+    from repro_torch.data.grouped import CohortSampler, GroupedCorpus
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import registry
+
+    t_phase = time.perf_counter()
+    args = flat_args(rounds=2)
+    cfg = dataclasses.replace(registry.get_config(args.arch), num_layers=2)
+    round_fn, server_opt = train.build_round_fn(cfg, args)
+    trainer = rounds.make_multi_round(round_fn, args.rounds)
+    params = registry.init_params(cfg, seed=args.seed, device="cuda")
+    state = server_opt.init(params)
+    sampler = CohortSampler(GroupedCorpus(vocab_size=cfg.vocab_size),
+                            cohort_size=args.cohort)
+    batches = [sampler.round_batch(r, args.local_steps, args.batch, args.seq,
+                                   device="cuda") for r in range(args.rounds)]
+    stacked = {k: torch.stack([b[k] for b in batches])
+               for k in ("tokens", "labels")}
+    flat = pytree.tree_leaves((params, state, stacked))
+    n_carry = len(pytree.tree_leaves((params, state)))
+    t0 = time.perf_counter()
+    gm = interp.trace(trainer, params, state, stacked)
+    plan = interp.build_plan(gm, args.cohort,
+                             partitioned_invars=[0] * len(flat))
+    trace_s = time.perf_counter() - t0
+    loops = [s for s in plan.stages if s.kind == "LOOP"]
+    require(len(plan.stages) == 1 and len(loops) == 1
+            and loops[0].loop_kind == "scan"
+            and loops[0].trip_count == args.rounds,
+            f"multi-round plan stages {[s.kind for s in plan.stages]}, want "
+            f"one LOOP[scan] of trip count {args.rounds}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    direct = pytree.tree_leaves(trainer(params, state, stacked))
+    torch.cuda.synchronize()
+    direct_s = time.perf_counter() - t0
+    ops.reset_launches()
+    oracle = interp.run_plan(plan, *flat)
+    counts = ops.launch_counts()
+    require(equal_leaves(oracle, direct), "run_plan != the direct trainer")
+    require(counts["quantize"] >= args.rounds * args.cohort
+            and counts["flash_attention_fwd"] >= 2 * args.rounds
+            * args.cohort * args.local_steps * cfg.num_layers,
+            f"launches through the loop plan {counts}")
+    compiled = plan.compile(device="cuda", donate_argnums=range(n_carry))
+    require(not compiled.donation_report().errors, "loop donation report")
+    carry = [t.clone() for t in flat[:n_carry]]
+    t0 = time.perf_counter()
+    outs = compiled(*carry, *flat[n_carry:])
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    require(equal_leaves(outs, oracle), "compiled loop != run_plan")
+    carry = [t.clone() for t in flat[:n_carry]]
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    outs = compiled(*carry, *flat[n_carry:])
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    require(equal_leaves(outs, oracle) and compiled.trace_count == 1
+            and sum(ops.launch_counts().values()) == 0,
+            f"second compiled call: trace_count {compiled.trace_count}, "
+            f"launches {ops.launch_counts()}")
+    log("loop", layers=cfg.num_layers, rounds=args.rounds, stages=1,
+        trip_count=loops[0].trip_count, bitwise=True,
+        trace_and_plan_s=f"{trace_s:.2f}",
+        direct_s_per_round=f"{direct_s / args.rounds:.4f}",
+        replay_s_per_round=f"{replay_s / args.rounds:.4f}",
+        first_call_s=f"{first_s:.3f}", trace_count=compiled.trace_count,
+        units=compiled.num_units,
+        launches=json.dumps({k: v for k, v in counts.items() if v}),
+        seconds=f"{time.perf_counter() - t_phase:.1f}")
+    del compiled, plan, gm, params, state, stacked, outs, oracle, direct
+    free_graphs()
+    return counts
 
 
 def phase_stragglers():
@@ -2720,9 +3058,14 @@ def main() -> int:
     flash = phase_flash(gen)
     flat_counts = phase_train("flat")
     torch.cuda.reset_peak_memory_stats()
-    hier_counts, wire_counts = phase_hier()
+    hier_counts, wire_counts, wire_payload = phase_hier()
     log("hier", peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
-    plan_counts = phase_plan()
+    plan_counts = phase_plan(wire_payload)
+    t_slice = time.perf_counter()
+    elastic_counts = phase_elastic()
+    loop_counts = phase_loop()
+    log("slice phases", seconds=f"{time.perf_counter() - t_slice:.1f}",
+        allocated_after_gib=f"{torch.cuda.memory_allocated() / 2**30:.2f}")
     phase_stragglers()
     long_counts = phase_train("long", rounds=2, batch=2, seq=4096)
     phase_grads()
@@ -2803,8 +3146,11 @@ def main() -> int:
               "495 TFLOP/s", split_ms=r["split_ms"])
         for name, r in wkv.items()]
     for e in line["kernels"]:
-        if plan_counts.get(e["name"]):
-            e["plan_launches"] = plan_counts[e["name"]]
+        for key, counts in (("plan_launches", plan_counts),
+                            ("elastic_launches", elastic_counts),
+                            ("loop_launches", loop_counts)):
+            if counts.get(e["name"]):
+                e[key] = counts[e["name"]]
     log("done", seconds=f"{time.perf_counter() - t_start:.1f}",
         padded_vocab=transformer.padded_vocab(cfg), packed_rows=rows, card=smi)
     print(json.dumps(line), flush=True)

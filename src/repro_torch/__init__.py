@@ -13,6 +13,14 @@ kernels (``kernels/csrc/*.cu``). What it leaves out is listed in each
 module's docstring and in ROADMAP.md.
 """
 
-from . import compat
-
 __all__ = ["compat"]
+
+
+def __getattr__(name):
+    # ``compat`` imports torch; loading it lazily keeps ``import
+    # repro_torch.analysis.lints`` (the lint CLI) free of torch.
+    if name == "compat":
+        import importlib
+
+        return importlib.import_module(".compat", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

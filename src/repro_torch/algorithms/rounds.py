@@ -32,6 +32,8 @@ from torch.utils import _pytree as pytree
 
 from .. import core as drjax
 from ..compression import api as compression
+from ..core import api as core_api
+from ..core import primitives as prims
 from ..core.primitives import reciprocal
 from ..optim.optimizers import Optimizer, apply_updates, clip_by_global_norm
 
@@ -208,10 +210,19 @@ def make_multi_round(round_fn: Callable, num_rounds: int, *,
     same call as on its own. ``jit`` and ``donate`` select the reference's
     compilation and buffer donation; they have no meaning here and are
     accepted so callers carry over.
+
+    While a program is traced (``primitives.recording``), the trainer is
+    one ``torch.ops.higher_order.scan`` node instead, as the reference's
+    is one ``lax.scan``: carry ``(params, server_state)``, ``xs`` the
+    round data, ``ys`` the stacked metrics. ``build_plan`` makes it one
+    ``LOOP[scan]`` stage whose body is the round, and ``run_plan`` runs
+    that body once per round: the same calls as the direct loop.
     """
     del jit, donate
 
     def trainer(params, server_state, all_data):
+        if prims.is_recording() and core_api._under_trace():
+            return _scanned_rounds(round_fn, params, server_state, all_data)
         metrics = []
         for r in range(num_rounds):
             round_data = pytree.tree_map(lambda x: x[r], all_data)
@@ -222,6 +233,31 @@ def make_multi_round(round_fn: Callable, num_rounds: int, *,
             lambda *xs: torch.stack(xs), *metrics)
 
     return trainer
+
+
+def _scanned_rounds(round_fn: Callable, params, server_state, all_data):
+    """The trainer as one recorded scan node over the rounds axis."""
+    carry, carry_spec = pytree.tree_flatten((params, server_state))
+    xs, xs_spec = pytree.tree_flatten(all_data)
+    n_carry, y_spec = len(carry), []
+
+    def body(*leaves):
+        p, s = pytree.tree_unflatten(list(leaves[:n_carry]), carry_spec)
+        round_data = pytree.tree_unflatten(list(leaves[n_carry:]), xs_spec)
+        p, s, metrics = round_fn(p, s, round_data)
+        ys, spec = pytree.tree_flatten(metrics)
+        y_spec[:] = [spec]
+        # No output of a scan body may be one of its inputs: a leaf the
+        # round passed through unchanged goes out as a copy.
+        out = [c.clone() if any(c is x for x in leaves) else c
+               for c in pytree.tree_leaves((p, s))]
+        return out + ys
+
+    outs = core_api.recorded_scan(body, carry, xs)
+    params, server_state = pytree.tree_unflatten(list(outs[:n_carry]),
+                                                 carry_spec)
+    return params, server_state, pytree.tree_unflatten(list(outs[n_carry:]),
+                                                       y_spec[0])
 
 
 def make_fedsgd_round(loss_fn: Callable, server_opt: Optimizer,

@@ -343,6 +343,52 @@ def _emit_map_node(body, sizes, lead, leaves):
                                           tracer=mode.tracer)
 
 
+def recorded_scan(body: Callable, carry, xs) -> list:
+    """Record one ``torch.ops.higher_order.scan`` node in the current
+    trace: ``body(*carry, *x_slices) -> [*new_carry, *ys]`` traced once
+    into its sub-graph, run over the leading axis of every ``xs`` leaf.
+    Returns the node's outputs, ``[*carry, *stacked ys]``.
+
+    ``scan_op`` itself traces its body below the autograd key, where a
+    client step's ``torch.autograd.grad`` finds no graph; this traces it
+    at the autograd level, as a map body is (:func:`_emit_map_node`), and
+    emits the node ``scan_op`` would: ``(body_graph, carry, xs,
+    additional)``, traced values the body closes over lifted into
+    ``additional``. The carry must come out with the shapes and dtypes it
+    went in with, as ``scan_op`` requires."""
+    from torch._higher_order_ops.utils import reenter_make_fx
+    from torch.fx.experimental import proxy_tensor
+
+    mode = proxy_tensor.get_proxy_mode()
+    with proxy_tensor.disable_proxy_modes_tracing():
+        example = ([c.detach().clone() for c in carry]
+                   + [x[0].detach().clone() for x in xs])
+    body_graph = reenter_make_fx(lambda *a: list(body(*a)))(*example)
+    closed = _lift_closed_over(body_graph, mode.tracer)
+    (out_node,) = [n for n in body_graph.graph.nodes if n.op == "output"]
+    out_vals = [a.meta["val"] for a in out_node.args[0]]
+    for j, (c, o) in enumerate(zip(carry, out_vals)):
+        if c.shape != o.shape or c.dtype != o.dtype:
+            raise TypeError(
+                f"scan: carry {j} enters as {c.dtype} {tuple(c.shape)} and "
+                f"leaves as {o.dtype} {tuple(o.shape)}")
+    root = mode.tracer.root
+    name = ("scan_combine_graph_"
+            f"{sum(1 for k in root._modules if k.startswith('scan_combine'))}")
+    root.register_module(name, body_graph)
+    args = (body_graph, list(carry), list(xs), tuple(closed))
+    proxy = mode.tracer.create_proxy(
+        "call_function", torch.ops.higher_order.scan,
+        pytree.tree_map(mode.tracer.unwrap_proxy, args), {}, name="scan")
+    length = xs[0].shape[0]
+    with proxy_tensor.disable_proxy_modes_tracing():
+        outs = ([o.new_empty(o.shape) for o in out_vals[:len(carry)]]
+                + [o.new_empty((length,) + tuple(o.shape))
+                   for o in out_vals[len(carry):]])
+    return proxy_tensor.track_tensor_tree(outs, proxy, constant=None,
+                                          tracer=mode.tracer)
+
+
 def _lift_closed_over(body_graph, tracer) -> list:
     """Turn the sub-graph's constants that are values of the outer trace
     into trailing inputs; returns those values."""

@@ -29,8 +29,9 @@ form that maps onto batch systems such as Apache Beam.
 * :class:`MapReducePlan` has the reference's surface: ``to_text``,
   ``to_beam`` (an Apache Beam pipeline whose local stages call the real
   callables of ``stage_fns``), ``stage_io``, ``beam_consts``,
-  ``subplans``, ``communication_stages``, ``check_locality`` and
-  ``compile`` (``runtime.executor``).
+  ``subplans``, ``communication_stages``, ``check_locality``,
+  ``analyze`` and ``comm_cost`` (``repro_torch.analysis``) and ``compile``
+  (``runtime.executor``).
 * :func:`run_plan` is the oracle: it runs the plan stage by stage, the
   driver owning control flow, and frees each value after its last use.
 
@@ -336,6 +337,21 @@ class MapReducePlan:
         from ..runtime import executor  # lazy: no core -> runtime cycle
 
         return executor.compile_plan(self, **kwargs)
+
+    # -- static analysis ----------------------------------------------------
+
+    def analyze(self, **kwargs):
+        """Run the static passes (``repro_torch.analysis.analyze_plan``):
+        placement safety, donation, retrace hazards and the comm cost."""
+        from ..analysis import analyze_plan  # lazy: no core -> analysis cycle
+
+        return analyze_plan(self, **kwargs)
+
+    def comm_cost(self):
+        """Per-stage wire bytes (``analysis.commcost.estimate_comm_cost``)."""
+        from ..analysis import commcost
+
+        return commcost.estimate_comm_cost(self)
 
     # -- emitters -----------------------------------------------------------
 
@@ -861,27 +877,36 @@ class _Env:
         self.consumed(node)
 
 
-def run_plan(plan: MapReducePlan, *args) -> List[Any]:
+def run_plan(plan: MapReducePlan, *args, observe=None) -> List[Any]:
     """Execute ``plan`` stage by stage on flat ``args`` (the graph's
     inputs), the driver owning control flow: local and communication
     stages run their nodes, loop stages iterate their body sub-plan (a
     ``while`` asks its predicate sub-plan on the host), cond stages run
-    the branch the predicate picks. Returns the flat outputs."""
-    return _execute_plan(plan, list(args))
+    the branch the predicate picks. Returns the flat outputs.
+    ``observe(stage, operand, out)``, when given, is called each time a
+    communication stage ran, at any depth, with the values it read and
+    wrote."""
+    return _execute_plan(plan, list(args), observe)
 
 
-def _execute_plan(plan: MapReducePlan, args: List[Any]) -> List[Any]:
+def _execute_plan(plan: MapReducePlan, args: List[Any],
+                  observe=None) -> List[Any]:
     env = _Env(plan, args)
+    execute = (None if observe is None else
+               lambda p, a: _execute_plan(p, a, observe))
     for stage in plan.stages:
         if isinstance(stage, LocalCompute):
             for node in stage.nodes:
                 env.run(node)
         elif isinstance(stage, _COMM_STAGES):
+            operand = env.read(stage.node.args[0])
             env.run(stage.node)
+            if observe is not None:
+                observe(stage, operand, env.read(stage.node))
         elif isinstance(stage, LoopStage):
-            _finish_control(env, stage, _run_loop(stage, env.read))
+            _finish_control(env, stage, _run_loop(stage, env.read, execute))
         elif isinstance(stage, CondStage):
-            _finish_control(env, stage, _run_cond(stage, env.read))
+            _finish_control(env, stage, _run_cond(stage, env.read, execute))
         else:  # pragma: no cover - future stage kinds
             raise TypeError(f"unknown stage kind: {stage!r}")
     return [env.read(a) for a in plan.out_atoms]

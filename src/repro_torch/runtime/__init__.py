@@ -1,6 +1,8 @@
 """Distributed runtime (``repro/runtime``). Ported: failure injection and
-checkpoint-restart recovery, straggler simulation and masks. Left out for
-later slices: the compiled plan executor, elasticity and the chaos soak."""
+checkpoint-restart recovery, straggler simulation and masks, the compiled
+plan executor (``runtime.executor``) and the elastic hierarchical round
+(``runtime.elastic``). Left out for later slices: elasticity across cards
+(meshes) and the chaos soak."""
 
 from .failure import (
     DEFAULT_RECOVERABLE,

@@ -35,19 +35,29 @@ compiles a plan for repeated rounds:
   takes output ``i``, which must have its shape and dtype. After a call
   each donated argument holds its output's value, updated in place, and
   is returned in that output's place: what JAX's buffer donation buys (no
-  second copy of the carried state). Outputs that share memory with a
-  donated argument (an input passed through) are copied before the first
-  write. No other input is written.
+  second copy of the carried state). The writes come after the last
+  stage, so no stage reads an overwritten argument. Outputs that share
+  memory with a donated argument (an input passed through) are copied
+  before the first write. No other input is written. A donation the
+  donation pass calls an error (``CompiledPlan.donation_report``) raises
+  at compile time.
+* :class:`ElasticHierarchicalRound`: a pod-hierarchical round compiled per
+  placement level. The per-client leg is one compiled plan of the
+  per-pod program (``clients_per_pod`` groups), traced once and called
+  once per pod, whatever the pod count; the cross-pod leg (the mean of the
+  stacked pod partials and the server update) is one unit per distinct
+  set of argument shapes and dtypes, that is per pod count.
 
-Left out for later slices: ``ElasticHierarchicalRound`` (the
-per-placement-level cache split) and the per-stage sharding constraints
-(no-ops on one card).
+Left out for later slices: ``ElasticHierarchicalRound``'s physical mesh
+(``mesh=``, ROADMAP queue 1 item 7) and the per-stage sharding
+constraints (no-ops on one card).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -57,6 +67,7 @@ from ..core import interpreter as interp
 
 __all__ = [
     "CompiledPlan",
+    "ElasticHierarchicalRound",
     "FusedCompute",
     "TraceCounter",
     "clear_executor_cache",
@@ -394,9 +405,21 @@ class CompiledPlan:
         self.donate_argnums = tuple(donate_argnums)
         self.fingerprint = plan_fingerprint(plan)
         self._entry: Optional[_CacheEntry] = None
-        # Structure is checked now: a plan that cannot be captured raises
-        # here, at compile time, not at its first round.
+        # Donation and structure are checked now: a donation the executor
+        # cannot honour, or a plan that cannot be captured, raises here,
+        # at compile time, before any round and any write.
+        if self.donate_argnums:
+            errors = self.donation_report().errors
+            if errors:
+                raise ValueError("; ".join(f.message for f in errors))
         self.num_units = _check(plan, device)
+
+    def donation_report(self):
+        """The donation pass (``analysis.donation``) over this plan with
+        its ``donate_argnums``: what this compiled plan does with them."""
+        from ..analysis import donation_report
+
+        return donation_report(self)
 
     def _entry_for(self, args) -> _CacheEntry:
         key = (self.fingerprint, self.device, _arg_key(args),
@@ -467,3 +490,117 @@ def compile_plan(plan, *, device: str = "cuda", donate_argnums=()) -> CompiledPl
     asks for the CPU). The plan returns its carry first: each argument in
     ``donate_argnums`` is updated in place with the output of its index."""
     return CompiledPlan(plan, device=device, donate_argnums=donate_argnums)
+
+
+# ---------------------------------------------------------------------------
+# elastic two-leg executor (per-placement-level cache split)
+# ---------------------------------------------------------------------------
+
+
+class ElasticHierarchicalRound:
+    """A pod-hierarchical round compiled per placement level
+    (``repro/runtime/executor.py:623``).
+
+    * The **per-client leg** (broadcast, client updates, intra-pod
+      reduction) is the per-pod program ``client_fn(params, pod_data)``
+      over ``clients_per_pod`` groups: traced (``core.trace``), planned and
+      compiled (:func:`compile_plan`) once per set of argument shapes and
+      dtypes, none of which mention the pod count, and called once per
+      pod. On the card it is one CUDA graph, replayed per pod.
+    * The **cross-pod leg** ``cross_fn(params, server_state, partials)``
+      (the mean of the stacked pod partials and the server update) is one
+      unit per set of argument shapes and dtypes, that is per pod count:
+      on the card one CUDA graph each.
+
+    When a pod drops out, the next :meth:`step` reuses the client leg as
+    it is (``client_trace_count`` stays 1) and builds only a cross leg for
+    the new count (``cross_compile_count``); a regrown count reuses its
+    cached cross leg. ``client_trace_s`` is the seconds spent tracing,
+    planning and compiling client legs (their capture runs at the first
+    call).
+
+    ``mesh=`` (the reference's physical path, which re-homes the server
+    state and the pod partials on a degraded mesh) waits for ROADMAP
+    queue 1 item 7 and raises.
+    """
+
+    def __init__(self, client_fn: Callable, cross_fn: Callable, *,
+                 clients_per_pod: int, device: str = "cuda"):
+        from .. import compat
+
+        self.client_fn = client_fn
+        self.cross_fn = cross_fn
+        self.clients_per_pod = clients_per_pod
+        self.device = compat.resolve_device(device).type
+        self._clients: Dict[Tuple, Tuple[CompiledPlan, Any]] = {}
+        self._cross: Dict[Tuple, Tuple[Callable, List[Any]]] = {}
+        self.client_trace_count = 0
+        self.client_trace_s = 0.0
+
+    def _client_leg(self, params, pod_data):
+        from torch.utils import _pytree as pytree
+
+        leaves = pytree.tree_leaves((params, pod_data))
+        key = _arg_key(leaves)
+        if key not in self._clients:
+            t0 = time.perf_counter()
+            gm = interp.trace(self.client_fn, params, pod_data)
+            self.client_trace_count += 1
+            depths = ([0] * len(pytree.tree_leaves(params))
+                      + [1] * len(pytree.tree_leaves(pod_data)))
+            plan = interp.build_plan(gm, self.clients_per_pod,
+                                     partitioned_invars=depths)
+            self._clients[key] = (compile_plan(plan, device=self.device),
+                                  gm.out_spec)
+            self.client_trace_s += time.perf_counter() - t0
+        compiled, spec = self._clients[key]
+        return pytree.tree_unflatten(list(compiled(*leaves)), spec)
+
+    def _cross_leg(self, params, server_state, partials):
+        from torch.utils import _pytree as pytree
+
+        leaves, in_spec = pytree.tree_flatten((params, server_state,
+                                               partials))
+        key = _arg_key(leaves)
+        if key not in self._cross:
+            spec: List[Any] = []
+            cross_fn = self.cross_fn  # not self: no cycle holds the graph
+
+            def flat_fn(*xs):
+                out = cross_fn(*pytree.tree_unflatten(list(xs), in_spec))
+                flat, out_spec = pytree.tree_flatten(out)
+                spec[:] = [out_spec]
+                return flat
+
+            fn = _Graphed(flat_fn) if self.device == "cuda" else flat_fn
+            self._cross[key] = (fn, spec)
+        fn, spec = self._cross[key]
+        outs = [_own(o) for o in fn(*leaves)]
+        return pytree.tree_unflatten(outs, spec[0])
+
+    def step(self, params, server_state, round_data, *, mesh=None):
+        """One round: ``round_data`` leaves lead with (num_pods,
+        clients_per_pod, ...); the pod count may change between calls.
+        Returns ``cross_fn``'s outputs (new params, new server state,
+        metrics)."""
+        from torch.utils import _pytree as pytree
+
+        if mesh is not None:
+            raise NotImplementedError(
+                "ElasticHierarchicalRound.step(mesh=...): the physical "
+                "mesh path waits for ROADMAP queue 1 item 7 (elasticity "
+                "across cards)")
+        leaves = pytree.tree_leaves(round_data)
+        if not leaves:
+            raise ValueError("round_data must have at least one leaf")
+        pod_outs = [
+            self._client_leg(params, pytree.tree_map(lambda x: x[p],
+                                                     round_data))
+            for p in range(leaves[0].shape[0])]
+        partials = pytree.tree_map(lambda *xs: torch.stack(xs), *pod_outs)
+        del pod_outs
+        return self._cross_leg(params, server_state, partials)
+
+    @property
+    def cross_compile_count(self) -> int:
+        return len(self._cross)

@@ -832,3 +832,125 @@ def test_reduced_round_cuda_graph_bitwise_to_run_plan(card):
         assert all(x is y for x, y in zip(got[:n_carry], carried))
         po, so = pytree.tree_unflatten(list(want[:n_carry]), spec)
     assert compiled.trace_count == 1
+
+
+@pytest.mark.cuda
+def test_elastic_round_on_card_bitwise_to_hierarchical_round(card):
+    """Reduced lm_350m (``blocked`` attention: K2 on the card) through the
+    elastic round at 2, 1 and 2 pods of 2 clients: each step bitwise the
+    direct uncompressed hierarchical round at that pod count, one trace of
+    the per-client leg, two cross-pod legs."""
+    import dataclasses
+    import functools
+
+    from torch.utils import _pytree as pytree
+
+    from repro_torch import optim
+    from repro_torch.algorithms import rounds
+    from repro_torch.data.grouped import CohortSampler, GroupedCorpus
+    from repro_torch.models import registry
+    from repro_torch.runtime.elastic import make_elastic_hierarchical_round
+
+    cfg = registry.get_config("lm_350m").reduced(attn_impl="blocked")
+    loss = functools.partial(registry.loss_fn, cfg)
+    params = registry.init_params(cfg, seed=0, device=card)
+    server = optim.fedavg_momentum(1.0)
+    round_cfg = rounds.LocalSGDConfig(partition_size=2, num_local_steps=2,
+                                      grad_clip=1.0)
+    elastic = make_elastic_hierarchical_round(loss, optim.sgd(0.05), server,
+                                              round_cfg)
+    d = CohortSampler(GroupedCorpus(vocab_size=cfg.vocab_size),
+                      cohort_size=4).round_batch(0, 2, 2, 64, device=card)
+    data = {k: d[k].reshape((2, 2) + tuple(d[k].shape[1:]))
+            for k in ("tokens", "labels")}
+    state = server.init(params)
+    for pods in (2, 1, 2):
+        batch = {k: v[:pods] for k, v in data.items()}
+        hier = rounds.make_hierarchical_local_sgd_round(
+            loss, optim.sgd(0.05), server,
+            dataclasses.replace(round_cfg, num_pods=pods))
+        got = pytree.tree_leaves(elastic.step(params, state, batch))
+        want = pytree.tree_leaves(hier(params, state, batch))
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert elastic.client_trace_count == 1
+    assert elastic.cross_compile_count == 2
+
+
+@pytest.mark.cuda
+def test_multi_round_loop_plan_on_card(card):
+    """Reduced lm_350m's 2-round trainer (flat int8, ``blocked``
+    attention) is one LOOP[scan] stage; ``run_plan`` bitwise the direct
+    trainer, the compiled plan (carry donated) bitwise ``run_plan``."""
+    import functools
+
+    from torch.utils import _pytree as pytree
+
+    from repro_torch import optim
+    from repro_torch.algorithms import rounds
+    from repro_torch.core import interpreter as interp
+    from repro_torch.data.grouped import CohortSampler, GroupedCorpus
+    from repro_torch.models import registry
+
+    cfg = registry.get_config("lm_350m").reduced(attn_impl="blocked")
+    params = registry.init_params(cfg, seed=0, device=card)
+    server = optim.fedavg_momentum(1.0)
+    trainer = rounds.make_multi_round(rounds.make_local_sgd_round(
+        functools.partial(registry.loss_fn, cfg), optim.sgd(0.05), server,
+        rounds.LocalSGDConfig(partition_size=2, num_local_steps=2,
+                              grad_clip=1.0, compression="int8")), 2)
+    sampler = CohortSampler(GroupedCorpus(vocab_size=cfg.vocab_size),
+                            cohort_size=2)
+    batches = [sampler.round_batch(r, 2, 2, 64, device=card)
+               for r in range(2)]
+    stacked = {k: torch.stack([b[k] for b in batches])
+               for k in ("tokens", "labels")}
+    state = server.init(params)
+    args = pytree.tree_leaves((params, state, stacked))
+    n_carry = len(pytree.tree_leaves((params, state)))
+    plan = interp.build_plan(interp.trace(trainer, params, state, stacked),
+                             2, partitioned_invars=[0] * len(args))
+    assert [(s.kind, s.trip_count) for s in plan.stages] == [("LOOP", 2)]
+    direct = pytree.tree_leaves(trainer(params, state, stacked))
+    oracle = interp.run_plan(plan, *args)
+    assert all(torch.equal(a, b) for a, b in zip(oracle, direct))
+    compiled = plan.compile(device="cuda", donate_argnums=range(n_carry))
+    for _ in range(2):
+        carry = [t.clone() for t in args[:n_carry]]
+        got = compiled(*carry, *args[n_carry:])
+        assert all(torch.equal(a, b) for a, b in zip(got, oracle))
+    assert compiled.trace_count == 1
+
+
+@pytest.mark.cuda
+def test_comm_cost_cross_validates_on_card(card):
+    """``cross_validate`` runs the plan once on the card and measures what
+    each comm stage carried: clean at model scale 1, every stage a
+    mismatch at 1.1; an int8-fused hierarchical reduce's DCN stage in
+    K1a's packed rows, clean."""
+    from repro_torch import core as drjax
+    from repro_torch.analysis import commcost
+    from repro_torch.compression import int8_roundtrip
+    from repro_torch.core import interpreter as interp
+
+    @drjax.program(placements={"pods": 2, "clients": 4})
+    def f(x, data):
+        z = drjax.map_fn(lambda a, b: a * b, (drjax.broadcast(x), data))
+        return drjax.reduce_mean(drjax.reduce_mean(z, placement="clients"),
+                                 placement="pods")
+
+    args = (torch.tensor(2.0), torch.zeros((2, 4, 64)))
+    plan = interp.build_plan(interp.trace(f, *args),
+                             {"pods": 2, "clients": 4})
+    assert commcost.cross_validate(plan, device="cuda") == []
+    bad = commcost.cross_validate(plan, device="cuda", model_scale=1.1)
+    assert [f.code for f in bad] == ["commcost/model-mismatch"] * len(
+        plan.comm_cost().per_stage)
+
+    @drjax.program(partition_size=8)
+    def g(xs):
+        return drjax.hierarchical_reduce_mean(xs, num_supergroups=2,
+                                              compress_fn=int8_roundtrip)
+
+    plan8 = interp.build_plan(interp.trace(g, torch.zeros((8, 512))), 8)
+    xs = torch.randn((8, 512), generator=torch.Generator().manual_seed(0))
+    assert commcost.cross_validate(plan8, [xs.cuda()], device="cuda") == []

@@ -5,8 +5,13 @@ be bitwise ``run_plan`` for every program of ``test_torch_plan.py`` (the
 oracle programs and the shipped rounds at reduced lm_350m). The cache: one build across rounds, a plan built again from a new
 trace is a hit, a changed constant is a new fingerprint and new shapes a
 new entry. Donation updates the carried arguments in place, argument i
-with output i, and no other input. Fusion merges adjacent local stages. What a CUDA graph cannot hold
-raises at compile time (no card needed: the check is structural).
+with output i after the last stage, and no other input; a stage that
+reads a donated argument after its output is defined sees the old value,
+and so do views of it. Fusion merges
+adjacent local stages. What a CUDA graph cannot hold raises at compile
+time (no card needed: the check is structural). The multi-round trainer
+(P2) is one loop stage whose compiled plan is bitwise the direct
+trainer.
 """
 
 import numpy as np
@@ -239,3 +244,64 @@ def test_compiled_plan_checks_device():
     compiled = plan.compile(device="cpu")
     np.testing.assert_array_equal(compiled(*args)[0].numpy(),
                                   interp.run_plan(plan, *args)[0].numpy())
+
+
+def test_donated_write_keeps_views_of_the_old_value():
+    """Output 1 is a view of argument 0 (a reshape); argument 0 is donated
+    and takes output 0 in place: the view is copied first, so output 1
+    keeps the old value."""
+    @drjax.program(partition_size=3)
+    def f(p, xs):
+        return p + drjax.reduce_mean(xs), p.reshape(2, 2)
+
+    args = [torch.arange(4.0), torch.ones((3, 4))]
+    plan = interp.build_plan(interp.trace(f, *args), 3)
+    before = args[0].clone()
+    want = interp.run_plan(plan, *[a.clone() for a in args])
+    outs = plan.compile(device="cpu", donate_argnums=(0,))(*args)
+    assert outs[0] is args[0]
+    assert_bitwise(outs, want)
+    assert torch.equal(outs[1], before.reshape(2, 2))
+
+
+def test_donated_argument_is_written_after_the_last_stage():
+    """New p is defined by the first stage and p is read again by a later
+    one: the donated argument is written after the last stage, so the late
+    read sees p's old value, the run of stages stays one unit and the
+    donated call is bitwise ``run_plan``."""
+    @drjax.program(partition_size=3)
+    def f(p, xs):
+        q = p * 2.0
+        s = drjax.reduce_sum(drjax.map_fn(lambda a, b: a * b,
+                                          (drjax.broadcast(q), xs)))
+        return q, s + p
+
+    args = [torch.tensor([1.0, 2.0]), torch.ones((3, 2))]
+    plan = interp.build_plan(interp.trace(f, *args), 3)
+    want = interp.run_plan(plan, *[a.clone() for a in args])
+    compiled = plan.compile(device="cpu", donate_argnums=(0,))
+    assert compiled.num_units == 1
+    assert compiled.donation_report().ok
+    outs = compiled(*args)
+    assert outs[0] is args[0]
+    assert_bitwise(outs, want)
+
+
+def test_multi_round_plan_compiled_bitwise_to_direct_trainer():
+    """P2: the shipped multi-round trainer is one LOOP[scan] stage; its
+    compiled plan (the body's unit run once per round), with the carry
+    donated, is bitwise the direct trainer's Python loop, built once."""
+    _, plan, tr, targs = shipped_plans("multi_round", load_model())
+    assert [(s.kind, s.loop_kind, s.trip_count) for s in plan.stages] == [
+        ("LOOP", "scan", 2)]
+    direct = flat(tr(*targs))
+    args = flat(targs)
+    n_carry = len(flat(targs[:2]))
+    compiled = plan.compile(device="cpu", donate_argnums=range(n_carry))
+    assert compiled.donation_report().ok and compiled.num_units == 1
+    for _ in range(2):
+        carry = [a.clone() for a in args[:n_carry]]
+        outs = compiled(*carry, *args[n_carry:])
+        assert_bitwise(outs, direct)
+        assert all(o is c for o, c in zip(outs, carry))
+    assert compiled.trace_count == 1

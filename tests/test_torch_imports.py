@@ -51,7 +51,12 @@ def test_imports_without_jax():
             "repro_torch.checkpoint.manager", "repro_torch.data.synthetic",
             "repro_torch.optim.schedules", "repro_torch.core.interpreter",
             "repro_torch.runtime.executor",
-            "repro_torch.runtime.failure"} <= set(modules)
+            "repro_torch.runtime.failure", "repro_torch.runtime.elastic",
+            "repro_torch.analysis.findings",
+            "repro_torch.analysis.placement_safety",
+            "repro_torch.analysis.donation", "repro_torch.analysis.retrace",
+            "repro_torch.analysis.commcost",
+            "repro_torch.analysis.lints"} <= set(modules)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"  # any `import jax` now raises

@@ -29,9 +29,9 @@ weights): ``run_plan`` bitwise the direct port round, and the skeleton the
 reference's with each block's stage counts left out (the reference stacks
 a layer's parameters into one leaf, the port keeps one leaf per layer, so
 a block holds more stages here; the elements each block moves are equal).
-The port's ``make_multi_round`` is a Python loop, so its plan holds the
-round's skeleton once per round where the reference's holds one
-``LoopStage`` (ROADMAP queue 1).
+The multi-round trainer is one ``LOOP[scan]`` stage in both packages,
+with the round as its body (the port records a scan node while tracing),
+and ``run_plan`` of it is bitwise the direct trainer's Python loop.
 """
 
 import functools
@@ -95,16 +95,21 @@ def _numel(v, pkg):
     return val.numel() if isinstance(val, torch.Tensor) else 1
 
 
-def _depths(plan, top, by_elements, pkg):
+def _depths(plan, top, by_elements, pkg, consts=frozenset()):
+    """Lattice depths of a plan's inputs and outputs; ``consts`` are the
+    inputs that carry constants (left out)."""
+    invars = plan.jaxpr.jaxpr.invars if pkg == "jax" else plan.invars
+    keep = [not any(v is c for c in consts) for v in invars]
     if by_elements:
-        invars = plan.jaxpr.jaxpr.invars if pkg == "jax" else plan.invars
         outvars = plan.out_atoms
         per = []
-        for vs, ds in ((invars, plan.partitioned_invars),
-                       (outvars, plan.partitioned_outvars)):
+        for vs, ds, ks in ((invars, plan.partitioned_invars, keep),
+                           (outvars, plan.partitioned_outvars,
+                            [True] * len(outvars))):
             out = {}
-            for v, d in zip(vs, ds):
-                out[int(d)] = out.get(int(d), 0) + _numel(v, pkg)
+            for v, d, k in zip(vs, ds, ks):
+                if k:
+                    out[int(d)] = out.get(int(d), 0) + _numel(v, pkg)
             per.append(tuple(sorted(out.items())))
         return tuple(per)
     ins = tuple(int(d) for d in plan.partitioned_invars)
@@ -112,7 +117,22 @@ def _depths(plan, top, by_elements, pkg):
     if top:
         return ins, outs
     used = _used_invars(plan, pkg)
-    return tuple(sorted(d for d, u in zip(ins, used) if u)), outs
+    return tuple(sorted(d for d, u, k in zip(ins, used, keep) if u and k)), outs
+
+
+def _const_binders(plan, stage, pkg):
+    """The inputs of a loop body that carry constants: JAX passes the
+    constants a loop body reads as the loop's leading operands, torch
+    keeps them inside the body's graph."""
+    if pkg != "jax":
+        return frozenset()
+    consts = list(plan.jaxpr.jaxpr.constvars) + list(plan.extra_consts)
+    eqn = stage.eqn
+    operands = (eqn.invars if stage.loop_kind == "scan"
+                else eqn.invars[eqn.params["cond_nconsts"]:])
+    return frozenset(
+        b for b, a in zip(stage.body_plan.jaxpr.jaxpr.invars, operands)
+        if any(a is c for c in consts))
 
 
 def _used_invars(plan, pkg):
@@ -126,7 +146,8 @@ def _used_invars(plan, pkg):
     return [id(v) in read for v in jaxpr.invars]
 
 
-def skeleton(plan, pkg, counts=True, top=True, by_elements=False):
+def skeleton(plan, pkg, counts=True, top=True, by_elements=False,
+             consts=frozenset()):
     """The communication skeleton of a plan of either package: each
     maximal run of communication stages (local stages between runs left
     out) as one block {label: (stages, elements)}, consecutive blocks of
@@ -152,7 +173,8 @@ def skeleton(plan, pkg, counts=True, top=True, by_elements=False):
             blocks.append(("LOOP", s.loop_kind, s.trip_count,
                            sub(s.cond_plan) if s.cond_plan is not None
                            and s.cond_plan.stages else None,
-                           sub(s.body_plan)))
+                           sub(s.body_plan,
+                               consts=_const_binders(plan, s, pkg))))
         elif s.kind == "COND":
             run = None
             blocks.append(("COND", tuple(sub(b) for b in s.branch_plans)))
@@ -177,7 +199,7 @@ def skeleton(plan, pkg, counts=True, top=True, by_elements=False):
             for k, (c, e) in b.items()))
 
     return (tuple(entry(b) for b in merged),
-            _depths(plan, top, by_elements, pkg))
+            _depths(plan, top, by_elements, pkg, consts))
 
 
 @pytest.mark.parametrize("name", sorted(PROGRAMS))
@@ -224,13 +246,6 @@ def test_shipped_round_plans(kind, model):
     assert_bitwise(interp.run_plan(tp, *flat(targs)), flat(tr(*targs)))
     want = skeleton(jp, "jax", counts=False, by_elements=True)
     got = skeleton(tp, "torch", counts=False, by_elements=True)
-    if kind == "multi_round":
-        # the port's trainer is a Python loop: one round's blocks per round
-        ((loop,), depths) = want
-        assert loop[:3] == ("LOOP", "scan", 2)
-        body_blocks = loop[4][0]
-        assert got[0] == body_blocks * 2
-        return
     assert got == want
 
 
@@ -474,3 +489,33 @@ def test_gradient_through_a_map_with_an_integer_output():
     plan = tplan(g, 3, *args)
     assert [s.kind for s in plan.communication_stages()].count("REDUCE") == 2
     assert_bitwise(interp.run_plan(plan, *args), list(g(*args)))
+
+
+def test_multi_round_is_one_loop_stage(model):
+    """P2: the trainer records one scan node (carry: params and server
+    state; xs: the round data; ys: the stacked metrics), planned as one
+    LOOP[scan] of trip count 2 whose body is the round's plan."""
+    _, tp, _, targs = shipped_plans("multi_round", model)
+    (loop,) = tp.stages
+    assert (loop.kind, loop.loop_kind, loop.trip_count) == ("LOOP", "scan", 2)
+    n_carry = len(flat(targs[:2]))
+    assert len(loop.carry) == n_carry and len(loop.xs) == 2
+    assert not loop.additional
+    assert [s.kind for s in loop.body_plan.communication_stages()][:1] == [
+        "BROADCAST"]
+    assert tp.outvar_placements[:n_carry] == ((),) * n_carry
+
+
+def test_multi_round_refuses_a_carry_that_changes():
+    """A round whose carried state leaves with another dtype than it came
+    in with cannot be one scan node: tracing the trainer raises."""
+    def round_fn(p, s, d):
+        return p + d.sum(), s.to(torch.float64), {"loss": d.sum()}
+
+    from repro_torch.algorithms import rounds
+
+    trainer = rounds.make_multi_round(round_fn, 2)
+    args = (torch.zeros(2), torch.tensor(0, dtype=torch.int32),
+            torch.ones(2, 3))
+    with pytest.raises(TypeError, match="carry 1 enters as torch.int32"):
+        interp.trace(trainer, *args)

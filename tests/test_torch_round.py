@@ -10,7 +10,8 @@ agree to f32 rounding (~1e-10) give updates ~5e-4 apart in any two
 implementations that are not bitwise. AdamW itself is held to the reference
 on identical gradients at eps = 1e-8.
 
-With int8 (flat, and hierarchical 2 x 2 fused): each element within one
+With int8 (flat, and hierarchical 2 x 2 and 2 x 3 fused): each element
+within one
 quantization step of its 256-wide row plus 1e-6, since a 1-ulp difference
 in a delta may flip one int8 value. The quantized values are the client
 deltas (flat) or the pod partials (hierarchical) and the applied update is
@@ -175,9 +176,9 @@ def _steps(tcfg, value):
     return out
 
 
-@pytest.mark.parametrize("pods", [0, 2], ids=["flat", "hier_2x2_fused"])
-def test_int8_round_within_one_step(setup, pods):
-    cohort = 4 if pods else 2
+@pytest.mark.parametrize("pods,cohort", [(0, 2), (2, 4), (2, 6)],
+                         ids=["flat", "hier_2x2_fused", "hier_2x3_fused"])
+def test_int8_round_within_one_step(setup, pods, cohort):
     old, jnew, jloss, tnew, tloss = _run(setup, "local_sgd", "int8", pods=pods,
                                          cohort=cohort)
     np.testing.assert_allclose(tloss, jloss, rtol=1e-5)
@@ -233,3 +234,146 @@ def test_streams_bit_identical():
             for k in ("tokens", "labels"):
                 assert td[k].dtype == torch.int32
                 np.testing.assert_array_equal(td[k].numpy(), np.asarray(jd[k]))
+
+
+# ---------------------------------------------------------------------------
+# R7 (ROADMAP.md): the reference's off-TPU fused reduce forms the f32
+# partial as a gemm with weights 1/G and rounds a non-f32 partial to its
+# dtype before quantizing; its Pallas kernel, which the port follows, does
+# neither. 3 clients a pod (f32) and bf16 leaves show it.
+# ---------------------------------------------------------------------------
+
+
+def _pallas_roundtrip(x):
+    """The reference's K3b Pallas kernel, interpreted, per pod."""
+    from repro.kernels import reduce_compress as jrc
+
+    return jax.vmap(lambda p: jrc.reduce_compress_roundtrip(
+        p, interpret=True))(x)
+
+
+def _k3b_bitwise(buf):
+    from repro_torch.kernels import ref
+
+    back, q, s = ref.reduce_compress_roundtrip_ref(buf)
+    jbuf = jnp.asarray(buf.float().numpy()).astype(
+        jnp.bfloat16 if buf.dtype == torch.bfloat16 else jnp.float32)
+    jback, jq, js = _pallas_roundtrip(jbuf)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(back.float().numpy(),
+                                  np.asarray(jback).astype(np.float32))
+
+
+def test_r7_hier_2x3_k3b_bitwise_to_the_interpreted_kernel(setup):
+    """The 2 x 3 round's packed client deltas, (2, 3, R, 256) f32: the
+    port's K3b plain version bitwise to the interpreted Pallas kernel."""
+    from repro_torch.compression import api as compression
+
+    _, tcfg, jparams = setup
+    _, tb = _data(6, 2)
+    params = convert.params_from_jax(tcfg, jax.device_get(jparams),
+                                     device="cpu")
+    client = rounds._make_client_update(
+        functools.partial(registry.loss_fn, tcfg), optim.sgd(0.05),
+        rounds.LocalSGDConfig(partition_size=3, num_local_steps=STEPS,
+                              grad_clip=1.0))
+    with torch.no_grad():
+        deltas = [[client(params, {k: v[p, c] for k, v in tb.items()})[0]
+                   for c in range(3)] for p in range(2)]
+    stacked = {k: torch.stack([torch.stack([d[k] for d in pod])
+                               for pod in deltas]) for k in deltas[0][0]}
+    bufs, _ = compression.flat_pack(stacked, lead_ndim=2)
+    (buf,) = bufs.values()
+    assert buf.shape[:2] == (2, 3) and buf.dtype == torch.float32
+    _k3b_bitwise(buf)
+
+
+def _bf16_round(pkg):
+    """A fused-int8 hierarchical round (2 pods x 2 clients) whose client
+    deltas are bf16 leaves: each client's delta is (data - params) / 16 in
+    bf16 (a power of two, so both packages round alike), the pod partials
+    cross int8, and the round returns params + the mean delta in f32."""
+    if pkg == "jax":
+        from repro import compression as comp
+        from repro import core as mod
+        tree_map = jax.tree_util.tree_map
+
+        def sub(a, b):
+            return (b - a.astype(jnp.bfloat16)) * 0.0625
+
+        def add(p, m):
+            return p + m.astype(jnp.float32)
+    else:
+        from torch.utils import _pytree as pytree
+
+        from repro_torch import compression as comp
+        from repro_torch import core as mod
+        tree_map = pytree.tree_map
+
+        def sub(a, b):
+            return (b - a.to(torch.bfloat16)) * 0.0625
+
+        def add(p, m):
+            return p + m.float()
+
+    @mod.program(placements={"pods": 2, "clients": 2})
+    def round_fn(params, data):
+        deltas = mod.map_fn(lambda p, d: tree_map(sub, p, d),
+                            (mod.broadcast(params), data))
+        mean = mod.hierarchical_reduce_mean(deltas,
+                                            compress_fn=comp.int8_roundtrip)
+        return tree_map(add, params, mean)
+
+    return round_fn
+
+
+def _bf16_inputs():
+    rng = np.random.default_rng(3)
+    params = {"a": rng.standard_normal(300).astype(np.float32),
+              "b": rng.standard_normal((7, 40)).astype(np.float32)}
+    data = {"a": rng.standard_normal((2, 2, 300)).astype(np.float32),
+            "b": rng.standard_normal((2, 2, 7, 40)).astype(np.float32)}
+    return params, data
+
+
+def test_r7_bf16_leaf_round(monkeypatch):
+    """bf16 leaves: the port's K3b plain version bitwise to the interpreted
+    kernel on the round's packed deltas; the port's round bitwise to the
+    reference's round run through that kernel; and within one int8 step
+    of the pod partials' row, plus 2^-7 of the update and 1e-6, of the
+    reference's CPU round. The 2^-7: that round rounds each partial to
+    bf16 before quantizing (its scale comes from a rounded absmax) and
+    rounds the roundtrip and the pod mean to bf16 again, up to a bf16 unit
+    (2^-8) each beyond the step; measured at 1.6 steps without it
+    (ROADMAP.md queue 3, R7)."""
+    from repro.kernels import ops as jops
+    from repro_torch.compression import api as compression
+
+    params, data = _bf16_inputs()
+    tp = {k: torch.from_numpy(v) for k, v in params.items()}
+    td = {k: torch.from_numpy(v).to(torch.bfloat16) for k, v in data.items()}
+    got = _bf16_round("torch")(tp, td)
+    jargs = ({k: jnp.asarray(v) for k, v in params.items()},
+             {k: jnp.asarray(v, jnp.bfloat16) for k, v in data.items()})
+    cpu_round = _bf16_round("jax")(*jargs)
+
+    deltas = {k: (td[k] - tp[k].to(torch.bfloat16)) * 0.0625 for k in td}
+    bufs, _ = compression.flat_pack(deltas, lead_ndim=2)
+    (buf,) = bufs.values()
+    assert buf.dtype == torch.bfloat16
+    _k3b_bitwise(buf)
+
+    monkeypatch.setattr(
+        jops, "reduce_compress_roundtrip",
+        lambda x, axis=0, qaxis=-1, **kw: jops._reduce_compress_roundtrip_pallas(
+            x, axis, qaxis % (x.ndim - 1), 256, True))
+    kernel_round = _bf16_round("jax")(*jargs)
+    for k in params:
+        np.testing.assert_array_equal(got[k].numpy(),
+                                      np.asarray(kernel_round[k]))
+        partial = deltas[k].float().mean(dim=1).numpy()
+        step = np.mean([_row_step(partial[p]) for p in range(2)], axis=0)
+        want = np.asarray(cpu_round[k])
+        tol = step + 2.0 ** -7 * np.abs(want - params[k]) + 1e-6
+        assert (np.abs(got[k].numpy() - want) <= tol).all(), k
