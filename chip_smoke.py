@@ -34,7 +34,13 @@ Phases, each reported on its own line (any failure raises, exit != 0):
    per main shape, ``kernel_names``): bf16 calls must launch the
    tensor-core kernels (``repro::flash::tc::``) and no SIMT kernel, f32
    calls the SIMT kernels; each wrapper's kernel names at the main shapes
-   are logged;
+   are logged. Then K2's second order (P3) at B 2 x S 512 x 16 heads x
+   64, f32 and bf16, causal: the double backward through
+   ``ops.flash_attention`` against autograd's double backward through the
+   plain forward on the card (f32 within 1e-4 of the largest magnitude,
+   bf16 within two bf16 steps plus 1e-2 of the largest), its first order
+   bitwise the kernels called directly, one launch of each kernel and one
+   plain second-order call, whose ms and held memory are logged;
 3. flat: 3 DrJAX local-SGD rounds of full lm_350m (bf16, 24 layers; cohort
    4, 2 local steps, batch 4, seq 512) with int8 delta compression, through
    ``repro_torch.launch.train``; losses finite, quantize/dequantize launched
@@ -208,9 +214,33 @@ Phases, each reported on its own line (any failure raises, exit != 0):
    with finite losses; then, on reduced lm_350m with ``blocked``
    attention, a FedSGD round with learned weights and 2 asynchronous
    rounds on the card and on the CPU within 1e-5. Each of the three
-   phases logs its seconds, and ``[new phases]`` their sum.
+   phases logs its seconds, and ``[new phases]`` their sum;
+20. pipeline: full lm_350m (bf16, 24 layers) as 4 stages of 6 layers
+   (``transformer.apply_layers``), 8 microbatches of 1 x 512 embedded
+   outside the pipeline, through ``make_pipelined_round``: outputs bitwise
+   the 24 layers one microbatch at a time, 264 K2 forward launches (11
+   ticks x 24 layers), a head loss's gradients in every parameter within
+   1e-4 of each leaf's largest magnitude of the sequential run's; traced
+   and planned: one ``LOOP[scan]`` of 11 ticks with a ``TRANSFER`` in its
+   body, ``run_plan`` bitwise the direct round, the compiled plan (buffer
+   donated) bitwise ``run_plan`` with one build, ``plan.analyze()``
+   without error, the transfer priced on ICI; bubble fraction, seconds
+   and peak logged;
+21. maml: full lm_350m, 4 tasks, support and query batches of 2 x 512,
+   inner lr 0.05, one inner step: the outer gradient with K2 against the
+   same with ``naive`` attention (``MAML_REL_L2`` in the L2 norm over all
+   leaves, ``MAML_LEAF_REL`` of each leaf's largest magnitude), 96
+   second-order calls; two ``maml_train_step`` s (outer lr 0.2) with
+   finite meta-losses, the first bitwise the SGD step of the gradient;
+22. btm: Branch-Train-Merge of full lm_350m, 4 domains, 2 steps of batch
+   4 x 512, ``sgd(0.05)``: the mean merge bitwise the experts trained one
+   by one, summed and multiplied by ``reciprocal(4)``; the weighted
+   merge's metrics finite with max >= mean. ``[slice 12 phases]`` logs the
+   three phases' seconds.
 
-Then one JSON line with every kernel's launches, error and times, and last
+Then one JSON line with every kernel's launches, error and times (the K2
+rows with their launches in [pipeline], [maml] and [btm], and
+``bwd_dkdv``'s with the plain second order's calls and ms), and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, and when
 the port's sources are not beside this script.
 """
@@ -864,6 +894,119 @@ def phase_flash(gen):
             results.setdefault(name, {})[key] = r
         torch.cuda.empty_cache()
     return results
+
+
+# K2's second order (P3) at the flat rounds' attention shape: B 2 x S 512,
+# 16 heads of 64, causal, in f32 and bf16.
+FLASH_P3 = (2, 512, 16, 64)
+
+
+def check_second_order(what, got, want, dtype) -> float:
+    """f32: max abs error <= 1e-4 max |plain|; bf16: ``|got - want| <=
+    2^-6 |want| + 1e-2 max |want|`` (two bf16 steps plus 1e-2 of the
+    largest, the tolerance ``ops._FlashAttentionBackward`` states for a
+    given cotangent). Returns the max abs error."""
+    diff = (got.double() - want.double()).abs()
+    top = float(want.double().abs().max())
+    if dtype == torch.float32:
+        lim = 1e-4 * top
+        require(float(diff.max()) <= lim,
+                f"{what}: max abs err {float(diff.max())} > {lim}")
+    else:
+        excess = float((diff - 2.0 ** -6 * want.double().abs()
+                        - 1e-2 * top).max())
+        require(excess <= 0, f"{what}: beyond two bf16 steps + 1e-2 "
+                f"max|plain| by {excess} (max |plain| {top}, max abs err "
+                f"{float(diff.max())})")
+    return float(diff.max())
+
+
+def phase_flash_second_order(gen) -> dict:
+    """P3 on the card: the second order through ``ops.flash_attention``
+    (the K2 forward and backward kernels, then the plain recompute of
+    ``ops._FlashAttentionBackward``) against autograd's double backward
+    through the plain forward on the card: in f32 of ``sum |g|^2`` over
+    the first-order gradients g, in bf16 of ``sum g . u`` (a
+    Hessian-vector product, so both sides differentiate with the same
+    cotangent; the bf16 kernels' first order is one bf16 step from the
+    plain one, and ``sum |g|^2`` would carry that step into its
+    cotangent: 0.0104 beyond the gate for dq in PR 22's first call); the first order
+    bitwise the K2 kernels called as the parent's wrapper called them;
+    each kernel launched once and the second order counted once; the
+    second-order call's ms (CUDA events) and the memory it holds."""
+    from repro_torch.kernels import ops, ref
+
+    b, s, h, hd = FLASH_P3
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, w = (torch.randn((b, s, h, hd), generator=gen,
+                                  device="cuda").to(dtype) for _ in range(4))
+        u = [torch.randn((b, s, h, hd), generator=gen, device="cuda")
+             for _ in range(3)]
+
+        def second(attend):
+            qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+            g1 = torch.autograd.grad(attend(qq, kk, vv), (qq, kk, vv), w,
+                                     create_graph=True)
+            if dtype == torch.float32:
+                total = sum((g ** 2).sum() for g in g1)
+            else:
+                # a Hessian-vector product: the cotangent of the first
+                # order is u on both sides, so the bf16 kernels' first
+                # order (one bf16 step from the plain one) does not enter
+                total = sum((g.float() * uu).sum() for g, uu in zip(g1, u))
+            return ([g.detach() for g in g1],
+                    torch.autograd.grad(total, (qq, kk, vv)))
+
+        dt = str(dtype).split(".")[-1]
+        ops.reset_launches()
+        g1, g2 = second(lambda *t: ops.flash_attention(*t, causal=True))
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        plain_calls = ops.plain_counts()["flash_attention_bwd2_plain"]
+        require(counts["flash_attention_fwd"] == 1
+                and counts["flash_attention_bwd_dq"] == 1
+                and counts["flash_attention_bwd_dkdv"] == 1
+                and plain_calls == 1,
+                f"P3 {dt}: launches {counts}, second-order calls "
+                f"{plain_calls}")
+        o, o32, lse = ops.flash_attention_fwd(q, k, v, causal=True)
+        dq, delta = ops.flash_attention_bwd_dq(q, k, v, o32, lse, w,
+                                               causal=True)
+        dk, dv = ops.flash_attention_bwd_dkdv(q, k, v, lse, delta, w,
+                                              causal=True)
+        require(all(torch.equal(a, c) for a, c in zip(g1, (dq, dk, dv))),
+                f"P3 {dt}: first order != the kernels called directly")
+        p1, p2 = second(lambda *t: ref.flash_attention_ref(*t,
+                                                           causal=True)[0])
+        errs = {n: check_second_order(f"P3 {dt} d{n}", g, p, dtype)
+                for n, g, p in zip("qkv", g2, p2)}
+        first = {n: check_grad(f"P3 {dt} first d{n}", g, p, dtype)
+                 for n, g, p in zip("qkv", g1, p1)}
+        del p1, p2, g2
+        qq, kk, vv, ww = (t.detach().requires_grad_(True) for t in (q, k, v, w))
+        outs = ops._FlashAttentionBackward.apply(qq, kk, vv, o32, lse, ww,
+                                                 True, 0)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        torch.autograd.grad(outs, (qq, kk, vv, ww), g1, retain_graph=True)
+        torch.cuda.synchronize()
+        held = torch.cuda.max_memory_allocated() - before
+        ms = time_ms(lambda: torch.autograd.grad(outs, (qq, kk, vv, ww), g1,
+                                                 retain_graph=True))
+        out[dt] = {"ms": ms, "held_mib": held / 2 ** 20, "errs": errs}
+        log("flash", name="K2 second order (plain recompute)",
+            shape=f"B {b} x S {s} x {h} heads x {hd}, causal", dtype=dt,
+            ms=f"{ms:.4f}", held_mib=f"{held / 2 ** 20:.1f}",
+            second_order_calls=plain_calls, first_order_bitwise=True,
+            launches=json.dumps({k_: v_ for k_, v_ in counts.items() if v_}),
+            errs=json.dumps({k_: f"{v_:.3e}" for k_, v_ in errs.items()}),
+            first_errs=json.dumps({k_: f"{v_:.3e}"
+                                   for k_, v_ in first.items()}))
+        del q, k, v, w, outs, qq, kk, vv, ww, g1
+        torch.cuda.empty_cache()
+    return out
 
 
 # K2 at recurrentgemma_2b's local attention: 10 query heads on one kv head
@@ -3031,6 +3174,358 @@ def phase_algorithms_reference() -> dict:
     return {k: f"{v:.3g}" for k, v in worst.items()}
 
 
+# [pipeline]: full lm_350m as PIPE_STAGES stages of its layers, fed
+# PIPE_MICRO microbatches of PIPE_BATCH x PIPE_SEQ tokens.
+PIPE_STAGES, PIPE_MICRO, PIPE_BATCH, PIPE_SEQ = 4, 8, 1, 512
+
+
+def lm_head_loss(cfg, params, x, labels):
+    """The model's head on activations: final norm, f32 logits,
+    cross-entropy (``transformer.forward`` after its layers)."""
+    from repro_torch.models import common
+
+    x = common.rmsnorm_apply(params["final_ln.scale"], x, cfg.norm_eps)
+    logits = torch.matmul(x.to(torch.float32),
+                          params["lm_head.w"].to(torch.float32))
+    return common.softmax_cross_entropy(logits, labels)
+
+
+def phase_pipeline():
+    """[pipeline]: full lm_350m (bf16, 24 layers, K2 in every layer) as
+    4 stages of 6 layers (``transformer.apply_layers`` closures), 8
+    microbatches of 1 x 512 embedded outside the pipeline. The direct
+    round's outputs bitwise the 24 layers applied one microbatch at a time;
+    a loss on them (final norm, f32 logits, cross-entropy) with gradients
+    in every parameter within 1e-4 of each leaf's largest magnitude of the
+    sequential run's; the round traced and planned (one ``LOOP[scan]`` of
+    11 ticks with a ``TRANSFER`` in its body), ``run_plan`` bitwise the
+    direct round, the compiled plan (the buffer donated) bitwise
+    ``run_plan`` with one build, ``plan.analyze()`` without error and the
+    transfer priced on ICI. Logs the bubble fraction, the seconds of the
+    direct round, ``run_plan``, a replay and the one-time trace, peak GiB
+    and the launches."""
+    import functools
+
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.algorithms import pipeline
+    from repro_torch.core import interpreter as interp
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry, transformer
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = registry.get_config("lm_350m")
+    s, m, b, seq = PIPE_STAGES, PIPE_MICRO, PIPE_BATCH, PIPE_SEQ
+    per = cfg.num_layers // s
+    params = registry.init_params(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (m, b, seq + 1), generator=gen,
+                         device="cuda")
+    labels = toks[..., 1:]
+    positions = torch.arange(seq, device="cuda").expand(b, seq)
+
+    def stages(p):
+        return [functools.partial(transformer.apply_layers, cfg, p,
+                                  positions=positions, start=i * per,
+                                  stop=(i + 1) * per) for i in range(s)]
+
+    def sequential(p, mb):
+        return torch.stack([transformer.apply_layers(cfg, p, mb[i], positions)
+                            for i in range(m)])
+
+    pcfg = pipeline.PipelineConfig(s, m)
+    round_fn = pipeline.make_pipelined_round(stages(params), pcfg)
+    with torch.no_grad():
+        mb = torch.nn.functional.embedding(toks[..., :-1], params["embed.table"])
+        act0 = torch.zeros((s,) + mb.shape[1:], dtype=mb.dtype, device="cuda")
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        outs, act_final = round_fn(mb, act0)
+        torch.cuda.synchronize()
+        direct_s = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        want = sequential(params, mb)
+    ticks = m + s - 1
+    require(torch.equal(outs, want),
+            "pipelined outputs != the 24 layers one microbatch at a time")
+    require(counts["flash_attention_fwd"] == ticks * cfg.num_layers,
+            f"pipeline K2 forward launches {counts['flash_attention_fwd']}, "
+            f"want {ticks} ticks x {cfg.num_layers} layers")
+
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    with torch.enable_grad():
+        emb = torch.nn.functional.embedding(toks[..., :-1],
+                                            leaves["embed.table"])
+        ops.reset_launches()
+        out_g, _ = pipeline.make_pipelined_round(stages(leaves), pcfg)(
+            emb, act0)
+        grads = torch.autograd.grad(lm_head_loss(cfg, leaves, out_g, labels),
+                                    list(leaves.values()))
+        grad_counts = ops.launch_counts()
+        del out_g, emb
+        emb = torch.nn.functional.embedding(toks[..., :-1],
+                                            leaves["embed.table"])
+        want_g = torch.autograd.grad(
+            lm_head_loss(cfg, leaves, sequential(leaves, emb), labels),
+            list(leaves.values()))
+        del emb
+    worst = 0.0
+    for name, g, w in zip(leaves, grads, want_g):
+        err = float((g.double() - w.double()).abs().max())
+        lim = 1e-4 * float(w.double().abs().max())
+        require(err <= lim, f"pipeline grad {name}: {err} > {lim}")
+        worst = max(worst, err / max(float(w.double().abs().max()), 1e-30))
+    grads_bitwise = all(torch.equal(g, w) for g, w in zip(grads, want_g))
+    del grads, want_g, leaves
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        gm = interp.trace(round_fn, mb, act0)
+        plan = interp.build_plan(gm, round_fn.drjax_context,
+                                 partitioned_invars=(0, 1))
+    trace_s = time.perf_counter() - t0
+    loops = [st for st in plan.stages if st.kind == "LOOP"]
+    require(len(loops) == 1 and loops[0].loop_kind == "scan"
+            and loops[0].trip_count == ticks
+            and [st.kind for st in loops[0].body_plan.stages].count(
+                "TRANSFER") == 1,
+            f"pipeline plan: {plan.to_text()[:400]}")
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        oracle = interp.run_plan(plan, mb, act0)
+        torch.cuda.synchronize()
+        run_plan_s = time.perf_counter() - t0
+    require(equal_leaves(oracle, [outs, act_final]),
+            "pipeline run_plan != the direct round")
+    t0 = time.perf_counter()
+    report = plan.analyze()
+    analyze_s = time.perf_counter() - t0
+    (cost,) = [c for c in report.comm_cost.per_stage if c.kind == "TRANSFER"]
+    require(report.ok and cost.link == "ici" and cost.endpoints == s - 1
+            and cost.multiplier == ticks,
+            f"pipeline analysis: {report}")
+    compiled = plan.compile(device="cuda", donate_argnums=(1,))
+    replay_s = []
+    with torch.no_grad():
+        for _ in range(2):
+            buf = act0.clone()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = compiled(mb, buf)
+            torch.cuda.synchronize()
+            replay_s.append(time.perf_counter() - t0)
+            require(res[1] is buf and equal_leaves(res, oracle),
+                    "compiled pipeline != run_plan")
+    require(compiled.trace_count == 1, "the compiled pipeline was rebuilt")
+    log("pipeline", stages=s, layers_per_stage=per, microbatches=m,
+        microbatch=f"{b} x {seq}", ticks=ticks,
+        bubble_fraction=f"{pipeline.pipeline_bubble_fraction(s, m):.6f}",
+        outputs_bitwise=True, grads_bitwise=grads_bitwise,
+        grad_worst_rel=f"{worst:.3e}", direct_s=f"{direct_s:.4f}",
+        run_plan_s=f"{run_plan_s:.4f}", first_compiled_call_s=f"{replay_s[0]:.3f}",
+        replay_s=f"{replay_s[1]:.4f}", trace_and_plan_s=f"{trace_s:.2f}",
+        analyze_s=f"{analyze_s:.2f}", ici_bytes=report.comm_cost.ici_bytes,
+        transfer_payload_bytes=cost.payload_bytes, units=compiled.num_units,
+        trace_count=compiled.trace_count,
+        findings=json.dumps(sorted({f.code for f in report.findings})),
+        peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+        launches=json.dumps({k: v for k, v in counts.items() if v}),
+        grad_launches=json.dumps({k: v for k, v in grad_counts.items() if v}),
+        seconds=f"{time.perf_counter() - t_phase:.1f}")
+    del compiled, plan, gm, oracle, res, outs, act_final, want, mb, params
+    free_graphs()
+    return counts
+
+
+# [maml]: the example's setting (examples/parallel_maml.py) at full
+# lm_350m: 4 tasks, support and query batches of 2 x 512.
+MAML_TASKS, MAML_BATCH, MAML_SEQ = 4, 2, 512
+MAML_INNER_LR, MAML_OUTER_LR = 0.05, 0.2
+MAML_REL_L2, MAML_LEAF_REL = 2e-2, 5e-2
+
+
+def phase_maml():
+    """[maml]: full lm_350m (bf16, ``blocked`` attention: K2 in every
+    layer, its second order through ``ops._FlashAttentionBackward``), 4
+    tasks, one inner step. The outer gradient with K2 against the same
+    gradient with ``naive`` attention (no kernel) on the card: within
+    ``MAML_REL_L2`` in the L2 norm over all leaves and each leaf within
+    ``MAML_LEAF_REL`` of its largest magnitude (bf16 attention in another
+    order, amplified through the second order). Then two
+    ``maml_train_step``s: finite meta-losses, the first step's new params
+    bitwise the SGD step of the gradient taken before. Logs the K2 and
+    second-order counts, seconds and peak GiB."""
+    import dataclasses
+    import functools
+
+    from repro_torch.algorithms import maml
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+
+    t_phase = time.perf_counter()
+    cfg = registry.get_config("lm_350m")
+    params = registry.init_params(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    toks = torch.randint(0, cfg.vocab_size,
+                         (2, MAML_TASKS, MAML_BATCH, MAML_SEQ + 1),
+                         generator=gen, device="cuda")
+    tasks = {part: {"tokens": toks[i, ..., :-1], "labels": toks[i, ..., 1:]}
+             for i, part in enumerate(("support", "query"))}
+
+    def outer_grad(attn_impl):
+        c = dataclasses.replace(cfg, attn_impl=attn_impl)
+        loss_fn, _ = maml.make_parallel_maml(
+            functools.partial(registry.loss_fn, c), MAML_TASKS,
+            inner_lr=MAML_INNER_LR)
+        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            meta = loss_fn(leaves, tasks)
+            grads = torch.autograd.grad(meta, list(leaves.values()))
+        torch.cuda.synchronize()
+        return (float(meta), dict(zip(leaves, grads)),
+                time.perf_counter() - t0, ops.launch_counts(),
+                ops.plain_counts(), torch.cuda.max_memory_allocated())
+
+    meta_k, g_k, k_s, counts, plain, peak = outer_grad("blocked")
+    require(counts["flash_attention_fwd"] > 0
+            and counts["flash_attention_bwd_dq"] > 0
+            and plain["flash_attention_bwd2_plain"]
+            == MAML_TASKS * cfg.num_layers,
+            f"MAML launches {counts}, second-order calls {plain}")
+    meta_n, g_n, n_s, naive_counts, _, naive_peak = outer_grad("naive")
+    require(sum(naive_counts.values()) == 0, f"naive MAML {naive_counts}")
+    num = sum(float(((g_k[n].double() - g_n[n].double()) ** 2).sum())
+              for n in g_n)
+    den = sum(float((g_n[n].double() ** 2).sum()) for n in g_n)
+    rel_l2 = math.sqrt(num / den)
+    leaf_rel = max(float((g_k[n].double() - g_n[n].double()).abs().max())
+                   / max(float(g_n[n].double().abs().max()), 1e-30)
+                   for n in g_n)
+    require(math.isfinite(meta_k) and math.isfinite(rel_l2)
+            and rel_l2 <= MAML_REL_L2 and leaf_rel <= MAML_LEAF_REL,
+            f"MAML K2 vs naive: meta {meta_k} vs {meta_n}, rel L2 {rel_l2}, "
+            f"worst leaf {leaf_rel}")
+    del g_n
+    _, step = maml.make_parallel_maml(
+        functools.partial(registry.loss_fn, cfg), MAML_TASKS,
+        inner_lr=MAML_INNER_LR)
+    step_s = []
+    p = params
+    metas = []
+    for i in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, meta = step(p, tasks, outer_lr=MAML_OUTER_LR)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        metas.append(float(meta))
+        if i == 0:
+            bad = [n for n in p if not torch.equal(
+                p[n], (params[n].to(torch.float32)
+                       - MAML_OUTER_LR * g_k[n]).to(params[n].dtype))]
+            require(not bad, f"MAML step != the SGD step of its gradient: "
+                    f"{bad[:4]}")
+    require(all(math.isfinite(v) for v in metas), f"MAML metas {metas}")
+    log("maml", tasks=MAML_TASKS, batch=f"{MAML_BATCH} x {MAML_SEQ}",
+        inner_lr=MAML_INNER_LR, inner_steps=1, outer_lr=MAML_OUTER_LR,
+        meta_loss_k2=f"{meta_k:.6f}", meta_loss_naive=f"{meta_n:.6f}",
+        grad_rel_l2_vs_naive=f"{rel_l2:.3e}",
+        grad_worst_leaf_rel_vs_naive=f"{leaf_rel:.3e}",
+        step_meta_losses=[round(v, 6) for v in metas],
+        outer_grad_s_k2=f"{k_s:.3f}", outer_grad_s_naive=f"{n_s:.3f}",
+        step_s=[round(v, 3) for v in step_s],
+        peak_gib_k2=f"{peak / 2**30:.2f}",
+        peak_gib_naive=f"{naive_peak / 2**30:.2f}",
+        second_order_calls=plain["flash_attention_bwd2_plain"],
+        launches=json.dumps({k: v for k, v in counts.items() if v}),
+        seconds=f"{time.perf_counter() - t_phase:.1f}")
+    del p, params, g_k
+    torch.cuda.empty_cache()
+    return dict(counts, **plain)
+
+
+# [btm]: the reference's test and example setting at full lm_350m: 4
+# domains, 2 training steps of batch 4 x 512, ``optim.sgd(0.05)``.
+BTM_DOMAINS, BTM_STEPS, BTM_BATCH, BTM_SEQ = 4, 2, 4, 512
+
+
+def phase_btm():
+    """[btm]: Branch-Train-Merge of full lm_350m (bf16, K2 in every
+    layer). The mean merge bitwise the experts trained one by one with the
+    same ``train_expert``, stacked, summed and multiplied by
+    ``reciprocal(4)``; the weighted merge's metrics finite with max >=
+    mean. Logs seconds, peak GiB and the launches."""
+    import functools
+
+    from repro_torch import optim
+    from repro_torch.algorithms import btm
+    from repro_torch.core.primitives import reciprocal
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = registry.get_config("lm_350m")
+    loss_fn = functools.partial(registry.loss_fn, cfg)
+    params = registry.init_params(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size,
+                         (BTM_DOMAINS, BTM_STEPS, BTM_BATCH, BTM_SEQ + 1),
+                         generator=gen, device="cuda")
+    data = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    btm_fn = btm.branch_train_merge(loss_fn, optim.sgd(0.05), BTM_DOMAINS,
+                                    BTM_STEPS)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        merged, metrics = btm_fn(params, data)
+    torch.cuda.synchronize()
+    mean_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    require(counts["flash_attention_fwd"] >= 2 * BTM_DOMAINS * BTM_STEPS
+            * cfg.num_layers, f"BTM launches {counts}")
+    experts = [btm_fn.train_expert(params, {k: v[i] for k, v in data.items()})[0]
+               for i in range(BTM_DOMAINS)]
+    bad = [n for n in merged if not torch.equal(
+        merged[n], torch.stack([e[n] for e in experts]).sum(0)
+        * reciprocal(BTM_DOMAINS))]
+    require(not bad, f"BTM mean merge != the experts one by one: {bad[:4]}")
+    del experts, merged
+    weighted = btm.branch_train_merge(loss_fn, optim.sgd(0.05), BTM_DOMAINS,
+                                      BTM_STEPS, merge="weighted")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        wmerged, wmetrics = weighted(params, data)
+    torch.cuda.synchronize()
+    weighted_s = time.perf_counter() - t0
+    vals = {k: float(v) for k, v in wmetrics.items()}
+    require(all(math.isfinite(v) for v in vals.values())
+            and vals["max_final_loss"] >= vals["mean_final_loss"]
+            and all(bool(torch.isfinite(t).all()) for t in wmerged.values()),
+            f"BTM weighted metrics {vals}")
+    log("btm", domains=BTM_DOMAINS, train_steps=BTM_STEPS,
+        batch=f"{BTM_BATCH} x {BTM_SEQ}", lr=0.05, mean_merge_bitwise=True,
+        mean_metrics=json.dumps({k: round(float(v), 6)
+                                 for k, v in metrics.items()}),
+        weighted_metrics=json.dumps({k: round(v, 6) for k, v in vals.items()}),
+        mean_s=f"{mean_s:.3f}", weighted_s=f"{weighted_s:.3f}",
+        peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+        launches=json.dumps({k: v for k, v in counts.items() if v}),
+        seconds=f"{time.perf_counter() - t_phase:.1f}")
+    del wmerged, params
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; no card",
@@ -3056,6 +3551,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernels = phase_kernels(rows, gen)
     flash = phase_flash(gen)
+    second_order = phase_flash_second_order(gen)
     flat_counts = phase_train("flat")
     torch.cuda.reset_peak_memory_stats()
     hier_counts, wire_counts, wire_payload = phase_hier()
@@ -3090,6 +3586,11 @@ def main() -> int:
     phase_ckpt(n_params)
     phase_topk()
     phase_algorithms()
+    t_slice12 = time.perf_counter()
+    pipeline_counts = phase_pipeline()
+    maml_counts = phase_maml()
+    btm_counts = phase_btm()
+    log("slice 12 phases", seconds=f"{time.perf_counter() - t_slice12:.1f}")
     log("new phases", seconds=f"{time.perf_counter() - t_new:.1f}")
     launches = {"quantize": flat_counts["quantize"],
                 "dequantize": flat_counts["dequantize"],
@@ -3151,6 +3652,16 @@ def main() -> int:
                             ("loop_launches", loop_counts)):
             if counts.get(e["name"]):
                 e[key] = counts[e["name"]]
+        if e["name"] in FLASH_SOURCE:
+            e.update(pipeline_launches=pipeline_counts[e["name"]],
+                     maml_launches=maml_counts[e["name"]],
+                     btm_launches=btm_counts[e["name"]])
+            if e["name"] == "flash_attention_bwd_dkdv":
+                # the second order no kernel computes (plain recompute)
+                e["second_order_plain"] = {
+                    "maml_calls": maml_counts["flash_attention_bwd2_plain"],
+                    "ms": {dt: r["ms"] for dt, r in second_order.items()},
+                    "shape": "B 2 x S 512 x 16 heads x 64, causal"}
     log("done", seconds=f"{time.perf_counter() - t_start:.1f}",
         padded_vocab=transformer.padded_vocab(cfg), packed_rows=rows, card=smi)
     print(json.dumps(line), flush=True)

@@ -8,7 +8,8 @@ Two halves:
 
   - :func:`check_placement_safety`: the full placement-lattice pass
     (comm-free local stages at all depths, broadcast/reduce monotonicity
-    and pairing, loop-carry stability);
+    and pairing, placement kinds of comm and local stages, transfer
+    operands, loop-carry stability);
   - :func:`analyze_donation`: what ``compile_plan(...,
     donate_argnums=...)`` does with a donation (refused donations with
     the why, unused ones, loop-carry eligibility); ``CompiledPlan`` runs
@@ -17,7 +18,8 @@ Two halves:
     :func:`explain_fingerprint_mismatch` for two plans that should share
     an executable and do not;
   - :func:`estimate_comm_cost`: per-stage wire bytes from the IR (DCN vs
-    ICI by placement level, int8 ``compress`` tags applied), with
+    ICI by placement level, int8 ``compress`` tags applied, stage
+    transfers on ICI), with
     :func:`cross_validate_comm_cost` holding the model against the bytes
     each comm stage carries when the plan runs.
 

@@ -19,6 +19,12 @@ and output shapes and its placement arguments:
   cost is f32 here: compression the IR cannot see, a static pass cannot
   count.)
 
+A Transfer stage (a pipeline's neighbour exchange) rides ICI wherever
+its stage level sits in the stack: each stage ships its slot to its
+neighbour, the ``|shift|`` boundary stages of each outer group send
+nothing unless ``wrap`` (a ring keeps every stage sending), and the
+payload is the native bytes of one stage's slot.
+
 A loop stage multiplies its body's (and a ``while`` predicate's) costs by
 its trip count; a ``while`` counts one trip and gives
 ``commcost/unknown-trip``. A cond stage adds its most expensive branch to
@@ -27,8 +33,8 @@ others with ``counted=False``.
 
 :func:`cross_validate` holds the model against what the plan's
 communication really carries: it runs the plan once (``run_plan``) and
-measures, each time a Broadcast or Reduce stage runs, the slices of the
-value that crosses its link, one per endpoint of the op's own group
+measures, each time a Broadcast, Reduce or Transfer stage runs, the
+slices of the value that crosses its link, one per endpoint of the op's own group
 stack, in the wire format (an int8-tagged value packed by the wire's own
 kernel, K1a). Each stage's measured bytes a run must equal its modeled
 ``endpoints x payload``, and its number of runs its trip multiplier.
@@ -49,7 +55,7 @@ import torch.fx as fx
 from ..compression import PACK_COLS
 from ..core import interpreter as interp
 from ..core import primitives as prims
-from ..core.interpreter import Broadcast, CondStage, LoopStage, Reduce
+from ..core.interpreter import Broadcast, CondStage, LoopStage, Reduce, Transfer
 from .findings import Finding
 
 # One f32 scale per this many int8 values: the packed rows' width.
@@ -64,8 +70,8 @@ def int8_wire_payload(values: int, block: int = INT8_BLOCK) -> float:
 @dataclasses.dataclass
 class CommStageCost:
     stage: str  # named_stages anchor
-    kind: str  # BROADCAST | REDUCE
-    op: str  # broadcast | reduce_sum | reduce_mean | reduce_max
+    kind: str  # BROADCAST | REDUCE | TRANSFER
+    op: str  # broadcast | reduce_sum | reduce_mean | reduce_max | stage_transfer
     placement: str  # addressed placement name
     link: str  # "dcn" (outermost level) | "ici" (inner levels)
     endpoints: int  # senders (reduce) / receivers (broadcast)
@@ -126,7 +132,7 @@ def _walk(plan, prefix: str, mult: float, counted: bool,
     fmt: Dict[fx.Node, str] = {}
     for idx, stage in enumerate(plan.stages):
         sname = f"stage_{prefix}{idx}"
-        if isinstance(stage, (Broadcast, Reduce)):
+        if isinstance(stage, (Broadcast, Reduce, Transfer)):
             cost = _comm_cost(stage, sname, mult, counted, fmt)
             per_stage.append(cost)
             if cost.counted:
@@ -178,6 +184,16 @@ def _comm_cost(stage, sname: str, mult: float, counted: bool,
     node = stage.node
     _, i = interp._node_placement(node)
     operand = node.args[0]
+    if isinstance(stage, Transfer):
+        val = interp._val(operand)
+        endpoints = math.prod(val.shape[:i]) * _senders(
+            val.shape[i], stage.shift, stage.wrap)
+        _, native = _nbytes(val, i + 1)
+        return CommStageCost(
+            stage=sname, kind="TRANSFER", op="stage_transfer",
+            placement=stage.placement, link="ici", endpoints=endpoints,
+            payload_bytes=native, wire_format="native", multiplier=mult,
+            wire_bytes=endpoints * native * mult, counted=counted)
     if isinstance(stage, Reduce):
         val = interp._val(operand)
         if stage.compress == "int8":
@@ -198,6 +214,12 @@ def _comm_cost(stage, sname: str, mult: float, counted: bool,
         wire_bytes=endpoints * payload * mult, counted=counted)
 
 
+def _senders(size: int, shift: int, wrap: bool) -> int:
+    """Stages of one outer group that send in a transfer: all of them in a
+    ring, else those whose destination ``j + shift`` is a stage."""
+    return size if wrap else max(size - min(abs(shift), size), 0)
+
+
 def _contexts(plan, under_cond: bool, under_while: bool, out) -> None:
     """For each stage at any depth: (under a cond branch, under a while)."""
     for stage in plan.stages:
@@ -216,13 +238,27 @@ def _wire_bytes(stage, operand, out, int8: bool) -> Tuple[int, float]:
     """(endpoints, bytes) that one run of a comm stage put on its link:
     the value that crosses it (a reduce's operand, each sender's slice; a
     broadcast's output, each receiver's copy) cut into one slice per
-    group of the op's stack up to its addressed level; an int8-tagged
+    group of the op's stack up to its addressed level (a transfer: the
+    slices of its operand that leave their stage); an int8-tagged
     value is packed slice by slice by K1a, its int8 values and f32 scales
     counted."""
     from ..kernels import ops
 
     stack = prims.parse_stack(stage.node.args[1])
     level = int(stage.node.args[2])
+    if isinstance(stage, Transfer):
+        # The slices that leave their stage: stage j of each outer group
+        # sends when j + shift lands on a stage (always, in a ring).
+        size = operand.shape[level]
+        sent = [j for j in range(size)
+                if stage.wrap or 0 <= j + stage.shift < size]
+        outer = tuple(operand.shape[:level])
+        total = 0.0
+        for idx in itertools.product(*(range(g) for g in outer)):
+            for j in sent:
+                part = operand[idx + (j,)]
+                total += part.numel() * part.element_size()
+        return math.prod(outer) * len(sent), total
     groups = tuple(size for _, size in stack[:level + 1])
     value = operand if isinstance(stage, Reduce) else out
     if tuple(value.shape[:len(groups)]) != groups:
@@ -251,11 +287,11 @@ def cross_validate(plan, args=None, *, device: str = "cuda",
 
     The plan runs once on ``args`` (its flat inputs; zeros of their
     shapes and dtypes on ``device`` when None, which a plan holding a
-    ``while`` refuses: zeros may never end it). Each run of a Broadcast or
-    Reduce stage is measured by :func:`_wire_bytes`. A stage fails when a
-    run's measured bytes differ from its modeled ``endpoints x payload``
-    (times ``model_scale``) by more than ``tol``, when its endpoints
-    differ, or when it ran another number of times than its trip
+    ``while`` refuses: zeros may never end it). Each run of a Broadcast,
+    Reduce or Transfer stage is measured by :func:`_wire_bytes`. A stage
+    fails when a run's measured bytes differ from its modeled ``endpoints
+    x payload`` (times ``model_scale``) by more than ``tol``, when its
+    endpoints differ, or when it ran another number of times than its trip
     multiplier: fewer under a cond is allowed, and a ``while`` sets no
     count. ``tol`` is 0 by default: both sides count bytes exactly, and
     the f32 scales are 1.6% of an int8 payload. ``model_scale``

@@ -20,6 +20,22 @@ and verifies:
   the outermost level). MapReduce AD transposes a broadcast into a reduce
   *at the same level* and vice versa, so a mispaired stage would transpose
   into communication on the wrong link;
+* **placement-kind agreement** (``placement/wrong-kind-comm``): a
+  broadcast or reduce may address only a replica-kind level and a stage
+  transfer only a stage-kind level, read off the node's own stack
+  argument. The primitives refuse these when called and when traced, so a
+  violation means the plan was edited; a ``Transfer`` also gets the
+  operand-depth check (``placement/transfer-operand``) and the tag
+  pairing of the other comm stages (its transpose is the reverse transfer
+  at the same level);
+* **local-stage kind** (``placement/local-kind-mismatch``): a node whose
+  inputs join to a group placement sits in a ``GROUP_COMPUTE`` stage, a
+  server-placed one in a ``SERVER_COMPUTE`` stage; one finding per stage,
+  naming the first such node and their count (the reference reports each
+  eqn, but a map that is one eqn there is a ``map_groups`` node and its
+  ``getitem`` here). Nodes of constants only are exempt: ``build_plan``
+  moves them into the stage of their first consumer (as the reference's
+  literals need no stage), so a group stage holds them by design;
 * **loop-carry stability**: a loop carry's body-output placement may not
   sit deeper on the lattice than its body-input placement (``build_plan``
   solves carries to a fixed point; instability means the plan was edited
@@ -32,23 +48,8 @@ The flat-API ``hierarchical_reduce_mean`` regroups ``(n, ...)`` to ``(P,
 n/P, ...)`` and its ``drjax`` nodes address a derived two-level stack whose
 names differ from the plan's. At that boundary the operand-depth checks
 carry no information (the lattice chains are incomparable by
-construction), so the pass reports one ``placement/regroup-boundary``
-info finding per plan and propagates placements as ``build_plan`` does.
-
-Not ported, because the port's placements have no kinds yet (pipeline
-``stages`` levels and ``stage_transfer`` wait for ROADMAP queue 1 item 3):
-
-======================================  ===================================
-reference code                          why it cannot arise here
-======================================  ===================================
-``placement/wrong-kind-comm``           every level is a replica level
-``placement/transfer-operand``          no ``Transfer`` stage exists
-``placement/local-kind-mismatch``       needs the kind of a local stage's
-                                        level; constant-only nodes join the
-                                        stage of their first consumer here,
-                                        so a group stage holds server-placed
-                                        nodes by design
-======================================  ===================================
+construction), so the pass reports one ``placement/regroup-boundary`` info
+finding per plan and propagates placements as ``build_plan`` does.
 """
 
 from __future__ import annotations
@@ -58,6 +59,7 @@ from typing import Dict, List
 import torch.fx as fx
 
 from ..core import interpreter as interp
+from ..core import primitives as prims
 from ..core.interpreter import (
     Broadcast,
     CondStage,
@@ -65,13 +67,13 @@ from ..core.interpreter import (
     LoopStage,
     PlacementSet,
     Reduce,
+    Transfer,
 )
 from .findings import Finding
 
-# Codes of the reference's pass that cannot arise in the port (see the
-# table above); the parity tests leave them out of the reference's side.
-NOT_PORTED = ("placement/wrong-kind-comm", "placement/transfer-operand",
-              "placement/local-kind-mismatch")
+# Codes of the reference's pass that cannot arise in the port; the parity
+# tests leave them out of the reference's side. Every code is ported.
+NOT_PORTED = ()
 
 
 def check_placement_safety(plan) -> List[Finding]:
@@ -90,6 +92,27 @@ def _join_all(pls) -> PlacementSet:
 
 def _tag(pl: PlacementSet) -> str:
     return "/".join(pl) or "server"
+
+
+def _node_kind(node) -> str:
+    """Kind of the level a comm node addresses, from its own stack
+    argument (which also covers a derived stack)."""
+    return prims.parse_placements(node.args[1])[int(node.args[2])].kind
+
+
+def _wrong_kind(stage, node, enames, i, sname) -> List[Finding]:
+    expect = "stages" if isinstance(stage, Transfer) else "replicas"
+    if _node_kind(node) == expect:
+        return []
+    if isinstance(stage, Transfer):
+        what = (f"stage_transfer@{enames[i]} addresses a replica-kind "
+                "level: replicas communicate by broadcast/reduce, not "
+                "neighbour transfer")
+    else:
+        op = "broadcast" if isinstance(stage, Broadcast) else stage.op
+        what = (f"{op}@{enames[i]} addresses a stage-kind level: pipeline "
+                "stages communicate by stage_transfer, not broadcast/reduce")
+    return [Finding("placement/wrong-kind-comm", "error", what, stage=sname)]
 
 
 def _check_plan(plan, prefix: str, findings: List[Finding]) -> None:
@@ -114,9 +137,11 @@ def _check_plan(plan, prefix: str, findings: List[Finding]) -> None:
                 stage=sname,
             ))
 
+    constant: set = set()  # nodes computed from constants only
     for idx, stage in enumerate(plan.stages):
         sname = f"stage_{prefix}{idx}"
         if isinstance(stage, LocalCompute):
+            misplaced = []
             for node in stage.nodes:
                 name = interp._comm_name(node)
                 if name is not None or any(
@@ -130,10 +155,46 @@ def _check_plan(plan, prefix: str, findings: List[Finding]) -> None:
                         stage=sname,
                     ))
                 env[node] = _join_all(pl(a) for a in node.all_input_nodes)
+                if all(interp._is_const_attr(a) or a in constant
+                       for a in node.all_input_nodes):
+                    constant.add(node)
+                elif stage.at_groups != bool(env[node]):
+                    misplaced.append(node)
+            if misplaced:
+                node = misplaced[0]
+                findings.append(Finding(
+                    "placement/local-kind-mismatch", "warning",
+                    f"node {node.name} ({interp._op_name(node)}) joins to "
+                    f"lattice depth {len(env[node])} but sits in a "
+                    f"{stage.kind} stage ({len(misplaced)} such node(s))",
+                    stage=sname,
+                ))
+        elif isinstance(stage, Transfer):
+            node = stage.node
+            enames, i = interp._node_placement(node)
+            in_pl = pl(node.args[0])
+            findings.extend(_wrong_kind(stage, node, enames, i, sname))
+            if enames == names and in_pl != enames[:i + 1]:
+                findings.append(Finding(
+                    "placement/transfer-operand", "warning",
+                    f"stage_transfer@{enames[i]} expects its operand at "
+                    f"{_tag(enames[:i + 1])}, lattice says {_tag(in_pl)}",
+                    stage=sname,
+                ))
+            if stage.placement != enames[i]:
+                findings.append(Finding(
+                    "placement/pairing", "error",
+                    f"Transfer stage tagged @{stage.placement} but its node "
+                    f"addresses level {enames[i]}; the transpose would emit "
+                    "the reverse transfer at the wrong level",
+                    stage=sname,
+                ))
+            env[node] = enames[:i + 1]
         elif isinstance(stage, Broadcast):
             node = stage.node
             enames, i = interp._node_placement(node)
             in_pl = pl(node.args[0])
+            findings.extend(_wrong_kind(stage, node, enames, i, sname))
             if enames != names:
                 boundary(enames, sname)
             elif len(in_pl) > i and in_pl[:i + 1] == enames[:i + 1]:
@@ -166,6 +227,7 @@ def _check_plan(plan, prefix: str, findings: List[Finding]) -> None:
             node = stage.node
             enames, i = interp._node_placement(node)
             in_pl = pl(node.args[0])
+            findings.extend(_wrong_kind(stage, node, enames, i, sname))
             if enames != names:
                 boundary(enames, sname)
             elif len(in_pl) > i + 1 and in_pl[:i + 1] == enames[:i + 1]:

@@ -1,4 +1,5 @@
-"""DrJAX core for PyTorch: placements, primitives, the user API, the
+"""DrJAX core for PyTorch: placements (replica and stage kinds),
+primitives, the user API (stage transfers and stage maps included), the
 hierarchical reduction and the MapReduce plan IR (``trace``,
 ``build_plan``, ``run_plan``). ``from repro_torch import core as drjax``."""
 
@@ -14,6 +15,8 @@ from .api import (
     reduce_mean,
     reduce_sum,
     reduce_weighted_mean,
+    stage_map,
+    stage_transfer,
 )
 from .hierarchical import (
     cross_pod_bytes,
@@ -51,5 +54,7 @@ __all__ = [
     "reduce_sum",
     "reduce_weighted_mean",
     "run_plan",
+    "stage_map",
+    "stage_transfer",
     "trace",
 ]

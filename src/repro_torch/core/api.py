@@ -15,11 +15,13 @@ Placements nest (``placements={"pods": 2, "clients": 4}``); with no
 All ops take trees (dicts, lists, tuples of tensors; ``torch.utils._pytree``)
 whose every leaf carries the leading group axes.
 
-Ported: ``program``, ``broadcast``, ``map_fn`` (recorded as one group
-body under ``interpreter.trace``), ``reduce_sum``, ``reduce_mean``,
-``reduce_max``, ``reduce_weighted_mean``, ``masked_reduce_mean`` (the
-straggler rounds' reduction) and ``partition_size``. Left out for later
-slices: ``stage_transfer``/``stage_map``, and the sharding annotations.
+Ported: ``program`` (with ``placement_kinds``), ``broadcast``, ``map_fn``
+(recorded as one group body under ``interpreter.trace``), ``reduce_sum``,
+``reduce_mean``, ``reduce_max``, ``reduce_weighted_mean``,
+``masked_reduce_mean`` (the straggler rounds' reduction),
+``stage_transfer`` and ``stage_map`` (pipeline stages) and
+``partition_size``. Left out for later slices: the sharding annotations
+(no-ops on one card until ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -46,6 +48,8 @@ __all__ = [
     "masked_reduce_mean",
     "partition_size",
     "current_context",
+    "stage_map",
+    "stage_transfer",
 ]
 
 placement_context = placement_lib.placement_context
@@ -57,10 +61,15 @@ def program(
     *,
     partition_size: Optional[int] = None,
     placements: Optional[Mapping[str, int]] = None,
+    placement_kinds: Optional[Mapping[str, str]] = None,
 ):
     """Decorator declaring a DrJAX program over ``partition_size=n`` groups
     (the paper's API, one "clients" placement) or an ordered stack
-    ``placements={"pods": P, "clients": m}``, outermost first."""
+    ``placements={"pods": P, "clients": m}``, outermost first.
+    ``placement_kinds`` marks levels as pipeline stages
+    (``{"stages": "stages"}``): they communicate by :func:`stage_transfer`
+    and :func:`stage_map` instead of broadcast/reduce; unnamed levels are
+    ``"replicas"``."""
     if fn is not None:
         raise TypeError(
             "drjax.program requires a partition size: use "
@@ -70,7 +79,8 @@ def program(
         raise ValueError("Pass either partition_size or placements, not both.")
     if placements is None and partition_size is None:
         raise ValueError("partition_size (or placements) is required.")
-    ctx = placement_lib.make_context(partition_size, placements=placements)
+    ctx = placement_lib.make_context(partition_size, placements=placements,
+                                     placement_kinds=placement_kinds)
 
     def deco(f: Callable) -> Callable:
         @functools.wraps(f)
@@ -84,11 +94,26 @@ def program(
     return deco
 
 
+def _require_replica_stack(ctx: placement_lib.PlacementContext, op: str):
+    """A collective with no ``placement=`` spans the whole stack, which
+    only an all-replica stack allows."""
+    stages = [n for n, k in zip(ctx.names, ctx.kinds) if k == "stages"]
+    if stages:
+        raise ValueError(
+            f"{op} with no placement= spans the whole stack, but level(s) "
+            f"{stages} are stage-kind (pipeline stages do not "
+            f"broadcast/reduce — use stage_transfer/stage_map). Address a "
+            f"replica-kind placement explicitly with placement=<name>."
+        )
+
+
 def broadcast(tree, placement: Optional[str] = None):
     """Replicate a structure to every group. With ``placement=p``: one
     broadcast at that level; with none: server -> fully partitioned, one
     broadcast per level, outermost first."""
     ctx = placement_lib.current_context()
+    if placement is None:
+        _require_replica_stack(ctx, "broadcast")
     chain = ctx.names if placement is None else (placement,)
 
     def leaf(x):
@@ -101,6 +126,8 @@ def broadcast(tree, placement: Optional[str] = None):
 
 def _reduce_tree(tree, binder, placement: Optional[str]):
     ctx = placement_lib.current_context()
+    if placement is None:
+        _require_replica_stack(ctx, "reduce")
     chain = tuple(reversed(ctx.names)) if placement is None else (placement,)
 
     def leaf(x):
@@ -146,6 +173,7 @@ def reduce_weighted_mean(tree, weights, placement: Optional[str] = None):
     ctx = placement_lib.current_context()
     weights = torch.as_tensor(weights)
     if placement is None:
+        _require_replica_stack(ctx, "reduce_weighted_mean")
         chain = tuple(reversed(ctx.names))
         depth_in, depth_out = ctx.depth, 0
     else:
@@ -488,6 +516,100 @@ def map_fn(fn: Callable, tree, placement: Optional[str] = None):
     else:
         stacked = map_groups(body, sizes, lead, *leaves)
     return pytree.tree_unflatten(list(stacked), out_specs[0])
+
+
+def _stage_placement_name(ctx: placement_lib.PlacementContext,
+                          placement: Optional[str]) -> str:
+    """The addressed stage-kind placement; with none, the stack's only
+    stage-kind level."""
+    if placement is not None:
+        pl = ctx.get(placement)
+        if pl.kind != "stages":
+            raise ValueError(
+                f"placement {placement!r} is {pl.kind!r}-kind, but this op "
+                "requires a stage-kind placement (declare it with "
+                "placement_kinds={" + f"{placement!r}: 'stages'" + "})."
+            )
+        return placement
+    stages = ctx.stage_names()
+    if not stages:
+        raise ValueError(
+            "no stage-kind placement in the ambient stack: declare one with "
+            "placement_kinds={<name>: 'stages'}."
+        )
+    if len(stages) > 1:
+        raise ValueError(
+            f"multiple stage-kind placements {stages}: address one "
+            "explicitly with placement=<name>."
+        )
+    return stages[0]
+
+
+def stage_transfer(tree, placement: Optional[str] = None, *,
+                   shift: int = 1, wrap: bool = False):
+    """Shift a stage-partitioned structure to neighbouring stages:
+    ``out[..., j, ...] = x[..., j - shift, ...]`` along the addressed
+    stage-kind placement's axis, so stage j's activations move to stage
+    j + shift (the forward hand-off for ``shift=1``). Vacated stages get
+    zeros unless ``wrap=True`` (a ring). Linear: the transpose is the
+    reverse transfer, so the backward pipeline falls out of autograd."""
+    ctx = placement_lib.current_context()
+    name = _stage_placement_name(ctx, placement)
+    return pytree.tree_map(
+        lambda x: prims.stage_transfer(x, placement=name, shift=shift,
+                                       wrap=wrap), tree)
+
+
+def stage_map(fns, tree, placement: Optional[str] = None):
+    """Apply per-stage functions across a stage-partitioned structure.
+
+    ``fns`` is one callable (applied at every stage: :func:`map_fn` at the
+    stage level) or a sequence of one callable per stage (heterogeneous
+    stages: stage s runs ``fns[s]`` on its slice). As with :func:`map_fn`, a
+    *tuple* ``tree`` passes its elements as separate positional arguments.
+    Levels outside the stage level stay mapped (each of their groups runs
+    the stage function on its own slice), and the results are stacked
+    back on the stage axis. The reference re-constrains them to the stage
+    level's sharding; on one card that is a no-op (ROADMAP queue 1 item
+    7)."""
+    ctx = placement_lib.current_context()
+    name = _stage_placement_name(ctx, placement)
+    if callable(fns):
+        return map_fn(fns, tree, placement=name)
+    fns = tuple(fns)
+    i = ctx.index_of(name)
+    size = ctx.get(name).size
+    if len(fns) != size:
+        raise ValueError(
+            f"stage_map: got {len(fns)} stage functions for placement "
+            f"{name!r} of {size} stages (pass one callable to apply it at "
+            "every stage)."
+        )
+    leaves, in_spec = pytree.tree_flatten(tree)
+    outer = ctx.sizes[:i]
+    out_specs = []
+
+    def run_stage(s: int):
+        fn = fns[s]
+
+        def body(*group_leaves):
+            args = pytree.tree_unflatten(list(group_leaves), in_spec)
+            out = fn(*args) if isinstance(tree, tuple) else fn(args)
+            out_leaves, spec = pytree.tree_flatten(out)
+            out_specs.append(spec)
+            return out_leaves
+
+        sliced = [x.select(i, s) for x in leaves]
+        if not outer:
+            return body(*sliced)
+        return _stack_groups(body, outer, 0, *sliced)
+
+    per_stage = [run_stage(s) for s in range(size)]
+    if any(spec != out_specs[0] for spec in out_specs):
+        raise ValueError("stage_map: the stages returned trees of different "
+                         "structures")
+    stacked = [torch.stack(parts, dim=i) for parts in zip(*per_stage)]
+    return pytree.tree_unflatten(stacked, out_specs[0])
 
 
 def partition_size(placement: Optional[str] = None) -> int:

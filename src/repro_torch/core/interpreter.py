@@ -17,7 +17,8 @@ form that maps onto batch systems such as Apache Beam.
 * :func:`build_plan` segments the graph into stages on the reference's
   placement lattice: every value carries the stack prefix of placements
   whose group axes lead it (``()`` = server), ``drjax`` nodes move values
-  on it (``BROADCAST``/``REDUCE``, tagged with the addressed placement),
+  on it (``BROADCAST``/``REDUCE``, tagged with the addressed placement;
+  a ``TRANSFER`` between pipeline stages keeps the value where it is),
   local nodes join their inputs' placements, and loop carries are solved
   to a fixed point. Nodes that depend on constants only (``torch.tensor``
   literals, factories) join the stage of their first consumer, as the
@@ -74,17 +75,19 @@ def _join(a: PlacementSet, b: PlacementSet) -> PlacementSet:
     return a if len(a) >= len(b) else b
 
 
-def _normalize_placements(spec) -> Tuple[Tuple[str, int], ...]:
+def _normalize_placements(spec) -> Tuple[Tuple[str, int, str], ...]:
     """An int (one "clients" placement), an ordered mapping name -> size, a
-    ``PlacementContext``, or a (name, size) sequence -> (name, size)
-    pairs, outermost first."""
+    ``PlacementContext`` (which alone carries stage kinds), or a (name,
+    size[, kind]) sequence -> (name, size, kind) triples, outermost
+    first."""
     if isinstance(spec, (int, np.integer)):
-        return (("clients", int(spec)),)
+        return (("clients", int(spec), "replicas"),)
     if isinstance(spec, placement_lib.PlacementContext):
-        return tuple((p.name, p.size) for p in spec.placements)
+        return tuple((p.name, p.size, p.kind) for p in spec.placements)
     if isinstance(spec, Mapping):
-        return tuple((str(n), int(s)) for n, s in spec.items())
-    return tuple((str(e[0]), int(e[1])) for e in spec)
+        return tuple((str(n), int(s), "replicas") for n, s in spec.items())
+    return tuple((str(e[0]), int(e[1]), str(e[2]) if len(e) > 2
+                  else "replicas") for e in spec)
 
 
 def _comm_name(node) -> Optional[str]:
@@ -193,6 +196,22 @@ class Reduce(Stage):
 
 
 @dataclasses.dataclass
+class Transfer(Stage):
+    """``drjax.stage_transfer@placement``: the neighbour exchange along a
+    stage-kind level. Each stage ships its slice ``shift`` stages on
+    (neighbour traffic between stage shards); the vacated stages are
+    zero-filled unless ``wrap``. Unlike a broadcast or a reduce it does not
+    move on the lattice: operand and result sit at the stage level's
+    depth."""
+
+    node: fx.Node = None
+    kind: str = "TRANSFER"
+    placement: str = "stages"
+    shift: int = 1
+    wrap: bool = False
+
+
+@dataclasses.dataclass
 class LoopStage(Stage):
     """A ``while_loop``/``scan`` whose body communicates: a sub-plan run per
     iteration. ``trip_count`` is the scan length, ``None`` for a while.
@@ -234,7 +253,7 @@ class CondStage(Stage):
 
 
 _CONTROL = (LoopStage, CondStage)
-_COMM_STAGES = (Broadcast, Reduce)
+_COMM_STAGES = (Broadcast, Reduce, Transfer)
 
 
 @dataclasses.dataclass
@@ -249,6 +268,12 @@ class MapReducePlan:
     invar_placements: Tuple[PlacementSet, ...]
     outvar_placements: Tuple[PlacementSet, ...]
     out_atoms: Tuple[Any, ...]
+    # Kind per level ("replicas" | "stages"), parallel to ``placements``.
+    placement_kinds: Tuple[str, ...] = ()
+
+    def __post_init__(self):
+        if not self.placement_kinds:
+            self.placement_kinds = tuple("replicas" for _ in self.placements)
 
     @property
     def invars(self) -> List[fx.Node]:
@@ -357,9 +382,11 @@ class MapReducePlan:
 
     def to_text(self) -> str:
         pp = _Namer()
-        if len(self.placements) > 1:
+        if len(self.placements) > 1 or "stages" in self.placement_kinds:
             header = ("MapReducePlan(placements=" + "/".join(
-                f"{n}:{s}" for n, s in self.placements) + ")")
+                f"{n}:{s}" + ("[stages]" if k == "stages" else "")
+                for (n, s), k in zip(self.placements, self.placement_kinds))
+                + ")")
         else:
             header = f"MapReducePlan(partition_size={self.partition_size})"
 
@@ -548,6 +575,11 @@ def _stage_text_lines(stages, indent: int, pp: _Namer) -> List[str]:
             lines.append(f"{pad}stage {i}: {s.op.upper()} {route} "
                          f"@{s.placement}{tag} ({pp(s.node.args[0])} -> "
                          f"{pp(s.node)})")
+        elif isinstance(s, Transfer):
+            shift = f"{s.shift:+d}" + (" wrap" if s.wrap else "")
+            lines.append(f"{pad}stage {i}: TRANSFER shift={shift} "
+                         f"@{s.placement} ({pp(s.node.args[0])} -> "
+                         f"{pp(s.node)})")
         elif isinstance(s, LoopStage):
             trip = "?" if s.trip_count is None else str(s.trip_count)
             lines.append(f"{pad}stage {i}: LOOP[{s.loop_kind}] "
@@ -620,13 +652,16 @@ def build_plan(gm: fx.GraphModule, placements,
     control flow.
 
     ``placements`` is an int (one "clients" placement), an ordered mapping
-    ``{"pods": P, "clients": m}``, a ``PlacementContext`` or (name, size)
-    pairs. ``partitioned_invars[i]`` places input i on the lattice: a bool
+    ``{"pods": P, "clients": m}``, a ``PlacementContext`` (the spec that
+    carries stage kinds: a pipeline's ``round_fn.drjax_context``) or
+    (name, size[, kind]) entries. ``partitioned_invars[i]`` places input i on the lattice: a bool
     (server / fully partitioned), an int depth or a name-prefix tuple; by
     default the longest prefix of placement sizes that matches its leading
     dims.
     """
-    pairs = _normalize_placements(placements)
+    triples = _normalize_placements(placements)
+    pairs = tuple((n, s) for n, s, _ in triples)
+    kinds = tuple(k for _, _, k in triples)
     names = tuple(n for n, _ in pairs)
     sizes = tuple(s for _, s in pairs)
 
@@ -681,7 +716,7 @@ def build_plan(gm: fx.GraphModule, placements,
             stages.append(LocalCompute(at_groups=at_groups, nodes=list(nodes)))
 
     def sub_plan(sub: fx.GraphModule, parts) -> "MapReducePlan":
-        return build_plan(sub, pairs, partitioned_invars=list(parts))
+        return build_plan(sub, triples, partitioned_invars=list(parts))
 
     def fixed_point(make, carry_p: List[PlacementSet], n_carry: int):
         plan = None
@@ -777,6 +812,14 @@ def build_plan(gm: fx.GraphModule, placements,
             stages.append(Broadcast(node=node, placement=enames[i],
                                     source=enames[i - 1] if i else "server"))
             placed[node] = enames[:i + 1]
+        elif name == "stage_transfer":
+            # No lattice movement: a transfer permutes values among the
+            # stage groups, so the result stays at the level's depth.
+            enames, i = _node_placement(node)
+            stages.append(Transfer(node=node, placement=enames[i],
+                                   shift=int(node.args[3]),
+                                   wrap=bool(node.args[4])))
+            placed[node] = enames[:i + 1]
         elif name is not None:
             enames, i = _node_placement(node)
             in_pl = pl_of(node.args[0])
@@ -822,6 +865,7 @@ def build_plan(gm: fx.GraphModule, placements,
         invar_placements=invar_pl,
         outvar_placements=outvar_pl,
         out_atoms=out_atoms,
+        placement_kinds=kinds,
     )
     plan.check_locality()
     return plan
@@ -1004,6 +1048,17 @@ def _unkey(rows, shape):
   # axes restored (row-major over the sorted key tuples).
   arr = np.stack([v for _, v in sorted(rows)])
   return arr.reshape(tuple(shape) + arr.shape[1:])
+
+
+def _stage_shift(v, axis, shift, wrap):
+  # stage_transfer on a stacked (non-keyed) value: roll the stage axis,
+  # zero-filling the slots the shift vacated unless wrapping.
+  out = np.roll(np.asarray(v), shift, axis=axis)
+  if not wrap and shift != 0:
+    idx = [slice(None)] * out.ndim
+    idx[axis] = slice(0, shift) if shift > 0 else slice(shift, None)
+    out[tuple(idx)] = 0
+  return out
 """
 
 
@@ -1160,6 +1215,8 @@ class _BeamEmitter:
                 self.emit_broadcast(stage)
             elif isinstance(stage, Reduce):
                 self.emit_reduce(stage)
+            elif isinstance(stage, Transfer):
+                self.emit_transfer(stage)
             elif isinstance(stage, LocalCompute):
                 self.emit_local(stage, plan, sname, outs)
             elif isinstance(stage, LoopStage):
@@ -1237,6 +1294,69 @@ class _BeamEmitter:
         else:
             self.assign(out, f"{combiner}(list({src}))", "plain",
                         f"{op} over a stacked local value")
+        self.bind(stage.node, out)
+
+    def emit_transfer(self, stage: Transfer):
+        """A transfer on a keyed collection re-keys each element to its
+        destination stage (rotating with ``wrap``, else dropping the ones
+        that fall off the edge and creating zero elements for the vacated
+        stages); on a stacked value it rolls the stage axis."""
+        src = self.name_of(stage.node.args[0])
+        out = self.fresh("tx")
+        _, i = _node_placement(stage.node)
+        size = self.plan.placement_sizes[i]
+        shift, wrap = stage.shift, stage.wrap
+        kind = self.kinds.get(src, "plain")
+        tag = f"TRANSFER shift={shift:+d} @{stage.placement}"
+        if kind != "group":
+            if kind == "server":
+                self.assign(out, f"{src} | {self.label()} >> beam.Map("
+                                 f"lambda v: _stage_shift(v, {i}, {shift}, "
+                                 f"{wrap}))", "server", tag)
+            else:
+                self.assign(out, f"_stage_shift({src}, {i}, {shift}, {wrap})",
+                            "plain", tag)
+            self.bind(stage.node, out)
+            return
+        depth = self.depths.get(src, 1)
+        tuple_keys = self.nested or depth > 1
+        mod = f" % {size}" if wrap else ""
+        if tuple_keys:
+            rekey = (f"lambda kv: (kv[0][:{i}] + ((kv[0][{i}] + {shift})"
+                     f"{mod},) + kv[0][{i + 1}:], kv[1])")
+            in_range = f"lambda kv: 0 <= kv[0][{i}] < {size}"
+        else:
+            rekey = f"lambda kv: ((kv[0] + {shift}){mod}, kv[1])"
+            in_range = f"lambda kv: 0 <= kv[0] < {size}"
+        if wrap:
+            self.assign(out, f"{src} | {self.label()} >> beam.Map({rekey})",
+                        "group", f"{tag} (rotate stage keys)")
+        else:
+            moved = self.fresh("mv")
+            self.assign(moved, f"{src} | {self.label()} >> beam.Map({rekey}) "
+                               f"| {self.label()} >> beam.Filter({in_range})",
+                        "group", f"{tag} (shift stage keys)")
+            val = _val(stage.node)
+            elem = tuple(val.shape[depth:])
+            dt = str(val.dtype).replace("torch.", "")
+            dt = "float32" if dt == "bfloat16" else dt
+            zeros_expr = f"np.zeros({elem!r}, np.dtype({dt!r}))"
+            vac = (f"range({min(shift, size)})" if shift > 0
+                   else f"range({max(size + shift, 0)}, {size})")
+            if tuple_keys:
+                sizes = tuple(self.plan.placement_sizes[:depth])
+                keys = (f"[k0 + (j,) + k1 for k0 in np.ndindex(*{sizes[:i]!r}) "
+                        f"for j in {vac} for k1 in "
+                        f"np.ndindex(*{sizes[i + 1:]!r})]")
+            else:
+                keys = f"[j for j in {vac}]"
+            zeros = self.fresh("zf")
+            self.assign(zeros, f"p | {self.label()} >> beam.Create("
+                               f"[(k, {zeros_expr}) for k in {keys}])",
+                        "group", f"{tag} (zero-fill vacated stages)")
+            self.assign(out, f"({moved}, {zeros}) | {self.label()} >> "
+                             "beam.Flatten()", "group", tag)
+        self.depths[out] = depth
         self.bind(stage.node, out)
 
     def emit_local(self, stage: LocalCompute, plan, sname: str, outs):

@@ -6,11 +6,12 @@ groups. Placements nest: a context holds an ordered stack, outermost first
 carries the ``k`` outermost placements' group axes as its leading axes;
 depth 0 is the server. The paper's flat API is the one-entry stack.
 
-Ported: the stack of replica placements (groups are data replicas), its
-accessors and the thread-local context. Left out for later slices: the
-reference's ``kind`` field with its stage-kind placements (pipeline
-stages), and the per-placement mesh axes and sharding switches (the port
-runs on one device, where they are no-ops).
+Each level has a kind: ``"replicas"`` (the default: data-replica groups,
+which ``broadcast``/``reduce_*`` address) or ``"stages"`` (model pipeline
+stages, which exchange values by ``stage_transfer`` and run per-stage
+functions by ``stage_map``). Left out for later slices: the per-placement
+mesh axes and sharding switches (the port runs on one device, where they
+are no-ops until ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -21,17 +22,30 @@ import math
 import threading
 from typing import Mapping, Optional, Tuple
 
+#: Valid placement kinds: ``"replicas"`` (data-replica groups, addressed by
+#: broadcast/reduce) and ``"stages"`` (pipeline stages, which communicate
+#: only by ``stage_transfer`` and run per-stage functions by ``stage_map``).
+PLACEMENT_KINDS = ("replicas", "stages")
+
+
 @dataclasses.dataclass(frozen=True)
 class Placement:
-    """One named level of the placement stack: ``size`` replica groups."""
+    """One named level of the placement stack: ``size`` groups of
+    ``kind`` (``"replicas"`` or ``"stages"``)."""
 
     name: str
     size: int
+    kind: str = "replicas"
 
     def __post_init__(self):
         if self.size < 1:
             raise ValueError(
                 f"placement {self.name!r} must have size >= 1, got {self.size}"
+            )
+        if self.kind not in PLACEMENT_KINDS:
+            raise ValueError(
+                f"placement {self.name!r} has unknown kind {self.kind!r}; "
+                f"valid kinds are {list(PLACEMENT_KINDS)}"
             )
 
 
@@ -59,6 +73,14 @@ class PlacementContext:
     @property
     def sizes(self) -> Tuple[int, ...]:
         return tuple(p.size for p in self.placements)
+
+    @property
+    def kinds(self) -> Tuple[str, ...]:
+        return tuple(p.kind for p in self.placements)
+
+    def stage_names(self) -> Tuple[str, ...]:
+        """Names of the stage-kind levels, outermost first."""
+        return tuple(p.name for p in self.placements if p.kind == "stages")
 
     @property
     def innermost(self) -> Placement:
@@ -124,18 +146,29 @@ def make_context(
     *,
     placement: str = "clients",
     placements: Optional[Mapping[str, int]] = None,
+    placement_kinds: Optional[Mapping[str, str]] = None,
 ) -> PlacementContext:
     """``make_context(n)``: the paper's single placement of size n;
     ``make_context(placements={"pods": P, "clients": m})``: a nested stack,
-    outermost first (mapping order is the stack order)."""
+    outermost first (mapping order is the stack order).
+    ``placement_kinds`` maps placement names to a kind (``"replicas"``,
+    the default, or ``"stages"``); a name not in the stack is refused."""
     if placements is not None:
         if partition_size is not None:
             raise ValueError("pass either partition_size or placements, not both")
         if not placements:
             raise ValueError("placements mapping must not be empty")
-        stack = tuple(Placement(n, s) for n, s in placements.items())
+        entries = tuple(placements.items())
     else:
         if partition_size is None:
             raise ValueError("partition_size (or placements) is required")
-        stack = (Placement(placement, partition_size),)
-    return PlacementContext(placements=stack)
+        entries = ((placement, partition_size),)
+    kinds = dict(placement_kinds or {})
+    unknown = set(kinds) - {n for n, _ in entries}
+    if unknown:
+        raise ValueError(
+            f"placement_kinds names unknown placements {sorted(unknown)}; "
+            f"placements are {[n for n, _ in entries]}"
+        )
+    return PlacementContext(placements=tuple(
+        Placement(n, s, kinds.get(n, "replicas")) for n, s in entries))

@@ -3,7 +3,11 @@
 Every primitive is placement-addressed: for a placement at stack index
 ``i``, ``broadcast`` takes a value partitioned at the ``i`` outer placements
 and inserts that placement's group axis at position ``i``; ``reduce_*``
-removes it.
+removes it. ``stage_transfer`` addresses a stage-kind level and keeps the
+value's depth: ``out[j] = x[j - shift]`` along that level's axis, vacated
+stages zero-filled (or rolled, ``wrap=True``). Broadcast and the
+reductions refuse a stage-kind level and ``stage_transfer`` a replica
+level, when called and when traced (the ops' fake implementations).
 
 Two forms, one arithmetic:
 
@@ -27,9 +31,11 @@ Two forms, one arithmetic:
   gradient program holds only ``drjax`` communication nodes: the backward
   of ``drjax.broadcast@p`` is ``drjax.reduce_sum@p``, of
   ``drjax.reduce_sum@p`` ``drjax.broadcast@p``, of ``drjax.reduce_mean@p``
-  ``drjax.broadcast@p(ct * r)``, and of ``drjax.reduce_max@p`` the
+  ``drjax.broadcast@p(ct * r)``, of ``drjax.reduce_max@p`` the
   reference's subgradient (the tangent split evenly over tied arg-max
-  groups) carried by ``drjax.broadcast``. Their batching rules move the
+  groups) carried by ``drjax.broadcast``, and of
+  ``drjax.stage_transfer@p`` (shift s) the reverse transfer (shift -s,
+  the same ``wrap``): the backward pipeline. Their batching rules move the
   vmapped axis to the end, as the reference's do, so ``torch.func.vmap``
   keeps the primitive.
 
@@ -50,7 +56,9 @@ the transpose's ``ct / size``) as a product with that reciprocal. A
 division would differ from it in the last bit for sizes that are not
 powers of two.
 
-Left out for later slices: ``stage_transfer``.
+``stage_transfer`` has no kernel: the reference lowers it with
+``mlir.lower_fun`` of its jnp implementation, a roll and a zero fill,
+which are plain tensor ops here too.
 """
 
 from __future__ import annotations
@@ -63,7 +71,8 @@ import torch
 from ..kernels import ops as kernel_ops
 from . import placement as placement_lib
 
-COMM_OPS = ("broadcast", "reduce_sum", "reduce_mean", "reduce_max")
+COMM_OPS = ("broadcast", "reduce_sum", "reduce_mean", "reduce_max",
+            "stage_transfer")
 
 # A module global, not a thread-local: the autograd engine runs a traced
 # backward on its device threads, which must record as well.
@@ -87,22 +96,51 @@ def is_recording() -> bool:
 
 
 def stack_spec(ctx: placement_lib.PlacementContext) -> str:
-    """The placement stack as an op argument: ``"pods:2,clients:4"``."""
-    return ",".join(f"{p.name}:{p.size}" for p in ctx.placements)
+    """The placement stack as an op argument: ``"pods:2,clients:4"``, a
+    stage-kind level marked ``"stages:4:stages"``."""
+    return ",".join(f"{p.name}:{p.size}"
+                    + (f":{p.kind}" if p.kind != "replicas" else "")
+                    for p in ctx.placements)
+
+
+def parse_placements(spec: str) -> Tuple[placement_lib.Placement, ...]:
+    out = []
+    for entry in spec.split(","):
+        name, size, *kind = entry.split(":")
+        out.append(placement_lib.Placement(name, int(size),
+                                           kind[0] if kind else "replicas"))
+    return tuple(out)
 
 
 def parse_stack(spec: str) -> Tuple[Tuple[str, int], ...]:
-    out = []
-    for entry in spec.split(","):
-        name, size = entry.rsplit(":", 1)
-        out.append((name, int(size)))
-    return tuple(out)
+    """(name, size) of each level of a stack argument."""
+    return tuple((p.name, p.size) for p in parse_placements(spec))
 
 
 def _resolve(placement: Optional[str]) -> Tuple[placement_lib.Placement, int]:
     ctx = placement_lib.current_context()
     i = ctx.index_of(placement)
     return ctx.placements[i], i
+
+
+def _check_kind(pl: placement_lib.Placement, prim: str, expect: str) -> None:
+    """Replica collectives address only replica-kind levels, a transfer
+    only stage-kind ones (the reference's wrong-kind refusal)."""
+    if pl.kind != expect:
+        other = ("stage_transfer/stage_map" if expect == "replicas"
+                 else "broadcast/reduce")
+        raise ValueError(
+            f"drjax.{prim} cannot address placement '{pl.name}' of kind "
+            f"'{pl.kind}' (expects a '{expect}'-kind placement; "
+            f"'{pl.kind}' levels communicate via {other})."
+        )
+
+
+def _check_spec_kind(stack: str, index: int, prim: str) -> None:
+    """:func:`_check_kind` of an op's addressed level, from its stack
+    argument: what the ops and their fake implementations check."""
+    _check_kind(parse_placements(stack)[index], prim,
+                "stages" if prim == "stage_transfer" else "replicas")
 
 
 def _check_operand_depth(x: torch.Tensor, depth: int, prim: str) -> None:
@@ -143,13 +181,32 @@ def _expand(x: torch.Tensor, i: int, n: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _transfer(x: torch.Tensor, i: int, shift: int, wrap: bool) -> torch.Tensor:
+    """``out[..., j, ...] = x[..., j - shift, ...]`` along axis ``i``: a
+    roll, the slots the shift vacated zero-filled unless ``wrap`` (the
+    reference's ``_stage_transfer_impl``). A new tensor, never a view."""
+    n = x.shape[i]
+    if wrap and shift % n == 0:
+        return x.clone()
+    out = torch.roll(x, shift, dims=i)
+    if not wrap:
+        src = torch.arange(n, device=x.device) - shift
+        valid = ((src >= 0) & (src < n)).reshape(
+            (1,) * i + (n,) + (1,) * (x.ndim - i - 1))
+        out = torch.where(valid, out, torch.zeros((), dtype=x.dtype,
+                                                  device=x.device))
+    return out
+
+
 @torch.library.custom_op("drjax::broadcast", mutates_args=())
 def _broadcast_op(x: torch.Tensor, stack: str, index: int) -> torch.Tensor:
+    _check_spec_kind(stack, index, "broadcast")
     return _expand(x, index, _size(stack, index)).clone()
 
 
 @torch.library.custom_op("drjax::reduce_sum", mutates_args=())
 def _reduce_sum_op(x: torch.Tensor, stack: str, index: int) -> torch.Tensor:
+    _check_spec_kind(stack, index, "reduce_sum")
     return x.sum(dim=index)
 
 
@@ -157,6 +214,7 @@ def _reduce_sum_op(x: torch.Tensor, stack: str, index: int) -> torch.Tensor:
 def _reduce_mean_op(x: torch.Tensor, stack: str, index: int,
                     compress: Optional[str] = None,
                     qaxis: int = -1) -> torch.Tensor:
+    _check_spec_kind(stack, index, "reduce_mean")
     if compress is None:
         return x.sum(dim=index) * reciprocal(_size(stack, index))
     return kernel_ops.reduce_compress_roundtrip(x, axis=index, qaxis=qaxis)
@@ -164,21 +222,49 @@ def _reduce_mean_op(x: torch.Tensor, stack: str, index: int,
 
 @torch.library.custom_op("drjax::reduce_max", mutates_args=())
 def _reduce_max_op(x: torch.Tensor, stack: str, index: int) -> torch.Tensor:
+    _check_spec_kind(stack, index, "reduce_max")
     return x.amax(dim=index)
+
+
+@torch.library.custom_op("drjax::stage_transfer", mutates_args=())
+def _stage_transfer_op(x: torch.Tensor, stack: str, index: int, shift: int,
+                       wrap: bool) -> torch.Tensor:
+    _check_spec_kind(stack, index, "stage_transfer")
+    return _transfer(x, index, shift, wrap)
 
 
 @_broadcast_op.register_fake
 def _(x, stack, index):
+    _check_spec_kind(stack, index, "broadcast")
     n = _size(stack, index)
     return x.new_empty(x.shape[:index] + (n,) + x.shape[index:])
 
 
-def _reduced_fake(x, stack, index, *rest):
-    return x.new_empty(x.shape[:index] + x.shape[index + 1:])
+def _reduced_fake(name):
+    def fake(x, stack, index, *rest):
+        _check_spec_kind(stack, index, name)
+        return x.new_empty(x.shape[:index] + x.shape[index + 1:])
+
+    return fake
 
 
-for _op in (_reduce_sum_op, _reduce_mean_op, _reduce_max_op):
-    _op.register_fake(_reduced_fake)
+for _name, _op in (("reduce_sum", _reduce_sum_op),
+                   ("reduce_mean", _reduce_mean_op),
+                   ("reduce_max", _reduce_max_op)):
+    _op.register_fake(_reduced_fake(_name))
+
+
+@_stage_transfer_op.register_fake
+def _(x, stack, index, shift, wrap):
+    _check_spec_kind(stack, index, "stage_transfer")
+    levels = parse_placements(stack)
+    if x.ndim < index + 1 or any(x.shape[j] != levels[j].size
+                                 for j in range(index + 1)):
+        raise ValueError(
+            f"drjax.stage_transfer at placement '{levels[index].name}' "
+            f"expects a value partitioned at the {index + 1} outer "
+            f"placement(s); got shape {tuple(x.shape)}.")
+    return x.new_empty(x.shape)
 
 
 class _Comm(torch.autograd.Function):
@@ -249,6 +335,24 @@ class _ReduceMax(_Comm):
         return hit * _Broadcast.apply(ct, ctx.stack, i), None, None
 
 
+class _StageTransfer(_Comm):
+    @staticmethod
+    def forward(x, stack, index, shift, wrap):
+        return torch.ops.drjax.stage_transfer(x, stack, index, shift, wrap)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _Comm.setup_context(ctx, inputs, output)
+        ctx.shift, ctx.wrap = inputs[3], inputs[4]
+
+    @staticmethod
+    def backward(ctx, ct):
+        """The transpose of a linear shift: the reverse transfer (the
+        reference's ``_stage_transfer_transpose``)."""
+        return (_StageTransfer.apply(ct, ctx.stack, ctx.index, -ctx.shift,
+                                     ctx.wrap), None, None, None, None)
+
+
 def _last(x, d):
     return x.movedim(d, -1), x.ndim - 1
 
@@ -284,6 +388,18 @@ for _name in ("reduce_sum", "reduce_mean", "reduce_max"):
         f"drjax::{_name}", _reduction_vmap(getattr(torch.ops.drjax, _name)))
 
 
+@torch.library.register_vmap("drjax::stage_transfer")
+def _stage_transfer_vmap(info, in_dims, x, stack, index, shift, wrap):
+    d = in_dims[0]
+    if d is None:
+        return torch.ops.drjax.stage_transfer(x, stack, index, shift,
+                                              wrap), None
+    # The batch axis goes last, so the placement-prefix axes stay leading.
+    x, _ = _last(x, d)
+    out = torch.ops.drjax.stage_transfer(x, stack, index, shift, wrap)
+    return out, out.ndim - 1
+
+
 # ---------------------------------------------------------------------------
 # the primitives
 # ---------------------------------------------------------------------------
@@ -296,6 +412,7 @@ def broadcast(x: torch.Tensor, placement: Optional[str] = None) -> torch.Tensor:
     over the new axis (``reduce_sum@placement``)."""
     x = torch.as_tensor(x)
     pl, i = _resolve(placement)
+    _check_kind(pl, "broadcast", "replicas")
     _check_operand_depth(x, i, "broadcast")
     if _RECORDING:
         return _Broadcast.apply(
@@ -304,7 +421,8 @@ def broadcast(x: torch.Tensor, placement: Optional[str] = None) -> torch.Tensor:
 
 
 def reduce_sum(x: torch.Tensor, placement: Optional[str] = None) -> torch.Tensor:
-    _, i = _resolve(placement)
+    pl, i = _resolve(placement)
+    _check_kind(pl, "reduce_sum", "replicas")
     _check_operand_depth(x, i + 1, "reduce_sum")
     if _RECORDING:
         return _ReduceSum.apply(
@@ -315,7 +433,8 @@ def reduce_sum(x: torch.Tensor, placement: Optional[str] = None) -> torch.Tensor
 def reduce_max(x: torch.Tensor, placement: Optional[str] = None) -> torch.Tensor:
     """Max over one placement's groups; its gradient goes to the arg-max
     groups, split evenly over ties (the reference's subgradient)."""
-    _, i = _resolve(placement)
+    pl, i = _resolve(placement)
+    _check_kind(pl, "reduce_max", "replicas")
     _check_operand_depth(x, i + 1, "reduce_max")
     return _ReduceMax.apply(x, stack_spec(placement_lib.current_context()), i)
 
@@ -344,6 +463,7 @@ def reduce_mean(x: torch.Tensor, placement: Optional[str] = None, *,
     reduce + int8 roundtrip (``qaxis`` = the partial's axis that carries the
     per-row scales): the hierarchical fast path."""
     pl, i = _resolve(placement)
+    _check_kind(pl, "reduce_mean", "replicas")
     _check_operand_depth(x, i + 1, "reduce_mean")
     if compress not in (None, "int8"):
         raise NotImplementedError(
@@ -356,3 +476,21 @@ def reduce_mean(x: torch.Tensor, placement: Optional[str] = None, *,
     if compress is None:
         return x.sum(dim=i) * reciprocal(pl.size)
     return _FusedReduceMean.apply(x, i, pl.size, qaxis)
+
+
+def stage_transfer(x: torch.Tensor, placement: Optional[str] = None, *,
+                   shift: int = 1, wrap: bool = False) -> torch.Tensor:
+    """One ``stage_transfer@placement`` of a stage-kind level at stack
+    index i: ``out[..., j, ...] = x[..., j - shift, ...]`` along axis i,
+    the vacated stages zero-filled unless ``wrap`` (a ring); a shift of
+    at least the stage count zeroes everything. Linear: its transpose is
+    the reverse transfer (``-shift``, the same ``wrap``), which autograd
+    takes through the roll and the fill directly."""
+    pl, i = _resolve(placement)
+    _check_kind(pl, "stage_transfer", "stages")
+    _check_operand_depth(x, i + 1, "stage_transfer")
+    if _RECORDING:
+        return _StageTransfer.apply(
+            x, stack_spec(placement_lib.current_context()), i, int(shift),
+            bool(wrap))
+    return _transfer(x, i, int(shift), bool(wrap))

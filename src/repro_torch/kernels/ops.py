@@ -391,29 +391,113 @@ def flash_attention_bwd_dkdv(q, k, v, lse, delta, dout, *,
 class _FlashAttention(torch.autograd.Function):
     """``flash_attention_xla``'s custom VJP: the forward saves q, k, v, the
     f32 output and L (``repro/models/attention.py:_flash_fwd_rule``), the
-    backward recomputes p from L. Works under non-reentrant
-    ``torch.utils.checkpoint``, which runs the forward again in the
-    backward."""
+    backward (:class:`_FlashAttentionBackward`) recomputes p from L. Works
+    under non-reentrant ``torch.utils.checkpoint``, which runs the forward
+    again in the backward. The forward returns the op's three outputs (the
+    f32 output as a 0-element tensor for f32 inputs), the last two not
+    differentiable: :func:`flash_attention` hands out the first."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        out, out32, lse = flash_attention_fwd(q, k, v, causal=causal,
-                                              window=window)
-        ctx.save_for_backward(q, k, v, out32, lse)
+    def forward(q, k, v, causal, window):
+        return _call("flash_attention_fwd", q, k, v, causal, window)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window = inputs
+        out, out32, lse = output
+        ctx.mark_non_differentiable(out32, lse)
+        ctx.save_for_backward(q, k, v, out if out32.numel() == 0 else out32,
+                              lse)
         ctx.causal, ctx.window = causal, window
-        return out
 
     @staticmethod
-    def backward(ctx, dout):
+    def backward(ctx, dout, _dout32, _dlse):
         q, k, v, out32, lse = ctx.saved_tensors
-        dout = dout.contiguous()
-        dq, delta = flash_attention_bwd_dq(q, k, v, out32, lse, dout,
-                                           causal=ctx.causal,
-                                           window=ctx.window)
-        dk, dv = flash_attention_bwd_dkdv(q, k, v, lse, delta, dout,
-                                          causal=ctx.causal,
-                                          window=ctx.window)
+        dq, dk, dv = _FlashAttentionBackward.apply(
+            q, k, v, out32.detach(), lse, dout.contiguous(), ctx.causal,
+            ctx.window)
         return dq, dk, dv, None, None
+
+
+class _FlashAttentionBackward(torch.autograd.Function):
+    """K2's backward as a differentiable function of (q, k, v, dout).
+
+    Forward: the ``bwd_dq`` and ``bwd_dkdv`` kernels (their plain versions
+    on the CPU), as the first-order backward always ran them.
+
+    Backward, the second order: the vjp of (dq, dk, dv) with respect to
+    (q, k, v, dout), including the dependence of the f32 output and L on q,
+    k and v, which JAX takes through ``_flash_fwd_rule``'s residuals when it
+    differentiates ``_flash_bwd_rule``. It is computed by recomputing the
+    forward and the first backward from (q, k, v, dout) through the plain
+    versions in ``kernels.ref`` under autograd, then
+    ``torch.autograd.grad`` (with ``create_graph`` when the caller's grad
+    mode asks for it, so a third order composes). No kernel computes this
+    term, on the card either: the reference computes it in XLA too, outside
+    any Pallas kernel, and a hand-written second-order kernel is later work
+    (ROADMAP queue 2). Each such call counts in
+    ``plain_counts()["flash_attention_bwd2_plain"]``. The recompute holds
+    the (B, Hq, Sq, Skv) f32 scores of the call.
+
+    The recompute runs in f32 for every input dtype, as the reference's
+    ``_flash_bwd_rule`` does: bf16 q, k, v and dout are cast to f32 once
+    on entry, so each input's terms from every path (the scores, the
+    output, the first backward) sum in f32 and are rounded to its dtype
+    once. Given the same cotangents it agrees with the reference's double
+    backward (and with autograd's through the plain forward) within 1e-4
+    of the largest magnitude in f32, and for bf16 within two bf16 steps
+    (2^-6 of each value) plus 1e-2 of the largest magnitude: the two sides
+    round the same values to bf16, from f32 sums taken in another order. A
+    cotangent built from the bf16 first order itself (the gradient of
+    ``sum |dq|^2``, say) carries the card kernels' one-step rounding of
+    that first order too, and can read beyond it."""
+
+    @staticmethod
+    def forward(q, k, v, out32, lse, dout, causal, window):
+        dq, delta = flash_attention_bwd_dq(q, k, v, out32, lse, dout,
+                                           causal=causal, window=window)
+        dk, dv = flash_attention_bwd_dkdv(q, k, v, lse, delta, dout,
+                                          causal=causal, window=window)
+        return dq, dk, dv
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, _, _, dout, causal, window = inputs
+        ctx.save_for_backward(q, k, v, dout)
+        ctx.causal, ctx.window = causal, window
+
+    @staticmethod
+    def backward(ctx, gdq, gdk, gdv):
+        _PLAIN_CALLS["flash_attention_bwd2_plain"] += 1
+        create = torch.is_grad_enabled()
+        saved = ctx.saved_tensors
+        needs = [ctx.needs_input_grad[j] for j in (0, 1, 2, 5)]
+        with torch.enable_grad():
+            # A view of each input that carries a graph (so a third order
+            # reaches the input, and an input passed twice gets each
+            # position's own gradient), a fresh leaf of one that does not.
+            ins = [t.view_as(t) if t.requires_grad
+                   else t.detach().requires_grad_(True) for t in saved]
+            # One f32 cast of each input: every path's term sums in f32
+            # and is rounded to the input's dtype once.
+            q, k, v, dout = (x.to(torch.float32) for x in ins)
+            _, out32, lse = _ref.flash_attention_ref(
+                q, k, v, causal=ctx.causal, window=ctx.window)
+            grads = _ref.flash_attention_bwd_ref(
+                q, k, v, out32, lse, dout, causal=ctx.causal,
+                window=ctx.window)
+            got = iter(torch.autograd.grad(
+                grads, [x for x, need in zip(ins, needs) if need],
+                [g.to(o.dtype) for o, g in zip(grads, (gdq, gdk, gdv))],
+                create_graph=create, materialize_grads=True))
+        gq, gk, gv, gdout = (next(got) if need else None for need in needs)
+        return gq, gk, gv, None, None, gdout, None, None
+
+
+# Calls of the terms no kernel computes (:func:`plain_counts`): K2's second
+# order grows by one each time :class:`_FlashAttentionBackward`
+# differentiates the first backward (plain PyTorch on either device).
+_PLAIN_CALLS = {"flash_attention_bwd2_plain": 0}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -423,7 +507,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kernels (forward, then ``bwd_dq`` and ``bwd_dkdv``); on the CPU their
     plain versions."""
     return _FlashAttention.apply(q.contiguous(), k.contiguous(),
-                                 v.contiguous(), bool(causal), int(window or 0))
+                                 v.contiguous(), bool(causal),
+                                 int(window or 0))[0]
 
 
 def lru_scan_fwd(a, b, h0=None):
@@ -451,6 +536,7 @@ class _LruScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         a, h, h0 = ctx.saved_tensors
+        _no_second_order_on_card("lru_scan", a)
         da, db, dh0 = lru_scan_bwd(a, h, g.contiguous(), h0)
         return da, db, None if h0 is None else dh0
 
@@ -494,6 +580,7 @@ class _Wkv6(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         r, k, v, logw, u, states = ctx.saved_tensors
+        _no_second_order_on_card("wkv6", r)
         return wkv6_bwd(r, k, v, logw, u, states, dout.contiguous())
 
 
@@ -515,12 +602,33 @@ for _fn in KERNEL_WRAPPERS:
 
 
 def reset_launches() -> None:
-    """Every wrapper's count to 0, and K4's launches by route
-    (``rglru_scan.ROUTE_LAUNCHES``)."""
+    """Every wrapper's count to 0, K4's launches by route
+    (``rglru_scan.ROUTE_LAUNCHES``) and the plain calls of
+    :func:`plain_counts`."""
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+    for name in _PLAIN_CALLS:
+        _PLAIN_CALLS[name] = 0
     _lru.reset_route_launches()
 
 
 def launch_counts() -> Dict[str, int]:
     return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+
+
+def plain_counts() -> Dict[str, int]:
+    """Calls of the terms no kernel computes, on either device: K2's
+    second order (:class:`_FlashAttentionBackward`)."""
+    return dict(_PLAIN_CALLS)
+
+
+def _no_second_order_on_card(name: str, x: Tensor) -> None:
+    """A kernel's backward whose outputs carry no graph: on the card, a
+    backward taken with ``create_graph`` would drop its second-order terms,
+    so it raises instead (ROADMAP queue 2: K4/K5 second order on the
+    card). The CPU's plain backward is differentiable and runs."""
+    if torch.is_grad_enabled() and x.is_cuda:
+        raise NotImplementedError(
+            f"{name}: a second order (create_graph=True) through the card's "
+            "kernel is not implemented: its backward kernel's outputs carry "
+            "no graph (ROADMAP queue 2, K4/K5 second order on the card)")

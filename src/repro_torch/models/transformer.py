@@ -77,15 +77,16 @@ def layer_params(params: Dict[str, torch.Tensor], i: int):
     return blocks.sub(params, f"layers.{i}.")
 
 
-def forward(cfg, params: Dict[str, torch.Tensor], tokens: torch.Tensor,
-            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """tokens (B, S) -> logits (B, S, padded_vocab) f32."""
-    x = torch.nn.functional.embedding(tokens.long(), params["embed.table"])
-    b, s = x.shape[:2]
-    if positions is None:
-        positions = torch.arange(s, device=x.device).expand(b, s)
-    for i, kind in enumerate(blocks.layer_kinds(cfg)):
-        layer = functools.partial(blocks.block_apply, cfg, kind,
+def apply_layers(cfg, params: Dict[str, torch.Tensor], x: torch.Tensor,
+                 positions: torch.Tensor, start: int = 0,
+                 stop: Optional[int] = None) -> torch.Tensor:
+    """Layers ``start`` to ``stop`` (default: all) of the stack on the
+    activation ``x`` (B, S, D), each checkpointed under ``remat="full"``
+    when grad mode is on: the backbone of :func:`forward`, and a pipeline
+    stage's work (a contiguous range of layers)."""
+    kinds = blocks.layer_kinds(cfg)
+    for i in range(start, len(kinds) if stop is None else stop):
+        layer = functools.partial(blocks.block_apply, cfg, kinds[i],
                                   layer_params(params, i))
         if cfg.remat == "full" and torch.is_grad_enabled():
             x = checkpoint(layer, x, positions, use_reentrant=False,
@@ -94,6 +95,17 @@ def forward(cfg, params: Dict[str, torch.Tensor], tokens: torch.Tensor,
             x = layer(x, positions)
         else:
             raise ValueError(f"remat {cfg.remat!r} is not ported")
+    return x
+
+
+def forward(cfg, params: Dict[str, torch.Tensor], tokens: torch.Tensor,
+            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """tokens (B, S) -> logits (B, S, padded_vocab) f32."""
+    x = torch.nn.functional.embedding(tokens.long(), params["embed.table"])
+    b, s = x.shape[:2]
+    if positions is None:
+        positions = torch.arange(s, device=x.device).expand(b, s)
+    x = apply_layers(cfg, params, x, positions)
     x = common.rmsnorm_apply(params["final_ln.scale"], x, cfg.norm_eps)
     # f32 logits from the activation-dtype inputs, as the reference's
     # preferred_element_type=f32 product.

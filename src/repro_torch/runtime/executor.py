@@ -25,11 +25,15 @@ compiles a plan for repeated rounds:
   capture (a node that reads a value on the host, such as ``.item()``,
   inside a unit) raises at compile time; nothing falls back to eager
   execution.
+* A ``TRANSFER`` stage (a pipeline's neighbour exchange) is inline like
+  a broadcast or a reduce: it runs inside its unit, one CUDA graph with
+  the local stages around it.
 * An executable cache keyed by ``(plan fingerprint, device, argument
   shapes and dtypes, donation)``: a plan built again from a new trace of
   the same program is a hit and captures nothing new
-  (:func:`plan_fingerprint` hashes the canonical graph code, placements,
-  stage skeleton and constant bytes).
+  (:func:`plan_fingerprint` hashes the canonical graph code, placements
+  and their kinds, stage skeleton and constant bytes: a stage stack and a
+  replica stack of the same sizes never share an executable).
 * Donation: ``donate_argnums`` marks carried arguments (params, server
   state), and the plan returns its carry first: donated argument ``i``
   takes output ``i``, which must have its shape and dtype. After a call
@@ -117,7 +121,8 @@ def _graph_code(gm: fx.GraphModule, prefix: str = "") -> List[str]:
 def fingerprint_parts(plan) -> List[Tuple[str, bytes]]:
     """The named byte components :func:`plan_fingerprint` hashes, in
     order: placements, input/output depths, the graph code, the stage
-    skeleton and every constant's shape, dtype and bytes."""
+    skeleton, the placements' kinds and every constant's shape, dtype and
+    bytes."""
     parts: List[Tuple[str, bytes]] = [
         ("placements", str(plan.placements).encode()),
         ("partitioned_invars", str(plan.partitioned_invars).encode()),
@@ -125,6 +130,7 @@ def fingerprint_parts(plan) -> List[Tuple[str, bytes]]:
         ("graph", "\n".join(_graph_code(plan.gm)).encode()),
         ("stage_skeleton", "|".join(
             f"{name}:{s.kind}" for name, s, _ in plan.named_stages()).encode()),
+        ("placement_kinds", str(plan.placement_kinds).encode()),
     ]
     for i, (_, val) in enumerate(interp._const_table(plan)):
         t = val.detach().cpu().contiguous().reshape(-1)
@@ -183,7 +189,7 @@ def fuse_stages(stages: Sequence[Any]) -> List[Any]:
 def _inline(stage) -> bool:
     """Does ``stage`` run inside a captured unit (no host control flow)?"""
     return isinstance(stage, (interp.LocalCompute, interp.Broadcast,
-                              interp.Reduce))
+                              interp.Reduce, interp.Transfer))
 
 
 def _runs(io) -> List[List[int]]:

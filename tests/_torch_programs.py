@@ -3,7 +3,10 @@
 the oracle programs of the reference's interpreter tests, written in torch
 with its higher-order ops where they loop or branch (closed-over values
 passed as the ops' additional inputs), and the shipped rounds at reduced
-lm_350m with their declared input depths."""
+lm_350m with their declared input depths: the local-SGD, async,
+multi-round and FedSGD rounds, the pipelined round (2 stages of one layer
+each, 4 microbatches), a MAML train step (its outer gradient) and
+Branch-Train-Merge."""
 
 import functools
 
@@ -21,16 +24,23 @@ from repro import compression as jcomp
 from repro import core as jdrjax
 from repro import optim as jopt
 from repro.algorithms import async_rounds as jasync
+from repro.algorithms import btm as jbtm
+from repro.algorithms import maml as jmaml
+from repro.algorithms import pipeline as jpipeline
 from repro.algorithms import rounds as jrounds
 from repro.data import grouped as jgrouped
+from repro.models import blocks as jblocks
 from repro.models import registry as jreg
 from repro_torch import compression as tcomp
 from repro_torch import convert, optim
 from repro_torch import core as drjax
 from repro_torch.algorithms import async_rounds, rounds
+from repro_torch.algorithms import btm as tbtm
+from repro_torch.algorithms import maml as tmaml
+from repro_torch.algorithms import pipeline as tpipeline
 from repro_torch.core import interpreter as interp
 from repro_torch.data import grouped
-from repro_torch.models import registry
+from repro_torch.models import blocks, registry, transformer
 
 
 def jplan(fn, placements, *args):
@@ -312,10 +322,69 @@ def _round_data(cohort, lead, rounds_axis=0):
     return jb[0], tb[0]
 
 
+def _tokens(seed, lead):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, 256, lead + (SEQ + 1,)).astype(np.int32)
+    return {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+
+
+def _both(tree):
+    return ({k: jnp.asarray(v) for k, v in tree.items()},
+            {k: torch.from_numpy(v.copy()) for k, v in tree.items()})
+
+
+PIPE_STAGES, PIPE_MICRO = 2, 4
+
+
+def pipelined(model):
+    """Reduced lm_350m's layers as a pipeline, in both packages: stage s
+    applies layer s (``block_apply``, closed over its parameters) to the
+    (batch, seq, d) activation; M microbatches of seeded activations and a
+    zero buffer."""
+    jcfg, tcfg, jparams, tparams = model
+    positions = np.broadcast_to(np.arange(SEQ), (BATCH, SEQ))
+    jpos, tpos = jnp.asarray(positions), torch.from_numpy(positions.copy())
+
+    def jstage(s):
+        layer = jax.tree_util.tree_map(lambda a: a[s], jparams["layers"])
+        return lambda x: jblocks.block_apply(jcfg, "attention", layer, x,
+                                             jpos)[0]
+
+    def tstage(s):
+        layer = transformer.layer_params(tparams, s)
+        return lambda x: blocks.block_apply(tcfg, "attention", layer, x, tpos)
+
+    rng = np.random.default_rng(11)
+    mb = rng.standard_normal((PIPE_MICRO, BATCH, SEQ, tcfg.d_model)).astype(
+        np.float32)
+    act0 = np.zeros((PIPE_STAGES, BATCH, SEQ, tcfg.d_model), np.float32)
+    jr = jpipeline.make_pipelined_round(
+        [jstage(s) for s in range(PIPE_STAGES)],
+        jpipeline.PipelineConfig(PIPE_STAGES, PIPE_MICRO))
+    tr = tpipeline.make_pipelined_round(
+        [tstage(s) for s in range(PIPE_STAGES)],
+        tpipeline.PipelineConfig(PIPE_STAGES, PIPE_MICRO))
+    return (jr, (jnp.asarray(mb), jnp.asarray(act0)), tr,
+            (_t(mb), _t(act0)), (("stages", PIPE_STAGES, "stages"),))
+
+
 def shipped(kind, model):
     jcfg, tcfg, jparams, tparams = model
     jloss = functools.partial(jreg.loss_fn, jcfg)
     tloss = functools.partial(registry.loss_fn, tcfg)
+    if kind == "pipeline":
+        return pipelined(model)
+    if kind == "maml_step":
+        jtasks, ttasks = zip(*(_both(_tokens(s, (2, BATCH))) for s in (1, 2)))
+        _, jstep = jmaml.make_parallel_maml(jloss, 2, inner_lr=0.05)
+        _, tstep = tmaml.make_parallel_maml(tloss, 2, inner_lr=0.05)
+        return (jstep, (jparams, dict(zip(("support", "query"), jtasks))),
+                tstep, (tparams, dict(zip(("support", "query"), ttasks))), 2)
+    if kind == "btm":
+        jd, td = _both(_tokens(3, (2, STEPS, BATCH)))
+        jfn = jbtm.branch_train_merge(jloss, jopt.sgd(0.05), 2, STEPS)
+        tfn = tbtm.branch_train_merge(tloss, optim.sgd(0.05), 2, STEPS)
+        return jfn, (jparams, jd), tfn, (tparams, td), 2
     jserver, tserver = jopt.fedavg_momentum(1.0), optim.fedavg_momentum(1.0)
     pods = 2 if kind == "hier_int8" else 0
     compression = {"flat_int8": "int8", "topk": "topk",
@@ -365,7 +434,7 @@ def shipped(kind, model):
 
 
 SHIPPED = ["flat", "flat_int8", "topk", "hier_int8", "async", "multi_round",
-           "fedsgd_learned"]
+           "fedsgd_learned", "pipeline", "maml_step", "btm"]
 
 
 def shipped_plans(kind, model):
@@ -376,7 +445,8 @@ def shipped_plans(kind, model):
     2-layer leaves for 2 groups."""
     jr, jargs, tr, targs, place = shipped(kind, model)
     depth = 2 if isinstance(place, dict) else 1
-    data_at = {"async": 3, "fedsgd_learned": 2}.get(kind, 2)
+    data_at = {"async": 3, "fedsgd_learned": 2, "pipeline": 1,
+               "maml_step": 1, "btm": 1}.get(kind, 2)
     jdepths = [depth if i == data_at else 0 for i, a in enumerate(jargs)
                for _ in jax.tree_util.tree_leaves(a)]
     tdepths = [depth if i == data_at else 0 for i, a in enumerate(targs)

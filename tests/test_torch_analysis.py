@@ -24,6 +24,14 @@
   donate_argnums=...)`` raises: the port's executor refuses what the pass
   calls an error, so a donation the reference's XLA would drop with a
   warning (``donation/dropped``) is an error here.
+* Stage kinds: ``placement/wrong-kind-comm``, ``placement/transfer-operand``
+  and ``placement/local-kind-mismatch`` are ported (no longer in the
+  "cannot arise" list). The same ``(code, severity)`` multiset as the
+  reference's on pipelined rounds (heterogeneous and uniform stages, 2 and
+  3 stages) and on broken fixtures built the same way in both packages: a
+  reduce and a transfer whose node addresses the wrong kind of level, a
+  transfer whose operand sits at the server, a local stage whose kind was
+  flipped; the transfers' comm-cost blocks equal, a ring's included.
 """
 
 import functools
@@ -34,6 +42,7 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -46,13 +55,20 @@ from torch.utils import _pytree as pytree  # noqa: E402
 from _torch_programs import (  # noqa: E402
     PROGRAMS, SHIPPED, both, jdrjax, jnp, jplan, load_model, shipped_plans,
     tplan)
+import jax  # noqa: E402
+from repro.algorithms import pipeline as jpipeline  # noqa: E402
+from repro.analysis import placement_safety as jplacement_safety  # noqa: E402
+from repro.core import interpreter as jinterp  # noqa: E402
+from repro.core import placement as jplacement  # noqa: E402
 from repro_torch import analysis  # noqa: E402
 from repro_torch import compression as tcomp  # noqa: E402
 from repro_torch import core as drjax  # noqa: E402
 from repro_torch.analysis import (  # noqa: E402
     commcost, donation, placement_safety, retrace)
+from repro_torch.algorithms import pipeline  # noqa: E402
 from repro_torch.analysis.lints import run_lints  # noqa: E402
 from repro_torch.core import interpreter as interp  # noqa: E402
+from repro_torch.core import placement as tplacement  # noqa: E402
 from repro_torch.runtime import executor  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -163,6 +179,145 @@ def test_comm_cost_matches_reference(name):
                 assert got == commcost.int8_wire_payload(rows * 256)
             assert 0 <= got - bj[key] <= leaves * per_row, (key, got, bj[key])
     assert tc.unknown_trips == jc.unknown_trips
+
+
+# ---------------------------------------------------------------------------
+# stage kinds: pipelined rounds and broken fixtures, in both packages
+# ---------------------------------------------------------------------------
+
+
+def test_stage_kind_codes_are_ported():
+    for code in ("placement/wrong-kind-comm", "placement/transfer-operand",
+                 "placement/local-kind-mismatch"):
+        assert code not in NOT_PORTED
+
+
+def _pipeline_plans(s, m, d, hetero):
+    """Both packages' plans of ``tests/test_pipeline.py``'s pipelined round
+    (``pipelined_setup``)."""
+    def build(mod, to, lib):
+        fns = ([(lambda k: (lambda a: a + float(k)))(k) for k in range(s)]
+               if hetero else lib.tanh)
+        rf = mod.make_pipelined_round(fns, mod.PipelineConfig(s, m))
+        mb = np.arange(m * d, dtype=np.float32).reshape(m, d) / (m * d)
+        return rf, (to(mb), to(np.zeros((s, d), np.float32)))
+
+    jrf, jargs = build(jpipeline, jnp.asarray, jnp)
+    trf, targs = build(pipeline, lambda a: torch.from_numpy(a.copy()), torch)
+    jp = jdrjax.build_plan(jax.make_jaxpr(jrf)(*jargs), jrf.drjax_context,
+                           partitioned_invars=(0, 1))
+    tp = interp.build_plan(interp.trace(trf, *targs), trf.drjax_context,
+                           partitioned_invars=(0, 1))
+    return jp, tp
+
+
+PIPELINES = {"hetero_3x5": (3, 5, 4, True), "hetero_2x4": (2, 4, 8, True),
+             "tanh_3x5": (3, 5, 4, False)}
+
+
+@pytest.mark.parametrize("name", sorted(PIPELINES))
+def test_pipeline_findings_and_cost_match_reference(name):
+    jp, tp = _pipeline_plans(*PIPELINES[name])
+    jr, tr = jp.analyze(), tp.analyze()
+    assert jr.ok and tr.ok, (str(jr), str(tr))
+    assert _codes(tr) == _codes(jr, drop=NOT_PORTED)
+    jb, tb = cost_blocks(jp.comm_cost()), cost_blocks(tp.comm_cost())
+    assert tb == jb and any(k[0] == "TRANSFER" for b in tb for k in b)
+    assert tp.comm_cost().ici_bytes == jp.comm_cost().ici_bytes
+
+
+def _kind_fixture(mutation):
+    """One broken plan per package, built and edited the same way."""
+    if mutation == "reduce_at_stage_level":
+        def prog(mod, lib_x):
+            @mod.program(partition_size=4)
+            def f(x):
+                return mod.reduce_sum(x)
+            return f, (lib_x(np.ones((4, 2), np.float32)),)
+    elif mutation in ("transfer_at_replica_level", "transfer_operand_at_server",
+                      "ring_transfer"):
+        def prog(mod, lib_x):
+            @mod.program(placements={"stages": 4},
+                         placement_kinds={"stages": "stages"})
+            def f(x):
+                return mod.stage_transfer(x, wrap=mutation == "ring_transfer")
+            return f, (lib_x(np.ones((4, 1, 8), np.float32)),)
+    else:  # flipped_local_stage
+        def prog(mod, lib_x):
+            @mod.program(partition_size=4)
+            def f(x, xs):
+                return mod.reduce_mean(mod.map_fn(
+                    lambda a, b: a * b, (mod.broadcast(x), xs)))
+            return f, (lib_x(np.float32(2.0)),
+                       lib_x(np.arange(4, dtype=np.float32)))
+
+    depths = (0,) if mutation == "transfer_operand_at_server" else None
+    jf, jargs = prog(jdrjax, jnp.asarray)
+    tf, targs = prog(drjax, lambda a: torch.tensor(np.asarray(a)))
+    jp = jdrjax.build_plan(jax.make_jaxpr(jf)(*jargs), jf.drjax_context,
+                           partitioned_invars=depths)
+    tp = interp.build_plan(interp.trace(tf, *targs), tf.drjax_context,
+                           partitioned_invars=depths)
+    if mutation == "reduce_at_stage_level":
+        (js,) = [s for s in jp.stages if s.kind == "REDUCE"]
+        js.eqn.params["pctx"] = jplacement.make_context(
+            None, placements={"clients": 4},
+            placement_kinds={"clients": "stages"})
+        (ts,) = [s for s in tp.stages if s.kind == "REDUCE"]
+        ts.node.args = (ts.node.args[0], "clients:4:stages") + ts.node.args[2:]
+    elif mutation == "transfer_at_replica_level":
+        (js,) = [s for s in jp.stages if s.kind == "TRANSFER"]
+        js.eqn.params["pctx"] = jplacement.make_context(
+            None, placements={"stages": 4})
+        (ts,) = [s for s in tp.stages if s.kind == "TRANSFER"]
+        ts.node.args = (ts.node.args[0], "stages:4") + ts.node.args[2:]
+    elif mutation == "flipped_local_stage":
+        for plan in (jp, tp):
+            (st,) = [s for s in plan.stages if s.kind == "GROUP_COMPUTE"]
+            st.at_groups = False
+    return jp, tp
+
+
+KIND_FIXTURES = {
+    "reduce_at_stage_level": "placement/wrong-kind-comm",
+    "transfer_at_replica_level": "placement/wrong-kind-comm",
+    "transfer_operand_at_server": "placement/transfer-operand",
+    "flipped_local_stage": "placement/local-kind-mismatch",
+    "ring_transfer": None,
+}
+
+
+@pytest.mark.parametrize("mutation", sorted(KIND_FIXTURES))
+def test_kind_fixtures_match_reference(mutation):
+    jp, tp = _kind_fixture(mutation)
+    want = sorted((f.code, f.severity)
+                  for f in jplacement_safety.check_placement_safety(jp))
+    got = sorted((f.code, f.severity)
+                 for f in placement_safety.check_placement_safety(tp))
+    assert got == want
+    code = KIND_FIXTURES[mutation]
+    assert (code is None) == (not got)
+    if code is not None:
+        assert code in {c for c, _ in got}
+    if mutation in ("ring_transfer", "transfer_operand_at_server"):
+        jb = cost_blocks(jp.comm_cost())
+        assert cost_blocks(tp.comm_cost()) == jb
+    if mutation == "ring_transfer":
+        (c,) = tp.comm_cost().per_stage
+        assert c.endpoints == 4  # a ring: no idle boundary stage
+
+
+def test_transfer_cross_validated():
+    """The transfers of a pipelined plan carry what the model prices: one
+    sender of 32 bytes (2 stages, shift 1) a tick, five ticks; a ring's
+    four senders."""
+    _, tp = _pipeline_plans(2, 4, 8, True)
+    args = [torch.arange(32.0).reshape(4, 8), torch.zeros(2, 8)]
+    assert analysis.cross_validate_comm_cost(tp, args, device="cpu") == []
+    assert analysis.cross_validate_comm_cost(tp, args, device="cpu",
+                                             model_scale=1.5)
+    _, ring = _kind_fixture("ring_transfer")
+    assert analysis.cross_validate_comm_cost(ring, device="cpu") == []
 
 
 # ---------------------------------------------------------------------------

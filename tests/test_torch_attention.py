@@ -22,6 +22,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from jax import vjp  # noqa: E402
 
@@ -157,6 +158,106 @@ def test_autograd_function_is_the_gradient(shape, causal, window, remat):
     np.testing.assert_allclose(_np(out), _np(plain), **F32_TOL)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(_np(g), _np(w), err_msg=name, **F32_TOL)
+
+
+def _second_order(b, s, hq, hkv, hd, causal, window, dtype, seed):
+    """Both packages' gradient of ``sum |grad_{q,k,v} sum(out . w)|^2``
+    with respect to (q, k, v), from the same (dtype-rounded) inputs."""
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal(shape).astype(np.float32) for shape in (
+        (b, s, hq, hd), (b, s, hkv, hd), (b, s, hkv, hd), (b, s, hq, hd))]
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    jq, jk, jv, jw = (jnp.asarray(a, jdt) for a in arrays)
+    blk = min(16, s)
+
+    def inner(q_, k_, v_):
+        out = flash_attention_xla(q_, k_, v_, causal, window, blk, blk)
+        return jnp.sum((out * jw).astype(jnp.float32))
+
+    def outer(q_, k_, v_):
+        grads = jax.grad(inner, argnums=(0, 1, 2))(q_, k_, v_)
+        return sum(jnp.sum(jnp.square(g.astype(jnp.float32))) for g in grads)
+
+    want = jax.grad(outer, argnums=(0, 1, 2))(jq, jk, jv)
+    tq, tk, tv, tw = (_to_torch(np.asarray(a.astype(jnp.float32)), dtype)
+                      for a in (jq, jk, jv, jw))
+    tq, tk, tv = (t.requires_grad_(True) for t in (tq, tk, tv))
+    out = ops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    grads = torch.autograd.grad((out * tw).float().sum(), (tq, tk, tv),
+                                create_graph=True)
+    total = sum((g.float() ** 2).sum() for g in grads)
+    got = torch.autograd.grad(total, (tq, tk, tv))
+    return [_np(g) for g in got], [np.asarray(w.astype(jnp.float32))
+                                   for w in want]
+
+
+@pytest.mark.parametrize(
+    "shape,causal,window,dtype",
+    [
+        ((1, 8, 2, 2, 16), True, 0, torch.float32),    # the P3 probe
+        ((2, 32, 8, 2, 16), True, 12, torch.float32),  # GQA 4:1, window
+        ((1, 24, 4, 1, 32), False, 0, torch.float32),  # MQA, non-causal
+        ((1, 16, 4, 2, 16), True, 0, torch.bfloat16),
+    ],
+)
+def test_second_order_matches_jax_grad_of_grad(shape, causal, window, dtype):
+    """P3: the double backward through K2 is the reference's. The parent's
+    port, which treated the saved f32 output and L as constants, read
+    743.97 / 585.85 for sum |d/dq| / sum |d/dk| at the probe's shape where
+    the reference reads 122.04 / 143.82."""
+    ops.reset_launches()
+    got, want = _second_order(*shape, causal, window, dtype, seed=0)
+    assert ops.plain_counts()["flash_attention_bwd2_plain"] == 1
+    for name, g, w in zip(("q", "k", "v"), got, want):
+        top = np.abs(w).max()
+        if dtype == torch.float32:
+            lim = 1e-4 * top
+        else:
+            lim = 2.0 ** -6 * np.abs(w) + 1e-2 * top
+        assert np.all(np.abs(g - w) <= lim), (name, np.abs(g - w).max(), top)
+    if shape == (1, 8, 2, 2, 16):
+        np.testing.assert_allclose([np.abs(g).sum() for g in got],
+                                   [122.035, 143.818, 175.134], rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_first_order_stays_the_plain_backward_bitwise(dtype):
+    """The first-order backward still runs ``bwd_dq`` and ``bwd_dkdv`` (the
+    plain versions here), bitwise, and takes no second-order call."""
+    q, k, v, do = (_to_torch(a, dtype)
+                   for a in _inputs(3, 2, 40, 40, 6, 3, 32))
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    ops.reset_launches()
+    out = ops.flash_attention(q, k, v, causal=True, window=12)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    with torch.no_grad():
+        want_out, out32, lse = ref.flash_attention_ref(q, k, v, causal=True,
+                                                       window=12)
+        want = ref.flash_attention_bwd_ref(q, k, v, out32, lse, do,
+                                           causal=True, window=12)
+    assert torch.equal(out, want_out)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert ops.plain_counts()["flash_attention_bwd2_plain"] == 0
+
+
+def test_third_order_composes():
+    """The second order keeps a graph under ``create_graph``: a third
+    derivative through K2 equals autograd's through the plain forward."""
+    q, k, v, w = (_to_torch(a).requires_grad_(i < 3)
+                  for i, a in enumerate(_inputs(7, 1, 6, 6, 2, 1, 8)))
+
+    def third(attend):
+        out = attend(q, k, v)
+        g1 = torch.autograd.grad((out * w).sum(), q, create_graph=True)[0]
+        g2 = torch.autograd.grad((g1 ** 2).sum(), k, create_graph=True)[0]
+        return torch.autograd.grad((g2 ** 2).sum(), (q, k, v))
+
+    got = third(lambda *t: ops.flash_attention(*t, causal=True))
+    want = third(lambda *t: ref.flash_attention_ref(*t, causal=True)[0])
+    for g, w_ in zip(got, want):
+        np.testing.assert_allclose(_np(g), _np(w_), rtol=1e-4,
+                                   atol=1e-4 * float(w_.abs().max()))
 
 
 def test_cpu_path_launches_nothing_and_odd_devices_raise():

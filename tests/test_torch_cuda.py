@@ -954,3 +954,81 @@ def test_comm_cost_cross_validates_on_card(card):
     plan8 = interp.build_plan(interp.trace(g, torch.zeros((8, 512))), 8)
     xs = torch.randn((8, 512), generator=torch.Generator().manual_seed(0))
     assert commcost.cross_validate(plan8, [xs.cuda()], device="cuda") == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_second_order_on_card(card, dtype):
+    """P3 on the card: the double backward through ``ops.flash_attention``
+    (the K2 kernels, then the plain recompute of the second order) against
+    autograd's double backward through the plain forward (in bf16 a
+    Hessian-vector product, so both sides take the same cotangent), at the
+    tolerance ``ops._FlashAttentionBackward`` states; the first order
+    bitwise the kernels called directly; one call of each."""
+    gen = torch.Generator(device=card).manual_seed(7)
+    q, k, v, w = (torch.randn((2, 128, 4, 64), generator=gen,
+                              device=card).to(dtype) for _ in range(4))
+
+    u = [torch.randn((2, 128, 4, 64), generator=gen, device=card)
+         for _ in range(3)]
+
+    def second(attend):
+        qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+        g1 = torch.autograd.grad(attend(qq, kk, vv), (qq, kk, vv), w,
+                                 create_graph=True)
+        if dtype == torch.float32:
+            total = sum((g ** 2).sum() for g in g1)
+        else:  # the same cotangent on both sides (a Hessian-vector product)
+            total = sum((g.float() * uu).sum() for g, uu in zip(g1, u))
+        return g1, torch.autograd.grad(total, (qq, kk, vv))
+
+    ops.reset_launches()
+    g1, got = second(lambda *t: ops.flash_attention(*t, causal=True,
+                                                    window=100))
+    counts = ops.launch_counts()
+    assert (counts["flash_attention_fwd"], counts["flash_attention_bwd_dq"],
+            counts["flash_attention_bwd_dkdv"]) == (1, 1, 1)
+    assert ops.plain_counts() == {"flash_attention_bwd2_plain": 1}
+    out, out32, lse = ops.flash_attention_fwd(q, k, v, causal=True,
+                                              window=100)
+    dq, delta = ops.flash_attention_bwd_dq(q, k, v, out32, lse, w,
+                                           causal=True, window=100)
+    dk, dv = ops.flash_attention_bwd_dkdv(q, k, v, lse, delta, w,
+                                          causal=True, window=100)
+    for a, b in zip(g1, (dq, dk, dv)):
+        assert torch.equal(a.detach(), b)
+    _, want = second(lambda *t: ref.flash_attention_ref(*t, causal=True,
+                                                        window=100)[0])
+    for g, p in zip(got, want):
+        diff = (g.double() - p.double()).abs()
+        top = float(p.double().abs().max())
+        if dtype == torch.float32:
+            assert float(diff.max()) <= 1e-4 * top
+        else:
+            assert bool((diff <= 2.0 ** -6 * p.double().abs()
+                         + 1e-2 * top).all())
+
+
+@pytest.mark.cuda
+def test_lru_and_wkv_second_order_raise_on_card(card):
+    """K4's and K5's backward kernels return tensors with no graph: a
+    backward taken with ``create_graph`` on the card raises rather than
+    drop the second-order terms; the first order still runs."""
+    gen = torch.Generator(device=card).manual_seed(8)
+    a = (torch.rand((1, 64, 32), generator=gen, device=card) * 0.9
+         ).requires_grad_(True)
+    b = torch.randn((1, 64, 32), generator=gen, device=card)
+    h = ops.lru_scan(a, b)
+    assert torch.autograd.grad(h.sum(), a, retain_graph=True)[0].isfinite().all()
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
+        torch.autograd.grad(h.sum(), a, create_graph=True)
+    shape = (1, 70, 2, 64)
+    r, kk, vv = (torch.randn(shape, generator=gen, device=card) * 0.5
+                 for _ in range(3))
+    logw = -torch.rand(shape, generator=gen, device=card) - 0.05
+    u = torch.randn((2, 64), generator=gen, device=card) * 0.5
+    r.requires_grad_(True)
+    out = ops.wkv6(r, kk, vv, logw, u)
+    assert torch.autograd.grad(out.sum(), r, retain_graph=True)[0].isfinite().all()
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
+        torch.autograd.grad(out.sum(), r, create_graph=True)

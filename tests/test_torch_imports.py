@@ -56,7 +56,9 @@ def test_imports_without_jax():
             "repro_torch.analysis.placement_safety",
             "repro_torch.analysis.donation", "repro_torch.analysis.retrace",
             "repro_torch.analysis.commcost",
-            "repro_torch.analysis.lints"} <= set(modules)
+            "repro_torch.analysis.lints", "repro_torch.algorithms.pipeline",
+            "repro_torch.algorithms.maml",
+            "repro_torch.algorithms.btm"} <= set(modules)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"  # any `import jax` now raises

@@ -31,7 +31,14 @@ a layer's parameters into one leaf, the port keeps one leaf per layer, so
 a block holds more stages here; the elements each block moves are equal).
 The multi-round trainer is one ``LOOP[scan]`` stage in both packages,
 with the round as its body (the port records a scan node while tracing),
-and ``run_plan`` of it is bitwise the direct trainer's Python loop.
+and ``run_plan`` of it is bitwise the direct trainer's Python loop. So is
+the pipelined round (reduced lm_350m's two layers as two stages, four
+microbatches): one ``LOOP[scan]`` of the ticks with the ``TRANSFER`` in its
+body, its compiled plan (buffer donated) bitwise the direct round. The
+MAML train step's plan is its outer gradient (the map's broadcast and
+``reduce_mean``, then the cotangent's broadcast and the params' gradient's
+``reduce_sum``), and Branch-Train-Merge's a broadcast, the experts' map and
+the mean and max reductions, each the reference's skeleton.
 """
 
 import functools
@@ -84,6 +91,9 @@ def _label(pkg, s):
     else:
         compress = getattr(s, "compress", None)
         elems = s.node.args[0].meta["val"].numel()
+    if s.kind == "TRANSFER":
+        wrap = " wrap" if s.wrap else ""
+        return f"TRANSFER{s.shift:+d}{wrap}@{s.placement}", elems
     kind = "BROADCAST" if s.kind == "BROADCAST" else s.op.upper()
     return f"{kind}@{s.placement}" + (f"[{compress}]" if compress else ""), elems
 
@@ -158,7 +168,7 @@ def skeleton(plan, pkg, counts=True, top=True, by_elements=False,
     moves one packed buffer per dtype in both packages, padded per leaf."""
     blocks, run = [], None
     for s in plan.stages:
-        if s.kind in ("BROADCAST", "REDUCE"):
+        if s.kind in ("BROADCAST", "REDUCE", "TRANSFER"):
             if run is None:
                 run = {}
                 blocks.append(run)
@@ -247,6 +257,28 @@ def test_shipped_round_plans(kind, model):
     want = skeleton(jp, "jax", counts=False, by_elements=True)
     got = skeleton(tp, "torch", counts=False, by_elements=True)
     assert got == want
+
+
+def test_pipelined_round_plan_compiled_bitwise_to_direct(model):
+    """The pipelined round of reduced lm_350m's two layers (the shipped
+    ``pipeline`` program): its plan is one ``LOOP[scan]`` of M + S - 1
+    ticks holding the ``TRANSFER``; ``run_plan`` bitwise the direct round,
+    and the compiled plan with the buffer donated bitwise ``run_plan``,
+    built once, the buffer updated in place."""
+    _, tp, tr, targs = shipped_plans("pipeline", model)
+    (loop,) = [s for s in tp.stages if s.kind == "LOOP"]
+    assert loop.trip_count == 5
+    assert [s.kind for s in loop.body_plan.stages].count("TRANSFER") == 1
+    direct = flat(tr(*targs))
+    assert_bitwise(interp.run_plan(tp, *flat(targs)), direct)
+    compiled = tp.compile(device="cpu", donate_argnums=(1,))
+    for _ in range(2):
+        mb, act = (t.clone() for t in targs)
+        outs = compiled(mb, act)
+        assert outs[1] is act
+        assert_bitwise(outs, direct)
+    assert compiled.trace_count == 1
+    assert not compiled.donation_report().errors
 
 
 def test_hier_round_skeleton_is_the_card_phase_pin(model):
