@@ -117,10 +117,12 @@ Phases, each reported on its own line (any failure raises, exit != 0):
 8. kernels / K4: the RG-LRU scan forward and backward bitwise against
    their plain versions, at the main shape (1, 4096, 2560) f32 and over
    ragged shapes (S shorter than a tile and not a multiple of it, W not a
-   multiple of 32, 2 and 3 batch rows at a ragged S) in f32 and bf16,
+   multiple of 32, 2 and 3 batch rows at a ragged S; the serve chunks of
+   full recurrentgemma_2b, S 1, 37 and 64 at W 2560) in f32 and bf16,
    with and without an initial state; each launch on the route it must
    take (TMA where a row of W values is a 16-byte multiple: the main
-   shape and (2, 4100, 2560); SIMT at W 45, 33 and 1), counted by the
+   shape, (2, 4100, 2560) and the serve chunks; SIMT at W 45, 33 and 1),
+   counted by the
    launchers and seen by kernel name in one ``torch.profiler`` trace of
    every case; the TMA kernels' ``UTMALDG``/``UTMASTG`` in the SASS (none
    in the SIMT kernels) and every kernel's registers and ring; median ms
@@ -236,11 +238,46 @@ Phases, each reported on its own line (any failure raises, exit != 0):
    4 x 512, ``sgd(0.05)``: the mean merge bitwise the experts trained one
    by one, summed and multiplied by ``reciprocal(4)``; the weighted
    merge's metrics finite with max >= mean. ``[slice 12 phases]`` logs the
-   three phases' seconds.
+   three phases' seconds;
+23. after the K5 phase, K5 from an initial state s0 with the final
+   state's gradient (ragged S 1, 37, 64, 200 at (2, S, 2, 64), and serve
+   chunks of full rwkv6_3b, (1, S, 40, 64) at S 2, 37 and 64) against the
+   plain versions (out within
+   1e-4, the final state and every gradient, ds0 included, within 1e-4 of
+   the largest magnitude), the call without s0 bitwise the call with a
+   zero one, and the forward's times with a state; then the second order
+   of K4 (S 256 at full width, h0) and K5 ((1, 128, 4, 64), s0 and the
+   final state in the loss) through the kernels and the plain recompute
+   against autograd through the plain loops, within 1e-4 of the largest
+   magnitude, the first order bitwise the kernels, one plain call each,
+   its ms;
+24. serve (last): full-width stablelm_3b (``SERVE_RUNS``: 16 requests of
+   16-512 prompt tokens, 4 slots, 32 new tokens, chunk 64, max_len 576),
+   then shorter runs of full recurrentgemma_2b and rwkv6_3b (6 requests
+   of 16-300, 2 slots, 16 new), each through
+   ``ContinuousBatchingScheduler`` and ``StaticWaveScheduler`` after a
+   warm-up request that builds every chunk bucket: the two token for
+   token, builds flat (buckets, 1), every request finished; K4 (with h0)
+   and K5 (with s0) launched exactly once per recurrent or rwkv layer and
+   chunk step that ran (eager calls and CUDA graph replays, counted
+   apart); K4 on its TMA route; a replayed decode step bitwise the eager
+   step, both timed; a replayed fused step with a full 64-token chunk
+   bitwise the same step run eagerly on a copy of the pool, and one replay
+   traced by kernel name: K4's ``tma_fwd_kernel`` (recurrentgemma_2b) or
+   K5's ``state_kernel``, ``scan_kernel`` and ``out_kernel`` (rwkv6_3b)
+   once per recurrent or rwkv layer, no SIMT K4 kernel; tokens/s, TTFT and ITL p50/p99, pool_mb and peak
+   memory. For stablelm_3b also ``prefill`` (K2 in every layer) against
+   the chunked path's last logits within ``SERVE_LOGITS_TOL`` of their
+   largest magnitude, and the share of tokens that agree with the batch-1
+   greedy oracle (logged, not gated). ``[slice 13 phases]`` logs their
+   seconds.
 
 Then one JSON line with every kernel's launches, error and times (the K2
 rows with their launches in [pipeline], [maml] and [btm], and
-``bwd_dkdv``'s with the plain second order's calls and ms), and last
+``bwd_dkdv``'s with the plain second order's calls and ms; the K2, K4
+and K5 forward rows with their [serve] launches, K5's forward with its
+times with a state, and the K4 and K5 backward rows with their plain
+second order's ms), and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, and when
 the port's sources are not beside this script.
 """
@@ -248,6 +285,7 @@ the port's sources are not beside this script.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -257,6 +295,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
@@ -1032,11 +1071,15 @@ def phase_flash_hd256(gen):
 # K4: the RG-LRU scan at the hybrid model's shape (batch 1, seq 4096,
 # lru_width 2560, f32 as the model calls it), and a ragged sweep: W not a
 # multiple of 32 (45, 33, 1; 100, a TMA width in f32 only), S shorter than
-# a tile and not a multiple of it, several batch rows.
+# a tile and not a multiple of it, several batch rows; and the serve
+# chunks of full recurrentgemma_2b (S 1, a ragged 37 and 64 at width 2560,
+# taken with h0 as the chunk steps take it).
 LRU_MAIN = (1, 4096, 2560)
+LRU_SERVE_SHAPES = ((1, 1, 2560), (1, 37, 2560), (1, 64, 2560))
 LRU_SWEEP = ((2, 37, 45), (3, 1000, 100), (1, 5, 33), (2, 129, 2560),
-             (3, 16, 1), (2, 4100, 2560))
-LRU_TMA_SHAPES = (LRU_MAIN, (2, 4100, 2560))  # must take the TMA route
+             (3, 16, 1), (2, 4100, 2560)) + LRU_SERVE_SHAPES
+# must take the TMA route
+LRU_TMA_SHAPES = (LRU_MAIN, (2, 4100, 2560)) + LRU_SERVE_SHAPES
 LRU_SIMT_WIDTHS = (45, 33, 1)                  # must take the SIMT route
 LRU_PLAIN_RUNS = 5
 LRU_SOURCE = "src/repro_torch/kernels/csrc/rglru_scan.cu"
@@ -1330,10 +1373,13 @@ def wkv_case(gen, b, s, h, n, law):
 
     r, k, v, lw, u, do = wkv_inputs(gen, b, s, h, n, law)
     what = f"K5 {(b, s, h, n)} {law} decays"
-    out, states = ops.wkv6_fwd(r, k, v, lw, u)
-    r_out, r_states = ref.wkv6_fwd_ref(r, k, v, lw, u)
+    out, states, final = ops.wkv6_fwd(r, k, v, lw, u)
+    r_out, r_states, r_final = ref.wkv6_fwd_ref(r, k, v, lw, u)
     torch.cuda.synchronize()
     require(bool(torch.isfinite(out).all()), f"{what}: non-finite output")
+    require(float((final - r_final).abs().max())
+            <= 1e-4 * max(float(r_final.abs().max()), 1.0),
+            f"{what}: final state off")
     errs = {"out": check_close(f"{what} out", out, r_out, 1e-4)}
     # the largest |out - plain| / (1e-4 + 1e-4 |plain|): 1 is the gate
     errs["out_of_gate"] = float(((out.double() - r_out.double()).abs() / (
@@ -2033,6 +2079,7 @@ def phase_plan(wire_payload: int):
             capture_s = time.perf_counter() - t0
         require(equal_leaves(outs, oracle_rounds[r]),
                 f"compiled round {r} != run_plan round {r}")
+    # the first calls' warm-up launches: a capture's do not count
     capture_counts = ops.launch_counts()
     require(compiled.trace_count == 1,
             f"trace_count {compiled.trace_count} after 3 rounds")
@@ -2080,8 +2127,8 @@ def phase_plan(wire_payload: int):
         cache_entries=size, units=compiled.num_units,
         stage_units=compiled.num_stage_units,
         launches=json.dumps({k: v for k, v in plan_counts.items() if v}),
-        capture_launches=json.dumps({k: v for k, v in capture_counts.items()
-                                     if v}),
+        first_calls_launches=json.dumps({k: v for k, v in
+                                         capture_counts.items() if v}),
         peak_run_plan_gib=f"{peak_run / 2**30:.2f}",
         peak_gib=f"{peak / 2**30:.2f}")
     log("plan", step="beam", chars=len(beam), stage_fns=len(fns),
@@ -2601,7 +2648,11 @@ def phase_grads(phase: str = "grads", arch: str = "lm_350m", layers: int = 2,
                 name, worst = key, ratio
         return name, worst
 
-    def plain_forwards(wkv6=ref.wkv6_ref):
+    def plain_wkv(*a):
+        out, _, final = ref.wkv6_fwd_ref(*a)
+        return out, final
+
+    def plain_forwards(wkv6=plain_wkv):
         stack = contextlib.ExitStack()
         stack.enter_context(mock.patch.object(
             ops, "flash_attention",
@@ -2654,7 +2705,8 @@ def phase_grads(phase: str = "grads", arch: str = "lm_350m", layers: int = 2,
         extra = {}
         if control:
             def bf16_wkv(*a):
-                return ref.wkv6_ref(*a).bfloat16().float()
+                out, final = plain_wkv(*a)
+                return out.bfloat16().float(), final
 
             with plain_forwards(bf16_wkv):
                 _, grads_c = loss_and_grads()
@@ -3526,6 +3578,456 @@ def phase_btm():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# slice 13: K5 with a state, the K4/K5 second order, serving
+# ---------------------------------------------------------------------------
+
+WKV_STATE_SWEEP = (1, 37, 64, 200)  # ragged S of K5 with s0 and dfinal
+WKV_SERVE_SHAPE = (1, 64, 40, 64)   # a serve chunk of full rwkv6_3b
+WKV_SERVE_RAGGED = ((1, 2, 40, 64), (1, 37, 40, 64))  # its shorter chunks
+LRU_P2 = (1, 256, 2560)             # K4's second order: S 256, full width
+WKV_P2 = (1, 128, 4, 64)            # K5's second order
+
+
+def wkv_state_case(gen, b, s, h, n):
+    """K5 from an initial state s0 with the final state's gradient dfinal,
+    against the plain versions: out within 1e-4 (rtol = atol), the final
+    state and every gradient (ds0 included) within 1e-4 of their largest
+    magnitude; the call without s0 and dfinal bitwise the call with zero
+    ones (the training call keeps its results)."""
+    from repro_torch.kernels import ops, ref
+
+    r, k, v, lw, u, do = wkv_inputs(gen, b, s, h, n, "model")
+    s0 = 0.3 * torch.randn((b, h, n, n), generator=gen, device="cuda")
+    dfinal = torch.randn((b, h, n, n), generator=gen, device="cuda")
+    what = f"K5 with state {(b, s, h, n)}"
+    out, states, final = ops.wkv6_fwd(r, k, v, lw, u, s0)
+    r_out, _, r_final = ref.wkv6_fwd_ref(r, k, v, lw, u, s0)
+    errs = {"out": check_close(f"{what} out", out, r_out, 1e-4),
+            "final": check_grad(f"{what} final", final, r_final,
+                                torch.float32)}
+    got = ops.wkv6_bwd(r, k, v, lw, u, states, do, s0, final, dfinal)
+    want = ref.wkv6_bwd_ref(r, k, v, lw, u, do, s0, dfinal)
+    for name, g, w in zip(("dr", "dk", "dv", "dlogw", "du", "ds0"), got, want):
+        require(bool(torch.isfinite(g).all()), f"{what}: non-finite {name}")
+        errs[name] = check_grad(f"{what} {name}", g, w, torch.float32)
+    zero = torch.zeros_like(s0)
+    plain_call = ops.wkv6_fwd(r, k, v, lw, u)
+    zero_call = ops.wkv6_fwd(r, k, v, lw, u, zero)
+    require(all(x is y or torch.equal(x, y)
+                for x, y in zip(plain_call, zero_call)),
+            f"{what}: no s0 != zero s0")
+    g_plain = ops.wkv6_bwd(r, k, v, lw, u, plain_call[1], do)
+    g_zero = ops.wkv6_bwd(r, k, v, lw, u, plain_call[1], do, zero,
+                          plain_call[2], zero)
+    require(all(torch.equal(x, y) for x, y in zip(g_plain[:5], g_zero[:5])),
+            f"{what}: no dfinal != zero dfinal")
+    return (r, k, v, lw, u, s0), errs
+
+
+def second_order_case(name, fn, plain, inputs, weights):
+    """The double backward of ``sum |g|^2`` (g the first-order gradients of
+    ``sum outs . weights``) through ``fn`` (the kernels, then the plain
+    recompute) against the same through ``plain`` (autograd through the
+    plain loops), within 1e-4 of the largest magnitude; the first order
+    bitwise the kernels' backward; one plain call; the second-order call's
+    ms (CUDA events)."""
+    from repro_torch.kernels import ops
+
+    def second(f):
+        xs = [t.detach().requires_grad_(True) for t in inputs]
+        outs = f(*xs)
+        loss = sum((o * w).sum() for o, w in zip(outs, weights))
+        g1 = torch.autograd.grad(loss, xs, create_graph=True)
+        total = sum((g ** 2).sum() for g in g1)
+        return xs, g1, torch.autograd.grad(total, xs, retain_graph=True), total
+
+    ops.reset_launches()
+    xs, g1, got, total = second(fn)
+    torch.cuda.synchronize()
+    calls = ops.plain_counts()[f"{name}_bwd2_plain"]
+    require(calls == 1, f"{name} second order: {calls} plain calls")
+    ms = time_ms(lambda: torch.autograd.grad(total, xs, retain_graph=True),
+                 warmup=1, iters=3)
+    g1 = [g.detach() for g in g1]
+    _, _, want, _ = second(plain)
+    errs = {}
+    for i, (g, w) in enumerate(zip(got, want)):
+        errs[f"in{i}"] = check_grad(f"{name} second order input {i}", g, w,
+                                    torch.float32)
+    return g1, ms, errs
+
+
+def phase_state_and_second_order(gen) -> dict:
+    """K5 with a state (ragged S, and its times at a serve chunk of full
+    rwkv6_3b), and the second order of K4 and K5 on the card (a plain
+    recompute, as K2's)."""
+    from repro_torch.kernels import ops, ref
+
+    shapes = [(2, s, 2, 64) for s in WKV_STATE_SWEEP] + list(WKV_SERVE_RAGGED)
+    for shape in shapes:
+        _, errs = wkv_state_case(gen, *shape)
+        log("kernels", name="K5 with state", shape=shape,
+            errs=json.dumps({k: f"{v:.3e}" for k, v in errs.items()}))
+    (r, k, v, lw, u, s0), errs = wkv_state_case(gen, *WKV_SERVE_SHAPE)
+    nbytes, flop = wkv_work(*WKV_SERVE_SHAPE)["wkv6_fwd"]
+    b, s, h, n = WKV_SERVE_SHAPE
+    nbytes += 2 * b * h * n * n * 4  # s0 read, the final state written
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * flop / TF32_TC_OPS_PER_S * 1e3
+    b_ms, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    state = dict(shape=f"{WKV_SERVE_SHAPE} f32, model-like decays, s0",
+                 err=max(errs.values()),
+                 ms=time_ms(lambda: ops.wkv6_fwd(r, k, v, lw, u, s0)),
+                 plain_ms=time_ms(lambda: ref.wkv6_fwd_ref(r, k, v, lw, u, s0),
+                                  warmup=1, iters=WKV_PLAIN_RUNS),
+                 bound_ms=b_ms, bound_by=by)
+    log("kernels", name="wkv6_fwd with state", shape=WKV_SERVE_SHAPE,
+        ms=f"{state['ms']:.4f}", plain_ms=f"{state['plain_ms']:.4f}",
+        bound_ms=f"{b_ms:.4f}", bound_by=by, bytes=nbytes, flop=flop,
+        errs=json.dumps({k_: f"{v_:.3e}" for k_, v_ in errs.items()}))
+    del r, k, v, lw, u, s0
+
+    out = {"with_state": state}
+    bl, sl, wl = LRU_P2
+    a = torch.rand(LRU_P2, generator=gen, device="cuda") * 0.9
+    x = torch.randn(LRU_P2, generator=gen, device="cuda")
+    h0 = torch.randn((bl, wl), generator=gen, device="cuda")
+    w = [torch.randn(LRU_P2, generator=gen, device="cuda")]
+    g1, ms, errs = second_order_case(
+        "lru_scan", lambda *t: (ops.lru_scan(*t),),
+        lambda *t: (ref.lru_scan_ref(*t),), (a, x, h0), w)
+    first = ops.lru_scan_bwd(a, ops.lru_scan_fwd(a, x, h0), w[0], h0)
+    require(all(torch.equal(p, q) for p, q in zip(g1, first)),
+            "K4 second order: first order != the kernels")
+    out["lru_scan_bwd"] = {"ms": ms, "calls": 1, "shape": f"{LRU_P2} f32, h0"}
+    log("kernels", name="K4 second order (plain recompute)", shape=LRU_P2,
+        ms=f"{ms:.4f}", first_order_bitwise=True,
+        errs=json.dumps({k_: f"{v_:.3e}" for k_, v_ in errs.items()}))
+    r, k, v, lw, u, _ = wkv_inputs(gen, *WKV_P2, "model")
+    b, s, h, n = WKV_P2
+    s0 = 0.3 * torch.randn((b, h, n, n), generator=gen, device="cuda")
+    w = [torch.randn(WKV_P2, generator=gen, device="cuda"),
+         0.3 * torch.randn((b, h, n, n), generator=gen, device="cuda")]
+    g1, ms, errs = second_order_case(
+        "wkv6", ops.wkv6, lambda *t: ref.wkv6_fwd_ref(*t)[::2],
+        (r, k, v, lw, u, s0), w)
+    _, states, final = ops.wkv6_fwd(r, k, v, lw, u, s0)
+    first = ops.wkv6_bwd(r, k, v, lw, u, states, w[0], s0, final, w[1])
+    require(all(torch.equal(p, q) for p, q in zip(g1, first)),
+            "K5 second order: first order != the kernels")
+    out["wkv6_bwd"] = {"ms": ms, "calls": 1,
+                       "shape": f"{WKV_P2} f32, s0 and the final state"}
+    log("kernels", name="K5 second order (plain recompute)", shape=WKV_P2,
+        ms=f"{ms:.4f}", first_order_bitwise=True,
+        errs=json.dumps({k_: f"{v_:.3e}" for k_, v_ in errs.items()}))
+    torch.cuda.empty_cache()
+    return out
+
+
+# [serve]: full-width models through launch.serve's schedulers. The main
+# cell is the reference serve's default arch; the shorter runs drive the
+# chunk steps of the hybrid (K4 with h0) and ssm (K5 with s0) families.
+SERVE_RUNS = {
+    "stablelm_3b": dict(requests=16, slots=4, lens=(16, 512), max_new=32,
+                        chunk=64, max_len=576),
+    "recurrentgemma_2b": dict(requests=6, slots=2, lens=(16, 300),
+                              max_new=16, chunk=64, max_len=320),
+    "rwkv6_3b": dict(requests=6, slots=2, lens=(16, 300), max_new=16,
+                     chunk=64, max_len=320),
+}
+SERVE_ORACLE_REQUESTS = 4      # requests checked against prefill + decode_step
+SERVE_LOGITS_TOL = 2.0 ** -4   # prefill (K2) vs chunks, of max |logits|
+
+
+def serve_requests(serve_lib, cfg, seed, n, lens, max_new):
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(lens[0], lens[1] + 1, size=n)
+    return [serve_lib.Request(
+        rid=i, prompt=rng.integers(0, cfg.vocab_size, (int(m),)).astype(
+            np.int32), max_new=max_new) for i, m in enumerate(sizes)]
+
+
+def latency_stats(reqs, seconds: float) -> dict:
+    """tokens/s over the run's wall seconds; TTFT (first token - arrival)
+    and ITL (between a request's tokens) p50/p99 on the scheduler clock."""
+    ttft = [r.t_first - r.arrival for r in reqs]
+    itl = [b - a for r in reqs for a, b in zip(r.token_times,
+                                               r.token_times[1:])]
+    tokens = sum(len(r.generated) for r in reqs)
+    pct = lambda xs, q: float(np.percentile(xs, q)) if xs else float("nan")
+    return {"tokens": tokens, "seconds": seconds,
+            "tokens_per_s": tokens / seconds,
+            "ttft_p50_s": pct(ttft, 50), "ttft_p99_s": pct(ttft, 99),
+            "itl_p50_ms": 1e3 * pct(itl, 50), "itl_p99_ms": 1e3 * pct(itl, 99)}
+
+
+def serve_counts(eager: dict, replayed: dict) -> dict:
+    """Kernel launches of a run: the wrappers' (eager calls) and the CUDA
+    graph replays' (``replayed``)."""
+    return {k: {"eager": eager[k], "replayed": replayed.get(k, 0)}
+            for k in eager if eager[k] or replayed.get(k)}
+
+
+def run_scheduler(serve_lib, cls, cfg, params, run, seed):
+    """A scheduler over a warm-up request of 2 chunk - 1 tokens (every
+    bucket built), then the seeded trace; the build counts flat across the
+    trace. Returns (scheduler, requests, latency stats, counts, K4's
+    routes in the warm-up's eager calls)."""
+    from repro_torch.kernels import ops, rglru_scan
+
+    sched = cls(cfg, params, run["slots"], max_len=run["max_len"],
+                chunk=run["chunk"])
+    ops.reset_launches()
+    warm = serve_requests(serve_lib, cfg, seed + 100, 1,
+                          (2 * run["chunk"] - 1,) * 2, 2)
+    sched.run(warm)
+    routes = dict(rglru_scan.ROUTE_LAUNCHES)
+    builds = (sched.prefill_traces, sched.decode_traces)
+    buckets = len(serve_lib.chunk_schedule(2 * run["chunk"] - 1, run["chunk"]))
+    require(builds == (buckets, 1), f"{cls.__name__} builds {builds}, "
+            f"expected ({buckets}, 1)")
+    reqs = serve_requests(serve_lib, cfg, seed, run["requests"], run["lens"],
+                          run["max_new"])
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    before = sched.replayed_launches()
+    t0 = time.perf_counter()
+    sched.run(reqs)
+    torch.cuda.synchronize()
+    stats = latency_stats(reqs, time.perf_counter() - t0)
+    replayed = {k: n - before.get(k, 0)
+                for k, n in sched.replayed_launches().items()}
+    counts = serve_counts(ops.launch_counts(), replayed)
+    require((sched.prefill_traces, sched.decode_traces) == builds,
+            f"{cls.__name__}: builds grew to "
+            f"{(sched.prefill_traces, sched.decode_traces)} from {builds}")
+    require(all(r.done and len(r.generated) == r.max_new for r in reqs),
+            f"{cls.__name__}: unfinished requests")
+    return sched, reqs, stats, counts, routes
+
+
+# the kernels one replay of a full chunk step must run once per layer
+SERVE_CHUNK_KERNELS = {"recurrent": ("tma_fwd_kernel",),
+                       "rwkv": ("state_kernel", "scan_kernel", "out_kernel")}
+
+
+def serve_chunk_replay(cont, cfg, params, reqs, c, kinds) -> dict:
+    """The continuous scheduler's fused step for a full chunk of ``c``
+    prompt tokens (first chunk of a request, into slot 0), replayed from
+    its CUDA graph, bitwise the same step run eagerly on a copy of the pool
+    and token feed; then one replay traced by kernel name: each kernel of
+    ``SERVE_CHUNK_KERNELS`` once per layer of its kind, and no SIMT K4
+    kernel."""
+    from repro_torch.launch import steps
+    from torch.utils import _pytree as pytree
+
+    prompt = next(r.prompt for r in reqs if len(r.prompt) >= c)
+    ctokens = cont._set_chunk(0, prompt, 0, c, True, True)
+    args = (cont._tokens, cont._pool, cont._cslot, ctokens, cont._cpos,
+            cont._cfirst, cont._cemit)
+    tokens_copy = cont._tokens.clone()
+    pool_copy = pytree.tree_map(torch.clone, cont._pool)
+    replays = cont._serve.replays
+    cont._serve(c, params, *args)
+    steps.make_serve_step(cfg)(params, tokens_copy, pool_copy, *args[2:])
+    torch.cuda.synchronize()
+    require(cont._serve.replays == replays + 1,
+            f"[serve] {cfg.name}: the {c}-token chunk step did not replay")
+    require(torch.equal(cont._tokens, tokens_copy) and all(
+        torch.equal(x, y) for x, y in zip(pytree.tree_leaves(cont._pool),
+                                          pytree.tree_leaves(pool_copy))),
+        f"[serve] {cfg.name}: replayed {c}-token chunk step != eager step")
+    del pool_copy, tokens_copy
+    want = {name: kinds.count(kind) for kind, names in
+            SERVE_CHUNK_KERNELS.items() for name in names if kind in kinds}
+    ran = {}
+    if want:
+        group = traced_calls({"chunk": lambda: cont._serve(c, params, *args)})
+        for name, _ in group["chunk"]:
+            if "repro::" in name:
+                short = short_kernel_name(name).split("<")[0]
+                ran[short] = ran.get(short, 0) + 1
+        require(all(ran.get(k) == n for k, n in want.items())
+                and not any(k.startswith("simt_") for k in ran),
+                f"[serve] {cfg.name}: one replay of the {c}-token chunk "
+                f"step ran {ran}, want {want} (once per layer)")
+    log("serve", arch=cfg.name, check=f"{c}-token chunk step replay",
+        bitwise_eager=True, replay_kernels=json.dumps(ran),
+        want_per_layer=json.dumps(want))
+    return {"bitwise": True, "kernels": ran}
+
+
+def phase_serve(arch: str, seed: int = 0) -> dict:
+    """One architecture at full width through both schedulers: token for
+    token, flat builds, the K4/K5 chunk launches, a replayed decode step
+    bitwise the eager one with both timed; for the dense main cell also
+    prefill's last logits (K2) against the chunked path's and the share of
+    tokens that agree with the batch-1 greedy oracle."""
+    from repro_torch.kernels import ops, rglru_scan
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.launch import steps
+    from repro_torch.models import blocks, registry, transformer
+    from torch.utils import _pytree as pytree
+
+    t_phase = time.perf_counter()
+    run = SERVE_RUNS[arch]
+    cfg = registry.get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    params = registry.init_params(cfg, seed=seed, device="cuda")
+    kinds = blocks.layer_kinds(cfg)
+    cont, creqs, cstats, ccounts, routes = run_scheduler(
+        serve_lib, serve_lib.ContinuousBatchingScheduler, cfg, params, run,
+        seed)
+    stat, sreqs, sstats, scounts, _ = run_scheduler(
+        serve_lib, serve_lib.StaticWaveScheduler, cfg, params, run, seed)
+    same = [c.generated == s.generated for c, s in zip(creqs, sreqs)]
+    require(all(same), f"[serve] {arch}: continuous != static for requests "
+            f"{[i for i, ok in enumerate(same) if not ok]}")
+    chunks = [c for r in creqs for c in serve_lib.chunk_schedule(
+        len(r.prompt), run["chunk"])]
+    for name, kind, steps_run in (
+            ("lru_scan_fwd", "recurrent", len(chunks)),
+            ("wkv6_fwd", "rwkv", sum(c > 1 for c in chunks))):
+        layers = kinds.count(kind)
+        if not layers:
+            continue
+        for label, counts in (("continuous", ccounts), ("static", scounts)):
+            got = counts.get(name, {"eager": 0, "replayed": 0})
+            total = got["eager"] + got["replayed"]
+            require(total == steps_run * layers,
+                    f"[serve] {arch} {label}: {name} launched {got}, "
+                    f"{steps_run} chunk steps x {layers} layers")
+    log("serve", arch=arch, layers=cfg.num_layers, d_model=cfg.d_model,
+        dtype=cfg.dtype, requests=run["requests"], slots=run["slots"],
+        prompts=f"{run['lens'][0]}-{run['lens'][1]}",
+        prompt_tokens=sum(len(r.prompt) for r in creqs),
+        max_new=run["max_new"], chunk=run["chunk"], max_len=run["max_len"],
+        continuous_equals_static=True,
+        builds=f"prefill {cont.prefill_traces} decode {cont.decode_traces}",
+        pool_mb=f"{registry.slot_pool_bytes(cfg, run['slots'], run['max_len']) / 2**20:.2f}")
+    for label, stats, counts in (("continuous", cstats, ccounts),
+                                 ("static", sstats, scounts)):
+        log("serve", arch=arch, scheduler=label,
+            tokens=stats["tokens"], seconds=f"{stats['seconds']:.3f}",
+            tokens_per_s=f"{stats['tokens_per_s']:.1f}",
+            ttft_p50_s=f"{stats['ttft_p50_s']:.4f}",
+            ttft_p99_s=f"{stats['ttft_p99_s']:.4f}",
+            itl_p50_ms=f"{stats['itl_p50_ms']:.3f}",
+            itl_p99_ms=f"{stats['itl_p99_ms']:.3f}",
+            launches=json.dumps(counts))
+    if "recurrent" in kinds:
+        like = lambda s: torch.empty((1, s, cfg.lru_width), device="cuda")
+        h0 = torch.empty((1, cfg.lru_width), device="cuda")
+        # the warm-up's eager chunk calls (one of each bucket, 64 down to
+        # 1) ran K4 by the wrappers, which count the route they took
+        log("serve", arch=arch, k4_route_s1=rglru_scan.route(like(1), like(1), h0),
+            k4_route_s37=rglru_scan.route(like(37), like(37), h0),
+            k4_warmup_routes=json.dumps(routes))
+        require(routes["simt"] == 0 and routes["tma"] > 0,
+                f"[serve] K4's routes in the warm-up {routes}")
+
+    # a replayed decode step bitwise the eager step, and both timed
+    decode = steps.make_slot_decode_step(cfg)
+    tokens_copy = cont._tokens.clone()
+    pool_copy = pytree.tree_map(torch.clone, cont._pool)
+    cont._decode_all()
+    decode(params, tokens_copy, pool_copy)
+    torch.cuda.synchronize()
+    require(torch.equal(cont._tokens, tokens_copy) and all(
+        torch.equal(x, y) for x, y in zip(pytree.tree_leaves(cont._pool),
+                                          pytree.tree_leaves(pool_copy))),
+        f"[serve] {arch}: replayed decode step != eager step")
+    replay_ms = time_ms(cont._decode_all, warmup=2, iters=10)
+    eager_ms = time_ms(lambda: decode(params, tokens_copy, pool_copy),
+                       warmup=2, iters=10)
+    result = {"continuous": cstats, "static": sstats,
+              "counts": {"continuous": ccounts, "static": scounts},
+              "decode_replay_ms": replay_ms, "decode_eager_ms": eager_ms}
+    result["chunk_step"] = serve_chunk_replay(cont, cfg, params, creqs,
+                                              run["chunk"], kinds)
+    if arch == "stablelm_3b":
+        # the decode step's kernels (run eagerly: the replay runs the same
+        # ones): how many, and their device time summed
+        group = traced_calls({"decode": lambda: decode(
+            params, tokens_copy, pool_copy)})["decode"]
+        busy = sum(us for _, us in group) / 1e3
+        result.update(decode_kernels=len(group), decode_busy_ms=busy)
+        log("serve", arch=arch, check="decode step trace (eager)",
+            kernels=len(group), device_busy_ms=f"{busy:.4f}",
+            top=json.dumps(sorted(
+                ((short_kernel_name(n)[:60], round(us, 1)) for n, us in group),
+                key=lambda t: -t[1])[:5]))
+    del pool_copy, tokens_copy
+
+    if arch == "stablelm_3b":
+        # prefill (K2 in every layer) against the chunked path, and the
+        # greedy oracle (prefill + decode_step, batch 1)
+        prefill_step = steps.make_prefill_step(cfg, max_len=run["max_len"])
+        decode_step = steps.make_decode_step(cfg)
+        chunk_fn = registry.make_chunk_prefill_fn(cfg)
+        ops.reset_launches()
+        agree, total, diverge = 0, 0, []
+        worst, top_same = 0.0, 0
+        for r in creqs[:SERVE_ORACLE_REQUESTS]:
+            prompt = torch.from_numpy(r.prompt)[None].cuda()
+            last, caches = prefill_step(params, {"tokens": prompt})
+            with torch.no_grad():
+                cc = transformer.init_caches(cfg, 1, run["max_len"],
+                                             ring=False, device="cuda")
+                pos = 0
+                for c in serve_lib.chunk_schedule(len(r.prompt), run["chunk"]):
+                    clast, cc = chunk_fn(params, prompt[:, pos:pos + c], cc,
+                                         pos)
+                    pos += c
+                worst = max(worst, float((last - clast).abs().max()
+                                         / last.abs().max()))
+                top_same += int(torch.equal(last.argmax(-1), clast.argmax(-1)))
+                del cc
+            tok, out = last.argmax(-1)[:, None].to(torch.int32), []
+            for _ in range(r.max_new):
+                out.append(int(tok[0, 0]))
+                logits, caches = decode_step(params, tok, caches)
+                tok = logits.argmax(-1)[:, None].to(torch.int32)
+            same_tok = [a == b for a, b in zip(out, r.generated)]
+            agree += sum(same_tok)
+            total += len(same_tok)
+            diverge.append(same_tok.index(False) if False in same_tok
+                           else len(same_tok))
+            del caches
+        counts = ops.launch_counts()
+        require(counts["flash_attention_fwd"]
+                == SERVE_ORACLE_REQUESTS * cfg.num_layers,
+                f"[serve] prefill launched K2 {counts['flash_attention_fwd']} "
+                f"times")
+        require(worst <= SERVE_LOGITS_TOL,
+                f"[serve] prefill vs chunks: {worst:.3e} of max |logits|")
+        result.update(prefill_k2_launches=counts["flash_attention_fwd"],
+                      logits_rel=worst, oracle_share=agree / total)
+        log("serve", arch=arch, check="prefill (K2, hd 80) vs chunks",
+            max_abs_over_max_logits=f"{worst:.3e}",
+            gate=f"{SERVE_LOGITS_TOL:.4f}",
+            argmax_equal=f"{top_same}/{SERVE_ORACLE_REQUESTS}",
+            k2_launches=counts["flash_attention_fwd"])
+        log("serve", arch=arch, check="greedy oracle (prefill + decode_step)",
+            agree=f"{agree}/{total}", share=f"{agree / total:.3f}",
+            first_divergence=json.dumps(diverge), gated=False)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # a decode step reads every weight but the embedding table once
+    weight_bytes = sum(p.numel() * p.element_size() for k, p in params.items()
+                       if k != "embed.table")
+    log("serve", arch=arch, decode_step_replay_ms=f"{replay_ms:.4f}",
+        decode_step_eager_ms=f"{eager_ms:.4f}", replay_bitwise_eager=True,
+        decode_weight_bytes=weight_bytes,
+        decode_weight_bytes_ms=f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.4f}",
+        peak_gib=f"{peak:.2f}", seconds=f"{time.perf_counter() - t_phase:.1f}")
+    result["peak_gib"] = peak
+    del cont, stat, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; no card",
@@ -3576,6 +4078,9 @@ def main() -> int:
     phase_grads("hybrid grads", "recurrentgemma_2b", layers=3)
     phase_reference("blocked", "recurrentgemma_2b")
     wkv = phase_wkv(gen)
+    t_slice13 = time.perf_counter()
+    state_p2 = phase_state_and_second_order(gen)
+    t_slice13 = time.perf_counter() - t_slice13
     ssm_counts = phase_train(
         "ssm", arch="rwkv6_3b", rounds=2, cohort=2, local_steps=2, batch=1,
         seq=4096, compression="none")
@@ -3591,6 +4096,12 @@ def main() -> int:
     maml_counts = phase_maml()
     btm_counts = phase_btm()
     log("slice 12 phases", seconds=f"{time.perf_counter() - t_slice12:.1f}")
+    t_serve = time.perf_counter()
+    served = {arch: phase_serve(arch) for arch in SERVE_RUNS}
+    t_serve = time.perf_counter() - t_serve
+    log("slice 13 phases", seconds=f"{t_serve + t_slice13:.1f}",
+        serve_seconds=f"{t_serve:.1f}",
+        state_and_second_order_seconds=f"{t_slice13:.1f}")
     log("new phases", seconds=f"{time.perf_counter() - t_new:.1f}")
     launches = {"quantize": flat_counts["quantize"],
                 "dequantize": flat_counts["dequantize"],
@@ -3646,7 +4157,25 @@ def main() -> int:
               bound_rate="HBM3 3.35 TB/s, or 3 x FLOP at TF32 tensor cores "
               "495 TFLOP/s", split_ms=r["split_ms"])
         for name, r in wkv.items()]
+    def chunk_launches(arch, name):
+        # eager calls and CUDA graph replays of the chunk steps
+        return {f"{arch} {sched}": served[arch]["counts"][sched].get(name)
+                for sched in ("continuous", "static")}
+
+    serve_launches = {
+        "flash_attention_fwd": {"stablelm_3b prefill": served[
+            "stablelm_3b"]["prefill_k2_launches"]},
+        "lru_scan_fwd": chunk_launches("recurrentgemma_2b", "lru_scan_fwd"),
+        "wkv6_fwd": chunk_launches("rwkv6_3b", "wkv6_fwd"),
+    }
     for e in line["kernels"]:
+        name = e["name"]
+        if name in serve_launches:
+            e["serve_launches"] = serve_launches[name]
+        if name == "wkv6_fwd":
+            e["with_state"] = state_p2["with_state"]
+        if name in ("lru_scan_bwd", "wkv6_bwd"):
+            e["second_order_plain"] = state_p2[name]
         for key, counts in (("plan_launches", plan_counts),
                             ("elastic_launches", elastic_counts),
                             ("loop_launches", loop_counts)):

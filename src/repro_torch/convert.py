@@ -15,6 +15,12 @@ tensors come back as exact f32 numpy arrays.
 ``state_to_numpy`` and ``state_from_jax`` do the same for the whole
 training state (params and server optimizer state), keeping every leaf's
 dtype, for checkpoints that either package restores.
+
+``caches_from_jax`` and ``caches_to_numpy`` do it for the serve caches
+(``transformer.init_caches``, or with ``pool=True`` the serve slot pool):
+the reference stacks a uniform stack's caches on a leading layers axis
+(a position leaf (L,), in a pool (slots, L)); the port keeps a list of
+one cache dict per layer.
 """
 
 from __future__ import annotations
@@ -175,3 +181,34 @@ def state_from_jax(cfg, tree, device="cuda") -> dict:
 
     return {"params": leaf(tree["params"]),
             "server": {k: leaf(v) for k, v in tree["server"].items()}}
+
+
+def caches_from_jax(cfg, caches, device="cuda", *, pool: bool = False):
+    """The reference's serve caches (numpy, ml_dtypes or tensor leaves) as
+    the port's per-layer list on ``device``; ``pool=True`` for a slot pool,
+    whose stacked position leaf is (slots, L)."""
+    device = compat.resolve_device(device)
+    if isinstance(caches, (list, tuple)):
+        return [{k: _to_tensor(v, device) for k, v in c.items()}
+                for c in caches]
+    out = []
+    for i in range(cfg.num_layers):
+        layer = {}
+        for k, v in caches.items():
+            v = v if torch.is_tensor(v) else np.asarray(v)
+            layer[k] = _to_tensor(v[:, i] if (pool and k == "pos") else v[i],
+                                  device)
+        out.append(layer)
+    return out
+
+
+def caches_to_numpy(cfg, caches, *, pool: bool = False):
+    """Inverse of :func:`caches_from_jax`: the reference's layout with
+    numpy leaves (bf16 as exact f32), for comparisons or to continue a
+    port's cache in the reference."""
+    layers = [{k: _numpy(v) for k, v in c.items()} for c in caches]
+    if not _stacked(cfg):
+        return layers
+    return {k: np.stack([lp[k] for lp in layers],
+                        axis=1 if (pool and k == "pos") else 0)
+            for k in layers[0]}

@@ -85,12 +85,13 @@ SIGNATURES = {
                                _C, _P),
         "repro_lru_ring_smem": (_C, _C),
     },
-    # (r, k, v, logw, u, out, states, dvec, B, S, H, N, stream),
-    # (r, k, v, logw, u, states, dout, dr, dk, dv, dlogw, dstates, dvec,
-    #  du_part, du, B, S, H, N, stream) and (N, int blocks[4])
+    # (r, k, v, logw, u, s0, out, states, final, dvec, B, S, H, N, stream),
+    # (r, k, v, logw, u, states, final, dout, dfinal, dr, dk, dv, dlogw,
+    #  ds0, dstates, dvec, du_part, du, B, S, H, N, stream) and
+    # (N, int blocks[4])
     "wkv6": {
-        "repro_wkv6_fwd": (_P,) * 8 + (_C,) * 4 + (_P,),
-        "repro_wkv6_bwd": (_P,) * 15 + (_C,) * 4 + (_P,),
+        "repro_wkv6_fwd": (_P,) * 10 + (_C,) * 4 + (_P,),
+        "repro_wkv6_bwd": (_P,) * 18 + (_C,) * 4 + (_P,),
         "repro_wkv6_occupancy": (_C, _P),
     },
 }

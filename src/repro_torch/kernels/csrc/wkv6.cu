@@ -8,12 +8,18 @@
 // chunked reverse pass of kernels/ref.py:wkv6_bwd_ref.
 //
 // Contract: r, k, v, logw (B, S, H, N) f32, u (H, N) f32, contiguous,
-// N in {16, 32, 64}, any S (the ragged last chunk is masked here):
+// N in {16, 32, 64}, any S (the ragged last chunk is masked here), and an
+// optional initial state s0 (B, H, N, N) f32:
 //   o_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T),
-//   S_t = diag(exp(logw_t)) S_{t-1} + k_t v_t^T,   S_{-1} = 0.
-// The forward writes o and the state entering each chunk, states
-// (B, H, ceil(S / 64), N, N); the backward reads them and writes dr, dk,
-// dv, dlogw and du (H, N). No atomics: the same inputs give the same bits.
+//   S_t = diag(exp(logw_t)) S_{t-1} + k_t v_t^T,   S_{-1} = s0 (or 0).
+// The forward writes o, the state entering each chunk, states
+// (B, H, ceil(S / 64), N, N), and the state after the last real step,
+// final (B, H, N, N): the tail of the last chunk is loaded as zeros, so
+// its steps decay by e^0 = 1 and add k v^T = 0, as the reference pads
+// (models/rwkv.py:chunked_wkv). The backward reads them and writes dr, dk,
+// dv, dlogw, du (H, N) and, given s0, ds0 (B, H, N, N); an optional
+// gradient for the final state, dfinal, starts its reverse pass (zero
+// without it). No atomics: the same inputs give the same bits.
 //
 // Chunked form. With lcw_i = sum_{t <= i} logw_t inside a chunk (lcw_{-1} =
 // 0), every exponent is a difference that is <= 0:
@@ -52,12 +58,15 @@
 // The design. Each pass is three stages, none of which walks the chunks
 // of a (b, h) one after another with the chunk work in its loop:
 //   (a) one block per chunk computes the chunk's own term of the
-//       recursion: D_c (forward, into states[c + 1]) or X_c (backward,
-//       into dstates[c - 1]), and d_c;
+//       recursion: D_c (forward, into states[c + 1], the last chunk's into
+//       final) or X_c (backward, into dstates[c - 1], chunk 0's into ds0
+//       when s0 is given), and d_c;
 //   (b) an elementwise scan over the B H N N entries of the chunk states
 //       (scan_kernel): one thread per float4, the loads of 8 chunks issued
 //       ahead of their 8 dependent updates, S_{c+1} = d_c S_c + D_c forward
-//       and dS_{c-1} = d_c dS_c + X_c backward, in place;
+//       (from S_0 = s0 or 0, ending with final) and dS_{c-1} = d_c dS_c +
+//       X_c backward (from dS_{nc-1} = dfinal or 0, ending with ds0), in
+//       place;
 //   (c) one block per chunk computes the output (out_kernel, writing o
 //       once) or every gradient (grad_kernel, plus a per-chunk du partial,
 //       summed over (b, chunk) in order by du_sum_kernel).
@@ -520,15 +529,15 @@ constexpr size_t state_smem() {
 }
 
 // Stage (a) of the forward: D_c = sum_j (k_j e^{lcw_last - lcw_j}) v_j^T into
-// states[c + 1] and e^{lcw_last} into dvec[c], for every chunk but the last.
-// Grid (ceil(S / 64), H, B).
+// states[c + 1] (the last chunk's into final[b][h]) and e^{lcw_last} into
+// dvec[c]. Grid (ceil(S / 64), H, B).
 template <int N>
 __global__ void __launch_bounds__(kThreads)
 state_kernel(const float* __restrict__ k, const float* __restrict__ v,
              const float* __restrict__ lw, float* __restrict__ states,
-             float* __restrict__ dvec, int S, int H) {
+             float* __restrict__ final, float* __restrict__ dvec, int S,
+             int H) {
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z, nc = gridDim.x;
-  if (c == nc - 1) return;
   extern __shared__ __align__(16) float smem[];
   double* part = reinterpret_cast<double*>(smem);
   float* sk = smem + 2 * kSubs * N;
@@ -542,19 +551,25 @@ state_kernel(const float* __restrict__ k, const float* __restrict__ v,
   __syncthreads();
   scale_by_decay<N, true>(sk, sl, part, dvec + chunk_vec(b, h, c, H, nc, N));
   __syncthreads();
-  square_product<N>(states + chunk_mat(b, h, c + 1, H, nc, N), sk, sv);
+  square_product<N>(c + 1 < nc ? states + chunk_mat(b, h, c + 1, H, nc, N)
+                               : final + chunk_mat(b, h, 0, H, 1, N),
+                    sk, sv);
 }
 
 // Stage (b) of both passes, over x (BH, nc, N, N) in place, one float4 of
-// one (b, h) a thread; d (BH, nc, N) scales row n of an entry.
-//   forward: x[0] = 0, x[c] = d[c - 1] x[c - 1] + x[c]   (c = 1 .. nc - 1)
-//   reverse: x[nc - 1] = 0, x[c] = d[c + 1] x[c + 1] + x[c]   (c = nc - 2 .. 0)
+// one (b, h) a thread; d (BH, nc, N) scales row n of an entry; init and
+// extra (BH, N, N) may be null.
+//   forward: x[0] = init (or 0), x[c] = d[c - 1] x[c - 1] + x[c]
+//            (c = 1 .. nc - 1), then extra = d[nc - 1] x[nc - 1] + extra;
+//   reverse: x[nc - 1] = init (or 0), x[c] = d[c + 1] x[c + 1] + x[c]
+//            (c = nc - 2 .. 0), then extra = d[0] x[0] + extra;
 // with x[c - 1], x[c + 1] the values just written. The loads of
 // kScanUnroll chunks are issued before their updates.
 template <bool kReverse>
 __global__ void __launch_bounds__(kThreads)
-scan_kernel(float* __restrict__ x, const float* __restrict__ d, int nc, int N,
-            long long quads) {
+scan_kernel(float* __restrict__ x, const float* __restrict__ d,
+            const float* __restrict__ init, float* __restrict__ extra, int nc,
+            int N, long long quads) {
   const long long q = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (q >= quads) return;
   const int per = N * N / 4;
@@ -563,6 +578,7 @@ scan_kernel(float* __restrict__ x, const float* __restrict__ d, int nc, int N,
   float4* xs = reinterpret_cast<float4*>(x + bh * nc * N * N + e);
   const float* ds = d + bh * nc * N + e / N;
   float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (init != nullptr) s = *reinterpret_cast<const float4*>(init + bh * N * N + e);
   xs[static_cast<long long>(kReverse ? nc - 1 : 0) * per] = s;
   const int steps = nc - 1;
   for (int s0 = 0; s0 < steps; s0 += kScanUnroll) {
@@ -587,6 +603,16 @@ scan_kernel(float* __restrict__ x, const float* __restrict__ d, int nc, int N,
         xs[static_cast<long long>(c) * per] = s;
       }
     }
+  }
+  if (extra != nullptr) {
+    float4* xe = reinterpret_cast<float4*>(extra + bh * N * N + e);
+    const float dv = ds[static_cast<long long>(kReverse ? 0 : nc - 1) * N];
+    const float4 xv = *xe;
+    s.x = dv * s.x + xv.x;
+    s.y = dv * s.y + xv.y;
+    s.z = dv * s.z + xv.z;
+    s.w = dv * s.w + xv.w;
+    *xe = s;
   }
 }
 
@@ -663,14 +689,15 @@ out_kernel(const float* __restrict__ r, const float* __restrict__ k,
 
 // Stage (a) of the backward: X_c = sum_i (r_i e^{lcw_{i-1}}) do_i^T into
 // dstates[c - 1] and e^{lcw_last} into dvec[c], for every chunk but the
-// first. Grid (ceil(S / 64), H, B).
+// first; chunk 0's X_0 into ds0[b][h] when ds0 is not null. Grid
+// (ceil(S / 64), H, B).
 template <int N>
 __global__ void __launch_bounds__(kThreads)
 xterm_kernel(const float* __restrict__ r, const float* __restrict__ dout,
              const float* __restrict__ lw, float* __restrict__ dstates,
-             float* __restrict__ dvec, int S, int H) {
+             float* __restrict__ ds0, float* __restrict__ dvec, int S, int H) {
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z, nc = gridDim.x;
-  if (c == 0) return;
+  if (c == 0 && ds0 == nullptr) return;
   extern __shared__ __align__(16) float smem[];
   double* part = reinterpret_cast<double*>(smem);
   float* sr = smem + 2 * kSubs * N;
@@ -684,7 +711,9 @@ xterm_kernel(const float* __restrict__ r, const float* __restrict__ dout,
   __syncthreads();
   scale_by_decay<N, false>(sr, sl, part, dvec + chunk_vec(b, h, c, H, nc, N));
   __syncthreads();
-  square_product<N>(dstates + chunk_mat(b, h, c - 1, H, nc, N), sr, sdo);
+  square_product<N>(c > 0 ? dstates + chunk_mat(b, h, c - 1, H, nc, N)
+                         : ds0 + chunk_mat(b, h, 0, H, 1, N),
+                    sr, sdo);
 }
 
 // A's own region (N < 64) or v's tile once v is consumed (N = 64).
@@ -698,7 +727,8 @@ constexpr size_t grad_smem() {
 }
 
 // Stage (c) of the backward: every gradient of chunk c from S_c
-// (states[c]), S_{c+1} (states[c + 1]) and dS_c (dstates[c]), and du's
+// (states[c]), S_{c+1} (states[c + 1], for the last chunk final[b][h], or
+// nothing when the final state has no gradient) and dS_c (dstates[c]), and du's
 // partial sum over the chunk into du_part[b][h][c]. Warp (p, h) owns the
 // rows of sub-chunk p and half the columns of dr', dk' and dv, so each
 // thread holds dr' and dk' of the same elements; the diagonal sub-blocks'
@@ -708,8 +738,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 grad_kernel(const float* __restrict__ r, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ lw,
             const float* __restrict__ u, const float* __restrict__ states,
-            const float* __restrict__ dstates, const float* __restrict__ dout,
-            float* __restrict__ dr, float* __restrict__ dk,
+            const float* __restrict__ final, const float* __restrict__ dstates,
+            const float* __restrict__ dout, float* __restrict__ dr,
+            float* __restrict__ dk,
             float* __restrict__ dv, float* __restrict__ dlw,
             float* __restrict__ du_part, int S, int H) {
   constexpr int NT = N / 16;
@@ -769,12 +800,14 @@ grad_kernel(const float* __restrict__ r, const float* __restrict__ k,
   {  // rowsum(S_{c+1} * dS_c): a float4 of a row a thread, the row's
      // N / 4 lanes summed by shuffles in a fixed order
     constexpr int Q = N / 4;
-    const float* S1 = states + chunk_mat(b, h, c + 1 < nc ? c + 1 : c, H, nc, N);
+    const bool last = c + 1 == nc;
+    const float* S1 = last ? final + chunk_mat(b, h, 0, H, 1, N)
+                           : states + chunk_mat(b, h, c + 1, H, nc, N);
 #pragma unroll
     for (int e = threadIdx.x; e < N * Q; e += kThreads) {
       const int n = e / Q, q = e % Q;
       float x = 0.0f;
-      if (c + 1 < nc) {
+      if (!last || final != nullptr) {
         const float4 a = __ldg(reinterpret_cast<const float4*>(S1 + n * N) + q);
         const float4 z = __ldg(reinterpret_cast<const float4*>(dS + n * N) + q);
         x = (a.x * z.x + a.y * z.y) + (a.z * z.z + a.w * z.w);
@@ -1019,32 +1052,34 @@ void occupancy(int* blocks) {
   blocks[3] = blocks_per_sm(grad_kernel<N>, grad_smem<N>());
 }
 
-inline int launch_scan(bool reverse, float* x, const float* d, int B, int H,
-                       int nc, int N, cudaStream_t st) {
+inline int launch_scan(bool reverse, float* x, const float* d,
+                       const float* init, float* extra, int B, int H, int nc,
+                       int N, cudaStream_t st) {
   const long long quads = static_cast<long long>(B) * H * N * N / 4;
   const unsigned blocks = static_cast<unsigned>((quads + kThreads - 1) / kThreads);
   if (reverse) {
-    scan_kernel<true><<<blocks, kThreads, 0, st>>>(x, d, nc, N, quads);
+    scan_kernel<true><<<blocks, kThreads, 0, st>>>(x, d, init, extra, nc, N, quads);
   } else {
-    scan_kernel<false><<<blocks, kThreads, 0, st>>>(x, d, nc, N, quads);
+    scan_kernel<false><<<blocks, kThreads, 0, st>>>(x, d, init, extra, nc, N, quads);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int N>
 int launch_fwd(const float* r, const float* k, const float* v,
-               const float* lw, const float* u, float* out, float* states,
-               float* dvec, int B, int S, int H, cudaStream_t st) {
+               const float* lw, const float* u, const float* s0, float* out,
+               float* states, float* final, float* dvec, int B, int S, int H,
+               cudaStream_t st) {
   const int nc = (S + kChunk - 1) / kChunk;
   const dim3 grid(nc, H, B);
   cudaError_t e = allow_smem(state_kernel<N>, state_smem<N>());
   if (e == cudaSuccess) e = allow_smem(out_kernel<N>, out_smem<N>());
   if (e != cudaSuccess) return static_cast<int>(e);
   state_kernel<N><<<grid, kThreads, state_smem<N>(), st>>>(k, v, lw, states,
-                                                           dvec, S, H);
+                                                           final, dvec, S, H);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int rc = launch_scan(false, states, dvec, B, H, nc, N, st);
+  const int rc = launch_scan(false, states, dvec, s0, final, B, H, nc, N, st);
   if (rc != 0) return rc;
   out_kernel<N><<<grid, kThreads, out_smem<N>(), st>>>(r, k, v, lw, u, states,
                                                        out, S, H);
@@ -1054,22 +1089,24 @@ int launch_fwd(const float* r, const float* k, const float* v,
 template <int N>
 int launch_bwd(const float* r, const float* k, const float* v,
                const float* lw, const float* u, const float* states,
-               const float* dout, float* dr, float* dk, float* dv,
-               float* dlw, float* dstates, float* dvec, float* du_part,
-               float* du, int B, int S, int H, cudaStream_t st) {
+               const float* final, const float* dout, const float* dfinal,
+               float* dr, float* dk, float* dv, float* dlw, float* ds0,
+               float* dstates, float* dvec, float* du_part, float* du, int B,
+               int S, int H, cudaStream_t st) {
   const int nc = (S + kChunk - 1) / kChunk;
   const dim3 grid(nc, H, B);
   cudaError_t e = allow_smem(xterm_kernel<N>, state_smem<N>());
   if (e == cudaSuccess) e = allow_smem(grad_kernel<N>, grad_smem<N>());
   if (e != cudaSuccess) return static_cast<int>(e);
-  xterm_kernel<N><<<grid, kThreads, state_smem<N>(), st>>>(r, dout, lw,
-                                                           dstates, dvec, S, H);
+  xterm_kernel<N><<<grid, kThreads, state_smem<N>(), st>>>(
+      r, dout, lw, dstates, ds0, dvec, S, H);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int rc = launch_scan(true, dstates, dvec, B, H, nc, N, st);
+  const int rc = launch_scan(true, dstates, dvec, dfinal, ds0, B, H, nc, N, st);
   if (rc != 0) return rc;
   grad_kernel<N><<<grid, kThreads, grad_smem<N>(), st>>>(
-      r, k, v, lw, u, states, dstates, dout, dr, dk, dv, dlw, du_part, S, H);
+      r, k, v, lw, u, states, dfinal != nullptr ? final : nullptr, dstates,
+      dout, dr, dk, dv, dlw, du_part, S, H);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   du_sum_kernel<<<(H * N + kThreads - 1) / kThreads, kThreads, 0, st>>>(
@@ -1084,22 +1121,24 @@ using namespace repro;
 
 extern "C" {
 
-// out (B, S, H, N) and states (B, H, ceil(S/64), N, N); dvec (B, H,
-// ceil(S/64), N) is scratch. Returns cudaGetLastError() after the launches.
+// s0 (B, H, N, N) or null (a zero state); out (B, S, H, N), states (B, H,
+// ceil(S/64), N, N) and final (B, H, N, N); dvec (B, H, ceil(S/64), N) is
+// scratch. Returns cudaGetLastError() after the launches.
 int repro_wkv6_fwd(const void* r, const void* k, const void* v,
-                   const void* logw, const void* u, void* out, void* states,
-                   void* dvec, int B, int S, int H, int N, void* stream) {
+                   const void* logw, const void* u, const void* s0, void* out,
+                   void* states, void* final, void* dvec, int B, int S, int H,
+                   int N, void* stream) {
   if (wkv::bad_shape(B, S, H)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float *fr = static_cast<const float*>(r), *fk = static_cast<const float*>(k),
               *fv = static_cast<const float*>(v), *fl = static_cast<const float*>(logw),
-              *fu = static_cast<const float*>(u);
+              *fu = static_cast<const float*>(u), *f0 = static_cast<const float*>(s0);
   float *fo = static_cast<float*>(out), *fs = static_cast<float*>(states),
-        *fw = static_cast<float*>(dvec);
+        *ff = static_cast<float*>(final), *fw = static_cast<float*>(dvec);
   switch (N) {
-    case 16: return wkv::launch_fwd<16>(fr, fk, fv, fl, fu, fo, fs, fw, B, S, H, st);
-    case 32: return wkv::launch_fwd<32>(fr, fk, fv, fl, fu, fo, fs, fw, B, S, H, st);
-    case 64: return wkv::launch_fwd<64>(fr, fk, fv, fl, fu, fo, fs, fw, B, S, H, st);
+    case 16: return wkv::launch_fwd<16>(fr, fk, fv, fl, fu, f0, fo, fs, ff, fw, B, S, H, st);
+    case 32: return wkv::launch_fwd<32>(fr, fk, fv, fl, fu, f0, fo, fs, ff, fw, B, S, H, st);
+    case 64: return wkv::launch_fwd<64>(fr, fk, fv, fl, fu, f0, fo, fs, ff, fw, B, S, H, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1115,28 +1154,37 @@ int repro_wkv6_occupancy(int N, int* blocks) {
   }
 }
 
-// dr, dk, dv, dlogw (B, S, H, N), du (H, N); dstates (B, H, ceil(S/64), N,
-// N), dvec and du_part (B, H, ceil(S/64), N) are scratch.
+// dr, dk, dv, dlogw (B, S, H, N), du (H, N) and, when ds0 is not null,
+// ds0 (B, H, N, N); dfinal (B, H, N, N) or null (a zero gradient), final
+// the forward's (read only with dfinal); dstates (B, H, ceil(S/64), N, N),
+// dvec and du_part (B, H, ceil(S/64), N) are scratch.
 int repro_wkv6_bwd(const void* r, const void* k, const void* v,
                    const void* logw, const void* u, const void* states,
-                   const void* dout, void* dr, void* dk, void* dv,
-                   void* dlogw, void* dstates, void* dvec, void* du_part,
-                   void* du, int B, int S, int H, int N, void* stream) {
+                   const void* final, const void* dout, const void* dfinal,
+                   void* dr, void* dk, void* dv, void* dlogw, void* ds0,
+                   void* dstates, void* dvec, void* du_part, void* du, int B,
+                   int S, int H, int N, void* stream) {
   if (wkv::bad_shape(B, S, H)) return static_cast<int>(cudaErrorInvalidValue);
+  if (dfinal != nullptr && final == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float *fr = static_cast<const float*>(r), *fk = static_cast<const float*>(k),
               *fv = static_cast<const float*>(v), *fl = static_cast<const float*>(logw),
               *fu = static_cast<const float*>(u),
               *fs = static_cast<const float*>(states),
-              *fd = static_cast<const float*>(dout);
+              *ff = static_cast<const float*>(final),
+              *fd = static_cast<const float*>(dout),
+              *fg = static_cast<const float*>(dfinal);
   float *gr = static_cast<float*>(dr), *gk = static_cast<float*>(dk),
         *gv = static_cast<float*>(dv), *gl = static_cast<float*>(dlogw),
+        *g0 = static_cast<float*>(ds0),
         *gs = static_cast<float*>(dstates), *gw = static_cast<float*>(dvec),
         *gp = static_cast<float*>(du_part), *gu = static_cast<float*>(du);
   switch (N) {
-    case 16: return wkv::launch_bwd<16>(fr, fk, fv, fl, fu, fs, fd, gr, gk, gv, gl, gs, gw, gp, gu, B, S, H, st);
-    case 32: return wkv::launch_bwd<32>(fr, fk, fv, fl, fu, fs, fd, gr, gk, gv, gl, gs, gw, gp, gu, B, S, H, st);
-    case 64: return wkv::launch_bwd<64>(fr, fk, fv, fl, fu, fs, fd, gr, gk, gv, gl, gs, gw, gp, gu, B, S, H, st);
+    case 16: return wkv::launch_bwd<16>(fr, fk, fv, fl, fu, fs, ff, fd, fg, gr, gk, gv, gl, g0, gs, gw, gp, gu, B, S, H, st);
+    case 32: return wkv::launch_bwd<32>(fr, fk, fv, fl, fu, fs, ff, fd, fg, gr, gk, gv, gl, g0, gs, gw, gp, gu, B, S, H, st);
+    case 64: return wkv::launch_bwd<64>(fr, fk, fv, fl, fu, fs, ff, fd, fg, gr, gk, gv, gl, g0, gs, gw, gp, gu, B, S, H, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -19,7 +19,8 @@ CUDA implementation grows by one exactly where the kernel is launched, so
 a run can show that its main path went through the kernels
 (:func:`reset_launches`, :func:`launch_counts`). A replay of a captured
 CUDA graph launches the kernels without running this Python, so it does
-not count.
+not count; a capture records launches without making them, so it runs
+under :func:`uncounted`.
 """
 
 from __future__ import annotations
@@ -242,34 +243,51 @@ _op("lru_scan_bwd", "(Tensor a, Tensor h, Tensor g, Tensor? h0) -> "
 # -- K5: WKV6 --------------------------------------------------------------
 
 
-def _wkv_fwd_plain(r: Tensor, k: Tensor, v: Tensor, logw: Tensor,
-                   u: Tensor) -> Tuple[Tensor, Tensor]:
-    return _ref.wkv6_ref(r, k, v, logw, u), _empty0(r)
+def _wkv_fwd_plain(r: Tensor, k: Tensor, v: Tensor, logw: Tensor, u: Tensor,
+                   s0: Optional[Tensor]) -> Tuple[Tensor, Tensor, Tensor]:
+    out, _, final = _ref.wkv6_fwd_ref(r, k, v, logw, u, s0)
+    return out, _empty0(r), final
 
 
-def _wkv_fwd_fake(r, k, v, logw, u):
-    if r.device.type != "cuda":
-        return r.new_empty(r.shape), _empty0(r)
+def _wkv_fwd_fake(r, k, v, logw, u, s0):
     b, s, h, n = r.shape
+    final = r.new_empty((b, h, n, n), dtype=torch.float32)
+    if r.device.type != "cuda":
+        return r.new_empty(r.shape), _empty0(r), final
     return r.new_empty(r.shape), r.new_empty(
-        (b, h, _wkv.num_chunks(s), n, n), dtype=torch.float32)
+        (b, h, _wkv.num_chunks(s), n, n), dtype=torch.float32), final
 
 
-_op("wkv6_fwd", "(Tensor r, Tensor k, Tensor v, Tensor logw, Tensor u) -> "
-    "(Tensor, Tensor)", _wkv_fwd_plain, _wkv.fwd, _wkv_fwd_fake)
+_op("wkv6_fwd", "(Tensor r, Tensor k, Tensor v, Tensor logw, Tensor u, "
+    "Tensor? s0) -> (Tensor, Tensor, Tensor)", _wkv_fwd_plain, _wkv.fwd,
+    _wkv_fwd_fake)
+
+
+def _ds0_or_empty(grads, r):
+    """An op output may not be None: an absent ds0 is a 0-element tensor."""
+    return grads[:5] + (_empty0(r) if grads[5] is None else grads[5],)
 
 
 def _wkv_bwd_plain(r: Tensor, k: Tensor, v: Tensor, logw: Tensor, u: Tensor,
-                   states: Optional[Tensor], dout: Tensor
-                   ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
-    return _ref.wkv6_bwd_ref(r, k, v, logw, u, dout)
+                   states: Optional[Tensor], dout: Tensor,
+                   s0: Optional[Tensor], final: Optional[Tensor],
+                   dfinal: Optional[Tensor]) -> Tuple[Tensor, ...]:
+    return _ds0_or_empty(_ref.wkv6_bwd_ref(r, k, v, logw, u, dout, s0,
+                                           dfinal), r)
+
+
+def _wkv_bwd_card(r, k, v, logw, u, states, dout, s0, final, dfinal):
+    return _ds0_or_empty(_wkv.bwd(r, k, v, logw, u, states, dout, s0, final,
+                                  dfinal), r)
 
 
 _op("wkv6_bwd", "(Tensor r, Tensor k, Tensor v, Tensor logw, Tensor u, "
-    "Tensor? states, Tensor dout) -> (Tensor, Tensor, Tensor, Tensor, Tensor)",
-    _wkv_bwd_plain, _wkv.bwd,
-    lambda r, k, v, logw, u, states, dout: tuple(
-        t.new_empty(t.shape) for t in (r, k, v, logw, u)))
+    "Tensor? states, Tensor dout, Tensor? s0, Tensor? final, "
+    "Tensor? dfinal) -> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)",
+    _wkv_bwd_plain, _wkv_bwd_card,
+    lambda r, k, v, logw, u, states, dout, s0, final, dfinal: tuple(
+        t.new_empty(t.shape) for t in (r, k, v, logw, u)) + (
+        _empty0(r) if s0 is None else s0.new_empty(s0.shape),))
 
 
 # ---------------------------------------------------------------------------
@@ -388,6 +406,32 @@ def flash_attention_bwd_dkdv(q, k, v, lse, delta, dout, *,
                  bool(causal), int(window or 0))
 
 
+def _grad_inputs(saved):
+    """For a recompute under autograd: a view of each saved tensor that
+    carries a graph (so a third order reaches the input, and an input
+    passed twice gets each position's own gradient), a fresh leaf of one
+    that does not; None stays None."""
+    return [None if t is None else
+            t.view_as(t) if t.requires_grad else
+            t.detach().requires_grad_(True) for t in saved]
+
+
+def _vjp(outs, cotangents, ins, needs, create: bool):
+    """Gradients of ``outs`` (None entries skipped) with respect to the
+    ``ins`` marked in ``needs``, each in its input's dtype, None for the
+    rest: ``torch.autograd.grad``, with ``create_graph`` when ``create``
+    (the caller's grad mode was on: it asked for one more order)."""
+    pairs = [(o, g.to(o.dtype)) for o, g in zip(outs, cotangents)
+             if o is not None and g is not None]
+    want = [x for x, need in zip(ins, needs) if need and x is not None]
+    got = iter(torch.autograd.grad(
+        [o for o, _ in pairs], want, [g for _, g in pairs],
+        create_graph=create, allow_unused=True,
+        materialize_grads=True) if pairs and want else ())
+    return [next(got) if need and x is not None else None
+            for x, need in zip(ins, needs)]
+
+
 class _FlashAttention(torch.autograd.Function):
     """``flash_attention_xla``'s custom VJP: the forward saves q, k, v, the
     f32 output and L (``repro/models/attention.py:_flash_fwd_rule``), the
@@ -470,14 +514,9 @@ class _FlashAttentionBackward(torch.autograd.Function):
     def backward(ctx, gdq, gdk, gdv):
         _PLAIN_CALLS["flash_attention_bwd2_plain"] += 1
         create = torch.is_grad_enabled()
-        saved = ctx.saved_tensors
         needs = [ctx.needs_input_grad[j] for j in (0, 1, 2, 5)]
         with torch.enable_grad():
-            # A view of each input that carries a graph (so a third order
-            # reaches the input, and an input passed twice gets each
-            # position's own gradient), a fresh leaf of one that does not.
-            ins = [t.view_as(t) if t.requires_grad
-                   else t.detach().requires_grad_(True) for t in saved]
+            ins = _grad_inputs(ctx.saved_tensors)
             # One f32 cast of each input: every path's term sums in f32
             # and is rounded to the input's dtype once.
             q, k, v, dout = (x.to(torch.float32) for x in ins)
@@ -486,18 +525,18 @@ class _FlashAttentionBackward(torch.autograd.Function):
             grads = _ref.flash_attention_bwd_ref(
                 q, k, v, out32, lse, dout, causal=ctx.causal,
                 window=ctx.window)
-            got = iter(torch.autograd.grad(
-                grads, [x for x, need in zip(ins, needs) if need],
-                [g.to(o.dtype) for o, g in zip(grads, (gdq, gdk, gdv))],
-                create_graph=create, materialize_grads=True))
-        gq, gk, gv, gdout = (next(got) if need else None for need in needs)
+            gq, gk, gv, gdout = _vjp(grads, (gdq, gdk, gdv), ins, needs,
+                                     create)
         return gq, gk, gv, None, None, gdout, None, None
 
 
-# Calls of the terms no kernel computes (:func:`plain_counts`): K2's second
-# order grows by one each time :class:`_FlashAttentionBackward`
-# differentiates the first backward (plain PyTorch on either device).
-_PLAIN_CALLS = {"flash_attention_bwd2_plain": 0}
+# Calls of the terms no kernel computes (:func:`plain_counts`): the second
+# orders of K2, K4 and K5 grow by one each time
+# :class:`_FlashAttentionBackward`, :class:`_LruScanBackward` or
+# :class:`_Wkv6Backward` differentiates a first backward (plain PyTorch on
+# either device).
+_PLAIN_CALLS = {"flash_attention_bwd2_plain": 0, "lru_scan_bwd2_plain": 0,
+                "wkv6_bwd2_plain": 0}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -523,22 +562,63 @@ def lru_scan_bwd(a, h, g, h0=None):
 
 
 class _LruScan(torch.autograd.Function):
-    """The RG-LRU scan with the reverse scan as its backward. Saves a, the
-    output h and h0; works under non-reentrant ``torch.utils.checkpoint``,
-    which runs the forward again in the backward."""
+    """The RG-LRU scan with the reverse scan as its backward
+    (:class:`_LruScanBackward`). Saves a, b, h0 and the output h; works
+    under non-reentrant ``torch.utils.checkpoint``, which runs the forward
+    again in the backward."""
 
     @staticmethod
     def forward(ctx, a, b, h0):
         h = lru_scan_fwd(a, b, h0)
-        ctx.save_for_backward(a, h, h0)
+        ctx.save_for_backward(a, b, h0, h)
         return h
 
     @staticmethod
     def backward(ctx, g):
-        a, h, h0 = ctx.saved_tensors
-        _no_second_order_on_card("lru_scan", a)
-        da, db, dh0 = lru_scan_bwd(a, h, g.contiguous(), h0)
+        a, b, h0, h = ctx.saved_tensors
+        da, db, dh0 = _LruScanBackward.apply(a, b, h0, h.detach(),
+                                             g.contiguous())
         return da, db, None if h0 is None else dh0
+
+
+class _LruScanBackward(torch.autograd.Function):
+    """K4's backward as a differentiable function of (a, b, h0, g).
+
+    Forward: the reverse-scan kernel (its plain version on the CPU), as the
+    first-order backward always ran it, bitwise.
+
+    Backward, the second order: the vjp of (da, db, dh0) with respect to
+    (a, b, h0, g), including the dependence of h on a, b and h0, which the
+    reference takes when XLA differentiates the transpose of its
+    associative scan (``repro/models/rglru.py:lru_scan``) again. It is
+    computed by recomputing the scan and the reverse scan from (a, b, h0,
+    g) through the plain loops of ``kernels.ref`` in f32 under autograd,
+    then ``torch.autograd.grad`` (with ``create_graph`` when the caller's
+    grad mode asks for it, so a third order composes), on either device.
+    No kernel computes this term; each call counts in
+    ``plain_counts()["lru_scan_bwd2_plain"]``. The loops take S Python
+    steps each: cheap at serve and test lengths, slow at S 4096."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0, h, g):
+        ctx.save_for_backward(a, b, h0, g)
+        return lru_scan_bwd(a, h, g, h0)
+
+    @staticmethod
+    def backward(ctx, gda, gdb, gdh0):
+        _PLAIN_CALLS["lru_scan_bwd2_plain"] += 1
+        create = torch.is_grad_enabled()
+        saved = ctx.saved_tensors
+        needs = [ctx.needs_input_grad[j] for j in (0, 1, 2, 4)]
+        with torch.enable_grad():
+            ins = _grad_inputs(saved)
+            a, b, h0, g = (None if x is None else x.to(torch.float32)
+                           for x in ins)
+            h = _ref.lru_scan_ref(a, b, h0)
+            outs = _ref.lru_scan_bwd_ref(a, h, g, h0)
+            got = _vjp(outs, (gda, gdb, gdh0), ins, needs, create)
+        ga, gb, gh0, gg = got
+        return ga, gb, gh0, None, gg
 
 
 def lru_scan(a: torch.Tensor, b: torch.Tensor, h0=None) -> torch.Tensor:
@@ -550,47 +630,106 @@ def lru_scan(a: torch.Tensor, b: torch.Tensor, h0=None) -> torch.Tensor:
     return _LruScan.apply(a.contiguous(), b.contiguous(), h0)
 
 
-def wkv6_fwd(r, k, v, logw, u):
-    """K5 forward: the WKV6 recurrence over axis 1 of (B, S, H, N) f32 ->
-    (out f32, states): on the card the state entering each 64-step chunk
+def wkv6_fwd(r, k, v, logw, u, s0=None):
+    """K5 forward: the WKV6 recurrence over axis 1 of (B, S, H, N) f32 from
+    ``s0`` (B, H, N, N), or zeros -> (out f32, states, final (B, H, N, N)
+    f32): states, on the card, the state entering each 64-step chunk
     (B, H, ceil(S / 64), N, N), which the backward kernel reads; on the
     CPU None (the plain backward runs the recurrence again)."""
-    out, states = _call("wkv6_fwd", r, k, v, logw, u)
-    return out, None if states.numel() == 0 else states
+    out, states, final = _call("wkv6_fwd", r, k, v, logw, u, s0)
+    return out, None if states.numel() == 0 else states, final
 
 
-def wkv6_bwd(r, k, v, logw, u, states, dout):
-    """K5 backward, the chunked reverse pass: -> (dr, dk, dv, dlogw, du),
-    f32; du (H, N) summed over batch and chunks in a fixed order."""
-    return _call("wkv6_bwd", r, k, v, logw, u, states, dout)
+def wkv6_bwd(r, k, v, logw, u, states, dout, s0=None, final=None,
+             dfinal=None):
+    """K5 backward, the chunked reverse pass: -> (dr, dk, dv, dlogw, du,
+    ds0), f32; du (H, N) summed over batch and chunks in a fixed order; ds0
+    (B, H, N, N) with ``s0``, else None. ``dfinal``, the final state's
+    gradient, starts the reverse pass (zeros when None); on the card it
+    needs the forward's ``final``."""
+    grads = _call("wkv6_bwd", r, k, v, logw, u, states, dout, s0, final,
+                  dfinal)
+    return tuple(grads[:5]) + (None if s0 is None else grads[5],)
 
 
 class _Wkv6(torch.autograd.Function):
-    """WKV6 with the chunked reverse pass as its backward. Saves the inputs
-    and the chunk states (none on the CPU); works under non-reentrant
+    """WKV6 with the chunked reverse pass as its backward
+    (:class:`_Wkv6Backward`). Saves the inputs, the chunk states (none on
+    the CPU) and the final state; works under non-reentrant
     ``torch.utils.checkpoint``, which runs the forward again in the
-    backward."""
+    backward. Gradients are not materialised: a final state that no loss
+    reads gives the reverse pass no ``dfinal`` and leaves it as it was
+    before the final state existed, bitwise."""
 
     @staticmethod
-    def forward(ctx, r, k, v, logw, u):
-        out, states = wkv6_fwd(r, k, v, logw, u)
-        ctx.save_for_backward(r, k, v, logw, u, states)
-        return out
+    def forward(ctx, r, k, v, logw, u, s0):
+        out, states, final = wkv6_fwd(r, k, v, logw, u, s0)
+        ctx.save_for_backward(r, k, v, logw, u, s0, states, final)
+        ctx.set_materialize_grads(False)
+        return out, final
 
     @staticmethod
-    def backward(ctx, dout):
-        r, k, v, logw, u, states = ctx.saved_tensors
-        _no_second_order_on_card("wkv6", r)
-        return wkv6_bwd(r, k, v, logw, u, states, dout.contiguous())
+    def backward(ctx, dout, dfinal):
+        r, k, v, logw, u, s0, states, final = ctx.saved_tensors
+        dout = torch.zeros_like(r) if dout is None else dout.contiguous()
+        if dfinal is not None:
+            dfinal = dfinal.contiguous()
+        return _Wkv6Backward.apply(r, k, v, logw, u, s0, states,
+                                   final.detach(), dout, dfinal)
+
+
+class _Wkv6Backward(torch.autograd.Function):
+    """K5's backward as a differentiable function of (r, k, v, logw, u,
+    s0, dout, dfinal).
+
+    Forward: the chunked reverse-pass kernels (their plain version on the
+    CPU), as the first-order backward always ran them, bitwise.
+
+    Backward, the second order: the vjp of (dr, dk, dv, dlogw, du, ds0)
+    with respect to those inputs, including the dependence of the states on
+    r, k, v, logw and s0, which the reference takes when XLA differentiates
+    its scan's transpose again (``repro/models/rwkv.py:sequential_wkv``).
+    It is computed by recomputing the reverse pass from those inputs
+    through the plain loops of ``kernels.ref`` (``wkv6_bwd_ref``, which
+    runs the forward recurrence again) in f32 under autograd, then
+    ``torch.autograd.grad``, on either device. No kernel computes this
+    term; each call counts in ``plain_counts()["wkv6_bwd2_plain"]``. The
+    loops hold every step's (B, H, N, N) state: cheap at serve and test
+    lengths, large at S 4096."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, s0, states, final, dout, dfinal):
+        ctx.save_for_backward(r, k, v, logw, u, s0, dout, dfinal)
+        return wkv6_bwd(r, k, v, logw, u, states, dout, s0, final, dfinal)
+
+    @staticmethod
+    def backward(ctx, gdr, gdk, gdv, gdlogw, gdu, gds0):
+        _PLAIN_CALLS["wkv6_bwd2_plain"] += 1
+        create = torch.is_grad_enabled()
+        saved = ctx.saved_tensors
+        needs = [ctx.needs_input_grad[j] for j in (0, 1, 2, 3, 4, 5, 8, 9)]
+        with torch.enable_grad():
+            ins = _grad_inputs(saved)
+            r, k, v, logw, u, s0, dout, dfinal = ins
+            outs = _ref.wkv6_bwd_ref(r, k, v, logw, u, dout, s0, dfinal)
+            got = _vjp(outs, (gdr, gdk, gdv, gdlogw, gdu, gds0), ins, needs,
+                       create)
+        gr, gk, gv, glogw, gu, gs0, gdout, gdfinal = got
+        return gr, gk, gv, glogw, gu, gs0, None, None, gdout, gdfinal
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-         logw: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+         logw: torch.Tensor, u: torch.Tensor, s0=None):
     """The RWKV-6 WKV recurrence with its backward: r, k, v, logw
-    (B, S, H, N), u (H, N), all f32 -> out (B, S, H, N) f32, from a zero
-    state. On the card the K5 kernels, on the CPU their plain versions."""
+    (B, S, H, N), u (H, N), all f32, and an initial state s0 (B, H, N, N)
+    f32 (zeros when None) -> (out (B, S, H, N) f32, final (B, H, N, N) f32,
+    the state after the last step), as ``repro/models/rwkv.py:119
+    sequential_wkv(..., state=)``. On the card the K5 kernels, on the CPU
+    their plain versions; both outputs and s0 take gradients."""
+    if s0 is not None:
+        s0 = s0.to(torch.float32).contiguous()
     return _Wkv6.apply(r.contiguous(), k.contiguous(), v.contiguous(),
-                       logw.contiguous(), u.contiguous())
+                       logw.contiguous(), u.contiguous(), s0)
 
 
 KERNEL_WRAPPERS = (quantize, dequantize, reduce_compress_roundtrip,
@@ -616,19 +755,30 @@ def launch_counts() -> Dict[str, int]:
     return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
 
 
+class uncounted:
+    """``with uncounted() as made:`` wrapper calls inside the block leave
+    the counters (and K4's by route) as they were: a CUDA graph capture
+    records its launches, it does not make them. On exit ``made`` holds
+    the calls made inside by wrapper name (those a replay of the capture
+    launches)."""
+
+    def __enter__(self) -> Dict[str, int]:
+        self.before = launch_counts()
+        self.routes = dict(_lru.ROUTE_LAUNCHES)
+        self.made: Dict[str, int] = {}
+        return self.made
+
+    def __exit__(self, *exc) -> None:
+        after = launch_counts()
+        self.made.update({k: after[k] - self.before[k] for k in after
+                          if after[k] != self.before[k]})
+        for fn in KERNEL_WRAPPERS:
+            fn.launches = self.before[fn.__name__]
+        _lru.ROUTE_LAUNCHES.update(self.routes)
+
+
 def plain_counts() -> Dict[str, int]:
-    """Calls of the terms no kernel computes, on either device: K2's
-    second order (:class:`_FlashAttentionBackward`)."""
+    """Calls of the terms no kernel computes, on either device: the second
+    orders of K2, K4 and K5 (:class:`_FlashAttentionBackward`,
+    :class:`_LruScanBackward`, :class:`_Wkv6Backward`)."""
     return dict(_PLAIN_CALLS)
-
-
-def _no_second_order_on_card(name: str, x: Tensor) -> None:
-    """A kernel's backward whose outputs carry no graph: on the card, a
-    backward taken with ``create_graph`` would drop its second-order terms,
-    so it raises instead (ROADMAP queue 2: K4/K5 second order on the
-    card). The CPU's plain backward is differentiable and runs."""
-    if torch.is_grad_enabled() and x.is_cuda:
-        raise NotImplementedError(
-            f"{name}: a second order (create_graph=True) through the card's "
-            "kernel is not implemented: its backward kernel's outputs carry "
-            "no graph (ROADMAP queue 2, K4/K5 second order on the card)")

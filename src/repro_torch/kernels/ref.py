@@ -264,20 +264,24 @@ def lru_scan_bwd_ref(a: torch.Tensor, h: torch.Tensor, g: torch.Tensor,
 WKV_CHUNK = 64  # the K5 kernels' chunk: the forward saves S at each start
 
 
-def wkv6_fwd_ref(r, k, v, logw, u):
-    """Sequential WKV6, ``repro/kernels/ref.py:wkv6_ref`` op for op, in f32:
+def wkv6_fwd_ref(r, k, v, logw, u, s0=None):
+    """Sequential WKV6, ``repro/kernels/ref.py:wkv6_ref`` op for op, in f32,
+    from the initial state ``s0`` of ``repro/models/rwkv.py:119
+    sequential_wkv(..., state=)`` (zeros when None):
 
         o_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T)
-        S_t = diag(exp(logw_t)) S_{t-1} + k_t v_t^T      (S_{-1} = 0)
+        S_t = diag(exp(logw_t)) S_{t-1} + k_t v_t^T      (S_{-1} = s0)
 
-    r, k, v, logw (B, S, H, N), u (H, N) -> (out (B, S, H, N) f32, states
-    (B, H, ceil(S / 64), N, N) f32): the state entering each 64-step chunk,
-    which the K5 backward reads. Differentiable (autograd through the
-    loop)."""
+    r, k, v, logw (B, S, H, N), u (H, N), s0 (B, H, N, N) -> (out (B, S, H,
+    N) f32, states (B, H, ceil(S / 64), N, N) f32, the state entering each
+    64-step chunk, which the K5 backward reads, final (B, H, N, N) f32, the
+    state after the last step: ``sequential_wkv``'s second result).
+    Differentiable (autograd through the loop)."""
     r, k, v, logw = (t.to(torch.float32) for t in (r, k, v, logw))
     b, s, h, n = r.shape
     uu = u.to(torch.float32)[None, :, :, None]
-    S = torch.zeros((b, h, n, n), dtype=torch.float32, device=r.device)
+    S = (torch.zeros((b, h, n, n), dtype=torch.float32, device=r.device)
+         if s0 is None else s0.to(torch.float32))
     outs, states = [], []
     for t in range(s):
         if t % WKV_CHUNK == 0:
@@ -285,17 +289,18 @@ def wkv6_fwd_ref(r, k, v, logw, u):
         kv = k[:, t, :, :, None] * v[:, t, :, None, :]
         outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t], S + uu * kv))
         S = torch.exp(logw[:, t])[..., None] * S + kv
-    return torch.stack(outs, dim=1), torch.stack(states, dim=2)
+    return torch.stack(outs, dim=1), torch.stack(states, dim=2), S
 
 
-def wkv6_ref(r, k, v, logw, u):
+def wkv6_ref(r, k, v, logw, u, s0=None):
     """The WKV6 output alone: (B, S, H, N) f32."""
-    return wkv6_fwd_ref(r, k, v, logw, u)[0]
+    return wkv6_fwd_ref(r, k, v, logw, u, s0)[0]
 
 
-def wkv6_bwd_ref(r, k, v, logw, u, dout):
-    """The gradient of :func:`wkv6_ref` as a reverse pass over the steps,
-    in f32, with G_t = dL/dS_t (G_{S-1} = 0) and w_t = exp(logw_t):
+def wkv6_bwd_ref(r, k, v, logw, u, dout, s0=None, dfinal=None):
+    """The gradient of :func:`wkv6_fwd_ref`'s output and final state as a
+    reverse pass over the steps, in f32, with G_t = dL/dS_t (G_{S-1} =
+    ``dfinal``, or 0) and w_t = exp(logw_t):
 
         dr_t = S_{t-1} do_t + u * k_t (v_t . do_t)
         dk_t = G_t v_t + u * r_t (v_t . do_t)
@@ -303,19 +308,23 @@ def wkv6_bwd_ref(r, k, v, logw, u, dout):
         dlogw_t = w_t * rowsum(S_{t-1} * G_t)
         du = sum over batch and steps of r_t * k_t (v_t . do_t)
         G_{t-1} = r_t do_t^T + diag(w_t) G_t
+        ds0 = G_{-1}
 
-    The states S_{t-1} come from the forward run again. Returns (dr, dk,
-    dv, dlogw (B, S, H, N), du (H, N)), all f32."""
+    The states S_{t-1} come from the forward run again (from ``s0``).
+    Returns (dr, dk, dv, dlogw (B, S, H, N), du (H, N), ds0 (B, H, N, N) or
+    None without ``s0``), all f32. Differentiable (autograd through the
+    loops): K5's second order recomputes through it."""
     r, k, v, logw, do = (t.to(torch.float32) for t in (r, k, v, logw, dout))
     uu = u.to(torch.float32)
     b, s, h, n = r.shape
-    S = torch.zeros((b, h, n, n), dtype=torch.float32, device=r.device)
+    S = (torch.zeros((b, h, n, n), dtype=torch.float32, device=r.device)
+         if s0 is None else s0.to(torch.float32))
     prev = []
     for t in range(s):
         prev.append(S)
         S = torch.exp(logw[:, t])[..., None] * S + \
             k[:, t, :, :, None] * v[:, t, :, None, :]
-    G = torch.zeros_like(S)
+    G = torch.zeros_like(S) if dfinal is None else dfinal.to(torch.float32)
     du = torch.zeros_like(uu)
     grads = [[None] * s for _ in range(4)]
     for t in range(s - 1, -1, -1):
@@ -330,4 +339,4 @@ def wkv6_bwd_ref(r, k, v, logw, u, dout):
         du = du + torch.sum(rt * kt * dd, dim=0)
         G = rt[..., None] * dot[..., None, :] + w[..., None] * G
     dr, dk, dv, dlogw = (torch.stack(g, dim=1) for g in grads)
-    return dr, dk, dv, dlogw, du
+    return dr, dk, dv, dlogw, du, None if s0 is None else G

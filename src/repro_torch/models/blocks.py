@@ -1,4 +1,5 @@
-"""Transformer blocks (``repro/models/blocks.py``), train mode.
+"""Transformer blocks (``repro/models/blocks.py``): train, prefill, decode
+and chunked prefill.
 
 ``block_apply(cfg, kind, p, x, positions)`` with ``kind`` "attention",
 "recurrent" or "rwkv" and ``p`` the block's parameters keyed ``ln1.scale``,
@@ -8,8 +9,16 @@
 blocks with a gated MLP; an rwkv block is ln1, time mix, residual, ln2,
 channel mix, residual, with no MLP. A local window applies to attention
 layers only.
-Left out for later slices: MoE FFNs, and the prefill/decode/chunk modes
-with their caches and states.
+
+``mode`` "prefill", "decode" or "chunk" (``repro/models/blocks.py:95``)
+takes the block's ``cache`` (:func:`block_cache_init`: an attention KV
+cache, an RG-LRU state or an RWKV state) and returns ``(x, cache)``, the
+cache updated in place: "prefill" fills a fresh cache from a prompt,
+"decode" advances it one token, "chunk" (chunked prefill) continues it
+with a prompt chunk (the no-ring attention layout). The reference returns
+``(x, aux_loss, cache)``; the port has no MoE, so no aux loss, and its
+train mode returns x alone.
+Left out for later slices: MoE FFNs.
 """
 
 from __future__ import annotations
@@ -44,27 +53,87 @@ def layer_kinds(cfg):
     )
 
 
+MODES = ("train", "prefill", "decode", "chunk")
+
+
+def block_cache_init(cfg, kind: str, batch: int, max_len: int, *,
+                     ring: bool = True, device=None):
+    """A zero cache of one block (``repro/models/blocks.py:64``);
+    ``ring=False`` builds the no-ring attention layout (slot == absolute
+    position) that chunked prefill and the serve slot pool need."""
+    if kind == "attention":
+        window = cfg.window_size if cfg.attention == "local" else None
+        return attention.init_cache(cfg, batch, max_len, window=window,
+                                    ring=ring, device=device)
+    if kind == "recurrent":
+        return rglru.init_state(cfg, batch, device)
+    if kind == "rwkv":
+        return rwkv.init_state(cfg, batch, device)
+    raise ValueError(f"block kind {kind!r} is not ported")
+
+
+def _store(cache, new):
+    """Write a recurrent block's new state into its cache, in place."""
+    for key, value in new.items():
+        cache[key].copy_(value)
+    return cache
+
+
 def block_apply(cfg, kind: str, p: Dict[str, torch.Tensor], x: torch.Tensor,
-                positions: torch.Tensor) -> torch.Tensor:
+                positions: torch.Tensor, *, mode: str = "train", cache=None):
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r}: one of {MODES}")
     h = common.rmsnorm_apply(p["ln1.scale"], x, cfg.norm_eps)
     if kind == "rwkv":
         tp = sub(p, "tm.")
-        x = x + rwkv.time_mix(cfg, tp, h)
+        states = ({} if mode == "train" else
+                  {"shift_state": cache["tm_shift"],
+                   "wkv_state": cache["wkv"]})
+        tm, (tm_shift, wkv) = rwkv.time_mix(cfg, tp, h, **states)
+        x = x + tm
         h2 = common.rmsnorm_apply(p["ln2.scale"], x, cfg.norm_eps)
-        return x + rwkv.channel_mix(cfg, tp, h2)
+        cm, cm_shift = rwkv.channel_mix(
+            cfg, tp, h2, shift_state=None if mode == "train"
+            else cache["cm_shift"])
+        x = x + cm
+        if mode == "train":
+            return x
+        return x, _store(cache, {"tm_shift": tm_shift, "cm_shift": cm_shift,
+                                 "wkv": wkv})
     if kind == "attention":
         window = cfg.window_size if cfg.attention == "local" else 0
         ap = sub(p, "attn.")
-        q, k, v = attention.qkv(cfg, ap, h, positions)
-        attn = attention.self_attention(cfg, q, k, v, causal=True,
-                                        window=window)
-        x = x + attention.out_proj(ap, attn)
+        if mode == "decode":
+            out, cache = attention.decode_attention(cfg, ap, h, cache,
+                                                    window=window)
+        elif mode == "chunk":
+            out, cache = attention.chunk_attention(cfg, ap, h, cache,
+                                                   positions, window=window)
+        else:
+            q, k, v = attention.qkv(cfg, ap, h, positions)
+            attn = attention.self_attention(cfg, q, k, v, causal=True,
+                                            window=window)
+            out = attention.out_proj(ap, attn)
+            if mode == "prefill":
+                cache = attention.fill_cache(cache, k, v, window=window)
+        x = x + out
     elif kind == "recurrent":
-        x = x + rglru.apply(cfg, sub(p, "rec."), h)
+        rp = sub(p, "rec.")
+        if mode == "train":
+            x = x + rglru.apply(cfg, rp, h)
+        else:
+            if mode == "decode":
+                out, new = rglru.decode_step(cfg, rp, h, cache)
+            else:
+                out, new = rglru.prefill(
+                    cfg, rp, h, state=cache if mode == "chunk" else None)
+            x = x + out
+            cache = _store(cache, new)
     else:
         raise ValueError(f"block kind {kind!r} is not ported")
     h2 = common.rmsnorm_apply(p["ln2.scale"], x, cfg.norm_eps)
-    return x + mlp.apply(cfg, sub(p, "mlp."), h2)
+    x = x + mlp.apply(cfg, sub(p, "mlp."), h2)
+    return x if mode == "train" else (x, cache)
 
 
 class RMSNorm(nn.Module):

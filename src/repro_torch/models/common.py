@@ -50,7 +50,10 @@ def embedding_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=F32, device=device) / head_dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=F32, device=device), exps)
+    # theta as an f32 tensor made on the device (no host copy: a CUDA graph
+    # of a serve step captures this)
+    base = torch.full((), theta, dtype=F32, device=device)
+    return 1.0 / torch.pow(base, exps)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

@@ -1,21 +1,30 @@
 """Architecture registry (``repro/models/registry.py``): config lookup,
-parameter init and the loss. The port registers lm_350m (dense),
+parameter init, the loss, the serve functions and the serve slot pool's
+layout. The port registers lm_350m and stablelm_3b (dense),
 recurrentgemma_2b (hybrid: RG-LRU and local attention) and rwkv6_3b (ssm:
-RWKV-6); the other
-architectures, input specs and serve-step builders wait."""
+RWKV-6); the other architectures and the dry-run input specs wait.
+
+The slot pool (``repro/models/registry.py:198-265``) is the per-layer
+cache list of :func:`transformer.init_caches` at ``slots`` rows in the
+no-ring layout, every position leaf (:data:`POS_LEAF`) given one entry
+per slot. In the port's unstacked layout every batch-bearing leaf has its
+batch axis first, so the slot axis of every leaf is 0
+(:func:`slot_vmap_axes`), where the reference's stacked leaves carry it at
+1, after the layers axis."""
 
 from __future__ import annotations
 
 import importlib
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
+from torch.utils import _pytree as pytree
 
 from .. import compat
 from . import transformer
 from .config import ModelConfig
 
-ARCH_IDS = ("lm_350m", "recurrentgemma_2b", "rwkv6_3b")
+ARCH_IDS = ("lm_350m", "stablelm_3b", "recurrentgemma_2b", "rwkv6_3b")
 
 
 def get_config(arch: str) -> ModelConfig:
@@ -38,3 +47,99 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
 
 def loss_fn(cfg: ModelConfig, params, batch) -> torch.Tensor:
     return transformer.loss_fn(cfg, params, batch)
+
+
+# ---------------------------------------------------------------------------
+# serve functions
+# ---------------------------------------------------------------------------
+
+
+def _decoder_only(cfg: ModelConfig, what: str) -> None:
+    if cfg.is_encoder_decoder or cfg.family == "vlm":
+        raise ValueError(f"{what} supports token-only decoder models; "
+                         f"{cfg.name} is {cfg.family}")
+
+
+def make_prefill_fn(cfg: ModelConfig, *, max_len: Optional[int] = None):
+    """``prefill_fn(params, batch)`` -> (last logits, caches sized for
+    ``max_len``, default the prompt length) (``repro/models/registry.py:
+    149``). Token-only decoders: the port has no encoder-decoder or VLM
+    family yet."""
+    _decoder_only(cfg, "prefill")
+
+    def prefill_fn(params, batch):
+        return transformer.prefill(cfg, params, batch["tokens"],
+                                   max_len=max_len)
+
+    return prefill_fn
+
+
+def make_decode_fn(cfg: ModelConfig):
+    """``decode_fn(params, token (B, 1), caches)`` -> (logits (B, V),
+    caches) (``repro/models/registry.py:180``)."""
+    _decoder_only(cfg, "decode")
+
+    def decode_fn(params, token, caches):
+        return transformer.decode_step(cfg, params, token, caches)
+
+    return decode_fn
+
+
+def make_chunk_prefill_fn(cfg: ModelConfig):
+    """``chunk_fn(params, tokens (B, C), caches, pos0)`` -> (last logits,
+    caches), continuing no-ring caches from ``pos0``
+    (``repro/models/registry.py:266``); refuses models that are not
+    token-only decoders, as the reference does."""
+    _decoder_only(cfg, "chunked prefill")
+
+    def chunk_fn(params, tokens, caches, pos0):
+        return transformer.chunk_prefill(cfg, params, tokens, caches, pos0)
+
+    return chunk_fn
+
+
+# ---------------------------------------------------------------------------
+# the serve slot pool
+# ---------------------------------------------------------------------------
+
+POS_LEAF = -1  # a leaf with no batch axis: an attention cache's "pos"
+
+
+def cache_batch_dims(cfg: ModelConfig):
+    """The batch axis of every leaf of :func:`transformer.init_caches`'s
+    tree, or :data:`POS_LEAF` for a position (``repro/models/registry.py:
+    208``): a list with one dict per layer."""
+    _decoder_only(cfg, "slot pools")
+    caches = transformer.init_caches(cfg, 1, 1, ring=False, device="meta")
+    return [{k: POS_LEAF if k == "pos" else 0 for k in c} for c in caches]
+
+
+def slot_vmap_axes(cfg: ModelConfig):
+    """The slot axis of every leaf of the pool (``repro/models/registry.py:
+    233``): 0 for all, the port's layout putting the batch axis first and
+    giving a position leaf its slot axis first. Kept for parity with the
+    reference, whose steps ``vmap`` over these axes: the port's steps
+    decode the pool as one batch and read none of it."""
+    return pytree.tree_map(lambda d: 0, cache_batch_dims(cfg))
+
+
+def init_slot_pool(cfg: ModelConfig, slots: int, max_len: int, *,
+                   device="cuda"):
+    """The serve cache pool, allocated once for the life of the server and
+    updated in place (``repro/models/registry.py:239``): the no-ring caches
+    of ``slots`` rows, each position leaf with one entry per slot."""
+    dev = compat.resolve_device(device) if str(device) != "meta" else device
+    caches = transformer.init_caches(cfg, slots, max_len, ring=False,
+                                     device=dev)
+    return pytree.tree_map(
+        lambda leaf, d: leaf if d != POS_LEAF else torch.zeros(
+            (slots,) + tuple(leaf.shape), dtype=leaf.dtype,
+            device=leaf.device),
+        caches, cache_batch_dims(cfg))
+
+
+def slot_pool_bytes(cfg: ModelConfig, slots: int, max_len: int) -> int:
+    """The bytes the slot pool pins (``repro/models/registry.py:256``),
+    from its shapes on the meta device (nothing allocated)."""
+    pool = init_slot_pool(cfg, slots, max_len, device="meta")
+    return sum(t.numel() * t.element_size() for t in pytree.tree_leaves(pool))

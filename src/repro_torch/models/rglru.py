@@ -1,4 +1,5 @@
-"""RG-LRU recurrent block (``repro/models/rglru.py``), train mode.
+"""RG-LRU recurrent block (``repro/models/rglru.py``): train, prefill,
+decode and chunked prefill.
 
 Griffin's recurrent block (RecurrentGemma, arXiv:2402.19427):
 
@@ -17,9 +18,12 @@ card, their plain versions on the CPU), where the reference runs
 ``jax.lax.associative_scan``: the results differ only in the order of f32
 operations.
 
-Left out for the serve slice: decode, prefill and chunked prefill, with
-their conv and LRU states (K4 already takes the initial state ``h0`` that
-chunked prefill needs).
+The serve paths carry a state per layer, ``{"h": (B, W) f32, "conv": (B,
+3, W) f32}``: the LRU state and the last three conv inputs
+(:func:`init_state`). :func:`prefill` (with ``state``, chunked prefill)
+continues both across a chunk boundary and runs the recurrence through
+``ops.lru_scan`` with ``h0``: K4 on the card. :func:`decode_step` is the
+reference's fused single step, ``h = a * h + b``, in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -69,24 +73,76 @@ def _gates(p: Dict[str, torch.Tensor], u: torch.Tensor):
     return a, gated
 
 
-def _causal_conv(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+def _causal_conv(p: Dict[str, torch.Tensor], x: torch.Tensor, state=None):
     """Depthwise causal conv of width 4 over (B, S, W), in f32, cast back:
-    ``out_s = sum_t x_{s-3+t} * conv_t`` with zeros before the start."""
+    ``out_s = sum_t x_{s-3+t} * conv_t``, with zeros before the start or,
+    given ``state`` (B, 3, W) f32, the last three inputs before this chunk
+    (``repro/models/rglru.py:79 _causal_conv``). Returns (out, the last
+    three inputs, or None without a state)."""
     w = p["conv"].to(F32)
     s = x.shape[1]
-    xf = F.pad(x.to(F32), (0, 0, _CONV_WIDTH - 1, 0))
+    if state is None:
+        xf = F.pad(x.to(F32), (0, 0, _CONV_WIDTH - 1, 0))
+    else:
+        xf = torch.cat([state.to(F32), x.to(F32)], dim=1)
     out = xf[:, 0:s] * w[0]
     for t in range(1, _CONV_WIDTH):
         out = out + xf[:, t:t + s] * w[t]
-    return out.to(x.dtype)
+    return out.to(x.dtype), (None if state is None
+                             else xf[:, -(_CONV_WIDTH - 1):])
+
+
+def _in_proj(p, x):
+    u = torch.matmul(x, p["w_in"])
+    return torch.chunk(u, 2, dim=-1)
+
+
+def _out_proj(p, h, gate, dtype):
+    h = h.to(dtype) * common.activation("gelu")(gate)
+    return torch.matmul(h, p["w_out"])
 
 
 def apply(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     """Train path. x (B, S, D) -> (B, S, D) in x's dtype."""
-    u = torch.matmul(x, p["w_in"])
-    u, gate = torch.chunk(u, 2, dim=-1)
-    u = _causal_conv(p, u)
+    u, gate = _in_proj(p, x)
+    u, _ = _causal_conv(p, u)
     a, bterm = _gates(p, u)
-    h = ops.lru_scan(a, bterm)
-    h = h.to(x.dtype) * common.activation("gelu")(gate)
-    return torch.matmul(h, p["w_out"])
+    return _out_proj(p, ops.lru_scan(a, bterm), gate, x.dtype)
+
+
+def init_state(cfg, batch: int, device=None) -> Dict[str, torch.Tensor]:
+    """Zero serve state (``repro/models/rglru.py:132 init_state``)."""
+    w = cfg.lru_width
+    return {"h": torch.zeros((batch, w), dtype=F32, device=device),
+            "conv": torch.zeros((batch, _CONV_WIDTH - 1, w), dtype=F32,
+                                device=device)}
+
+
+def decode_step(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor, state):
+    """x (B, 1, D) -> (out (B, 1, D), new state): one step of the conv
+    window and of ``h = a * h + b`` (``repro/models/rglru.py:147
+    decode_step``)."""
+    u, gate = _in_proj(p, x)
+    u, conv = _causal_conv(p, u, state["conv"])
+    a, bterm = _gates(p, u[:, 0])
+    h = a * state["h"] + bterm
+    return _out_proj(p, h[:, None], gate, x.dtype), {"h": h, "conv": conv}
+
+
+def prefill(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor, state=None):
+    """The block over a prefix, x (B, S, D) -> (out, final state)
+    (``repro/models/rglru.py:160 prefill``). With ``state``, a previous
+    chunk's, the conv window and the LRU state continue across the chunk
+    boundary: chunked prefill. The recurrence is ``ops.lru_scan`` with
+    ``h0`` (K4 on the card)."""
+    u, gate = _in_proj(p, x)
+    uc, _ = _causal_conv(p, u, None if state is None else state["conv"])
+    a, bterm = _gates(p, uc)
+    h = ops.lru_scan(a, bterm, None if state is None else state["h"])
+    out = _out_proj(p, h, gate, x.dtype)
+    u32 = u.to(F32)
+    if state is not None:  # the conv inputs so far: the window, then the chunk
+        u32 = torch.cat([state["conv"].to(F32), u32], dim=1)
+    if u32.shape[1] < _CONV_WIDTH - 1:  # a short prefix: zeros before it
+        u32 = F.pad(u32, (0, 0, _CONV_WIDTH - 1 - u32.shape[1], 0))
+    return out, {"h": h[:, -1].to(F32), "conv": u32[:, -(_CONV_WIDTH - 1):]}

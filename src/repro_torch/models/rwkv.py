@@ -1,4 +1,5 @@
-"""RWKV-6 "Finch" block (``repro/models/rwkv.py``), train mode.
+"""RWKV-6 "Finch" block (``repro/models/rwkv.py``): train, prefill, decode
+and chunked prefill.
 
 An attention-free time mix with data-dependent decay (arXiv:2404.05892),
 per head of N = ``rwkv_head_dim`` channels over the state S (N x N):
@@ -20,8 +21,14 @@ computes the same function as its ``sequential_wkv`` and stays finite.
 Products that the reference writes with ``preferred_element_type=f32``
 run in the model dtype and are cast to f32, as in ``models/mlp.py``.
 
-Left out for the serve slice: the shift and WKV states, ``init_state`` and
-the decode step (``sequential_wkv``).
+The serve paths carry a state per layer (:func:`init_state`): the last
+inputs of the time and channel mixes' token shifts (B, D) f32 and the WKV
+state (B, H, N, N) f32. With more than one token, :func:`time_mix` runs
+K5 from that state (``ops.wkv6(..., s0=)``, which returns the final state
+too); a single token (decode) takes the sequential step in plain PyTorch,
+as the reference runs ``sequential_wkv`` there (``chunked=(mode !=
+"decode")``, ``repro/models/blocks.py:160``; a chunk of one token is
+sequential in the reference too).
 """
 
 from __future__ import annotations
@@ -72,9 +79,12 @@ class RWKV(nn.Module):
         self.cr = init((d, d))
 
 
-def _shift(x: torch.Tensor) -> torch.Tensor:
-    """Token shift over (B, S, D): x_{t-1}, zeros at t = 0."""
-    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+def _shift(x: torch.Tensor, last=None) -> torch.Tensor:
+    """Token shift over (B, S, D): x_{t-1}, at t = 0 zeros or ``last``
+    (B, D), the previous chunk's last input (``repro/models/rwkv.py:86``)."""
+    if last is None:
+        return F.pad(x, (0, 0, 1, 0))[:, :-1]
+    return torch.cat([last[:, None].to(x.dtype), x[:, :-1]], dim=1)
 
 
 def _mixes(p: Dict[str, torch.Tensor], x, xprev):
@@ -95,26 +105,50 @@ def _group_norm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return x * torch.rsqrt(var + 1e-6) * scale
 
 
-def time_mix(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    """The RWKV-6 attention analogue. x (B, S, D) -> (B, S, D) in x's dtype."""
+def _wkv_step(r, k, v, logw, u, state):
+    """One token of WKV from ``state``, the step of the reference's
+    sequential decode (``repro/models/rwkv.py:119 sequential_wkv``):
+    o = r^T (S + diag(u) k v^T), S' = diag(exp(logw)) S + k v^T. r, k, v,
+    logw (B, H, N) f32, u (H, N), state (B, H, N, N) f32 -> (o (B, 1, H, N),
+    S')."""
+    kv = k[..., :, None] * v[..., None, :]
+    uu = u.to(F32)[None, :, :, None]
+    o = torch.einsum("bhk,bhkv->bhv", r, state + uu * kv)
+    return o[:, None], torch.exp(logw)[..., None] * state + kv
+
+
+def time_mix(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor, *,
+             shift_state=None, wkv_state=None):
+    """The RWKV-6 attention analogue (``repro/models/rwkv.py:203``). x
+    (B, S, D) -> (out (B, S, D) in x's dtype, (new shift state (B, D) f32,
+    final WKV state (B, H, N, N) f32)), from the given states or zeros.
+    S > 1 runs K5 (``ops.wkv6``) from ``wkv_state``; S = 1 with a state
+    (decode) the sequential step in plain PyTorch."""
     b, s, d = x.shape
     h, n = num_heads(cfg), cfg.rwkv_head_dim
-    xr, xk, xv, xg, xw = _mixes(p, x, _shift(x))
+    xr, xk, xv, xg, xw = _mixes(p, x, _shift(x, shift_state))
     r = torch.matmul(xr, p["wr"]).reshape(b, s, h, n)
     k = torch.matmul(xk, p["wk"]).reshape(b, s, h, n)
     v = torch.matmul(xv, p["wv"]).reshape(b, s, h, n)
     g = torch.matmul(xg, p["wg"])
     logw = _decay(p, xw).reshape(b, s, h, n)
-    out = ops.wkv6(r.to(F32), k.to(F32), v.to(F32), logw,
-                   p["u"].reshape(h, n))
+    u = p["u"].reshape(h, n)
+    if s == 1 and wkv_state is not None:
+        out, final = _wkv_step(r[:, 0].to(F32), k[:, 0].to(F32),
+                               v[:, 0].to(F32), logw[:, 0], u, wkv_state)
+    else:
+        out, final = ops.wkv6(r.to(F32), k.to(F32), v.to(F32), logw, u,
+                              wkv_state)
     out = _group_norm(out, p["ln_scale"].to(F32).reshape(h, n))
     out = out.reshape(b, s, d).to(x.dtype) * F.silu(g)
-    return torch.matmul(out, p["wo"])
+    return torch.matmul(out, p["wo"]), (x[:, -1].to(F32), final)
 
 
-def channel_mix(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    """Squared-ReLU channel mix with a sigmoid receptance gate."""
-    xprev = _shift(x)
+def channel_mix(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor, *,
+                shift_state=None):
+    """Squared-ReLU channel mix with a sigmoid receptance gate
+    (``repro/models/rwkv.py:231``): -> (out, new shift state (B, D) f32)."""
+    xprev = _shift(x, shift_state)
     mix = p["cm_rk"].to(x.dtype)
     xk = x + (xprev - x) * mix[0]
     xr = x + (xprev - x) * mix[1]
@@ -122,4 +156,14 @@ def channel_mix(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tenso
     kk = torch.square(F.relu(kk)).to(x.dtype)
     vv = torch.matmul(kk, p["cv"]).to(F32)
     rr = torch.sigmoid(torch.matmul(xr, p["cr"]).to(F32))
-    return (rr * vv).to(x.dtype)
+    return (rr * vv).to(x.dtype), x[:, -1].to(F32)
+
+
+def init_state(cfg, batch: int, device=None) -> Dict[str, torch.Tensor]:
+    """Zero serve state (``repro/models/rwkv.py:247 init_state``)."""
+    h, n = num_heads(cfg), cfg.rwkv_head_dim
+    return {"tm_shift": torch.zeros((batch, cfg.d_model), dtype=F32,
+                                    device=device),
+            "cm_shift": torch.zeros((batch, cfg.d_model), dtype=F32,
+                                    device=device),
+            "wkv": torch.zeros((batch, h, n, n), dtype=F32, device=device)}

@@ -14,8 +14,17 @@ layer is its own module of its kind (``blocks.layer_kinds``) and the stack
 is a Python loop. ``remat="full"`` checkpoints each layer
 (``torch.utils.checkpoint``, non-reentrant).
 
-Left out for later slices: tied embeddings, frontend embeddings (VLM),
-the MoE family and the serve paths (prefill, decode, chunked prefill).
+The serve paths (``repro/models/transformer.py:202-267``):
+:func:`init_caches`, :func:`prefill`, :func:`decode_step` and
+:func:`chunk_prefill`, through :func:`forward` with ``mode`` and
+``caches``. The caches are a list with one entry per layer (the block's
+cache, :func:`blocks.block_cache_init`), where the reference stacks a
+uniform stack's caches on a leading layers axis for ``lax.scan`` (and
+keeps a hybrid stack's as a list); ``convert.caches_from_jax`` and
+``caches_to_numpy`` translate. They are updated in place and returned.
+
+Left out for later slices: tied embeddings, frontend embeddings (VLM) and
+the MoE family.
 """
 
 from __future__ import annotations
@@ -98,18 +107,35 @@ def apply_layers(cfg, params: Dict[str, torch.Tensor], x: torch.Tensor,
     return x
 
 
-def forward(cfg, params: Dict[str, torch.Tensor], tokens: torch.Tensor,
-            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """tokens (B, S) -> logits (B, S, padded_vocab) f32."""
-    x = torch.nn.functional.embedding(tokens.long(), params["embed.table"])
-    b, s = x.shape[:2]
-    if positions is None:
-        positions = torch.arange(s, device=x.device).expand(b, s)
-    x = apply_layers(cfg, params, x, positions)
+def _logits(cfg, params: Dict[str, torch.Tensor], x: torch.Tensor):
     x = common.rmsnorm_apply(params["final_ln.scale"], x, cfg.norm_eps)
     # f32 logits from the activation-dtype inputs, as the reference's
     # preferred_element_type=f32 product.
     return torch.matmul(x.to(F32), params["lm_head.w"].to(F32))
+
+
+def forward(cfg, params: Dict[str, torch.Tensor], tokens: torch.Tensor,
+            positions: Optional[torch.Tensor] = None, *, mode: str = "train",
+            caches=None):
+    """tokens (B, S) -> logits (B, S, padded_vocab) f32 in train mode; in
+    the serve modes ("prefill", "decode", "chunk", ``blocks.MODES``)
+    ``(last logits (B, V), caches)``, the per-layer caches updated in place
+    (``repro/models/transformer.py:161 forward``, whose callers all take
+    the last position's logits)."""
+    x = torch.nn.functional.embedding(tokens.long(), params["embed.table"])
+    b, s = x.shape[:2]
+    if positions is None:
+        positions = torch.arange(s, device=x.device).expand(b, s)
+    if mode == "train":
+        return _logits(cfg, params, apply_layers(cfg, params, x, positions))
+    kinds = blocks.layer_kinds(cfg)
+    if caches is None or len(caches) != len(kinds):
+        raise ValueError(f"mode {mode!r} needs one cache per layer")
+    for i, kind in enumerate(kinds):
+        x, caches[i] = blocks.block_apply(cfg, kind, layer_params(params, i),
+                                          x, positions, mode=mode,
+                                          cache=caches[i])
+    return _logits(cfg, params, x[:, -1]), caches
 
 
 def loss_fn(cfg, params: Dict[str, torch.Tensor], batch) -> torch.Tensor:
@@ -117,3 +143,48 @@ def loss_fn(cfg, params: Dict[str, torch.Tensor], batch) -> torch.Tensor:
     logits = forward(cfg, params, batch["tokens"])
     return common.softmax_cross_entropy(logits, batch["labels"],
                                         batch.get("mask"))
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+
+def init_caches(cfg, batch: int, max_len: int, *, ring: bool = True,
+                device=None):
+    """One zero cache per layer (``repro/models/transformer.py:202
+    init_caches``); ``ring=False`` gives the no-ring attention layout that
+    chunked prefill needs."""
+    return [blocks.block_cache_init(cfg, kind, batch, max_len, ring=ring,
+                                    device=device)
+            for kind in blocks.layer_kinds(cfg)]
+
+
+def prefill(cfg, params: Dict[str, torch.Tensor], tokens: torch.Tensor, *,
+            max_len: Optional[int] = None):
+    """A prompt (B, S) -> (last logits (B, V) f32, caches sized for
+    ``max_len`` positions, default S) (``repro/models/transformer.py:227
+    prefill``). Attention runs ``self_attention``: K2 on the card."""
+    b, s = tokens.shape
+    caches = init_caches(cfg, b, max_len or s, device=tokens.device)
+    return forward(cfg, params, tokens, mode="prefill", caches=caches)
+
+
+def decode_step(cfg, params: Dict[str, torch.Tensor], token: torch.Tensor,
+                caches):
+    """token (B, 1) -> (logits (B, V) f32, caches advanced one position)
+    (``repro/models/transformer.py:245 decode_step``)."""
+    return forward(cfg, params, token, mode="decode", caches=caches)
+
+
+def chunk_prefill(cfg, params: Dict[str, torch.Tensor], tokens: torch.Tensor,
+                  caches, pos0):
+    """One prompt chunk (B, C) from absolute position ``pos0`` (an int or a
+    0-d tensor, the caches' position) against no-ring caches -> (last
+    logits (B, V) f32, caches) (``repro/models/transformer.py:253
+    chunk_prefill``). Recurrent and RWKV states continue across the chunk
+    boundary; attention writes and reads the no-ring layout."""
+    b, c = tokens.shape
+    pos0 = torch.as_tensor(pos0, device=tokens.device)
+    positions = pos0 + torch.arange(c, device=tokens.device).expand(b, c)
+    return forward(cfg, params, tokens, positions, mode="chunk", caches=caches)

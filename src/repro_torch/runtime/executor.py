@@ -16,10 +16,11 @@ compiles a plan for repeated rounds:
   units run as they are, bitwise equal to :func:`run_plan` (the same nodes
   in the same order). On the card each unit is captured once into a
   ``torch.cuda.CUDAGraph`` after a warm-up run (which also builds the
-  kernels, outside the capture) and replayed; each call copies its inputs
-  into the unit's static buffers. A round with no host control flow is
-  therefore one CUDA graph, the counterpart of the reference's one
-  executable. A ``while`` reads its predicate on the host and replays its
+  kernels, outside the capture) and replayed (:class:`CudaGraphs`: the
+  warm-up's kernel launches count, the capture's and the replays' do
+  not); each call copies its inputs into the unit's static buffers. A
+  round with no host control flow is therefore one CUDA graph, the
+  counterpart of the reference's one executable. A ``while`` reads its predicate on the host and replays its
   body's graph; a ``scan`` replays its body's graph once per iteration; a
   ``cond`` reads its branch index on the host. What the executor cannot
   capture (a node that reads a value on the host, such as ``.item()``,
@@ -66,11 +67,14 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.fx as fx
+from torch.utils import _pytree as pytree
 
 from ..core import interpreter as interp
+from ..kernels import ops
 
 __all__ = [
     "CompiledPlan",
+    "CudaGraphs",
     "ElasticHierarchicalRound",
     "FusedCompute",
     "TraceCounter",
@@ -246,41 +250,93 @@ def _check_capturable(plan, stages) -> None:
                             "which a CUDA graph cannot capture")
 
 
+class CudaGraphs:
+    """``fn`` run as one CUDA graph per key on the card (``device``), and
+    eagerly on the CPU: the capture helper of the compiled plan's units and
+    of the serve steps (``launch/steps.py``).
+
+    ``graphs(key, *args)``: ``args`` are buffers the caller owns, the same
+    tensors at every call of a key, written before the call. The first call
+    of a key counts on ``counter`` (when given) and, on the card, runs
+    ``fn`` on a side stream (kernel builds and first-call setup stay
+    outside the capture), then captures it over the same buffers. With
+    ``replay_first`` the capture is then replayed and its outputs are the
+    call's; without it the side-stream run was the call's work, and its
+    outputs are returned. Every later call of the key replays. The
+    capture's kernel calls stay off the wrappers' counters
+    (``ops.uncounted``: recorded, not launched); each replay adds them to
+    ``replayed`` (kernel name -> launches), which the counters never see.
+    On the CPU every call runs ``fn`` eagerly."""
+
+    def __init__(self, fn: Callable, *, device,
+                 counter: Optional["TraceCounter"] = None,
+                 replay_first: bool = False):
+        self.fn = fn
+        self.device = torch.device(device)
+        self.counter = counter
+        self.replay_first = replay_first
+        self.graphs: Dict[Any, Optional[tuple]] = {}
+        self.replays = 0
+        self.replayed: Dict[str, int] = {}
+        self._side: Optional[torch.cuda.Stream] = None
+
+    def __call__(self, key, *args):
+        if key not in self.graphs:
+            if self.counter is not None:
+                self.counter.count += 1
+            if self.device.type != "cuda":
+                self.graphs[key] = None
+                return self.fn(*args)
+            out = self._capture(key, args)
+            if not self.replay_first:
+                return out
+        entry = self.graphs[key]
+        if entry is None:
+            return self.fn(*args)
+        graph, out, launched = entry
+        graph.replay()
+        self.replays += 1
+        for name, n in launched.items():
+            self.replayed[name] = self.replayed.get(name, 0) + n
+        return out
+
+    def _capture(self, key, args):
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+        side, main = self._side, torch.cuda.current_stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            out = self.fn(*args)
+        main.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with ops.uncounted() as launched, torch.cuda.graph(
+                graph, stream=side, capture_error_mode="global"):
+            captured = self.fn(*args)
+        self.graphs[key] = (graph, captured, launched)
+        return out
+
+
 class _Graphed:
-    """``fn(*tensors) -> list of tensors`` captured into one CUDA graph at
-    its first call, after a warm-up run on a side stream (kernel builds and
-    first-call setup stay outside the capture); every call copies its
-    inputs into the static buffers and replays."""
+    """A unit on the card: each call copies its tensors into static
+    buffers (cloned at the first call) and replays the unit's one CUDA
+    graph (:class:`CudaGraphs`, captured at the first call)."""
 
     def __init__(self, fn: Callable):
-        self.fn = fn
-        self.graph = None
-        self.static_in: List[torch.Tensor] = []
-        self.static_out: List[Any] = []
+        self.graphs = CudaGraphs(lambda *xs: list(fn(*xs)), device="cuda",
+                                 replay_first=True)
+        self.static_in: Optional[List[torch.Tensor]] = None
 
     def __call__(self, *args):
-        if self.graph is None:
-            self._capture(args)
-        for s, a in zip(self.static_in, args):
-            s.copy_(a)
-        self.graph.replay()
-        return self.static_out
-
-    def _capture(self, args):
-        for a in args:
-            if not isinstance(a, torch.Tensor) or a.device.type != "cuda":
-                raise TypeError("a captured unit takes CUDA tensors only, "
-                                f"got {type(a).__name__}")
-        self.static_in = [a.detach().clone() for a in args]
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            self.fn(*self.static_in)
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode="global"):
-            self.static_out = list(self.fn(*self.static_in))
-        self.graph = graph
+        if self.static_in is None:
+            for a in args:
+                if not isinstance(a, torch.Tensor) or a.device.type != "cuda":
+                    raise TypeError("a captured unit takes CUDA tensors only, "
+                                    f"got {type(a).__name__}")
+            self.static_in = [a.detach().clone() for a in args]
+        else:
+            for s, a in zip(self.static_in, args):
+                s.copy_(a)
+        return self.graphs(None, *self.static_in)
 
 
 class _Program:
@@ -544,8 +600,6 @@ class ElasticHierarchicalRound:
         self.client_trace_s = 0.0
 
     def _client_leg(self, params, pod_data):
-        from torch.utils import _pytree as pytree
-
         leaves = pytree.tree_leaves((params, pod_data))
         key = _arg_key(leaves)
         if key not in self._clients:
@@ -563,8 +617,6 @@ class ElasticHierarchicalRound:
         return pytree.tree_unflatten(list(compiled(*leaves)), spec)
 
     def _cross_leg(self, params, server_state, partials):
-        from torch.utils import _pytree as pytree
-
         leaves, in_spec = pytree.tree_flatten((params, server_state,
                                                partials))
         key = _arg_key(leaves)
@@ -589,8 +641,6 @@ class ElasticHierarchicalRound:
         clients_per_pod, ...); the pod count may change between calls.
         Returns ``cross_fn``'s outputs (new params, new server state,
         metrics)."""
-        from torch.utils import _pytree as pytree
-
         if mesh is not None:
             raise NotImplementedError(
                 "ElasticHierarchicalRound.step(mesh=...): the physical "

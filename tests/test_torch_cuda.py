@@ -344,12 +344,14 @@ def _lru_check(a, x, g, h0):
 @pytest.mark.parametrize("with_h0", [False, True])
 @pytest.mark.parametrize("b,s,w", [(1, 1000, 2560), (2, 37, 45), (3, 16, 1),
                                    (1, 4096, 2560), (2, 129, 2560),
-                                   (3, 1000, 100), (2, 37, 2560)])
+                                   (3, 1000, 100), (2, 37, 2560),
+                                   (1, 1, 2560), (1, 64, 2560)])
 def test_lru_scan_bitwise_to_plain(card, b, s, w, with_h0, dtype):
     """K4 forward and backward equal their plain versions bitwise (both
     round the product, then the sum), at ragged S and W, on the route the
     shape and dtype take: TMA for W 2560 (and W 100 in f32), SIMT for W
-    45, 1 and 100 in bf16. (2, 37, 2560) is shorter than one tile."""
+    45, 1 and 100 in bf16. (2, 37, 2560) is shorter than one tile; (1, 1,
+    2560) and (1, 64, 2560) are serve chunks of recurrentgemma_2b."""
     a, x, g, h0 = _lru_inputs(card, b, s, w, dtype, with_h0, b * s + w)
     ops.reset_launches()
     h = ops.lru_scan_fwd(a, x, h0)
@@ -510,9 +512,11 @@ def test_wkv6_matches_plain(card, b, s, h, n, law):
     1e-4 of each gradient's largest magnitude; every output finite."""
     r, k, v, lw, u, do = _wkv_inputs(card, b, s, h, n, law, seed=b * s + n)
     ops.reset_launches()
-    out, states = ops.wkv6_fwd(r, k, v, lw, u)
-    r_out, r_states = ref.wkv6_fwd_ref(r, k, v, lw, u)
+    out, states, final = ops.wkv6_fwd(r, k, v, lw, u)
+    r_out, r_states, r_final = ref.wkv6_fwd_ref(r, k, v, lw, u)
     assert torch.isfinite(out).all()
+    err = float((final - r_final).abs().max())
+    assert err <= 1e-4 * max(float(r_final.abs().max()), 1.0), err
     torch.testing.assert_close(out, r_out, rtol=1e-4, atol=1e-4)
     err = float((states - r_states).abs().max())
     assert err <= 1e-4 * max(float(r_states.abs().max()), 1.0), err
@@ -537,22 +541,22 @@ def test_wkv6_autograd_under_checkpoint(card):
         return torch.autograd.grad(out, leaves, do)
 
     ops.reset_launches()
-    got = grads(ops.wkv6)
+    got = grads(lambda *t: ops.wkv6(*t)[0])
     counts = ops.launch_counts()
     assert (counts["wkv6_fwd"], counts["wkv6_bwd"]) == (2, 1)  # the recompute
     want = grads(ref.wkv6_ref)
     for gt, wt in zip(got, want):
         err = float((gt - wt).abs().max())
         assert err <= 1e-4 * float(wt.abs().max()), err
-    again = grads(ops.wkv6)  # no atomics: the same bits twice
+    again = grads(lambda *t: ops.wkv6(*t)[0])  # no atomics: the same bits twice
     for a, b in zip(got, again):
         assert torch.equal(a, b)
     # du sums per-chunk partials over (batch, chunk) in a fixed order, and
     # dlogw sums within each chunk: both bitwise from one call to the next
-    _, states = ops.wkv6_fwd(r, k, v, lw, u)
+    _, states, _ = ops.wkv6_fwd(r, k, v, lw, u)
     first = ops.wkv6_bwd(r, k, v, lw, u, states, do)
     for _ in range(3):
-        dlogw, du = ops.wkv6_bwd(r, k, v, lw, u, states, do)[3:]
+        dlogw, du = ops.wkv6_bwd(r, k, v, lw, u, states, do)[3:5]
         assert torch.equal(dlogw, first[3]) and torch.equal(du, first[4])
 
 
@@ -571,11 +575,17 @@ def test_wkv6_takes_unaligned_views(card):
 
     inputs = _wkv_inputs(card, b, s, h, n, "model", seed=3)
     r, k, v, lw, u, do = (shifted(t) for t in inputs)
-    out, states = ops.wkv6_fwd(r, k, v, lw, u)
-    want_out, want_states = ops.wkv6_fwd(*(t.clone() for t in (r, k, v, lw, u)))
+    s0 = shifted(inputs[0].new_ones((b, h, n, n)) * 0.1)
+    out, states, final = ops.wkv6_fwd(r, k, v, lw, u, s0)
+    want_out, want_states, want_final = ops.wkv6_fwd(
+        *(t.clone() for t in (r, k, v, lw, u, s0)))
     assert torch.equal(out, want_out) and torch.equal(states, want_states)
-    got = ops.wkv6_bwd(r, k, v, lw, u, shifted(states), do)
-    want = ops.wkv6_bwd(*(t.clone() for t in (r, k, v, lw, u, states, do)))
+    assert torch.equal(final, want_final)
+    dfinal = shifted(final * 0.5)
+    got = ops.wkv6_bwd(r, k, v, lw, u, shifted(states), do, s0,
+                       shifted(final), dfinal)
+    want = ops.wkv6_bwd(*(t.clone() for t in (r, k, v, lw, u, states, do, s0,
+                                              final, dfinal)))
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 
@@ -596,7 +606,7 @@ def test_wkv6_wrappers_refuse_what_the_kernels_do_not_take(card):
         kw.fwd(r.transpose(1, 2), k, v, lw, u)
     with pytest.raises(ValueError, match="u must be"):
         kw.fwd(r, k, v, lw, u[:1])
-    _, states = kw.fwd(r, k, v, lw, u)
+    _, states, _ = kw.fwd(r, k, v, lw, u)
     with pytest.raises(ValueError, match="states"):
         kw.bwd(r, k, v, lw, u, states[:, :1, :, :8], do)
 
@@ -743,7 +753,7 @@ def test_kernel_ops_replay_from_a_graph(card):
     r = rnd(1, 130, 2, 64, scale=0.3)
     logw = -torch.exp(rnd(1, 130, 2, 64, scale=0.3)) * 0.3
     u = rnd(2, 64, scale=0.3)
-    wo, states = ops.wkv6_fwd(r, r, r, logw, u)
+    wo, states, _ = ops.wkv6_fwd(r, r, r, logw, u)
     x4 = rnd(2, 2, 300, 256, scale=1e-2)
     qp, sp = ops.reduce_compress(x4)
     calls = {
@@ -988,7 +998,9 @@ def test_flash_second_order_on_card(card, dtype):
     counts = ops.launch_counts()
     assert (counts["flash_attention_fwd"], counts["flash_attention_bwd_dq"],
             counts["flash_attention_bwd_dkdv"]) == (1, 1, 1)
-    assert ops.plain_counts() == {"flash_attention_bwd2_plain": 1}
+    assert ops.plain_counts() == {"flash_attention_bwd2_plain": 1,
+                                  "lru_scan_bwd2_plain": 0,
+                                  "wkv6_bwd2_plain": 0}
     out, out32, lse = ops.flash_attention_fwd(q, k, v, causal=True,
                                               window=100)
     dq, delta = ops.flash_attention_bwd_dq(q, k, v, out32, lse, w,
@@ -1010,25 +1022,144 @@ def test_flash_second_order_on_card(card, dtype):
 
 
 @pytest.mark.cuda
-def test_lru_and_wkv_second_order_raise_on_card(card):
-    """K4's and K5's backward kernels return tensors with no graph: a
-    backward taken with ``create_graph`` on the card raises rather than
-    drop the second-order terms; the first order still runs."""
+def test_lru_and_wkv_second_order_on_card(card):
+    """K4's and K5's second order on the card: the double backward through
+    ``ops.lru_scan`` (with h0) and ``ops.wkv6`` (with s0, and the final
+    state in the loss) against autograd's double backward through the
+    plain loops, within 1e-4 of the largest magnitude; the first order
+    bitwise the kernels called directly; one plain recompute each. Small S
+    (the recompute is a Python loop of S steps)."""
     gen = torch.Generator(device=card).manual_seed(8)
-    a = (torch.rand((1, 64, 32), generator=gen, device=card) * 0.9
-         ).requires_grad_(True)
-    b = torch.randn((1, 64, 32), generator=gen, device=card)
-    h = ops.lru_scan(a, b)
-    assert torch.autograd.grad(h.sum(), a, retain_graph=True)[0].isfinite().all()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-        torch.autograd.grad(h.sum(), a, create_graph=True)
+
+    def second(fn, inputs, weights):
+        xs = [t.detach().requires_grad_(True) for t in inputs]
+        outs = fn(*xs)
+        loss = sum((o * w).sum() for o, w in zip(outs, weights))
+        g1 = torch.autograd.grad(loss, xs, create_graph=True)
+        return g1, torch.autograd.grad(sum((g ** 2).sum() for g in g1), xs)
+
+    def close(got, want):
+        for g, w in zip(got, want):
+            top = float(w.abs().max())
+            assert float((g - w).abs().max()) <= 1e-4 * top
+
+    a = torch.rand((2, 70, 48), generator=gen, device=card) * 0.9
+    b = torch.randn((2, 70, 48), generator=gen, device=card)
+    h0 = torch.randn((2, 48), generator=gen, device=card)
+    wl = [torch.randn((2, 70, 48), generator=gen, device=card)]
+    ops.reset_launches()
+    g1, got = second(lambda *t: (ops.lru_scan(*t),), (a, b, h0), wl)
+    assert ops.plain_counts()["lru_scan_bwd2_plain"] == 1
+    counts = ops.launch_counts()
+    assert (counts["lru_scan_fwd"], counts["lru_scan_bwd"]) == (1, 1)
+    da, db, dh0 = ops.lru_scan_bwd(a, ops.lru_scan_fwd(a, b, h0), wl[0], h0)
+    for x, y in zip(g1, (da, db, dh0)):
+        assert torch.equal(x.detach(), y)
+    close(got, second(lambda *t: (ref.lru_scan_ref(*t),), (a, b, h0), wl)[1])
+
     shape = (1, 70, 2, 64)
     r, kk, vv = (torch.randn(shape, generator=gen, device=card) * 0.5
                  for _ in range(3))
     logw = -torch.rand(shape, generator=gen, device=card) - 0.05
     u = torch.randn((2, 64), generator=gen, device=card) * 0.5
-    r.requires_grad_(True)
-    out = ops.wkv6(r, kk, vv, logw, u)
-    assert torch.autograd.grad(out.sum(), r, retain_graph=True)[0].isfinite().all()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-        torch.autograd.grad(out.sum(), r, create_graph=True)
+    s0 = torch.randn((1, 2, 64, 64), generator=gen, device=card) * 0.1
+    ww = [torch.randn(shape, generator=gen, device=card),
+          torch.randn((1, 2, 64, 64), generator=gen, device=card) * 0.1]
+    ops.reset_launches()
+    g1, got = second(ops.wkv6, (r, kk, vv, logw, u, s0), ww)
+    assert ops.plain_counts()["wkv6_bwd2_plain"] == 1
+    counts = ops.launch_counts()
+    assert (counts["wkv6_fwd"], counts["wkv6_bwd"]) == (1, 1)
+    _, states, final = ops.wkv6_fwd(r, kk, vv, logw, u, s0)
+    first = ops.wkv6_bwd(r, kk, vv, logw, u, states, ww[0], s0, final, ww[1])
+    for x, y in zip(g1, first):
+        assert torch.equal(x.detach(), y)
+    want = second(lambda *t: ref.wkv6_fwd_ref(*t)[::2],
+                  (r, kk, vv, logw, u, s0), ww)[1]
+    close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h", [(2, 1, 2), (2, 37, 2), (2, 64, 2),
+                                   (2, 200, 2), (1, 37, 40)])
+def test_wkv6_initial_and_final_state(card, b, s, h):
+    """K5 from an initial state s0, with the final state as an output and
+    its gradient in the backward, against the plain versions at ragged S:
+    out within 1e-4, the final state within 1e-4 of its largest magnitude,
+    every gradient (ds0 too) within 1e-4 of its largest magnitude. The
+    padded tail leaves the final state as the last real step left it.
+    (1, 37, 40) is a ragged serve chunk of full rwkv6_3b."""
+    r, k, v, lw, u, do = _wkv_inputs(card, b, s, h, 64, "model", seed=s)
+    gen = torch.Generator(device=card).manual_seed(s)
+    s0 = torch.randn((b, h, 64, 64), generator=gen, device=card) * 0.3
+    dfinal = torch.randn((b, h, 64, 64), generator=gen, device=card)
+    out, states, final = ops.wkv6_fwd(r, k, v, lw, u, s0)
+    r_out, _, r_final = ref.wkv6_fwd_ref(r, k, v, lw, u, s0)
+    torch.testing.assert_close(out, r_out, rtol=1e-4, atol=1e-4)
+    assert float((final - r_final).abs().max()) <= 1e-4 * float(
+        r_final.abs().max())
+    got = ops.wkv6_bwd(r, k, v, lw, u, states, do, s0, final, dfinal)
+    want = ref.wkv6_bwd_ref(r, k, v, lw, u, do, s0, dfinal)
+    for name, g, w in zip(("dr", "dk", "dv", "dlogw", "du", "ds0"), got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all(), name
+        err = float((g - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max()), (name, err)
+    # no initial state, no final gradient: the training call, bitwise as
+    # from a zero s0 and a zero dfinal
+    zero = torch.zeros_like(s0)
+    a = ops.wkv6_fwd(r, k, v, lw, u)
+    z = ops.wkv6_fwd(r, k, v, lw, u, zero)
+    assert all(torch.equal(x, y) for x, y in zip(a, z))
+    ga = ops.wkv6_bwd(r, k, v, lw, u, a[1], do)
+    gz = ops.wkv6_bwd(r, k, v, lw, u, a[1], do, zero, a[2], zero)
+    for x, y in zip(ga[:5], gz[:5]):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["stablelm_3b", "recurrentgemma_2b",
+                                  "rwkv6_3b"])
+def test_serve_step_replay_bitwise_to_eager(card, arch):
+    """A fused serve step and a decode step of a reduced model, replayed
+    from their CUDA graphs, bitwise the same steps run eagerly on a copy of
+    the pool; replays count their kernels in ``CudaGraphs.replayed``, not
+    in the wrappers' counters."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.launch import steps
+    from repro_torch.models import registry
+    from repro_torch.runtime.executor import CudaGraphs, TraceCounter
+
+    cfg = registry.get_config(arch).reduced()
+    params = registry.init_params(cfg, seed=0, device="cuda")
+    pool = registry.init_slot_pool(cfg, 2, 32, device="cuda")
+    tokens = torch.tensor([[3], [5]], dtype=torch.int32, device=card)
+    cslot = torch.tensor([1], device=card)
+    ctoks = torch.arange(8, dtype=torch.int32, device=card) + 7
+    cpos = torch.zeros((), dtype=torch.int32, device=card)
+    first = torch.ones((), dtype=torch.bool, device=card)
+    emit = torch.ones((), dtype=torch.bool, device=card)
+    serve = steps.make_serve_step(cfg)
+    decode = steps.make_slot_decode_step(cfg)
+    graphed = CudaGraphs(serve, device=card, counter=TraceCounter())
+    graphed_decode = CudaGraphs(decode, device=card, counter=TraceCounter())
+    graphed(8, params, tokens, pool, cslot, ctoks, cpos, first, emit)
+    graphed_decode("d", params, tokens, pool)
+    clone = lambda tree: pytree.tree_map(torch.clone, tree)
+    eager_pool, eager_tokens = clone(pool), tokens.clone()
+    first.fill_(False)
+    cpos.fill_(8)
+    ops.reset_launches()
+    graphed(8, params, tokens, pool, cslot, ctoks, cpos, first, emit)
+    graphed_decode("d", params, tokens, pool)
+    serve(params, eager_tokens, eager_pool, cslot, ctoks, cpos, first, emit)
+    decode(params, eager_tokens, eager_pool)
+    assert torch.equal(tokens, eager_tokens)
+    for x, y in zip(pytree.tree_leaves(pool), pytree.tree_leaves(eager_pool)):
+        assert torch.equal(x, y)
+    assert graphed.replays == 1 and graphed_decode.replays == 1
+    counts = ops.launch_counts()
+    kernel = {"recurrentgemma_2b": "lru_scan_fwd",
+              "rwkv6_3b": "wkv6_fwd"}.get(arch)
+    if kernel:
+        assert graphed.replayed[kernel] == counts[kernel] > 0

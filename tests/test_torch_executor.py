@@ -305,3 +305,42 @@ def test_multi_round_plan_compiled_bitwise_to_direct_trainer():
         assert_bitwise(outs, direct)
         assert all(o is c for o, c in zip(outs, carry))
     assert compiled.trace_count == 1
+
+
+def test_cuda_graphs_on_the_cpu_run_eagerly_and_count_builds():
+    """``CudaGraphs`` on CPU tensors runs its function at every call and
+    counts one build per key, as the serve steps' build counts read it."""
+    counter = executor.TraceCounter()
+    calls = []
+
+    def step(x):
+        calls.append(1)
+        return x.add_(1)
+
+    graphs = executor.CudaGraphs(step, device="cpu", counter=counter)
+    x = torch.zeros(3)
+    for key in (8, 8, 4, 8):
+        graphs(key, x)
+    assert counter.count == 2 and len(calls) == 4
+    assert torch.equal(x, torch.full((3,), 4.0))
+    assert graphs.replays == 0 and graphs.replayed == {}
+
+
+def test_uncounted_leaves_the_launch_counters_and_reports_the_calls():
+    """``ops.uncounted``: the wrapper calls made inside the block (a CUDA
+    graph capture's, recorded and not launched) come back in its dict, and
+    every counter, K4's by route too, is as it was before the block."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rglru_scan
+
+    ops.reset_launches()
+    ops.quantize.launches = 2
+    with ops.uncounted() as made:
+        ops.quantize.launches += 3
+        ops.lru_scan_fwd.launches += 1
+        rglru_scan.ROUTE_LAUNCHES["tma"] += 1
+    assert made == {"quantize": 3, "lru_scan_fwd": 1}
+    counts = ops.launch_counts()
+    assert counts["quantize"] == 2 and counts["lru_scan_fwd"] == 0
+    assert rglru_scan.ROUTE_LAUNCHES == {"tma": 0, "simt": 0}
+    ops.reset_launches()

@@ -58,7 +58,9 @@ def test_imports_without_jax():
             "repro_torch.analysis.commcost",
             "repro_torch.analysis.lints", "repro_torch.algorithms.pipeline",
             "repro_torch.algorithms.maml",
-            "repro_torch.algorithms.btm"} <= set(modules)
+            "repro_torch.algorithms.btm", "repro_torch.launch.steps",
+            "repro_torch.launch.serve",
+            "repro_torch.configs.stablelm_3b"} <= set(modules)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"  # any `import jax` now raises

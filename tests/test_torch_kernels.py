@@ -249,7 +249,7 @@ def test_cpu_path_launches_nothing():
     a = torch.full((1, 4, 3), 0.5)
     ops.lru_scan_bwd(a, ops.lru_scan_fwd(a, a), a)
     w = torch.full((1, 4, 1, 16), -0.5)
-    out, states = ops.wkv6_fwd(w, w, w, w, w[0, 0])
+    out, states, _ = ops.wkv6_fwd(w, w, w, w, w[0, 0])
     ops.wkv6_bwd(w, w, w, w, w[0, 0], states, out)
     assert ops.launch_counts() == {
         "quantize": 0, "dequantize": 0, "reduce_compress_roundtrip": 0,

@@ -463,7 +463,7 @@ def _kernel_calls():
     out, out32, lse = ops.flash_attention_fwd(qkv, qkv, qkv)
     dq, delta = ops.flash_attention_bwd_dq(qkv, qkv, qkv, out32, lse, qkv)
     h = ops.lru_scan_fwd(a, a)
-    wo, states = ops.wkv6_fwd(w, w, w, w, w[0, 0])
+    wo, states, _ = ops.wkv6_fwd(w, w, w, w, w[0, 0])
     return {
         "quantize": (ops.quantize, (x,)),
         "dequantize": (ops.dequantize, (q, s)),

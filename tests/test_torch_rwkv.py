@@ -111,7 +111,7 @@ def test_plain_wkv_matches_pallas_kernel(b, s, h, n, chunk):
     kernel = np.asarray(jops.wkv6(*j, chunk=chunk, interpret=True))
     oracle = np.asarray(jref.wkv6_ref(*j))
     t = [_t(x) for x in (r, k, v, lw, u)]
-    for got in (ref.wkv6_ref(*t), ops.wkv6(*t)):
+    for got in (ref.wkv6_ref(*t), ops.wkv6(*t)[0]):
         assert got.dtype == torch.float32 and tuple(got.shape) == (b, s, h, n)
         np.testing.assert_allclose(_np(got), kernel, **WKV_TOL)
         np.testing.assert_allclose(_np(got), oracle, **WKV_TOL)
@@ -121,13 +121,15 @@ def test_plain_wkv_matches_pallas_kernel(b, s, h, n, chunk):
 def test_plain_wkv_matches_model_paths(b, s, h, n):
     """The reference model's sequential oracle and, under the mild law
     where its factors stay finite, its chunked form; the chunk states the
-    plain forward returns are the sequential states at each 64th step."""
+    plain forward returns are the sequential states at each 64th step, and
+    its final state the sequential final state."""
     r, k, v, lw, u, _ = _wkv_inputs(s + n, b, s, h, n)
     j = [jnp.asarray(x) for x in (r, k, v, lw, u)]
-    seq_out, _ = jrwkv.sequential_wkv(*j)
+    seq_out, seq_final = jrwkv.sequential_wkv(*j)
     chunk_out, _ = jrwkv.chunked_wkv(*j, chunk=16)
-    out, states = ref.wkv6_fwd_ref(*(_t(x) for x in (r, k, v, lw, u)))
+    out, states, final = ref.wkv6_fwd_ref(*(_t(x) for x in (r, k, v, lw, u)))
     np.testing.assert_allclose(_np(out), np.asarray(seq_out), **WKV_TOL)
+    np.testing.assert_allclose(_np(final), np.asarray(seq_final), **WKV_TOL)
     np.testing.assert_allclose(_np(out), np.asarray(chunk_out), **WKV_TOL)
     assert tuple(states.shape) == (b, h, -(-s // 64), n, n)
     for c in range(states.shape[2]):
@@ -166,7 +168,7 @@ def test_autograd_function_matches_plain_autograd(checkpointed):
         return (out,) + torch.autograd.grad(out, leaves, _t(do))
 
     ops.reset_launches()
-    got = grads(ops.wkv6)
+    got = grads(lambda *a: ops.wkv6(*a)[0])
     want = grads(ref.wkv6_ref)
     for gt, wt in zip(got, want):
         _assert_rel(_np(gt), _np(wt), 1e-5)
@@ -215,9 +217,9 @@ def test_time_mix_and_channel_mix_match_reference():
     want_tm, _ = jrwkv.time_mix(jcfg, jp, jnp.asarray(x))
     want_cm, _ = jrwkv.channel_mix(jcfg, jp, jnp.asarray(x))
     tp = {k: _t(np.asarray(v)) for k, v in jp.items()}
-    np.testing.assert_allclose(_np(rwkv.time_mix(tcfg, tp, _t(x))),
+    np.testing.assert_allclose(_np(rwkv.time_mix(tcfg, tp, _t(x))[0]),
                                np.asarray(want_tm), **TOL)
-    np.testing.assert_allclose(_np(rwkv.channel_mix(tcfg, tp, _t(x))),
+    np.testing.assert_allclose(_np(rwkv.channel_mix(tcfg, tp, _t(x))[0]),
                                np.asarray(want_cm), **TOL)
 
 
@@ -384,7 +386,7 @@ def test_r5_reference_chunked_wkv_overflows_where_the_port_does_not():
     assert not np.isfinite(chunked).all()
     assert not np.isfinite(pallas).all()
     assert np.isfinite(oracle).all()
-    got = _np(ops.wkv6(*(_t(x) for x in (r, k, v, lw, u))))
+    got = _np(ops.wkv6(*(_t(x) for x in (r, k, v, lw, u)))[0])
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, oracle, **WKV_TOL)
 
