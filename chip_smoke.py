@@ -40,14 +40,20 @@ Phases, each reported on its own line (any failure raises, exit != 0):
    plain forward on the card (f32 within 1e-4 of the largest magnitude,
    bf16 within two bf16 steps plus 1e-2 of the largest), its first order
    bitwise the kernels called directly, one launch of each kernel and one
-   plain second-order call, whose ms and held memory are logged;
+   plain second-order call, whose ms, bound and held memory are logged;
+   then K2 at the full-width attention of the new configs (``FLASH_WIDE``:
+   hd 128, bf16, causal; B 4 x S 512 at 16:16 heads, and B 1 x S 4096 at
+   64:8, 32:8, 64:4 and 56:8), forward and both backward kernels against the plain
+   versions at the same tolerances and route checks, timed beside their
+   bounds and SDPA;
 3. flat: 3 DrJAX local-SGD rounds of full lm_350m (bf16, 24 layers; cohort
    4, 2 local steps, batch 4, seq 512) with int8 delta compression, through
    ``repro_torch.launch.train``; losses finite, quantize/dequantize launched
    at least rounds x cohort times, the K2 forward at least rounds x cohort
    x steps x layers x 2 (the checkpoint recompute) and each K2 backward
    kernel rounds x cohort x steps x layers times;
-4. hier: 2 pod-hierarchical rounds (2 pods x 2 clients, fused int8
+4. hier: 2 pod-hierarchical rounds of lm_350m at full width and 12 of
+   its 24 layers (``HIER_LAYERS``; 2 pods x 2 clients, fused int8
    reduce+compress), then one more round from the same state unfused; the
    fused and unfused rounds agree within one quantization step per element;
    the fused rounds launch K2 as often as the flat ones. Then the wire
@@ -55,14 +61,14 @@ Phases, each reported on its own line (any failure raises, exit != 0):
    payload (bitwise to K3b's, its bytes those of ``cross_pod_bytes``) and
    K3c's cross-pod mean (within the R6 bound of the round's
    ``reduce_mean@pods``);
-4a. plan: the MapReduce plan IR (paper §5) on [hier]'s round: full
-   lm_350m's 2 x 2 fused-int8 round traced (``core.interpreter.trace``),
+4a. plan: the MapReduce plan IR (paper §5) on [hier]'s round: the same
+   12-layer model's 2 x 2 fused-int8 round traced (``core.interpreter.trace``),
    planned (``build_plan``; its communication skeleton must be
    ``PLAN_SKELETON``, which ``tests/test_torch_plan.py`` pins to the
    reference's) with no constant the size of an activation; one round of
    ``run_plan`` bitwise the direct round from the same inputs, with the
-   same launches (K3b once, K2 forward / ``bwd_dq`` / ``bwd_dkdv`` 384 /
-   192 / 192); the compiled plan (``runtime.executor``: one CUDA graph,
+   same launches (K3b once, K2 forward / ``bwd_dq`` / ``bwd_dkdv`` 192 /
+   96 / 96); the compiled plan (``runtime.executor``: one CUDA graph,
    params and server state donated) three rounds bitwise three
    ``run_plan`` rounds, built once, its replays outside the launch
    counters and running the ``repro`` kernels by name in one
@@ -80,7 +86,8 @@ Phases, each reported on its own line (any failure raises, exit != 0):
    and ICI bytes and the analysis seconds logged; then reduced lm_350m's
    flat int8 round (K1 in its group stage) with ``run_plan`` bitwise the
    direct round and the compiled plan bitwise ``run_plan``;
-4b. elastic: full lm_350m at [hier]'s shapes through
+4b. elastic: lm_350m at full width and 6 of its 24 layers
+   (``ELASTIC_LAYERS``) at [hier]'s shapes through
    ``make_elastic_hierarchical_round`` (2 clients a pod, bf16 K2 in every
    layer): steps at 3, 2 and 3 pods, each bitwise the direct unfused
    hierarchical round at that pod count, the per-client leg traced once
@@ -186,7 +193,8 @@ Phases, each reported on its own line (any failure raises, exit != 0):
 16. reference (ssm): one flat int8 round of reduced rwkv6_3b (one head of
    64, seq 64) on the card and on the CPU agree within one quantization
    step;
-17. ckpt: checkpointing and recovery of full lm_350m through
+17. ckpt: checkpointing and recovery of lm_350m at full width and 8 of
+   its 24 layers (``CKPT_LAYERS``) through
    ``launch.train`` (flat int8 FedAvg, so the server state holds an f32
    momentum of every parameter; cohort 4, 2 local steps, batch 4, seq
    512), in fresh directories under the temporary directory (its
@@ -270,14 +278,38 @@ Phases, each reported on its own line (any failure raises, exit != 0):
    the chunked path's last logits within ``SERVE_LOGITS_TOL`` of their
    largest magnitude, and the share of tokens that agree with the batch-1
    greedy oracle (logged, not gated). ``[slice 13 phases]`` logs their
-   seconds.
+   seconds;
+25. the other decoder architectures: ``dense configs`` (2 flat int8
+   rounds of full lm_1b, 1.745 B, at [flat]'s shapes); ``qkv bias``
+   (qwen2_72b at full width, its biases drawn nonzero: a flat round at 1
+   of 80 layers, cohort 2, batch 1, seq 4096, and loss and gradients at
+   2 layers and seq 4096 in f32 through K2 against the plain path);
+   ``moe`` (2 flat rounds of phi35_moe at 2 of 32 layers, cohort 2, batch
+   1, seq 4096; utilization on active parameters); ``moe grads``
+   (qwen3_moe at 1 of 94 layers, seq 4096, f32, its 128-expert top-8
+   router); ``qkv bias`` and ``moe grads``, which need most of the card,
+   run after phase 2, before any full-size round; ``moe layer`` (one
+   full-width MoE layer of each on 4,096 tokens, bf16 against f32: the
+   same choices kept and dropped, the output within two bf16 steps plus
+   1e-2 of the largest, the aux loss within 1e-3); ``vlm``
+   (llava_next_34b at 2 of 60 layers: loss and gradients with 2,880 patch
+   embeddings and 1,216 tokens, then prefill with the embeddings and 8
+   decode steps against ``transformer.forward``); ``serve moe``
+   (phi35_moe at 8 of 32 layers, bf16, 8 requests of power-of-two
+   prompts, 2 slots, 16 new, chunk 64, through both schedulers as
+   [serve]: token for token, flat builds, replays bitwise; each slot's
+   decode logits bitwise the same whatever the other slot's token; the
+   f32 prefill against the chunked path at 2 layers within 1e-3).
+   ``[slice 14 phases]`` logs their seconds.
 
 Then one JSON line with every kernel's launches, error and times (the K2
-rows with their launches in [pipeline], [maml] and [btm], and
-``bwd_dkdv``'s with the plain second order's calls and ms; the K2, K4
+rows with their launches in [pipeline], [maml] and [btm], the
+``FLASH_WIDE`` shapes under ``wide`` with the launches of the slice-14
+phase that ran each, and ``bwd_dkdv``'s with the plain second order's calls, ms and
+bound; the K2, K4
 and K5 forward rows with their [serve] launches, K5's forward with its
 times with a state, and the K4 and K5 backward rows with their plain
-second order's ms), and last
+second order's ms and bound), and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, and when
 the port's sources are not beside this script.
 """
@@ -845,34 +877,16 @@ def flash_bounds(nbytes: float, flop: float, dtype):
     return t_ops, "operations", "bf16 tensor-core ops"
 
 
-def flash_main(gen, b, s, hq, hkv, hd, window):
+def flash_measure(gen, b, s, hq, hkv, hd, window) -> dict:
     """K2 at one main-path shape (bf16, causal): errors against the plain
-    versions, and the times of the kernels, the plain versions and SDPA
-    beside the bounds."""
+    versions, the times of the kernels, the plain versions and SDPA, and
+    the calls whose kernels :func:`flash_report` checks by name."""
     from repro_torch.kernels import ops, ref
 
     (q, k, v, do, out32, lse, delta), errs, case_kernels = flash_case(
         gen, b, s, s, hq, hkv, hd, True, window, torch.bfloat16)
     kw = dict(causal=True, window=window)
     pairs = b * hq * visible_pairs(s, s, True, window)
-    ms = {
-        "flash_attention_fwd": time_ms(lambda: ops.flash_attention_fwd(q, k, v, **kw)),
-        "flash_attention_bwd_dq": time_ms(lambda: ops.flash_attention_bwd_dq(
-            q, k, v, out32, lse, do, **kw)),
-        "flash_attention_bwd_dkdv": time_ms(lambda: ops.flash_attention_bwd_dkdv(
-            q, k, v, lse, delta, do, **kw)),
-    }
-    plain = {
-        "flash_attention_fwd": time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw)),
-        "flash_attention_bwd_dq": time_ms(lambda: ref.flash_attention_bwd_dq_ref(
-            q, k, v, out32, lse, do, **kw)),
-        "flash_attention_bwd_dkdv": time_ms(lambda: ref.flash_attention_bwd_dkdv_ref(
-            q, k, v, lse, delta, do, **kw)),
-    }
-    lib_fwd, lib_bwd, lib_err, lib_call = sdpa_times(q, k, v, do, window)
-    errs_by = {"flash_attention_fwd": max(errs["out"], errs["lse"]),
-               "flash_attention_bwd_dq": max(errs["dq"], errs["delta"]),
-               "flash_attention_bwd_dkdv": max(errs["dk"], errs["dv"])}
     calls = {
         "flash_attention_fwd": lambda: ops.flash_attention_fwd(q, k, v, **kw),
         "flash_attention_bwd_dq": lambda: ops.flash_attention_bwd_dq(
@@ -880,29 +894,61 @@ def flash_main(gen, b, s, hq, hkv, hd, window):
         "flash_attention_bwd_dkdv": lambda: ops.flash_attention_bwd_dkdv(
             q, k, v, lse, delta, do, **kw),
     }
-    shape = (b, s, f"{hq}:{hkv}", hd, window)
-    traced = kernel_names(dict(calls, case=case_kernels, sdpa=lib_call))
-    require_flash_route(traced["case"], q.dtype, f"K2 {shape}")
+    plain_calls = {
+        "flash_attention_fwd": lambda: ref.flash_attention_ref(q, k, v, **kw),
+        "flash_attention_bwd_dq": lambda: ref.flash_attention_bwd_dq_ref(
+            q, k, v, out32, lse, do, **kw),
+        "flash_attention_bwd_dkdv": lambda: ref.flash_attention_bwd_dkdv_ref(
+            q, k, v, lse, delta, do, **kw),
+    }
+    ms = {name: time_ms(fn) for name, fn in calls.items()}
+    plain = {name: time_ms(fn) for name, fn in plain_calls.items()}
+    lib_fwd, lib_bwd, lib_err, lib_call = sdpa_times(q, k, v, do, window)
+    errs_by = {"flash_attention_fwd": max(errs["out"], errs["lse"]),
+               "flash_attention_bwd_dq": max(errs["dq"], errs["delta"]),
+               "flash_attention_bwd_dkdv": max(errs["dk"], errs["dv"])}
+    return dict(shape=(b, s, f"{hq}:{hkv}", hd, window), dtype=q.dtype,
+                work=flash_work(q, k, pairs), errs=errs_by, ms=ms,
+                plain=plain, lib=(lib_fwd, lib_bwd, lib_err),
+                calls=dict(calls, case=case_kernels, sdpa=lib_call))
+
+
+def flash_report(m: dict, traced: dict) -> dict:
+    """The route checks of :func:`flash_measure`'s calls on their traced
+    kernel names (``traced``: label -> names), the log lines, and the
+    results by kernel."""
+    shape, dtype = m["shape"], m["dtype"]
+    lib_fwd, lib_bwd, lib_err = m["lib"]
+    require_flash_route(traced["case"], dtype, f"K2 {shape}")
     results = {}
-    for name, (nbytes, flop) in flash_work(q, k, pairs).items():
+    for name, (nbytes, flop) in m["work"].items():
         names = traced[name]
-        require_flash_route(names, q.dtype, f"{name} {shape}")
-        b_ms, by, by_log = flash_bounds(nbytes, flop, q.dtype)
+        require_flash_route(names, dtype, f"{name} {shape}")
+        b_ms, by, by_log = flash_bounds(nbytes, flop, dtype)
         f32_ms, _ = bound(nbytes, flop)
+        ms, plain, err = m["ms"][name], m["plain"][name], m["errs"][name]
         results[name] = dict(
-            err=errs_by[name], ms=ms[name], plain_ms=plain[name],
+            err=err, ms=ms, plain_ms=plain,
             library_ms=lib_fwd if name == "flash_attention_fwd" else lib_bwd,
             bound_ms=b_ms, bound_by=by, bound_ms_f32_simt=f32_ms)
-        log("kernels", name=name, shape=shape, ms=f"{ms[name]:.4f}",
-            plain_ms=f"{plain[name]:.4f}",
+        log("kernels", name=name, shape=shape, ms=f"{ms:.4f}",
+            plain_ms=f"{plain:.4f}",
             library_ms=f"{results[name]['library_ms']:.4f}",
             bound_ms=f"{b_ms:.4f}", bound_by=f"'{by_log}'", flop=flop,
             bytes=nbytes, bound_ms_f32_simt=f"{f32_ms:.4f}",
-            err=f"{errs_by[name]:.3e}", kernels=json.dumps(names))
+            err=f"{err:.3e}", kernels=json.dumps(names))
     log("kernels", name="sdpa (information)", shape=shape,
         fwd_max_abs_diff_vs_plain=f"{lib_err:.3e}",
         fwd_kernels=json.dumps([n[:60] for n in traced["sdpa"]]))
     return results
+
+
+def flash_main(gen, b, s, hq, hkv, hd, window):
+    """K2 at one main-path shape (bf16, causal): errors against the plain
+    versions, and the times of the kernels, the plain versions and SDPA
+    beside the bounds, its kernels checked by name in one trace."""
+    m = flash_measure(gen, b, s, hq, hkv, hd, window)
+    return flash_report(m, kernel_names(m["calls"]))
 
 
 def flash_sweep(gen, cases, phase: str, name: str) -> None:
@@ -1034,10 +1080,20 @@ def phase_flash_second_order(gen) -> dict:
         held = torch.cuda.max_memory_allocated() - before
         ms = time_ms(lambda: torch.autograd.grad(outs, (qq, kk, vv, ww), g1,
                                                  retain_graph=True))
-        out[dt] = {"ms": ms, "held_mib": held / 2 ** 20, "errs": errs}
+        # the call reads q, k, v, dout, out_f32, L and the first order's
+        # cotangents and writes four gradients; FLOP: the six products of
+        # the forward and the first-order backward (q.k, p.v, dout.v,
+        # p^T.dout, ds.k, ds^T.q: 12 hd a visible pair) recomputed, and
+        # the two products of each in their transpose (24 hd)
+        nbytes = tensor_bytes(q, k, v, w, o32, lse, *g1, q, k, v, w)
+        flop = 36.0 * hd * b * h * visible_pairs(s, s, True, 0)
+        b_ms, by, by_log = flash_bounds(nbytes, flop, dtype)
+        out[dt] = {"ms": ms, "held_mib": held / 2 ** 20, "errs": errs,
+                   "bound_ms": b_ms, "bound_by": by}
         log("flash", name="K2 second order (plain recompute)",
             shape=f"B {b} x S {s} x {h} heads x {hd}, causal", dtype=dt,
-            ms=f"{ms:.4f}", held_mib=f"{held / 2 ** 20:.1f}",
+            ms=f"{ms:.4f}", bound_ms=f"{b_ms:.4f}", bound_by=f"'{by_log}'",
+            bytes=nbytes, flop=flop, held_mib=f"{held / 2 ** 20:.1f}",
             second_order_calls=plain_calls, first_order_bitwise=True,
             launches=json.dumps({k_: v_ for k_, v_ in counts.items() if v_}),
             errs=json.dumps({k_: f"{v_:.3e}" for k_, v_ in errs.items()}),
@@ -1599,11 +1655,13 @@ def require_wkv_launches(counts: dict, args, layers: int) -> None:
 
 
 def model_flop(cfg, args, n_params: int) -> float:
-    """Model FLOP of one round, without the remat recompute: 6 x params x
-    tokens, plus 12 x hd x query heads per visible (q, k) pair of every
-    attention layer and sequence (forward 4 hd, backward 8 hd), plus the
-    WKV's own 12 x N^2 x heads per token of every rwkv layer (the state
-    update and readout: forward 4 N^2, backward 8 N^2)."""
+    """Model FLOP of one round, without the remat recompute: 6 x active
+    params x tokens (an MoE layer's routed experts only: ``n_params`` less
+    each layer's unrouted experts, ``layer_params - active_layer_params``),
+    plus 12 x hd x query heads per visible (q, k) pair of every attention
+    layer and sequence (forward 4 hd, backward 8 hd), plus the WKV's own 12
+    x N^2 x heads per token of every rwkv layer (the state update and
+    readout: forward 4 N^2, backward 8 N^2)."""
     from repro_torch.models import blocks, rwkv
 
     tokens = args.cohort * args.local_steps * args.batch * args.seq
@@ -1611,25 +1669,68 @@ def model_flop(cfg, args, n_params: int) -> float:
     window = cfg.window_size if cfg.attention == "local" else 0
     pairs = visible_pairs(args.seq, args.seq, True, window)
     kinds = blocks.layer_kinds(cfg)
+    active = n_params - kinds.count("attention") * (
+        cfg.layer_params() - cfg.active_layer_params())
     wkv = 12.0 * cfg.rwkv_head_dim ** 2 * rwkv.num_heads(cfg) * tokens
-    return (6.0 * n_params * tokens
+    return (6.0 * active * tokens
             + 12.0 * cfg.head_dim * cfg.num_heads * pairs
             * kinds.count("attention") * seqs
             + wkv * kinds.count("rwkv"))
 
 
-def phase_train(phase: str, **over):
-    """Flat rounds of a full-size model through ``launch.train``: lm_350m
-    with int8 deltas, or (``arch``) recurrentgemma_2b or rwkv6_3b."""
+def with_biases(params: dict, seed: int) -> dict:
+    """``params`` with every qkv bias (zeros at init) drawn as 0.5 x N(0, 1),
+    in place: zero biases would show nothing of the bias path."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1000)
+    for name, t in params.items():
+        if name.rsplit(".", 1)[-1] in ("bq", "bk", "bv"):
+            t.copy_(0.5 * torch.randn(t.shape, generator=gen, device="cuda"))
+    return params
+
+
+def model_as(cfg, biases: bool = False):
+    """``launch.train`` builds its model from ``registry.get_config(arch)``
+    and ``registry.init_params``: have it build ``cfg`` (a full-width
+    config at a cut depth) and, with ``biases``, draw its qkv biases."""
+    import contextlib
+    from unittest import mock
+
+    from repro_torch.models import registry
+
+    init = registry.init_params
+
+    def init_params(c, *, seed=0, device="cuda"):
+        params = init(c, seed=seed, device=device)
+        return with_biases(params, seed) if biases else params
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(registry, "get_config",
+                                          lambda arch: cfg))
+    stack.enter_context(mock.patch.object(registry, "init_params",
+                                          init_params))
+    return stack
+
+
+def phase_train(phase: str, layers: int = 0, biases: bool = False, **over):
+    """Flat rounds of a full-width model through ``launch.train``: lm_350m
+    with int8 deltas, or (``arch``) another architecture, at ``layers`` of
+    its depth when given, with its qkv biases drawn (``biases``)."""
+    import contextlib
+    import dataclasses
+
     from repro_torch.kernels import ops
     from repro_torch.launch import train
     from repro_torch.models import blocks, registry
 
     args = flat_args(**over)
     cfg = registry.get_config(args.arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    result = train.train(args)
+    with (model_as(cfg, biases) if layers or biases
+          else contextlib.nullcontext()):
+        result = train.train(args)
     summary, params, losses, seconds = (result.summary, result.params,
                                         result.losses, result.seconds)
     del result
@@ -1652,14 +1753,18 @@ def phase_train(phase: str, **over):
         flop = model_flop(cfg, args, n_params)
         extra = dict(model_flop_per_round=f"{flop:.4e}", model_utilization=[
             f"{flop / v / BF16_TC_OPS_PER_S:.4f}" for v in seconds])
-    log(phase, arch=args.arch, params=n_params, seq=args.seq,
-        tokens_per_round=tokens, losses=[round(v, 5) for v in losses],
+    log(phase, arch=args.arch, layers=cfg.num_layers, params=n_params,
+        seq=args.seq, tokens_per_round=tokens,
+        losses=[round(v, 5) for v in losses],
         round_s=[round(v, 3) for v in seconds],
         tokens_per_s=[round(tokens / v, 1) for v in seconds], **extra,
         peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
         launches=json.dumps(counts))
     print(json.dumps(summary), flush=True)
     del params
+    # a round's closures hold tensors in reference cycles; collect them, or
+    # the segments they pin fragment the next phase's memory
+    gc.collect()
     torch.cuda.empty_cache()
     return counts
 
@@ -1684,13 +1789,29 @@ def hier_round_fn(cfg, args, pods: int, fused, straggler: bool = False):
         round_cfg), server_opt
 
 
+# [hier] and [plan] at 12 of lm_350m's 24 layers: [plan]'s two traces of
+# the round take time in proportion to the layers (160-245 s for the
+# phase at 24 layers on H100 hosts, PERF.md), and [plan] prices the wire
+# bytes [hier] measures, so both run the same depth
+HIER_LAYERS = 12
+
+
+def hier_config(args):
+    import dataclasses
+
+    from repro_torch.models import registry
+
+    return dataclasses.replace(registry.get_config(args.arch),
+                               num_layers=HIER_LAYERS)
+
+
 def phase_hier():
     from repro_torch.data.grouped import CohortSampler, GroupedCorpus
     from repro_torch.kernels import ops
     from repro_torch.models import registry
 
     args = flat_args(rounds=2)
-    cfg = registry.get_config(args.arch)
+    cfg = hier_config(args)
     params = registry.init_params(cfg, seed=args.seed, device="cuda")
     fused_fn, server_opt = hier_round_fn(cfg, args, pods=2, fused=True)
     unfused_fn, _ = hier_round_fn(cfg, args, pods=2, fused=False)
@@ -1946,8 +2067,9 @@ def equal_leaves(a, b) -> bool:
 
 
 def phase_plan(wire_payload: int):
-    """[plan]: full lm_350m's pod-hierarchical fused-int8 round (the [hier]
-    phase's: 2 pods x 2 clients, seq 512, batch 4, 2 local steps) traced,
+    """[plan]: lm_350m's pod-hierarchical fused-int8 round at full width
+    and ``HIER_LAYERS`` layers (the [hier] phase's: 2 pods x 2 clients, seq
+    512, batch 4, 2 local steps) traced,
     planned and run by ``run_plan`` bitwise to the direct round with the
     same K2 and K3b launches, then compiled into one CUDA graph whose three
     rounds are bitwise three ``run_plan`` rounds; ``to_beam`` of the round;
@@ -1968,7 +2090,7 @@ def phase_plan(wire_payload: int):
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     args = flat_args(rounds=3)
-    cfg = registry.get_config(args.arch)
+    cfg = hier_config(args)
     params = registry.init_params(cfg, seed=args.seed, device="cuda")
     round_fn, server_opt = hier_round_fn(cfg, args, pods=2, fused=True)
     state = server_opt.init(params)
@@ -2243,6 +2365,10 @@ def phase_plan_flat_reduced() -> dict:
 
 
 ELASTIC_PODS = (3, 2, 3)  # the [elastic] steps' pod counts
+# [elastic] at 6 of lm_350m's 24 layers: its per-client trace takes time
+# in proportion to the layers (62 s at 24 on a slow host, PERF.md), and
+# the whole smoke must end within 1200 s
+ELASTIC_LAYERS = 6
 
 
 def free_graphs() -> None:
@@ -2268,8 +2394,9 @@ def relative_worst(a: dict, b: dict) -> float:
 
 
 def phase_elastic():
-    """[elastic]: full lm_350m at the [hier] shapes (seq 512, batch 4, 2
-    local steps, 2 clients per pod, bf16 K2 in every layer) through
+    """[elastic]: lm_350m at full width and ``ELASTIC_LAYERS`` layers, at
+    the [hier] shapes (seq 512, batch 4, 2 local steps, 2 clients per pod,
+    bf16 K2 in every layer) through
     ``make_elastic_hierarchical_round``: three steps at 3, 2 and 3 pods,
     each bitwise the direct unfused hierarchical round at that pod count
     from the same state, with one trace of the per-client leg throughout
@@ -2290,7 +2417,8 @@ def phase_elastic():
     torch.cuda.reset_peak_memory_stats()
     args = flat_args()
     per, most = 2, max(ELASTIC_PODS)
-    cfg = registry.get_config(args.arch)
+    cfg = dataclasses.replace(registry.get_config(args.arch),
+                              num_layers=ELASTIC_LAYERS)
     loss_fn = functools.partial(registry.loss_fn, cfg)
     client_opt, server_opt = train.optimizers(args)
     round_cfg = rounds.LocalSGDConfig(partition_size=per,
@@ -2610,13 +2738,19 @@ SSM_GRAD_TOL = 2.5e-3
 
 def phase_grads(phase: str = "grads", arch: str = "lm_350m", layers: int = 2,
                 seq: int = 4096, tol: float = 1e-4, seeds=(0,),
-                control: bool = False):
+                control: bool = False, biases: bool = False,
+                patches: int = 0):
     """A full-width model with ``layers`` layers, f32, batch 1: loss and
     gradients through the kernels (K2, K4 in recurrent layers, K5 in rwkv
     layers) against the same through PyTorch's autograd of their plain
     forwards on the card, from the same parameters and tokens, drawn from
     each of ``seeds``: the loss within 1e-5 relative, each leaf within
-    ``tol`` of its largest magnitude.
+    ``tol`` of its largest magnitude. The kernels' gradients wait on the
+    host while the plain run takes the card's memory. An MoE layer runs
+    the same code on both sides (no kernel computes it). ``biases``: the
+    qkv biases drawn nonzero (:func:`with_biases`); ``patches``: a VLM's
+    patch embeddings (1, patches, D) before ``seq - patches`` tokens, the
+    loss on the text tail.
 
     ``control``: for each seed, the plain forward once more with the WKV's
     output (and so its gradient) rounded to bf16. Its worst leaf must be
@@ -2643,7 +2777,8 @@ def phase_grads(phase: str = "grads", arch: str = "lm_350m", layers: int = 2,
         for key, w in want.items():
             w = w.double()
             top = max(float(w.abs().max()), 1e-30)
-            ratio = float((grads[key].double() - w).abs().max()) / top
+            ratio = float((grads[key].to(w.device).double() - w).abs().max()
+                          ) / top
             if ratio >= worst:
                 name, worst = key, ratio
         return name, worst
@@ -2662,11 +2797,18 @@ def phase_grads(phase: str = "grads", arch: str = "lm_350m", layers: int = 2,
         return stack
 
     for seed in seeds:
+        torch.cuda.reset_peak_memory_stats()
         params = registry.init_params(cfg, seed=seed, device="cuda")
+        if biases:
+            with_biases(params, seed)
         toks = np.random.default_rng(seed).integers(0, cfg.vocab_size,
-                                                    (1, seq + 1))
+                                                    (1, seq - patches + 1))
         toks = torch.from_numpy(toks.astype(np.int64)).cuda()
         batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if patches:
+            batch["embeds"] = torch.randn(
+                (1, patches, cfg.d_model), device="cuda",
+                generator=torch.Generator(device="cuda").manual_seed(seed))
 
         def loss_and_grads():
             p = {k: v.detach().clone().requires_grad_()
@@ -2686,6 +2828,7 @@ def phase_grads(phase: str = "grads", arch: str = "lm_350m", layers: int = 2,
         ops.reset_launches()
         with mock.patch.object(rwkv, "_group_norm", group_norm):
             loss_k, grads_k = loss_and_grads()
+        grads_k = {k: v.cpu() for k, v in grads_k.items()}
         counts = ops.launch_counts()
         require(counts["flash_attention_fwd"] >= 2 * n_attn
                 and counts["flash_attention_bwd_dq"] >= n_attn
@@ -2721,12 +2864,18 @@ def phase_grads(phase: str = "grads", arch: str = "lm_350m", layers: int = 2,
             extra["head_mean_square_min_median"] = [
                 (f"{a:.3e}", f"{b:.3e}") for a, b in mean_squares]
         log(phase, arch=arch, seq=seq, seed=seed, layers=",".join(kinds),
+            params=sum(v.numel() for v in params.values()),
+            **(dict(patches=patches) if patches else {}),
+            **(dict(biases="drawn") if biases else {}),
+            peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
             loss_kernels=loss_k, loss_plain=loss_p, loss_rel_diff=f"{rel:.3e}",
             leaves=len(grads_p), worst_leaf=name,
             worst_err_over_max=f"{worst:.3e}", limit=f"{tol:.1e}", **extra,
             launches=json.dumps(counts))
         del params, grads_k, grads_p
+        gc.collect()
         torch.cuda.empty_cache()
+    return counts
 
 
 def phase_reference(attn_impl: str, arch: str = "lm_350m",
@@ -2832,9 +2981,16 @@ def differing_leaves(a, b) -> list:
                     and torch.equal(x, y))]
 
 
-def phase_ckpt(n_params: int):
+# [ckpt] at 8 of lm_350m's 24 layers: its writes, hashes and restores take
+# time in proportion to the bytes (115 s for the phase at 24 layers on a
+# slow host, PERF.md)
+CKPT_LAYERS = 8
+
+
+def phase_ckpt():
     """Checkpointing and recovery of flat int8 FedAvg rounds (server
-    momentum: an f32 tree beside the bf16 params) through ``launch.train``:
+    momentum: an f32 tree beside the bf16 params) of lm_350m at full width
+    and ``CKPT_LAYERS`` layers through ``launch.train``:
     run A, 4 rounds with a checkpoint every 2; run B, the same with a
     failure at round 3, which restores step 2 and replays round 2. B must
     end bitwise equal to A. Then on B's directory: the checkpoint restored
@@ -2842,6 +2998,7 @@ def phase_ckpt(n_params: int):
     4 falls back to step 2, whose sha256 of every leaf are A's own step
     2's; a save killed before LATEST advances stays invisible. The
     directories live under the temporary directory and are removed."""
+    import dataclasses
     import shutil
     import tempfile
 
@@ -2850,13 +3007,17 @@ def phase_ckpt(n_params: int):
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.kernels import ops
     from repro_torch.launch import train
+    from repro_torch.models import registry
 
     t_phase = time.perf_counter()
+    cfg = dataclasses.replace(registry.get_config("lm_350m"),
+                              num_layers=CKPT_LAYERS)
     root = tempfile.mkdtemp(prefix="repro_ckpt_")
     try:
         mount, fstype = filesystem_of(root)
         free = shutil.disk_usage(root).free
-        state_bytes = n_params * (2 + 4) + 4  # bf16 params, f32 momentum, step
+        # bf16 params, f32 momentum, step (no vocabulary padding at 32768)
+        state_bytes = cfg.param_count() * (2 + 4) + 4
         # A: steps 2 and 4; B: steps 2 and 4, the rewrite of the corrupted
         # step and the killed step 5; one more for the filesystem's slack
         need = 7 * state_bytes
@@ -2869,7 +3030,8 @@ def phase_ckpt(n_params: int):
                              fail_at=fail_at, ckpt_dir=os.path.join(root, name))
             ops.reset_launches()
             t0 = time.perf_counter()
-            runs[name] = train.train(args)
+            with model_as(cfg):
+                runs[name] = train.train(args)
             secs[name] = time.perf_counter() - t0
             counts[name] = ops.launch_counts()
         a, b = runs["A"], runs["B"]
@@ -2889,7 +3051,8 @@ def phase_ckpt(n_params: int):
             c = counts[name]
             require(c["quantize"] == need_k1 and c["dequantize"] == need_k1,
                     f"run {name} launched {c}, need K1a/K1b {need_k1} each")
-            require_flash_launches(c, flat_args(rounds=rounds_run), 24)
+            require_flash_launches(c, flat_args(rounds=rounds_run),
+                                   CKPT_LAYERS)
         a_losses = a.losses
         state_a = {"params": a.params, "server": a.server_state}
         state_b = {"params": b.params, "server": b.server_state}
@@ -3277,13 +3440,17 @@ def phase_pipeline():
     labels = toks[..., 1:]
     positions = torch.arange(seq, device="cuda").expand(b, seq)
 
+    def stage(p, i, x):
+        # the activation; lm_350m's layers add no aux loss
+        return transformer.apply_layers(cfg, p, x, positions, i * per,
+                                        (i + 1) * per)[0]
+
     def stages(p):
-        return [functools.partial(transformer.apply_layers, cfg, p,
-                                  positions=positions, start=i * per,
-                                  stop=(i + 1) * per) for i in range(s)]
+        return [functools.partial(stage, p, i) for i in range(s)]
 
     def sequential(p, mb):
-        return torch.stack([transformer.apply_layers(cfg, p, mb[i], positions)
+        return torch.stack([transformer.apply_layers(cfg, p, mb[i],
+                                                     positions)[0]
                             for i in range(m)])
 
     pcfg = pipeline.PipelineConfig(s, m)
@@ -3625,13 +3792,19 @@ def wkv_state_case(gen, b, s, h, n):
     return (r, k, v, lw, u, s0), errs
 
 
-def second_order_case(name, fn, plain, inputs, weights):
+def tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def second_order_case(name, fn, plain, inputs, weights, flop: float):
     """The double backward of ``sum |g|^2`` (g the first-order gradients of
     ``sum outs . weights``) through ``fn`` (the kernels, then the plain
     recompute) against the same through ``plain`` (autograd through the
     plain loops), within 1e-4 of the largest magnitude; the first order
     bitwise the kernels' backward; one plain call; the second-order call's
-    ms (CUDA events)."""
+    ms (CUDA events) and its bound: the inputs, the weights and the first
+    order read once, a gradient of each input written once, and ``flop``
+    at the f32 rate (the call's inputs are f32)."""
     from repro_torch.kernels import ops
 
     def second(f):
@@ -3650,12 +3823,15 @@ def second_order_case(name, fn, plain, inputs, weights):
     ms = time_ms(lambda: torch.autograd.grad(total, xs, retain_graph=True),
                  warmup=1, iters=3)
     g1 = [g.detach() for g in g1]
+    nbytes = tensor_bytes(*inputs, *weights, *g1, *inputs)
+    b_ms, by = bound(nbytes, flop)
     _, _, want, _ = second(plain)
     errs = {}
     for i, (g, w) in enumerate(zip(got, want)):
         errs[f"in{i}"] = check_grad(f"{name} second order input {i}", g, w,
                                     torch.float32)
-    return g1, ms, errs
+    return g1, ms, errs, dict(bound_ms=b_ms, bound_by=by, bytes=nbytes,
+                              flop=flop)
 
 
 def phase_state_and_second_order(gen) -> dict:
@@ -3694,32 +3870,46 @@ def phase_state_and_second_order(gen) -> dict:
     x = torch.randn(LRU_P2, generator=gen, device="cuda")
     h0 = torch.randn((bl, wl), generator=gen, device="cuda")
     w = [torch.randn(LRU_P2, generator=gen, device="cuda")]
-    g1, ms, errs = second_order_case(
+    # FLOP: the forward's 2 and the backward's 3 per element (dh_t = dout_t
+    # + a_{t+1} dh_{t+1}, da_t = dh_t h_{t-1}) recomputed, and the two
+    # products of each in their transpose: 15 per element
+    g1, ms, errs, b2 = second_order_case(
         "lru_scan", lambda *t: (ops.lru_scan(*t),),
-        lambda *t: (ref.lru_scan_ref(*t),), (a, x, h0), w)
+        lambda *t: (ref.lru_scan_ref(*t),), (a, x, h0), w,
+        flop=15.0 * a.numel())
     first = ops.lru_scan_bwd(a, ops.lru_scan_fwd(a, x, h0), w[0], h0)
     require(all(torch.equal(p, q) for p, q in zip(g1, first)),
             "K4 second order: first order != the kernels")
-    out["lru_scan_bwd"] = {"ms": ms, "calls": 1, "shape": f"{LRU_P2} f32, h0"}
+    out["lru_scan_bwd"] = {"ms": ms, "calls": 1, "shape": f"{LRU_P2} f32, h0",
+                           "bound_ms": b2["bound_ms"],
+                           "bound_by": b2["bound_by"]}
     log("kernels", name="K4 second order (plain recompute)", shape=LRU_P2,
-        ms=f"{ms:.4f}", first_order_bitwise=True,
+        ms=f"{ms:.4f}", bound_ms=f"{b2['bound_ms']:.4f}",
+        bound_by=b2["bound_by"], bytes=b2["bytes"], flop=b2["flop"],
+        first_order_bitwise=True,
         errs=json.dumps({k_: f"{v_:.3e}" for k_, v_ in errs.items()}))
     r, k, v, lw, u, _ = wkv_inputs(gen, *WKV_P2, "model")
     b, s, h, n = WKV_P2
     s0 = 0.3 * torch.randn((b, h, n, n), generator=gen, device="cuda")
     w = [torch.randn(WKV_P2, generator=gen, device="cuda"),
          0.3 * torch.randn((b, h, n, n), generator=gen, device="cuda")]
-    g1, ms, errs = second_order_case(
+    # FLOP: the forward's 4 N^2 and the backward's 8 N^2 per token and
+    # head (``model_flop``'s WKV counts) recomputed, and twice that for
+    # their transpose: 36 N^2
+    g1, ms, errs, b2 = second_order_case(
         "wkv6", ops.wkv6, lambda *t: ref.wkv6_fwd_ref(*t)[::2],
-        (r, k, v, lw, u, s0), w)
+        (r, k, v, lw, u, s0), w, flop=36.0 * n * n * b * s * h)
     _, states, final = ops.wkv6_fwd(r, k, v, lw, u, s0)
     first = ops.wkv6_bwd(r, k, v, lw, u, states, w[0], s0, final, w[1])
     require(all(torch.equal(p, q) for p, q in zip(g1, first)),
             "K5 second order: first order != the kernels")
     out["wkv6_bwd"] = {"ms": ms, "calls": 1,
-                       "shape": f"{WKV_P2} f32, s0 and the final state"}
+                       "shape": f"{WKV_P2} f32, s0 and the final state",
+                       "bound_ms": b2["bound_ms"], "bound_by": b2["bound_by"]}
     log("kernels", name="K5 second order (plain recompute)", shape=WKV_P2,
-        ms=f"{ms:.4f}", first_order_bitwise=True,
+        ms=f"{ms:.4f}", bound_ms=f"{b2['bound_ms']:.4f}",
+        bound_by=b2["bound_by"], bytes=b2["bytes"], flop=b2["flop"],
+        first_order_bitwise=True,
         errs=json.dumps({k_: f"{v_:.3e}" for k_, v_ in errs.items()}))
     torch.cuda.empty_cache()
     return out
@@ -3736,13 +3926,26 @@ SERVE_RUNS = {
     "rwkv6_3b": dict(requests=6, slots=2, lens=(16, 300), max_new=16,
                      chunk=64, max_len=320),
 }
+# [serve moe]: phi35_moe at 8 of its 32 layers (10.67 B parameters), bf16.
+# MoE capacity depends on the chunk, so chunked prefill equals full prefill
+# only for a prompt that fits one chunk: power-of-two prompts of 8-64
+# tokens (``lens`` lists each request's; the reference's MoE serve test
+# keeps the same constraint), and one warm-up request of 127 that builds
+# every chunk bucket (hence max_len 144).
+SERVE_MOE_RUN = dict(requests=8, slots=2,
+                     prompt_lens=(64, 8, 32, 16, 64, 8, 16, 32),
+                     max_new=16, chunk=64, max_len=144, layers=8)
 SERVE_ORACLE_REQUESTS = 4      # requests checked against prefill + decode_step
 SERVE_LOGITS_TOL = 2.0 ** -4   # prefill (K2) vs chunks, of max |logits|
+SERVE_MOE_F32_TOL = 1e-3       # the same in f32 for MoE, of max |logits|
 
 
-def serve_requests(serve_lib, cfg, seed, n, lens, max_new):
+def serve_requests(serve_lib, cfg, seed, n, lens, max_new, sizes=None):
+    """``n`` requests of seeded prompts, ``sizes`` long or, without them,
+    of uniform lengths in ``lens`` (lo, hi)."""
     rng = np.random.default_rng(seed)
-    sizes = rng.integers(lens[0], lens[1] + 1, size=n)
+    if sizes is None:
+        sizes = rng.integers(lens[0], lens[1] + 1, size=n)
     return [serve_lib.Request(
         rid=i, prompt=rng.integers(0, cfg.vocab_size, (int(m),)).astype(
             np.int32), max_new=max_new) for i, m in enumerate(sizes)]
@@ -3787,8 +3990,9 @@ def run_scheduler(serve_lib, cls, cfg, params, run, seed):
     buckets = len(serve_lib.chunk_schedule(2 * run["chunk"] - 1, run["chunk"]))
     require(builds == (buckets, 1), f"{cls.__name__} builds {builds}, "
             f"expected ({buckets}, 1)")
-    reqs = serve_requests(serve_lib, cfg, seed, run["requests"], run["lens"],
-                          run["max_new"])
+    reqs = serve_requests(serve_lib, cfg, seed, run["requests"],
+                          run.get("lens"), run["max_new"],
+                          run.get("prompt_lens"))
     torch.cuda.synchronize()
     ops.reset_launches()
     before = sched.replayed_launches()
@@ -3858,12 +4062,110 @@ def serve_chunk_replay(cont, cfg, params, reqs, c, kinds) -> dict:
     return {"bitwise": True, "kernels": ran}
 
 
-def phase_serve(arch: str, seed: int = 0) -> dict:
-    """One architecture at full width through both schedulers: token for
-    token, flat builds, the K4/K5 chunk launches, a replayed decode step
-    bitwise the eager one with both timed; for the dense main cell also
-    prefill's last logits (K2) against the chunked path's and the share of
-    tokens that agree with the batch-1 greedy oracle."""
+def serve_per_slot(cont, cfg, params, trials: int = 4) -> dict:
+    """MoE routing per slot: from the continuous scheduler's pool after its
+    run, a slot decode step's logits for each slot are bitwise the same
+    whatever token the other slot holds (``trials`` seeded tokens). The
+    control routes both slots as one group (``moe.apply``'s own grouping,
+    patched in): the first row's choices take the expert slots first, so
+    the second row's logits can move with the first row's token; how
+    often they did is logged."""
+    from unittest import mock
+
+    from repro_torch.models import moe, registry
+    from torch.utils import _pytree as pytree
+
+    decode = registry.make_decode_fn(cfg)
+    apply = moe.apply
+
+    def logits(tokens, joint=False):
+        routed = ((lambda cfg, p, x, group_size=None: apply(cfg, p, x))
+                  if joint else apply)
+        with torch.no_grad(), mock.patch.object(moe, "apply", routed):
+            return decode(params, tokens,
+                          pytree.tree_map(torch.clone, cont._pool))[0]
+
+    base_tokens = cont._tokens.clone()
+    base = logits(base_tokens)
+    joint_base = logits(base_tokens, joint=True)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    moved = 0
+    for _ in range(trials):
+        other = torch.randint(0, cfg.vocab_size, (1,), generator=gen,
+                              device="cuda", dtype=torch.int32)
+        for slot in (0, 1):
+            tokens = base_tokens.clone()
+            tokens[1 - slot] = other
+            require(torch.equal(logits(tokens)[slot], base[slot]),
+                    f"[serve] {cfg.name}: slot {slot}'s decode logits moved "
+                    f"with slot {1 - slot}'s token")
+            moved += not torch.equal(logits(tokens, joint=True)[slot],
+                                     joint_base[slot])
+    log("serve", arch=cfg.name, check="MoE routing per slot",
+        trials=trials, per_slot_bitwise=True,
+        joint_routing_moved=f"{moved}/{2 * trials}")
+    return {"bitwise": True, "joint_moved": moved}
+
+
+def serve_moe_f32(cfg, reqs, run, layers: int = 2) -> dict:
+    """The MoE prefill (K2 in every layer) against the chunked path (plain
+    attention over the cache) in f32, at full width and ``layers``, on the
+    first ``SERVE_ORACLE_REQUESTS`` prompts (each fits one chunk, so both
+    paths route the same groups): last logits within ``SERVE_MOE_F32_TOL``
+    of the largest, argmax equal. In bf16 the two attention paths differ by
+    bf16 steps, which tip routing choices, and at init a layer's expert
+    outputs dwarf the residual stream, so a tipped choice moves the logits
+    wholesale: the bf16 comparison is logged, this one gated."""
+    import dataclasses
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import registry, transformer
+
+    cfg32 = dataclasses.replace(cfg, num_layers=layers, dtype="float32")
+    params = registry.init_params(cfg32, seed=0, device="cuda")
+    prefill = steps.make_prefill_step(cfg32, max_len=run["max_len"])
+    chunk_fn = registry.make_chunk_prefill_fn(cfg32)
+    worst, same = 0.0, 0
+    ops.reset_launches()
+    for r in reqs[:SERVE_ORACLE_REQUESTS]:
+        require(len(r.prompt) <= run["chunk"], "[serve] MoE prompts must fit "
+                "one chunk")
+        prompt = torch.from_numpy(r.prompt)[None].cuda()
+        with torch.no_grad():
+            last, _ = prefill(params, {"tokens": prompt})
+            caches = transformer.init_caches(cfg32, 1, run["max_len"],
+                                             ring=False, device="cuda")
+            clast, _ = chunk_fn(params, prompt, caches, 0)
+        worst = max(worst, float((last - clast).abs().max()
+                                 / last.abs().max()))
+        same += int(torch.equal(last.argmax(-1), clast.argmax(-1)))
+    k2 = ops.launch_counts()["flash_attention_fwd"]
+    require(k2 == SERVE_ORACLE_REQUESTS * layers,
+            f"[serve] f32 MoE prefill launched K2 {k2} times")
+    require(worst <= SERVE_MOE_F32_TOL and same == SERVE_ORACLE_REQUESTS,
+            f"[serve] f32 MoE prefill vs chunk: {worst:.3e} of max |logits|, "
+            f"argmax equal {same}/{SERVE_ORACLE_REQUESTS}")
+    log("serve", arch=cfg.name, check=f"f32 prefill (K2) vs chunk, {layers} "
+        "layers", max_abs_over_max_logits=f"{worst:.3e}",
+        gate=f"{SERVE_MOE_F32_TOL:.0e}",
+        argmax_equal=f"{same}/{SERVE_ORACLE_REQUESTS}", k2_launches=k2)
+    del params
+    torch.cuda.empty_cache()
+    return {"rel": worst, "k2_launches": k2}
+
+
+def phase_serve(arch: str, seed: int = 0, run: dict = None) -> dict:
+    """One architecture at full width (``run``, default ``SERVE_RUNS[arch]``;
+    its ``layers`` cut the depth) through both schedulers: token for token,
+    flat builds, the K4/K5 chunk launches, a replayed decode step bitwise
+    the eager one with both timed; for the dense main cell and the MoE cell
+    also prefill's last logits (K2) against the chunked path's and the
+    share of tokens that agree with the batch-1 greedy oracle (gated for
+    the dense cell only: in bf16 the two attention paths can tip an MoE
+    routing choice); for MoE the per-slot routing (:func:`serve_per_slot`)."""
+    import dataclasses
+
     from repro_torch.kernels import ops, rglru_scan
     from repro_torch.launch import serve as serve_lib
     from repro_torch.launch import steps
@@ -3871,8 +4173,10 @@ def phase_serve(arch: str, seed: int = 0) -> dict:
     from torch.utils import _pytree as pytree
 
     t_phase = time.perf_counter()
-    run = SERVE_RUNS[arch]
+    run = run or SERVE_RUNS[arch]
     cfg = registry.get_config(arch)
+    if run.get("layers"):
+        cfg = dataclasses.replace(cfg, num_layers=run["layers"])
     torch.cuda.reset_peak_memory_stats()
     params = registry.init_params(cfg, seed=seed, device="cuda")
     kinds = blocks.layer_kinds(cfg)
@@ -3900,7 +4204,8 @@ def phase_serve(arch: str, seed: int = 0) -> dict:
                     f"{steps_run} chunk steps x {layers} layers")
     log("serve", arch=arch, layers=cfg.num_layers, d_model=cfg.d_model,
         dtype=cfg.dtype, requests=run["requests"], slots=run["slots"],
-        prompts=f"{run['lens'][0]}-{run['lens'][1]}",
+        prompts=(json.dumps(run["prompt_lens"]) if "prompt_lens" in run
+                 else f"{run['lens'][0]}-{run['lens'][1]}"),
         prompt_tokens=sum(len(r.prompt) for r in creqs),
         max_new=run["max_new"], chunk=run["chunk"], max_len=run["max_len"],
         continuous_equals_static=True,
@@ -3946,6 +4251,8 @@ def phase_serve(arch: str, seed: int = 0) -> dict:
               "decode_replay_ms": replay_ms, "decode_eager_ms": eager_ms}
     result["chunk_step"] = serve_chunk_replay(cont, cfg, params, creqs,
                                               run["chunk"], kinds)
+    if cfg.family == "moe":
+        result["per_slot"] = serve_per_slot(cont, cfg, params)
     if arch == "stablelm_3b":
         # the decode step's kernels (run eagerly: the replay runs the same
         # ones): how many, and their device time summed
@@ -3960,7 +4267,7 @@ def phase_serve(arch: str, seed: int = 0) -> dict:
                 key=lambda t: -t[1])[:5]))
     del pool_copy, tokens_copy
 
-    if arch == "stablelm_3b":
+    if arch == "stablelm_3b" or cfg.family == "moe":
         # prefill (K2 in every layer) against the chunked path, and the
         # greedy oracle (prefill + decode_step, batch 1)
         prefill_step = steps.make_prefill_step(cfg, max_len=run["max_len"])
@@ -4000,18 +4307,22 @@ def phase_serve(arch: str, seed: int = 0) -> dict:
                 == SERVE_ORACLE_REQUESTS * cfg.num_layers,
                 f"[serve] prefill launched K2 {counts['flash_attention_fwd']} "
                 f"times")
-        require(worst <= SERVE_LOGITS_TOL,
+        gated = cfg.family != "moe"
+        require(worst <= SERVE_LOGITS_TOL or not gated,
                 f"[serve] prefill vs chunks: {worst:.3e} of max |logits|")
         result.update(prefill_k2_launches=counts["flash_attention_fwd"],
                       logits_rel=worst, oracle_share=agree / total)
-        log("serve", arch=arch, check="prefill (K2, hd 80) vs chunks",
+        log("serve", arch=arch,
+            check=f"prefill (K2, hd {cfg.head_dim}) vs chunks",
             max_abs_over_max_logits=f"{worst:.3e}",
-            gate=f"{SERVE_LOGITS_TOL:.4f}",
+            gate=f"{SERVE_LOGITS_TOL:.4f}" if gated else "none (MoE)",
             argmax_equal=f"{top_same}/{SERVE_ORACLE_REQUESTS}",
             k2_launches=counts["flash_attention_fwd"])
         log("serve", arch=arch, check="greedy oracle (prefill + decode_step)",
             agree=f"{agree}/{total}", share=f"{agree / total:.3f}",
             first_divergence=json.dumps(diverge), gated=False)
+    if cfg.family == "moe":
+        result["f32_prefill_vs_chunk"] = serve_moe_f32(cfg, creqs, run)
     peak = torch.cuda.max_memory_allocated() / 2**30
     # a decode step reads every weight but the embedding table once
     weight_bytes = sum(p.numel() * p.element_size() for k, p in params.items()
@@ -4026,6 +4337,190 @@ def phase_serve(arch: str, seed: int = 0) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return result
+
+
+# ---------------------------------------------------------------------------
+# the remaining decoder architectures: K2 at their widths, the MoE layer,
+# the VLM frontend
+# ---------------------------------------------------------------------------
+
+# K2 at the new configs' full-width attention (bf16, causal, hd 128), as
+# the slice-14 phases run it: lm_1b's 16:16 (G 1) at [dense configs]'s
+# batch 4 x seq 512, qwen2_72b's 64:8 (G 8), phi35_moe's 32:8 (G 4),
+# qwen3_moe's 64:4 (G 16) and llava_next_34b's 56:8 (yi_34b's backbone,
+# G 7)
+FLASH_WIDE = {"lm_1b": (4, 512, 16, 16, 128),
+              "qwen2_72b": (1, 4096, 64, 8, 128),
+              "phi35_moe": (1, 4096, 32, 8, 128),
+              "qwen3_moe": (1, 4096, 64, 4, 128),
+              "llava_next_34b": (1, 4096, 56, 8, 128)}
+
+
+def phase_flash_wide(gen) -> dict:
+    """K2 forward and both backward kernels at ``FLASH_WIDE``'s shapes
+    against their plain versions, timed beside their bounds, the plain
+    versions and SDPA (:func:`flash_measure`), their kernels checked by
+    name in one trace of all three shapes. Returns {kernel: {arch: row}}."""
+    measured = {arch: flash_measure(gen, b, s, hq, hkv, hd, 0)
+                for arch, (b, s, hq, hkv, hd) in FLASH_WIDE.items()}
+    traced = kernel_names({(arch, label): fn for arch, m in measured.items()
+                           for label, fn in m["calls"].items()})
+    out = {}
+    for arch, m in measured.items():
+        mine = {label: names for (a, label), names in traced.items()
+                if a == arch}
+        for name, r in flash_report(m, mine).items():
+            out.setdefault(name, {})[arch] = r
+    del measured
+    torch.cuda.empty_cache()
+    return out
+
+
+def bf16_within(what, got, want) -> float:
+    """A bf16 result against the same computed in f32: ``|got - want| <=
+    2^-6 |want| + 1e-2 max |want|`` (two bf16 steps, plus a floor for the
+    sums of bf16-rounded products that cancel); returns max |err| / max
+    |want|."""
+    diff = (got.double() - want.double()).abs()
+    top = float(want.double().abs().max())
+    excess = float((diff - 2.0 ** -6 * want.double().abs() - 1e-2 * top).max())
+    require(excess <= 0, f"{what}: beyond two bf16 steps + 1e-2 max|f32| by "
+            f"{excess} (max abs err {float(diff.max())}, max {top})")
+    return float(diff.max()) / top
+
+
+def phase_moe_layer(tokens: int = 4096) -> dict:
+    """[moe layer]: one full-width MoE layer of phi35_moe (16 experts, top
+    2) and of qwen3_moe (128 experts, top 8) on ``tokens`` bf16 tokens,
+    against the same layer in f32 (its bf16 weights and input in f32; the
+    router is f32 in both): the same choices kept and dropped, bitwise
+    (the router sees the same values); the output within
+    :func:`bf16_within`; the aux loss within 1e-3 relative. Logs the
+    dropped share and each dtype's ms (CUDA events)."""
+    import dataclasses
+
+    from repro_torch.models import moe, registry
+
+    out = {}
+    for arch in ("phi35_moe", "qwen3_moe"):
+        cfg = dataclasses.replace(registry.get_config(arch), dtype="bfloat16")
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        with torch.no_grad():
+            p16 = {k: v.detach() for k, v in
+                   moe.MoE(cfg, gen, device="cuda").named_parameters()}
+            p32 = {k: v.float() for k, v in p16.items()}
+            x = torch.randn((1, tokens, cfg.d_model), generator=gen,
+                            device="cuda").bfloat16()
+            gs = moe._group_size(tokens)
+            r16 = moe.route(cfg, p16, x.reshape(-1, gs, cfg.d_model))
+            r32 = moe.route(cfg32, p32, x.float().reshape(-1, gs, cfg.d_model))
+            require(torch.equal(r16.onehot, r32.onehot)
+                    and torch.equal(r16.kept, r32.kept),
+                    f"[moe layer] {arch}: bf16 and f32 route differently")
+            chosen = int(r16.onehot.sum())
+            dropped = chosen - int(r16.kept.sum())
+            out16, aux16 = moe.apply(cfg, p16, x)
+            out32, aux32 = moe.apply(cfg32, p32, x.float())
+            err = bf16_within(f"[moe layer] {arch} out", out16, out32)
+            aux_rel = abs(float(aux16) - float(aux32)) / abs(float(aux32))
+            require(aux_rel <= 1e-3, f"[moe layer] {arch}: aux bf16 "
+                    f"{float(aux16)} vs f32 {float(aux32)}")
+            ms16 = time_ms(lambda: moe.apply(cfg, p16, x), 2, 10)
+            ms32 = time_ms(lambda: moe.apply(cfg32, p32, x.float()), 2, 10)
+        out[arch] = dict(err=err, aux_rel=aux_rel, dropped=dropped,
+                         chosen=chosen, ms_bf16=ms16, ms_f32=ms32)
+        log("moe layer", arch=arch, tokens=tokens, experts=cfg.num_experts,
+            top_k=cfg.experts_per_token, group=gs, capacity=r16.capacity,
+            routing_equal=True, chosen=chosen, dropped=dropped,
+            dropped_share=f"{dropped / chosen:.4f}",
+            out_err_over_max=f"{err:.3e}", aux_bf16=float(aux16),
+            aux_f32=float(aux32), aux_rel=f"{aux_rel:.3e}",
+            ms_bf16=f"{ms16:.4f}", ms_f32=f"{ms32:.4f}")
+        del p16, p32, out16, out32, r16, r32
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_vlm(layers: int = 2, patches: int = 2880, text: int = 1216,
+              new: int = 8) -> dict:
+    """[vlm]: llava_next_34b at full width and ``layers`` of its 60 layers.
+    Loss and gradients with ``patches`` patch embeddings and ``text``
+    tokens (f32, :func:`phase_grads`), then in bf16 ``make_prefill_fn``
+    with the embeddings (K2 once a layer) and ``new`` greedy decode steps:
+    the prefill's and the last decode step's logits each within
+    ``SERVE_LOGITS_TOL`` of the largest of ``transformer.forward``'s last
+    logits over the same embeddings and tokens (K2 in every layer; the
+    decode steps attend the cache in plain PyTorch, as the reference's
+    einsums)."""
+    import dataclasses
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry, transformer
+
+    t0 = time.perf_counter()
+    grad_launches = phase_grads("vlm grads", "llava_next_34b", layers=layers,
+                                seq=patches + text, patches=patches)
+    cfg = dataclasses.replace(registry.get_config("llava_next_34b"),
+                              num_layers=layers)
+    torch.cuda.reset_peak_memory_stats()
+    params = registry.init_params(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    embeds = torch.randn((1, patches, cfg.d_model), generator=gen,
+                         device="cuda").bfloat16()
+    prompt = torch.randint(0, cfg.vocab_size, (1, text), generator=gen,
+                           device="cuda")
+    prefill = registry.make_prefill_fn(cfg, max_len=patches + text + new)
+    decode = registry.make_decode_fn(cfg)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    with torch.no_grad():
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        last, caches = prefill(params, {"tokens": prompt, "embeds": embeds})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t
+        k2 = ops.launch_counts()["flash_attention_fwd"]
+        require(k2 == layers, f"[vlm] prefill launched K2 {k2} times")
+        require(caches[0]["k"].shape[1] == patches + text + new
+                and int(caches[0]["pos"]) == patches + text,
+                "[vlm] prefill caches")
+        tokens, step_s = [], []
+        logits = last
+        for _ in range(new):
+            tok = logits.argmax(-1)[:, None].to(torch.int32)
+            tokens.append(tok)
+            t = time.perf_counter()
+            logits, caches = decode(params, tok, caches)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+        require(bool(torch.isfinite(logits).all()), "[vlm] decode logits")
+        want_prefill = transformer.forward(cfg, params, prompt,
+                                           embeds=embeds)[:, -1]
+        full = torch.cat([prompt] + [t.long() for t in tokens], dim=1)
+        want_last = transformer.forward(cfg, params, full,
+                                        embeds=embeds)[:, -1]
+    prefill_rel, decode_rel = rel(last, want_prefill), rel(logits, want_last)
+    require(prefill_rel <= SERVE_LOGITS_TOL and decode_rel <= SERVE_LOGITS_TOL,
+            f"[vlm] prefill {prefill_rel:.3e} / decode {decode_rel:.3e} of "
+            f"max |logits| from the forward's")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log("vlm", layers=layers, d_model=cfg.d_model, heads=f"{cfg.num_heads}:"
+        f"{cfg.num_kv_heads}", dtype=cfg.dtype, patches=patches, text=text,
+        params=sum(v.numel() for v in params.values()), prefill_k2=k2,
+        prefill_s=f"{prefill_s:.4f}",
+        decode_step_ms=[round(1e3 * v, 3) for v in step_s],
+        prefill_vs_forward=f"{prefill_rel:.3e}",
+        decode_vs_forward=f"{decode_rel:.3e}", gate=f"{SERVE_LOGITS_TOL:.4f}",
+        tokens=[int(t) for t in tokens], peak_gib=f"{peak:.2f}",
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    del params, caches
+    torch.cuda.empty_cache()
+    return {"grad_launches": grad_launches, "prefill_k2_launches": k2,
+            "prefill_rel": prefill_rel, "decode_rel": decode_rel}
 
 
 def main() -> int:
@@ -4048,12 +4543,25 @@ def main() -> int:
     cfg = registry.get_config("lm_350m")
     shapes_params = registry.init_params(cfg, seed=0, device="cuda")
     rows = sum(-(-p.numel() // 256) for p in shapes_params.values())
-    n_params = sum(p.numel() for p in shapes_params.values())
     del shapes_params
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernels = phase_kernels(rows, gen)
     flash = phase_flash(gen)
+    flash_wide = phase_flash_wide(gen)
     second_order = phase_flash_second_order(gen)
+    # The slice-14 phases that need most of the card run before any
+    # full-size round: after the later phases, 11.93 GiB of the card stay
+    # reserved and unusable for their 4.64 GiB blocks (PERF.md).
+    # qwen2_72b's round runs at 1 of 80 layers: at 2 layers and cohort 2
+    # it needs about 87 GiB
+    t_early14 = time.perf_counter()
+    bias_counts = phase_train(
+        "qkv bias", arch="qwen2_72b", layers=1, biases=True, rounds=1,
+        cohort=2, local_steps=2, batch=1, seq=4096, compression="none")
+    phase_grads("qkv bias grads", "qwen2_72b", layers=2, biases=True)
+    moe_grad_counts = phase_grads("moe grads", "qwen3_moe", layers=1)
+    free_graphs()
+    t_early14 = time.perf_counter() - t_early14
     flat_counts = phase_train("flat")
     torch.cuda.reset_peak_memory_stats()
     hier_counts, wire_counts, wire_payload = phase_hier()
@@ -4088,7 +4596,7 @@ def main() -> int:
                 seeds=(0, 1), control=True)
     phase_reference("naive", "rwkv6_3b")
     t_new = time.perf_counter()
-    phase_ckpt(n_params)
+    phase_ckpt()
     phase_topk()
     phase_algorithms()
     t_slice12 = time.perf_counter()
@@ -4102,6 +4610,20 @@ def main() -> int:
     log("slice 13 phases", seconds=f"{t_serve + t_slice13:.1f}",
         serve_seconds=f"{t_serve:.1f}",
         state_and_second_order_seconds=f"{t_slice13:.1f}")
+    t_slice14 = time.perf_counter()
+    free_graphs()
+    dense_counts = phase_train("dense configs", arch="lm_1b", rounds=2)
+    moe_counts = phase_train(
+        "moe", arch="phi35_moe", layers=2, rounds=2, cohort=2, local_steps=2,
+        batch=1, seq=4096, compression="none")
+    free_graphs()
+    phase_moe_layer()
+    vlm = phase_vlm()
+    free_graphs()
+    served_moe = phase_serve("phi35_moe", run=SERVE_MOE_RUN)
+    log("slice 14 phases",
+        seconds=f"{time.perf_counter() - t_slice14 + t_early14:.1f}",
+        early_seconds=f"{t_early14:.1f}")
     log("new phases", seconds=f"{time.perf_counter() - t_new:.1f}")
     launches = {"quantize": flat_counts["quantize"],
                 "dequantize": flat_counts["dequantize"],
@@ -4142,7 +4664,20 @@ def main() -> int:
         e256 = flash_entry(name, flash256[name], hybrid_counts[name],
                            "B 1 x S 4096 x 10:1 heads x 256, bf16, causal, "
                            "window 2048")
-        line["kernels"].append(dict(e512, seq4096=e4096, hd256=e256))
+        # the new configs' widths, with the launches of the phase that ran
+        # each: [dense configs]' and [qkv bias]'s rounds, [moe]'s rounds,
+        # [moe grads] and [vlm grads]
+        wide_launches = {"lm_1b": dense_counts[name],
+                         "qwen2_72b": bias_counts[name],
+                         "phi35_moe": moe_counts[name],
+                         "qwen3_moe": moe_grad_counts[name],
+                         "llava_next_34b": vlm["grad_launches"][name]}
+        wide = {arch: flash_entry(
+            name, flash_wide[name][arch], wide_launches[arch],
+            f"B {b} x S {s} x {hq}:{hkv} heads x {hd}, bf16, causal")
+            for arch, (b, s, hq, hkv, hd) in FLASH_WIDE.items()}
+        line["kernels"].append(dict(
+            e512, seq4096=e4096, hd256=e256, wide=wide))
     line["kernels"] += [
         entry(name, r, launches[name],
               shape=f"{LRU_MAIN} f32 (hybrid rounds)",
@@ -4163,8 +4698,10 @@ def main() -> int:
                 for sched in ("continuous", "static")}
 
     serve_launches = {
-        "flash_attention_fwd": {"stablelm_3b prefill": served[
-            "stablelm_3b"]["prefill_k2_launches"]},
+        "flash_attention_fwd": {
+            "stablelm_3b prefill": served["stablelm_3b"]["prefill_k2_launches"],
+            "phi35_moe prefill": served_moe["prefill_k2_launches"],
+            "llava_next_34b prefill": vlm["prefill_k2_launches"]},
         "lru_scan_fwd": chunk_launches("recurrentgemma_2b", "lru_scan_fwd"),
         "wkv6_fwd": chunk_launches("rwkv6_3b", "wkv6_fwd"),
     }
@@ -4174,6 +4711,8 @@ def main() -> int:
             e["serve_launches"] = serve_launches[name]
         if name == "wkv6_fwd":
             e["with_state"] = state_p2["with_state"]
+        if name in ("quantize", "dequantize"):
+            e["lm_1b_launches"] = dense_counts[name]
         if name in ("lru_scan_bwd", "wkv6_bwd"):
             e["second_order_plain"] = state_p2[name]
         for key, counts in (("plan_launches", plan_counts),
@@ -4190,6 +4729,10 @@ def main() -> int:
                 e["second_order_plain"] = {
                     "maml_calls": maml_counts["flash_attention_bwd2_plain"],
                     "ms": {dt: r["ms"] for dt, r in second_order.items()},
+                    "bound_ms": {dt: r["bound_ms"]
+                                 for dt, r in second_order.items()},
+                    "bound_by": {dt: r["bound_by"]
+                                 for dt, r in second_order.items()},
                     "shape": "B 2 x S 512 x 16 heads x 64, causal"}
     log("done", seconds=f"{time.perf_counter() - t_start:.1f}",
         padded_vocab=transformer.padded_vocab(cfg), packed_rows=rows, card=smi)

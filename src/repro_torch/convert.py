@@ -7,7 +7,9 @@ the port's flat dict (``TransformerLM`` names) on ``device`` (default
 uniform layers on a leading ``num_layers`` axis for ``lax.scan`` and keeps a
 mixed (hybrid) stack as a list of per-layer trees; the port keeps one entry
 per layer, so the axis is unstacked and the list is numbered. Each leaf
-keeps its own dtype (the hybrid's f32 ``lam`` beside bf16 weights).
+keeps its own dtype (the hybrid's f32 ``lam``, or an MoE layer's f32
+``moe.router``, beside bf16 weights); qkv biases and MoE experts are
+leaves like any other.
 ``params_to_numpy`` is the inverse, for comparisons. Neither imports JAX:
 a numpy bf16 array (ml_dtypes) is read through a ``uint16`` view, and bf16
 tensors come back as exact f32 numpy arrays.

@@ -22,9 +22,17 @@ The reference ``vmap``s a batch-1 decode over the slots, so a request's
 tokens cannot depend on who else is in flight. The port decodes the slots
 as one batch whose rows each carry their own position (the pool's
 position leaves hold one entry per slot, and ``attention.decode_attention``
-masks and writes per row): every operation of the decode leg acts on each
-row alone, and the pool's shapes are fixed, so a row's result is the same
-whatever the other rows hold.
+masks and writes per row), and the pool's shapes are fixed. Every
+operation of the decode leg acts on each row alone but one: an MoE
+layer's expert capacity couples the tokens of a routing group, so two
+slots routed together that pick the same expert could drop one of them,
+and a free slot's garbage could evict a live token. The decode leg
+therefore routes each row as its own group of one token (the decode
+mode of ``blocks.block_apply``), which is what the
+reference's batch-1 decode of each slot does; the chunk leg of the fused
+step routes the chunk's tokens as their own groups, as the reference's
+separate chunk call. So a row's result is the same whatever the other
+rows hold.
 
 The serve runtime runs each step through ``runtime.executor.CudaGraphs``
 keyed by chunk bucket: on the card its first call for a key runs eagerly
@@ -116,7 +124,7 @@ def make_slot_decode_step(cfg):
     slot one token (``repro/launch/steps.py:412``): the greedy next tokens
     go into ``tokens`` and the pool advances, in place; both are returned.
     Free slots decode garbage the host never reads (fixed shapes, no
-    masks)."""
+    masks). Each slot's token routes alone through MoE layers."""
     decode_fn = registry.make_decode_fn(cfg)
 
     def slot_decode_step(params, tokens, pool):
@@ -160,7 +168,8 @@ def make_serve_step(cfg):
     one request mid-prefill safe. With ``cemit`` (a prompt's last chunk)
     the chunk's greedy token replaces the slot's entry of the token feed,
     so the request decodes on the very next step. ``tokens`` and the pool
-    are written in place and returned."""
+    are written in place and returned. The decode leg routes each slot's
+    token alone through MoE layers."""
     decode_fn = registry.make_decode_fn(cfg)
     chunk_fn = registry.make_chunk_prefill_fn(cfg)
     dims = registry.cache_batch_dims(cfg)

@@ -1,6 +1,6 @@
 """End-to-end training driver (``repro/launch/train.py``).
 
-Trains lm_350m, recurrentgemma_2b or rwkv6_3b (``--arch``) with DrJAX
+Trains any architecture of ``registry.ARCH_IDS`` (``--arch``) with DrJAX
 local-SGD / FedAvg / DiLoCo rounds, optionally with int8 delta
 compression, on one CUDA card (``--device cuda``, the default; it raises
 without a card) or, for small runs, the CPU (``--device cpu``):

@@ -1,5 +1,6 @@
-"""Model zoo of the port: the dense LM family (lm_350m) and the hybrid
-RG-LRU + local-attention family (recurrentgemma_2b)."""
+"""Model zoo of the port: the dense, MoE and VLM decoder families, the
+hybrid RG-LRU + local-attention family (recurrentgemma_2b) and the ssm
+family (rwkv6_3b); ``registry.ARCH_IDS`` lists the configs."""
 
 from .config import ModelConfig
 

@@ -1,8 +1,10 @@
 """GQA self-attention (``repro/models/attention.py``): train, prefill,
 decode and chunked prefill.
 
-Parameters: wq (D, Hq, hd), wk/wv (D, Hkv, hd), wo (Hq, hd, D), as in the
-reference. ``self_attention`` dispatches on ``cfg.attn_impl``:
+Parameters: wq (D, Hq, hd), wk/wv (D, Hkv, hd), wo (Hq, hd, D) and, with
+``cfg.qkv_bias``, bq (Hq, hd) and bk/bv (Hkv, hd), as in the reference:
+each bias is added to its projection in the activation dtype, before
+rotary embeddings. ``self_attention`` dispatches on ``cfg.attn_impl``:
 
 * ``naive``: scores in f32, additive mask, softmax, probabilities cast to
   v's dtype for the value product (the reference's ``naive_attention``,
@@ -30,7 +32,7 @@ The caches are written in place and returned (the counterpart of the
 reference's donated caches); their positions may differ per batch row, so
 a batch of slots decodes each row at its own position.
 
-Left out for later slices: cross-attention, qkv bias.
+Left out for later slices: cross-attention.
 """
 
 from __future__ import annotations
@@ -47,17 +49,18 @@ F32 = torch.float32
 NEG_INF = -1e30
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(B, S, D) @ (D, H, K) -> (B, S, H, K) in x's dtype."""
+def _proj(x: torch.Tensor, w: torch.Tensor, b=None) -> torch.Tensor:
+    """(B, S, D) @ (D, H, K) [+ b (H, K)] -> (B, S, H, K) in x's dtype."""
     d, h, k = w.shape
-    return torch.matmul(x, w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
+    out = torch.matmul(x, w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
+    return out if b is None else out + b.to(out.dtype)
 
 
 def qkv(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
         positions: torch.Tensor):
-    q = _proj(x, p["wq"])
-    k = _proj(x, p["wk"])
-    v = _proj(x, p["wv"])
+    q = _proj(x, p["wq"], p.get("bq"))
+    k = _proj(x, p["wk"], p.get("bk"))
+    v = _proj(x, p["wv"], p.get("bv"))
     q = common.apply_rope(q, positions, cfg.rope_theta)
     k = common.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v

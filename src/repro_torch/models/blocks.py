@@ -4,21 +4,24 @@ and chunked prefill.
 ``block_apply(cfg, kind, p, x, positions)`` with ``kind`` "attention",
 "recurrent" or "rwkv" and ``p`` the block's parameters keyed ``ln1.scale``,
 ``attn.wq`` ... (attention), ``rec.w_in`` ... (recurrent) or ``tm.wr`` ...
-(rwkv), then ``ln2.scale`` and, but for rwkv, ``mlp.wi`` ... (the names of
-:class:`Block`). Attention and recurrent blocks are pre-norm residual
-blocks with a gated MLP; an rwkv block is ln1, time mix, residual, ln2,
-channel mix, residual, with no MLP. A local window applies to attention
-layers only.
+(rwkv), then ``ln2.scale`` and, but for rwkv, the FFN: ``mlp.wi`` ... or,
+in the MoE family, ``moe.router`` ... (the names of :class:`Block`).
+Attention and recurrent blocks are pre-norm residual blocks with a gated
+FFN; an rwkv block is ln1, time mix, residual, ln2, channel mix, residual,
+with no FFN. A local window applies to attention layers only.
 
-``mode`` "prefill", "decode" or "chunk" (``repro/models/blocks.py:95``)
-takes the block's ``cache`` (:func:`block_cache_init`: an attention KV
-cache, an RG-LRU state or an RWKV state) and returns ``(x, cache)``, the
-cache updated in place: "prefill" fills a fresh cache from a prompt,
-"decode" advances it one token, "chunk" (chunked prefill) continues it
-with a prompt chunk (the no-ring attention layout). The reference returns
-``(x, aux_loss, cache)``; the port has no MoE, so no aux loss, and its
-train mode returns x alone.
-Left out for later slices: MoE FFNs.
+Train mode returns ``(x, aux)``, the FFN's load-balancing loss (a () f32
+tensor of an MoE block, 0.0 for the others), as the reference's
+``(x, aux_loss, cache)`` (``repro/models/blocks.py:95-184``). ``mode``
+"prefill", "decode" or "chunk" takes the block's ``cache``
+(:func:`block_cache_init`: an attention KV cache, an RG-LRU state or an
+RWKV state) and returns ``(x, cache)``, the cache updated in place:
+"prefill" fills a fresh cache from a prompt, "decode" advances it one
+token, "chunk" (chunked prefill) continues it with a prompt chunk (the
+no-ring attention layout); the serve paths drop the aux loss, as the
+reference's do. In "decode" an MoE block routes each row's token as its
+own group, as the reference's serve steps decode each slot at batch 1
+(``launch/steps.py`` says why).
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from typing import Dict
 import torch
 from torch import nn
 
-from . import attention, common, mlp, rglru, rwkv
+from . import attention, common, mlp, moe, rglru, rwkv
 
 
 def sub(params: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
@@ -38,9 +41,10 @@ def sub(params: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]
 
 
 def layer_kinds(cfg):
-    """Per-layer block kinds: the hybrid family repeats ``block_pattern``,
-    the ssm family (RWKV-6) is all rwkv."""
-    if cfg.family == "dense":
+    """Per-layer block kinds: the dense, MoE and VLM families are all
+    attention, the hybrid family repeats ``block_pattern``, the ssm family
+    (RWKV-6) is all rwkv."""
+    if cfg.family in ("dense", "moe", "vlm"):
         return ["attention"] * cfg.num_layers
     if cfg.family == "ssm":
         return ["rwkv"] * cfg.num_layers
@@ -48,7 +52,8 @@ def layer_kinds(cfg):
         pat = cfg.block_pattern
         return [pat[i % len(pat)] for i in range(cfg.num_layers)]
     raise NotImplementedError(
-        f"repro_torch ports the dense, hybrid and ssm families; {cfg.name} is "
+        f"repro_torch ports the dense, moe, vlm, hybrid and ssm families; "
+        f"{cfg.name} is "
         f"{cfg.family}"
     )
 
@@ -79,6 +84,15 @@ def _store(cache, new):
     return cache
 
 
+def _ffn(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor, mode: str):
+    """The block's FFN: (out, aux loss), aux 0.0 for a dense MLP; an MoE
+    decode routes each row alone."""
+    if cfg.family == "moe":
+        return moe.apply(cfg, sub(p, "moe."), x,
+                         group_size=1 if mode == "decode" else None)
+    return mlp.apply(cfg, sub(p, "mlp."), x), 0.0
+
+
 def block_apply(cfg, kind: str, p: Dict[str, torch.Tensor], x: torch.Tensor,
                 positions: torch.Tensor, *, mode: str = "train", cache=None):
     if mode not in MODES:
@@ -97,7 +111,7 @@ def block_apply(cfg, kind: str, p: Dict[str, torch.Tensor], x: torch.Tensor,
             else cache["cm_shift"])
         x = x + cm
         if mode == "train":
-            return x
+            return x, 0.0
         return x, _store(cache, {"tm_shift": tm_shift, "cm_shift": cm_shift,
                                  "wkv": wkv})
     if kind == "attention":
@@ -132,8 +146,9 @@ def block_apply(cfg, kind: str, p: Dict[str, torch.Tensor], x: torch.Tensor,
     else:
         raise ValueError(f"block kind {kind!r} is not ported")
     h2 = common.rmsnorm_apply(p["ln2.scale"], x, cfg.norm_eps)
-    x = x + mlp.apply(cfg, sub(p, "mlp."), h2)
-    return x if mode == "train" else (x, cache)
+    out, aux = _ffn(cfg, p, h2, mode)
+    x = x + out
+    return (x, aux) if mode == "train" else (x, cache)
 
 
 class RMSNorm(nn.Module):
@@ -143,13 +158,12 @@ class RMSNorm(nn.Module):
 
 
 class Attention(nn.Module):
-    """QKV/O projections: wq (D, Hq, hd), wk/wv (D, Hkv, hd), wo (Hq, hd, D)."""
+    """QKV/O projections: wq (D, Hq, hd), wk/wv (D, Hkv, hd), wo (Hq, hd, D),
+    and with ``cfg.qkv_bias`` the biases bq (Hq, hd), bk/bv (Hkv, hd)."""
 
     def __init__(self, cfg, generator: torch.Generator, device=None):
         super().__init__()
         d, hq, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        if cfg.qkv_bias:
-            raise NotImplementedError("qkv_bias is not ported")
         dt = cfg.torch_dtype
         init = lambda shape, std=None: nn.Parameter(common.normal_init(
             generator, shape, dt, std, device=device))
@@ -157,6 +171,12 @@ class Attention(nn.Module):
         self.wk = init((d, hkv, hd))
         self.wv = init((d, hkv, hd))
         self.wo = init((hq, hd, d), 1.0 / (hq * hd) ** 0.5)
+        if cfg.qkv_bias:  # zeros, as the reference's
+            zeros = lambda shape: nn.Parameter(  # noqa: E731
+                torch.zeros(shape, dtype=dt, device=device))
+            self.bq = zeros((hq, hd))
+            self.bk = zeros((hkv, hd))
+            self.bv = zeros((hkv, hd))
 
 
 class MLP(nn.Module):
@@ -172,7 +192,8 @@ class MLP(nn.Module):
 
 class Block(nn.Module):
     """One layer of ``kind`` "attention" (``attn``), "recurrent" (``rec``) or
-    "rwkv" (``tm``, which holds the channel mix too, and no ``mlp``)."""
+    "rwkv" (``tm``, which holds the channel mix too, and no FFN); the FFN is
+    ``moe`` in the MoE family, else ``mlp``."""
 
     def __init__(self, cfg, kind: str, generator: torch.Generator,
                  device=None):
@@ -188,4 +209,7 @@ class Block(nn.Module):
             return
         else:
             raise ValueError(f"block kind {kind!r} is not ported")
-        self.mlp = MLP(cfg, generator, device)
+        if cfg.family == "moe":
+            self.moe = moe.MoE(cfg, generator, device)
+        else:
+            self.mlp = MLP(cfg, generator, device)

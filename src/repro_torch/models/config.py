@@ -2,8 +2,13 @@
 
 The same frozen dataclass and the same ``reduced()`` as the reference, so a
 config means the same model in both packages. The port runs the dense,
-hybrid and ssm (RWKV-6) families; the MoE, encoder-decoder and VLM fields
-are kept so configs carry over unchanged, and the model code rejects them.
+MoE, VLM, hybrid and ssm (RWKV-6) families; the encoder-decoder fields are
+kept so configs carry over unchanged, and the model code rejects them.
+
+The parameter accounting (``repro/models/config.py:98-186``) is the
+reference's formulas: ``param_count`` counts every weight at the
+unpadded vocabulary, ``active_param_count`` the weights one token touches
+(an MoE layer's routed experts only), for 6 x N x D FLOP accounting.
 """
 
 from __future__ import annotations
@@ -71,6 +76,83 @@ class ModelConfig:
     @property
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
+
+    def _attn_params(self) -> int:
+        hd = self.head_dim
+        q = self.d_model * self.num_heads * hd
+        kv = 2 * self.d_model * self.num_kv_heads * hd
+        o = self.num_heads * hd * self.d_model
+        b = (self.num_heads + 2 * self.num_kv_heads) * hd if self.qkv_bias else 0
+        return q + kv + o + b
+
+    def _dense_ffn_params(self) -> int:
+        return 3 * self.d_model * self.d_ff  # gated: wi, wg, wo
+
+    def _rglru_params(self) -> int:
+        w = self.lru_width
+        return 2 * self.d_model * w + 2 * w * (w // 8) * 8 // 8 + 2 * w
+
+    def _rwkv_params(self) -> int:
+        d = self.d_model
+        tm = 5 * d * d + 2 * d * 64 + 6 * d
+        cm = 2 * d * self.d_ff + d * d
+        return tm + cm
+
+    def layer_params(self, layer_kind: str = "attention") -> int:
+        norms = 2 * self.d_model
+        if self.family == "ssm":
+            return self._rwkv_params() + norms
+        if layer_kind == "recurrent":
+            return self._rglru_params() + self._dense_ffn_params() + norms
+        if self.family == "moe":
+            ffn = (self.num_experts * self._dense_ffn_params()
+                   + self.d_model * self.num_experts)  # experts + router
+        else:
+            ffn = self._dense_ffn_params()
+        return self._attn_params() + ffn + norms
+
+    def active_layer_params(self) -> int:
+        """Parameters one token touches in a layer (MoE: its routed
+        experts and the router)."""
+        if self.family != "moe":
+            return self.layer_params()
+        ffn = (self.experts_per_token * self._dense_ffn_params()
+               + self.d_model * self.num_experts)
+        return self._attn_params() + ffn + 2 * self.d_model
+
+    def _pattern_counts(self):
+        if self.family != "hybrid":
+            return {"attention": self.num_layers}
+        pat = self.block_pattern
+        full, rem = divmod(self.num_layers, len(pat))
+        counts = {}
+        for i, kind in enumerate(pat):
+            counts[kind] = counts.get(kind, 0) + full + (1 if i < rem else 0)
+        return counts
+
+    def _embed_params(self) -> int:
+        head = 0 if self.tie_embeddings else self.vocab_size * self.d_model
+        return self.vocab_size * self.d_model + head
+
+    def param_count(self) -> int:
+        body = sum(cnt * self.layer_params(kind)
+                   for kind, cnt in self._pattern_counts().items())
+        if self.is_encoder_decoder:
+            body += self.encoder_layers * self.layer_params()
+            body += self.num_layers * self._attn_params()  # cross-attention
+        return self._embed_params() + body + self.d_model  # final norm
+
+    def active_param_count(self) -> int:
+        body = 0
+        for kind, cnt in self._pattern_counts().items():
+            if kind == "attention" or self.family != "hybrid":
+                body += cnt * self.active_layer_params()
+            else:
+                body += cnt * self.layer_params(kind)
+        if self.is_encoder_decoder:
+            body += self.encoder_layers * self.active_layer_params()
+            body += self.num_layers * self._attn_params()
+        return self._embed_params() + body + self.d_model
 
     def reduced(self, **overrides) -> "ModelConfig":
         """A smoke-test-sized config of the same family (as the reference)."""

@@ -1,8 +1,11 @@
 """Architecture registry (``repro/models/registry.py``): config lookup,
 parameter init, the loss, the serve functions and the serve slot pool's
-layout. The port registers lm_350m and stablelm_3b (dense),
-recurrentgemma_2b (hybrid: RG-LRU and local attention) and rwkv6_3b (ssm:
-RWKV-6); the other architectures and the dry-run input specs wait.
+layout. The port registers every decoder-only architecture of the
+reference: the dense lm_350m, lm_1b, lm_8b, yi_34b, internlm2_20b,
+qwen2_72b (qkv bias) and stablelm_3b, the MoE phi35_moe and qwen3_moe, the
+VLM llava_next_34b, recurrentgemma_2b (hybrid: RG-LRU and local attention)
+and rwkv6_3b (ssm: RWKV-6). The encoder-decoder seamless_m4t_medium and
+the dry-run input specs wait.
 
 The slot pool (``repro/models/registry.py:198-265``) is the per-layer
 cache list of :func:`transformer.init_caches` at ``slots`` rows in the
@@ -21,10 +24,12 @@ import torch
 from torch.utils import _pytree as pytree
 
 from .. import compat
-from . import transformer
+from . import transformer, vlm
 from .config import ModelConfig
 
-ARCH_IDS = ("lm_350m", "stablelm_3b", "recurrentgemma_2b", "rwkv6_3b")
+ARCH_IDS = ("lm_350m", "lm_1b", "lm_8b", "yi_34b", "internlm2_20b",
+            "qwen2_72b", "stablelm_3b", "phi35_moe", "qwen3_moe",
+            "llava_next_34b", "recurrentgemma_2b", "rwkv6_3b")
 
 
 def get_config(arch: str) -> ModelConfig:
@@ -45,8 +50,17 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     return {k: v.detach() for k, v in model.named_parameters()}
 
 
+def family_module(cfg: ModelConfig):
+    """The module of ``cfg``'s family (``repro/models/registry.py:56``):
+    :mod:`vlm` or :mod:`transformer`; encoder-decoders are not ported."""
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder models are not ported")
+    return vlm if cfg.family == "vlm" else transformer
+
+
 def loss_fn(cfg: ModelConfig, params, batch) -> torch.Tensor:
-    return transformer.loss_fn(cfg, params, batch)
+    return family_module(cfg).loss_fn(cfg, params, batch)
 
 
 # ---------------------------------------------------------------------------
@@ -63,24 +77,32 @@ def _decoder_only(cfg: ModelConfig, what: str) -> None:
 def make_prefill_fn(cfg: ModelConfig, *, max_len: Optional[int] = None):
     """``prefill_fn(params, batch)`` -> (last logits, caches sized for
     ``max_len``, default the prompt length) (``repro/models/registry.py:
-    149``). Token-only decoders: the port has no encoder-decoder or VLM
-    family yet."""
-    _decoder_only(cfg, "prefill")
+    149``); a VLM's batch holds ``embeds`` (B, P, D) beside ``tokens``,
+    and its caches hold P + S positions."""
+    mod = family_module(cfg)
+
+    if cfg.family == "vlm":
+
+        def prefill_fn(params, batch):
+            return mod.prefill(cfg, params, batch["tokens"],
+                               embeds=batch["embeds"], max_len=max_len)
+
+        return prefill_fn
 
     def prefill_fn(params, batch):
-        return transformer.prefill(cfg, params, batch["tokens"],
-                                   max_len=max_len)
+        return mod.prefill(cfg, params, batch["tokens"], max_len=max_len)
 
     return prefill_fn
 
 
 def make_decode_fn(cfg: ModelConfig):
     """``decode_fn(params, token (B, 1), caches)`` -> (logits (B, V),
-    caches) (``repro/models/registry.py:180``)."""
-    _decoder_only(cfg, "decode")
+    caches) (``repro/models/registry.py:180``); an MoE layer routes each
+    row alone (``transformer.decode_step``)."""
+    mod = family_module(cfg)
 
     def decode_fn(params, token, caches):
-        return transformer.decode_step(cfg, params, token, caches)
+        return mod.decode_step(cfg, params, token, caches)
 
     return decode_fn
 

@@ -5,14 +5,22 @@
 ``layers.<i>.{ln1,ln2}.scale`` / ``layers.<i>.attn.w{q,k,v,o}`` (attention
 layers), ``layers.<i>.rec.*`` (recurrent layers of the hybrid family) or
 ``layers.<i>.tm.*`` (rwkv layers of the ssm family, no MLP) /
-``layers.<i>.mlp.w{i,g,o}``. The math is :func:`forward` and
+``layers.<i>.mlp.w{i,g,o}`` (``layers.<i>.moe.{router,wi,wg,wo}`` in the
+MoE family). The math is :func:`forward` and
 :func:`loss_fn` over a flat dict of those tensors, so a training round can
 run a client's own copy of the parameters through the same code
 (``TransformerLM.forward`` passes its own). The reference stacks the layers
 on a leading axis for ``lax.scan`` (a hybrid stack is a list); here each
 layer is its own module of its kind (``blocks.layer_kinds``) and the stack
 is a Python loop. ``remat="full"`` checkpoints each layer
-(``torch.utils.checkpoint``, non-reentrant).
+(``torch.utils.checkpoint``, non-reentrant). The layers' aux losses (MoE
+load balancing) are summed through the stack, and :func:`loss_fn` adds
+0.01 of the sum to the cross-entropy, as the reference.
+
+A VLM (``models/vlm.py``) passes ``embeds`` (B, P, D), precomputed patch
+embeddings, which :func:`forward` puts before the token embeddings; its
+loss covers the text tail (the labels' length) alone, and its
+:func:`prefill` sizes the caches for the patches and the prompt.
 
 The serve paths (``repro/models/transformer.py:202-267``):
 :func:`init_caches`, :func:`prefill`, :func:`decode_step` and
@@ -23,8 +31,7 @@ uniform stack's caches on a leading layers axis for ``lax.scan`` (and
 keeps a hybrid stack's as a list); ``convert.caches_from_jax`` and
 ``caches_to_numpy`` translate. They are updated in place and returned.
 
-Left out for later slices: tied embeddings, frontend embeddings (VLM) and
-the MoE family.
+Left out for later slices: tied embeddings (no config uses them).
 """
 
 from __future__ import annotations
@@ -60,14 +67,13 @@ class Readout(nn.Module):
 
 
 class TransformerLM(nn.Module):
-    """The dense, hybrid or ssm (RWKV-6) LM. Parameters are drawn from
-    ``generator`` (whose device must be ``device``)."""
+    """The dense, MoE, VLM, hybrid or ssm (RWKV-6) LM. Parameters are drawn
+    from ``generator`` (whose device must be ``device``)."""
 
     def __init__(self, cfg, generator: torch.Generator, device=None):
         super().__init__()
-        if cfg.tie_embeddings or cfg.frontend != "none":
-            raise NotImplementedError(
-                "tied embeddings and frontends are not ported")
+        if cfg.tie_embeddings:
+            raise NotImplementedError("tied embeddings are not ported")
         kinds = blocks.layer_kinds(cfg)  # rejects the families not ported
         self.cfg = cfg
         pv, d, dt = padded_vocab(cfg), cfg.d_model, cfg.torch_dtype
@@ -88,23 +94,26 @@ def layer_params(params: Dict[str, torch.Tensor], i: int):
 
 def apply_layers(cfg, params: Dict[str, torch.Tensor], x: torch.Tensor,
                  positions: torch.Tensor, start: int = 0,
-                 stop: Optional[int] = None) -> torch.Tensor:
+                 stop: Optional[int] = None):
     """Layers ``start`` to ``stop`` (default: all) of the stack on the
     activation ``x`` (B, S, D), each checkpointed under ``remat="full"``
     when grad mode is on: the backbone of :func:`forward`, and a pipeline
-    stage's work (a contiguous range of layers)."""
+    stage's work (a contiguous range of layers). Returns ``(x, aux)``, the
+    sum of the layers' aux losses (0.0 without an MoE layer)."""
     kinds = blocks.layer_kinds(cfg)
+    aux = 0.0
     for i in range(start, len(kinds) if stop is None else stop):
         layer = functools.partial(blocks.block_apply, cfg, kinds[i],
                                   layer_params(params, i))
         if cfg.remat == "full" and torch.is_grad_enabled():
-            x = checkpoint(layer, x, positions, use_reentrant=False,
-                           preserve_rng_state=False)
+            x, a = checkpoint(layer, x, positions, use_reentrant=False,
+                              preserve_rng_state=False)
         elif cfg.remat in ("none", "full"):
-            x = layer(x, positions)
+            x, a = layer(x, positions)
         else:
             raise ValueError(f"remat {cfg.remat!r} is not ported")
-    return x
+        aux = aux + a
+    return x, aux
 
 
 def _logits(cfg, params: Dict[str, torch.Tensor], x: torch.Tensor):
@@ -114,20 +123,38 @@ def _logits(cfg, params: Dict[str, torch.Tensor], x: torch.Tensor):
     return torch.matmul(x.to(F32), params["lm_head.w"].to(F32))
 
 
-def forward(cfg, params: Dict[str, torch.Tensor], tokens: torch.Tensor,
-            positions: Optional[torch.Tensor] = None, *, mode: str = "train",
-            caches=None):
-    """tokens (B, S) -> logits (B, S, padded_vocab) f32 in train mode; in
-    the serve modes ("prefill", "decode", "chunk", ``blocks.MODES``)
-    ``(last logits (B, V), caches)``, the per-layer caches updated in place
-    (``repro/models/transformer.py:161 forward``, whose callers all take
-    the last position's logits)."""
-    x = torch.nn.functional.embedding(tokens.long(), params["embed.table"])
-    b, s = x.shape[:2]
+def _embed(cfg, params: Dict[str, torch.Tensor], tokens, embeds):
+    """The input activations: the token embeddings, or ``embeds`` in the
+    model dtype, followed by the token embeddings when both are given."""
+    x = None if tokens is None else torch.nn.functional.embedding(
+        tokens.long(), params["embed.table"])
+    if embeds is None:
+        return x
+    e = embeds.to(cfg.torch_dtype)
+    return e if x is None else torch.cat([e, x], dim=1)
+
+
+def _inputs(cfg, params: Dict[str, torch.Tensor], tokens, embeds, positions):
+    """(input activations (B, S, D), positions (B, S), default 0..S-1)."""
+    x = _embed(cfg, params, tokens, embeds)
     if positions is None:
+        b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device).expand(b, s)
+    return x, positions
+
+
+def forward(cfg, params: Dict[str, torch.Tensor], tokens: Optional[torch.Tensor],
+            positions: Optional[torch.Tensor] = None, *, embeds=None,
+            mode: str = "train", caches=None):
+    """tokens (B, S) (after ``embeds`` (B, P, D), when given) -> logits
+    (B, P + S, padded_vocab) f32 in train mode; in the serve modes
+    ("prefill", "decode", "chunk", ``blocks.MODES``) ``(last logits (B,
+    V), caches)``, the per-layer caches updated in place
+    (``repro/models/transformer.py:161 forward``, whose serve callers all
+    take the last position's logits)."""
+    x, positions = _inputs(cfg, params, tokens, embeds, positions)
     if mode == "train":
-        return _logits(cfg, params, apply_layers(cfg, params, x, positions))
+        return _logits(cfg, params, apply_layers(cfg, params, x, positions)[0])
     kinds = blocks.layer_kinds(cfg)
     if caches is None or len(caches) != len(kinds):
         raise ValueError(f"mode {mode!r} needs one cache per layer")
@@ -139,10 +166,19 @@ def forward(cfg, params: Dict[str, torch.Tensor], tokens: torch.Tensor,
 
 
 def loss_fn(cfg, params: Dict[str, torch.Tensor], batch) -> torch.Tensor:
-    """batch: {tokens, labels, [mask]} -> scalar mean cross-entropy."""
-    logits = forward(cfg, params, batch["tokens"])
-    return common.softmax_cross_entropy(logits, batch["labels"],
+    """batch: {tokens, labels, [embeds], [mask]} -> scalar mean
+    cross-entropy, plus 0.01 x the MoE aux loss. With ``embeds`` the loss
+    covers the last ``labels.shape[1]`` positions (the text tail); the
+    head runs on those positions alone, row for row the same logits."""
+    x, positions = _inputs(cfg, params, batch.get("tokens"),
+                           batch.get("embeds"), None)
+    x, aux = apply_layers(cfg, params, x, positions)
+    labels = batch["labels"]
+    if x.shape[1] != labels.shape[1]:
+        x = x[:, -labels.shape[1]:]
+    loss = common.softmax_cross_entropy(_logits(cfg, params, x), labels,
                                         batch.get("mask"))
+    return loss + 0.01 * aux if cfg.family == "moe" else loss
 
 
 # ---------------------------------------------------------------------------
@@ -160,20 +196,28 @@ def init_caches(cfg, batch: int, max_len: int, *, ring: bool = True,
             for kind in blocks.layer_kinds(cfg)]
 
 
-def prefill(cfg, params: Dict[str, torch.Tensor], tokens: torch.Tensor, *,
+def prefill(cfg, params: Dict[str, torch.Tensor],
+            tokens: Optional[torch.Tensor] = None, *, embeds=None,
             max_len: Optional[int] = None):
-    """A prompt (B, S) -> (last logits (B, V) f32, caches sized for
-    ``max_len`` positions, default S) (``repro/models/transformer.py:227
-    prefill``). Attention runs ``self_attention``: K2 on the card."""
-    b, s = tokens.shape
-    caches = init_caches(cfg, b, max_len or s, device=tokens.device)
-    return forward(cfg, params, tokens, mode="prefill", caches=caches)
+    """A prompt (B, S), after ``embeds`` (B, P, D) when given -> (last
+    logits (B, V) f32, caches sized for ``max_len`` positions, default P +
+    S) (``repro/models/transformer.py:227 prefill``). Attention runs
+    ``self_attention``: K2 on the card."""
+    first = tokens if tokens is not None else embeds
+    b = first.shape[0]
+    s = sum(t.shape[1] for t in (tokens, embeds) if t is not None)
+    caches = init_caches(cfg, b, max_len or s, device=first.device)
+    return forward(cfg, params, tokens, embeds=embeds, mode="prefill",
+                   caches=caches)
 
 
 def decode_step(cfg, params: Dict[str, torch.Tensor], token: torch.Tensor,
                 caches):
     """token (B, 1) -> (logits (B, V) f32, caches advanced one position)
-    (``repro/models/transformer.py:245 decode_step``)."""
+    (``repro/models/transformer.py:245 decode_step``). The MoE layers
+    route each row's token as its own group, as the reference's serve
+    steps (a batch-1 decode of each slot); the reference's ``decode_step``
+    itself routes B > 1 rows as one group."""
     return forward(cfg, params, token, mode="decode", caches=caches)
 
 

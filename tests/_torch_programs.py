@@ -352,7 +352,8 @@ def pipelined(model):
 
     def tstage(s):
         layer = transformer.layer_params(tparams, s)
-        return lambda x: blocks.block_apply(tcfg, "attention", layer, x, tpos)
+        return lambda x: blocks.block_apply(tcfg, "attention", layer, x,
+                                            tpos)[0]
 
     rng = np.random.default_rng(11)
     mb = rng.standard_normal((PIPE_MICRO, BATCH, SEQ, tcfg.d_model)).astype(

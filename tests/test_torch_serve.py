@@ -13,12 +13,15 @@ schedulers against the reference's.
   too long refused; recovery from a fault through ``reset_slots``;
 - the port's ``ContinuousBatchingScheduler`` emits the reference's tokens
   for the same requests (reduced stablelm_3b, f32, the reference's
-  parameters through ``convert.params_from_jax``);
+  parameters through ``convert.params_from_jax``), and for reduced
+  phi35_moe with the reference MoE test's power-of-two prompts (MoE
+  capacity depends on the chunk, so chunked prefill equals full prefill
+  only for a prompt that fits one chunk);
+- MoE routing per slot: a slot decode step's logits for a slot are
+  bitwise the same whatever token the other slot holds, which a decode
+  routing both slots as one group fails;
 - ``python -m repro_torch.launch.serve --device cpu`` prints the
   reference's JSON line.
-
-The reference's MoE case (``test_moe_single_chunk_token_identical``)
-waits for the MoE family (ROADMAP queue 1, item 5).
 """
 
 import dataclasses
@@ -33,7 +36,7 @@ from repro_torch.launch import serve, steps  # noqa: E402
 from repro_torch.launch.serve import (  # noqa: E402
     BatchScheduler, ContinuousBatchingScheduler, Request, StaticWaveScheduler,
     chunk_schedule)
-from repro_torch.models import registry  # noqa: E402
+from repro_torch.models import moe, registry  # noqa: E402
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -105,7 +108,7 @@ def test_chunk_schedule_rejects_degenerate():
 
 
 @pytest.mark.parametrize("arch", ["stablelm_3b", "rwkv6_3b",
-                                  "recurrentgemma_2b"])
+                                  "recurrentgemma_2b", "phi35_moe"])
 def test_slot_pool_layout(arch):
     cfg = registry.get_config(arch).reduced()
     slots, max_len = 3, 16
@@ -128,7 +131,8 @@ def test_slot_pool_layout(arch):
 def test_chunk_prefill_fn_rejects_non_decoder():
     cfg = registry.get_config("stablelm_3b").reduced()
     for bad in (dataclasses.replace(cfg, is_encoder_decoder=True),
-                dataclasses.replace(cfg, family="vlm")):
+                dataclasses.replace(cfg, family="vlm"),
+                registry.get_config("llava_next_34b").reduced()):
         with pytest.raises(ValueError):
             registry.make_chunk_prefill_fn(bad)
 
@@ -153,6 +157,80 @@ def test_continuous_token_identical_to_static(arch):
     out_s = stat.run(_mkreqs(cfg, 0, lens, 6, arrivals))
     assert out_c == out_s
     assert all(len(v) == 6 for v in out_c.values())
+
+
+def test_moe_single_chunk_token_identical():
+    """MoE capacity is per forward, so chunked prefill matches full
+    prefill only when a prompt fits one chunk: the reference's MoE case
+    uses power-of-two prompts no longer than the chunk."""
+    cfg, params = _model("phi35_moe")
+    lens = [8, 4, 16, 8, 2]
+    cont = ContinuousBatchingScheduler(cfg, params, slots=2, max_len=32,
+                                       chunk=16)
+    stat = StaticWaveScheduler(cfg, params, batch=2, max_len=32, chunk=16)
+    out_c = cont.run(_mkreqs(cfg, 0, lens, 5))
+    out_s = stat.run(_mkreqs(cfg, 0, lens, 5))
+    assert out_c == out_s
+    assert all(len(v) == 5 for v in out_c.values())
+
+
+def _two_slot_pool(cfg, params):
+    """A 2-slot pool with a prompt chunked into each slot, and the tokens
+    that follow them."""
+    pool = registry.init_slot_pool(cfg, 2, 24, device="cpu")
+    step = steps.make_slot_chunk_step(cfg)
+    rng = np.random.default_rng(4)
+    nxt = []
+    for slot, n in ((0, 8), (1, 4)):
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (n,))
+                                  .astype(np.int32))
+        tok, pool = step(params, pool, torch.tensor([slot]), prompt,
+                         torch.tensor(0, dtype=torch.int32),
+                         torch.tensor(True))
+        nxt.append(int(tok))
+    return pool, nxt
+
+
+def _slot_logits(cfg, params, pool, tokens):
+    from torch.utils import _pytree as pytree
+
+    decode = registry.make_decode_fn(cfg)
+    with torch.no_grad():
+        logits, _ = decode(params, torch.tensor(tokens, dtype=torch.int32)[
+            :, None], pytree.tree_map(torch.clone, pool))
+    return logits
+
+
+def test_moe_decode_routes_each_slot_alone(monkeypatch):
+    """A decode step's logits for one slot do not depend on the token the
+    other slot holds: the decode routes each row as its own group of one
+    token, as the reference's batch-1 decode of each slot. Routed as one
+    group (``moe.apply``'s own grouping; capacity 1 an expert for two
+    tokens at top 2 of 4), the first row's choices take the slots and the
+    second row's are dropped where they meet them, so some token in slot 0
+    changes slot 1's logits."""
+    cfg, params = _model("phi35_moe")
+    pool, (a, b) = _two_slot_pool(cfg, params)
+    base = _slot_logits(cfg, params, pool, [a, b])
+    for other in range(16):
+        got = _slot_logits(cfg, params, pool, [a, other])
+        assert torch.equal(got[0], base[0])
+        got = _slot_logits(cfg, params, pool, [other, b])
+        assert torch.equal(got[1], base[1])
+    # the steps decode per slot
+    tokens = torch.tensor([[a], [b]], dtype=torch.int32)
+    from torch.utils import _pytree as pytree
+    steps.make_slot_decode_step(cfg)(params, tokens,
+                                     pytree.tree_map(torch.clone, pool))
+    assert torch.equal(tokens[:, 0], torch.argmax(base, -1).to(torch.int32))
+    # the control: the same decode routing both rows as one group
+    apply = moe.apply
+    monkeypatch.setattr(moe, "apply", lambda cfg, p, x, group_size=None:
+                        apply(cfg, p, x))
+    joint = _slot_logits(cfg, params, pool, [a, b])
+    assert any(not torch.equal(
+        _slot_logits(cfg, params, pool, [other, b])[1], joint[1])
+        for other in range(16))
 
 
 def test_continuous_matches_greedy_oracle():
@@ -234,6 +312,29 @@ def test_cross_package_continuous_batching():
     got = ContinuousBatchingScheduler(cfg, params, slots=2, max_len=24,
                                       chunk=8).run(
         _mkreqs(cfg, 0, lens, 6, arrivals))
+    assert got == want
+
+
+def test_cross_package_moe_continuous_batching():
+    """The reference MoE test's requests (power-of-two prompts no longer
+    than the chunk) through both packages' continuous schedulers, from the
+    reference's parameters (reduced phi35_moe, f32): the same tokens."""
+    jax = pytest.importorskip("jax")
+    from repro.launch import serve as jserve
+    from repro.models import registry as jreg
+    from repro_torch import convert
+
+    jcfg = jreg.get_config("phi35_moe").reduced()
+    cfg = registry.get_config("phi35_moe").reduced()
+    jparams = jreg.init_params(jax.random.PRNGKey(0), jcfg)
+    params = convert.params_from_jax(cfg, jax.device_get(jparams),
+                                     device="cpu")
+    lens = [8, 4, 16, 8, 2]
+    want = jserve.ContinuousBatchingScheduler(
+        jcfg, jparams, slots=2, max_len=32, chunk=16).run(
+            _mkreqs(jcfg, 0, lens, 5, cls=jserve.Request))
+    got = ContinuousBatchingScheduler(cfg, params, slots=2, max_len=32,
+                                      chunk=16).run(_mkreqs(cfg, 0, lens, 5))
     assert got == want
 
 
