@@ -300,13 +300,30 @@ Phases, each reported on its own line (any failure raises, exit != 0):
    [serve]: token for token, flat builds, replays bitwise; each slot's
    decode logits bitwise the same whatever the other slot's token; the
    f32 prefill against the chunked path at 2 layers within 1e-3).
-   ``[slice 14 phases]`` logs their seconds.
+   ``[slice 14 phases]`` logs their seconds;
+26. the encoder-decoder: after ``FLASH_WIDE``, K2 non-causal at
+   ``FLASH_ENCDEC``'s shapes (seamless_m4t_medium's encoder, B 2 x 4096
+   x 4096, and its cross-attention, B 2 x 512 x 4096 in training and B 4
+   x 1 x 4096 in a decode step, 16:16 heads of 64) and a ragged (1, 100,
+   1000, 4:2, 64), f32 and bf16, forward and both backward kernels at
+   K2's gates, timed in bf16 beside their bounds and SDPA, and the decode
+   call beside the plain einsum form; at the end ``encdec``: 2 flat
+   local-SGD rounds of full seamless_m4t_medium (978,384,896 parameters,
+   12 + 12 layers, bf16; cohort 2, 2 local steps, B 2 x 4096 frames x 512
+   text tokens; K2 exactly 144 times of each kernel a round), its loss
+   and gradients at 2 + 2 f32 layers through K2 against the plain path,
+   ``encdec.prefill`` of 4 prompts (4096 frames, 64 tokens) and 32 greedy
+   decode steps with memory K/V against a teacher-forced forward, and
+   ``common.matmul_f32`` (the bf16 FFN's f32 up and gate products) at
+   lm_350m's FFN and phi35_moe's experts against the f32 product, with
+   its ms.
 
 Then one JSON line with every kernel's launches, error and times (the K2
 rows with their launches in [pipeline], [maml] and [btm], the
 ``FLASH_WIDE`` shapes under ``wide`` with the launches of the slice-14
-phase that ran each, and ``bwd_dkdv``'s with the plain second order's calls, ms and
-bound; the K2, K4
+phase that ran each, the ``FLASH_ENCDEC`` shapes under ``encdec`` with
+[encdec]'s launches, and ``bwd_dkdv``'s with the plain second order's
+calls, ms and bound; the K2, K4
 and K5 forward rows with their [serve] launches, K5's forward with its
 times with a state, and the K4 and K5 backward rows with their plain
 second order's ms and bound), and last
@@ -741,13 +758,14 @@ def visible_pairs(sq, skv, causal, window) -> int:
     return int(ref.visible_mask(sq, skv, causal, window, "cpu").sum())
 
 
-def sdpa_times(q, k, v, do, window: int = 0):
-    """The library yardstick: ``scaled_dot_product_attention`` (causal,
-    GQA; with a window, the causal window as a boolean ``attn_mask``, and
-    PyTorch picks the backend that takes a mask) forward, and its autograd
-    backward (dq, dk, dv), in ms; its forward's max abs difference from the
-    plain version as information (it computes p in bf16 and is not held to
-    the tolerance); and the forward call (whose kernels the caller traces)."""
+def sdpa_times(q, k, v, do, window: int = 0, causal: bool = True):
+    """The library yardstick: ``scaled_dot_product_attention`` (GQA;
+    causal, or not; with a window, the causal window as a boolean
+    ``attn_mask``, and PyTorch picks the backend that takes a mask)
+    forward, and its autograd backward (dq, dk, dv), in ms; its forward's
+    max abs difference from the plain version as information (it computes
+    p in bf16 and is not held to the tolerance); and the forward call
+    (whose kernels the caller traces)."""
     from repro_torch.kernels import ref
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -756,14 +774,16 @@ def sdpa_times(q, k, v, do, window: int = 0):
         mask = ref.visible_mask(q.shape[1], k.shape[1], True, window, q.device)
         call = lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)  # noqa: E731
     else:
-        call = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)  # noqa: E731
+        call = lambda: sdpa(qt, kt, vt, is_causal=causal,  # noqa: E731
+                            enable_gqa=True)
     fwd_ms = time_ms(call)
     out = call()
     dot = do.transpose(1, 2)
     bwd_ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
                                                  retain_graph=True))
     err = float((out.detach().transpose(1, 2).double()
-                 - ref.flash_attention_ref(q, k, v, window=window)[0].double())
+                 - ref.flash_attention_ref(q, k, v, causal=causal,
+                                           window=window)[0].double())
                 .abs().max())
     return fwd_ms, bwd_ms, err, call
 
@@ -877,16 +897,19 @@ def flash_bounds(nbytes: float, flop: float, dtype):
     return t_ops, "operations", "bf16 tensor-core ops"
 
 
-def flash_measure(gen, b, s, hq, hkv, hd, window) -> dict:
-    """K2 at one main-path shape (bf16, causal): errors against the plain
-    versions, the times of the kernels, the plain versions and SDPA, and
-    the calls whose kernels :func:`flash_report` checks by name."""
+def flash_measure(gen, b, s, hq, hkv, hd, window, skv=None,
+                  causal=True) -> dict:
+    """K2 at one main-path shape (bf16; causal, or not, with ``skv`` keys,
+    default ``s``): errors against the plain versions, the times of the
+    kernels, the plain versions and SDPA, and the calls whose kernels
+    :func:`flash_report` checks by name."""
     from repro_torch.kernels import ops, ref
 
+    skv = s if skv is None else skv
     (q, k, v, do, out32, lse, delta), errs, case_kernels = flash_case(
-        gen, b, s, s, hq, hkv, hd, True, window, torch.bfloat16)
-    kw = dict(causal=True, window=window)
-    pairs = b * hq * visible_pairs(s, s, True, window)
+        gen, b, s, skv, hq, hkv, hd, causal, window, torch.bfloat16)
+    kw = dict(causal=causal, window=window)
+    pairs = b * hq * visible_pairs(s, skv, causal, window)
     calls = {
         "flash_attention_fwd": lambda: ops.flash_attention_fwd(q, k, v, **kw),
         "flash_attention_bwd_dq": lambda: ops.flash_attention_bwd_dq(
@@ -903,11 +926,15 @@ def flash_measure(gen, b, s, hq, hkv, hd, window) -> dict:
     }
     ms = {name: time_ms(fn) for name, fn in calls.items()}
     plain = {name: time_ms(fn) for name, fn in plain_calls.items()}
-    lib_fwd, lib_bwd, lib_err, lib_call = sdpa_times(q, k, v, do, window)
+    lib_fwd, lib_bwd, lib_err, lib_call = sdpa_times(q, k, v, do, window,
+                                                     causal)
     errs_by = {"flash_attention_fwd": max(errs["out"], errs["lse"]),
                "flash_attention_bwd_dq": max(errs["dq"], errs["delta"]),
                "flash_attention_bwd_dkdv": max(errs["dk"], errs["dv"])}
-    return dict(shape=(b, s, f"{hq}:{hkv}", hd, window), dtype=q.dtype,
+    shape = ((b, s, f"{hq}:{hkv}", hd, window) if skv == s and causal else
+             (b, s, skv, f"{hq}:{hkv}", hd, "causal" if causal
+              else "non-causal"))
+    return dict(shape=shape, dtype=q.dtype,
                 work=flash_work(q, k, pairs), errs=errs_by, ms=ms,
                 plain=plain, lib=(lib_fwd, lib_bwd, lib_err),
                 calls=dict(calls, case=case_kernels, sdpa=lib_call))
@@ -2740,11 +2767,12 @@ def phase_grads(phase: str = "grads", arch: str = "lm_350m", layers: int = 2,
                 seq: int = 4096, tol: float = 1e-4, seeds=(0,),
                 control: bool = False, biases: bool = False,
                 patches: int = 0):
-    """A full-width model with ``layers`` layers, f32, batch 1: loss and
-    gradients through the kernels (K2, K4 in recurrent layers, K5 in rwkv
-    layers) against the same through PyTorch's autograd of their plain
-    forwards on the card, from the same parameters and tokens, drawn from
-    each of ``seeds``: the loss within 1e-5 relative, each leaf within
+    """A full-width model with ``layers`` layers (an encoder-decoder's
+    ``layers`` encoder and decoder layers, on ``seq`` frames), f32, batch
+    1: loss and gradients through the kernels (K2, K4 in recurrent layers,
+    K5 in rwkv layers) against the same through PyTorch's autograd of their
+    plain forwards on the card, from the same parameters and tokens, drawn
+    from each of ``seeds``: the loss within 1e-5 relative, each leaf within
     ``tol`` of its largest magnitude. The kernels' gradients wait on the
     host while the plain run takes the card's memory. An MoE layer runs
     the same code on both sides (no kernel computes it). ``biases``: the
@@ -2767,9 +2795,16 @@ def phase_grads(phase: str = "grads", arch: str = "lm_350m", layers: int = 2,
 
     cfg = dataclasses.replace(registry.get_config(arch), num_layers=layers,
                               dtype="float32")
-    kinds = blocks.layer_kinds(cfg)
-    n_attn, n_rec = kinds.count("attention"), kinds.count("recurrent")
-    n_rwkv = kinds.count("rwkv")
+    if cfg.is_encoder_decoder:
+        # ``layers`` encoder and decoder layers; K2 in the encoder's
+        # self-attention and the decoder's self- and cross-attention
+        cfg = dataclasses.replace(cfg, encoder_layers=layers)
+        kinds = ["encoder"] * layers + ["decoder"] * layers
+        n_attn, n_rec, n_rwkv = 3 * layers, 0, 0
+    else:
+        kinds = blocks.layer_kinds(cfg)
+        n_attn, n_rec = kinds.count("attention"), kinds.count("recurrent")
+        n_rwkv = kinds.count("rwkv")
 
     def worst_leaf(grads, want):
         """(name, max over leaves of max |grads - want| / max |want|)."""
@@ -2805,6 +2840,9 @@ def phase_grads(phase: str = "grads", arch: str = "lm_350m", layers: int = 2,
                                                     (1, seq - patches + 1))
         toks = torch.from_numpy(toks.astype(np.int64)).cuda()
         batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if cfg.is_encoder_decoder:
+            # seq frames (f32 normals) and max(seq // 8, 16) text tokens
+            batch = registry.make_batch(cfg, 1, seq, seed=seed)
         if patches:
             batch["embeds"] = torch.randn(
                 (1, patches, cfg.d_model), device="cuda",
@@ -2830,7 +2868,10 @@ def phase_grads(phase: str = "grads", arch: str = "lm_350m", layers: int = 2,
             loss_k, grads_k = loss_and_grads()
         grads_k = {k: v.cpu() for k, v in grads_k.items()}
         counts = ops.launch_counts()
-        require(counts["flash_attention_fwd"] >= 2 * n_attn
+        # an encoder-decoder checkpoints no layer (the reference's scans
+        # take no jax.checkpoint): one forward a layer, not two
+        fwd = n_attn if cfg.is_encoder_decoder else 2 * n_attn
+        require(counts["flash_attention_fwd"] >= fwd
                 and counts["flash_attention_bwd_dq"] >= n_attn
                 and counts["flash_attention_bwd_dkdv"] >= n_attn
                 and counts["lru_scan_fwd"] >= 2 * n_rec
@@ -4376,6 +4417,65 @@ def phase_flash_wide(gen) -> dict:
     return out
 
 
+# K2 in the encoder-decoder's regimes (seamless_m4t_medium: 16:16 heads of
+# 64, bf16): the encoder's non-causal self-attention over 4096 frames, the
+# decoder's cross-attention of 512 text tokens (train) and of one token (a
+# decode step, B 4) against the 4096-frame memory.
+FLASH_ENCDEC = {"encoder": (2, 4096, 4096, 16, 16, 64),
+                "cross_train": (2, 512, 4096, 16, 16, 64),
+                "cross_decode": (4, 1, 4096, 16, 16, 64)}
+FLASH_ENCDEC_SWEEP = tuple(  # (B, Sq, Skv, Hq, Hkv, hd, causal, window)
+    (b, sq, skv, hq, hkv, hd, False, 0)
+    for b, sq, skv, hq, hkv, hd in tuple(FLASH_ENCDEC.values())
+    + ((1, 100, 1000, 4, 2, 64),))  # ragged: Sq, Skv not tile multiples
+
+
+def phase_flash_encdec(gen) -> dict:
+    """K2 non-causal at ``FLASH_ENCDEC``'s shapes and a ragged case, f32
+    and bf16, forward and both backward kernels against their plain
+    versions (:func:`flash_sweep`: the gates and the route of each
+    dtype); then in bf16 the times of the three shapes beside their
+    bounds, the plain versions and SDPA (:func:`flash_measure`), and the
+    decode cross-attention's forward against the plain einsum form
+    (``attention.naive_attention``, information). Returns {kernel:
+    {shape name: row}} and the decode comparison."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention
+
+    flash_sweep(gen, FLASH_ENCDEC_SWEEP, "kernels", "K2 encdec sweep")
+    torch.cuda.empty_cache()
+    measured = {name: flash_measure(gen, b, sq, hq, hkv, hd, 0, skv=skv,
+                                    causal=False)
+                for name, (b, sq, skv, hq, hkv, hd) in FLASH_ENCDEC.items()}
+    traced = kernel_names({(name, label): fn for name, m in measured.items()
+                           for label, fn in m["calls"].items()})
+    out = {}
+    for name, m in measured.items():
+        mine = {label: names for (a, label), names in traced.items()
+                if a == name}
+        for kernel, r in flash_report(m, mine).items():
+            out.setdefault(kernel, {})[name] = r
+    del measured
+    b, sq, skv, hq, hkv, hd = FLASH_ENCDEC["cross_decode"]
+    q = torch.randn((b, sq, hq, hd), generator=gen, device="cuda").bfloat16()
+    k = torch.randn((b, skv, hkv, hd), generator=gen, device="cuda").bfloat16()
+    v = torch.randn((b, skv, hkv, hd), generator=gen, device="cuda").bfloat16()
+    with torch.no_grad():
+        k2 = ops.flash_attention(q, k, v, causal=False)
+        einsum = attention.naive_attention(q, k, v, causal=False)
+        err = float((k2.double() - einsum.double()).abs().max())
+        decode = dict(
+            k2_ms=time_ms(lambda: ops.flash_attention(q, k, v, causal=False)),
+            einsum_ms=time_ms(
+                lambda: attention.naive_attention(q, k, v, causal=False)),
+            max_abs_diff=err)
+    log("kernels", name="K2 cross decode vs plain einsum (information)",
+        shape=(b, sq, skv, f"{hq}:{hkv}", hd), k2_ms=f"{decode['k2_ms']:.4f}",
+        einsum_ms=f"{decode['einsum_ms']:.4f}", max_abs_diff=f"{err:.3e}")
+    torch.cuda.empty_cache()
+    return {"kernels": out, "decode": decode}
+
+
 def bf16_within(what, got, want) -> float:
     """A bf16 result against the same computed in f32: ``|got - want| <=
     2^-6 |want| + 1e-2 max |want|`` (two bf16 steps, plus a floor for the
@@ -4523,6 +4623,261 @@ def phase_vlm(layers: int = 2, patches: int = 2880, text: int = 1216,
             "prefill_rel": prefill_rel, "decode_rel": decode_rel}
 
 
+# [encdec]: seamless_m4t_medium at full width and depth (12 + 12 layers,
+# bf16): flat local-SGD rounds on frames batches, gradients at 2 + 2 f32
+# layers, prefill and greedy decode with memory K/V.
+ENCDEC = "seamless_m4t_medium"
+ENCDEC_ROUNDS = dict(rounds=2, cohort=2, local_steps=2, batch=2, frames=4096)
+ENCDEC_SERVE = dict(prompts=4, frames=4096, text=64, new=32)
+
+
+def phase_encdec_rounds() -> dict:
+    """``ENCDEC_ROUNDS['rounds']`` flat local-SGD rounds of full
+    seamless_m4t_medium through ``algorithms.rounds.make_local_sgd_round``
+    (``launch.train.build_round_fn``'s round, no compression;
+    ``launch.train.train`` itself refuses an encoder-decoder, as the
+    reference's), each round's
+    data a ``registry.make_batch`` frames batch of (cohort, local steps)
+    x B frames x max(frames // 8, 16) text tokens made on the host before
+    its clock starts. Every client step runs each encoder and decoder
+    layer once (no checkpoint: the reference scans both stacks without
+    one), so a round launches K2's forward and each backward kernel
+    exactly cohort x steps x (12 encoder + 12 self + 12 cross) times.
+    Logs losses, seconds, tokens/s (frames and text), peak memory and the
+    launches of each round."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import registry
+
+    run = ENCDEC_ROUNDS
+    cfg = registry.get_config(ENCDEC)
+    args = flat_args(arch=ENCDEC, rounds=run["rounds"], cohort=run["cohort"],
+                     local_steps=run["local_steps"], batch=run["batch"],
+                     seq=run["frames"], compression="none")
+    torch.cuda.reset_peak_memory_stats()
+    params = registry.init_params(cfg, seed=0, device="cuda")
+    n_params = sum(p.numel() for p in params.values())
+    round_fn, server_opt = train.build_round_fn(cfg, args)
+    state = server_opt.init(params)
+    steps = run["cohort"] * run["local_steps"]
+    per_step = cfg.encoder_layers + 2 * cfg.num_layers
+    text = max(run["frames"] // 8, 16)
+    losses, seconds, launches = [], [], []
+    for r in range(run["rounds"]):
+        data = registry.make_batch(cfg, run["batch"], run["frames"], seed=r,
+                                   lead=(run["cohort"], run["local_steps"]))
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, state, metrics = round_fn(params, state, data)
+        losses.append(float(metrics["loss"]))
+        seconds.append(time.perf_counter() - t)
+        counts = ops.launch_counts()
+        launches.append({k: v for k, v in counts.items() if v})
+        want = steps * per_step
+        require(counts["flash_attention_fwd"] == want
+                and counts["flash_attention_bwd_dq"] == want
+                and counts["flash_attention_bwd_dkdv"] == want,
+                f"[encdec] round {r}: K2 launched {counts}, want {want} of "
+                f"each")
+        del data
+    require(all(math.isfinite(v) for v in losses),
+            f"[encdec] non-finite losses {losses}")
+    tokens = steps * run["batch"] * (run["frames"] + text)
+    log("encdec", step="rounds", arch=ENCDEC, layers=f"{cfg.encoder_layers}"
+        f"+{cfg.num_layers}", params=n_params, dtype=cfg.dtype,
+        cohort=run["cohort"], local_steps=run["local_steps"],
+        batch=run["batch"], frames=run["frames"], text=text,
+        losses=[round(v, 5) for v in losses],
+        round_s=[round(v, 3) for v in seconds],
+        tokens_per_s=[round(tokens / v, 1) for v in seconds],
+        peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+        launches_per_round=json.dumps(launches[-1]))
+    del params, state, round_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches[-1]
+
+
+def phase_encdec_serve() -> dict:
+    """``ENCDEC_SERVE``: full seamless_m4t_medium (bf16), ``encdec.prefill``
+    of 4 prompts of 64 text tokens over 4096 frames (K2: 12 non-causal
+    encoder, 12 causal decoder and 12 cross calls), then 32 greedy
+    ``launch.steps.make_decode_step`` steps with the memory K/V (K2 once a
+    decoder layer, Sq = 1 against the memory). Prefill's last logits
+    within one bf16 step (:func:`check_bf16`) of a train-mode
+    ``decode_stack``'s over the prompt at that position (the same kernels
+    at the same shapes); each decoded step's logits within
+    ``SERVE_LOGITS_TOL`` of the largest of a teacher-forced train-mode
+    ``decode_stack`` over the prompt and the decoded tokens (the decode
+    steps attend the cache in plain PyTorch, bf16 probabilities, as the
+    reference's einsums), their worst one-bf16-step excess logged; every
+    greedy token equal to the teacher-forced argmax, except where that
+    position's two top logits lie within twice the step's logits
+    difference (counted)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import encdec, registry
+
+    run = ENCDEC_SERVE
+    cfg = registry.get_config(ENCDEC)
+    torch.cuda.reset_peak_memory_stats()
+    params = registry.init_params(cfg, seed=1, device="cuda")
+    batch = registry.make_batch(cfg, run["prompts"], run["frames"], seed=11)
+    frames, prompt = batch["frames"], batch["tokens"][:, :run["text"]]
+    decode = steps.make_decode_step(cfg)
+    per_layer = cfg.encoder_layers + 2 * cfg.num_layers
+    with torch.no_grad():
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        last, caches, mkv = encdec.prefill(cfg, params, frames, prompt,
+                                           max_len=run["text"] + run["new"])
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t
+        prefill_k2 = ops.launch_counts()["flash_attention_fwd"]
+        require(prefill_k2 == per_layer,
+                f"[encdec] prefill launched K2 {prefill_k2} times, want "
+                f"{per_layer}")
+        toks, outs, step_s = [last.argmax(-1)[:, None].to(torch.int32)], [], []
+        ops.reset_launches()
+        for _ in range(run["new"]):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, caches = decode(params, toks[-1], caches, mkv)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            outs.append(logits)
+            toks.append(logits.argmax(-1)[:, None].to(torch.int32))
+        decode_s = sum(step_s)
+        decode_k2 = ops.launch_counts()["flash_attention_fwd"]
+        require(decode_k2 == run["new"] * cfg.num_layers,
+                f"[encdec] decode launched K2 {decode_k2} times")
+        require(int(caches[0]["pos"]) == run["text"] + run["new"],
+                "[encdec] decode caches")
+        train_last = encdec.decode_stack(cfg, params, prompt, None,
+                                         memory_kv=mkv)[0][:, -1]
+        full = torch.cat([prompt] + toks[:-1], dim=1)
+        tf, _ = encdec.decode_stack(cfg, params, full, None, memory_kv=mkv)
+    prefill_err = check_bf16("[encdec] prefill vs train-mode decode_stack",
+                             last, train_last)
+    top = float(tf.abs().max())
+    worst_rel, worst_excess, ties, checked = 0.0, -math.inf, 0, 0
+    for i, got in enumerate(outs):
+        want = tf[:, run["text"] + i]
+        diff = (got.double() - want.double()).abs()
+        worst_rel = max(worst_rel, float(diff.max()) / top)
+        lim = 2.0 ** -7 * want.double().abs() + 1e-3 * float(
+            want.double().abs().max())
+        worst_excess = max(worst_excess, float((diff - lim).max()))
+        top2 = want.topk(2, dim=-1).values
+        for row in range(want.shape[0]):
+            checked += 1
+            if int(toks[i + 1][row]) == int(want[row].argmax()):
+                continue
+            gap = float(top2[row, 0] - top2[row, 1])
+            require(gap <= 2 * float(diff[row].max()),
+                    f"[encdec] step {i} row {row}: greedy token "
+                    f"{int(toks[i + 1][row])} is not the teacher-forced "
+                    f"argmax {int(want[row].argmax())} (gap {gap})")
+            ties += 1
+    require(worst_rel <= SERVE_LOGITS_TOL,
+            f"[encdec] decode logits {worst_rel:.3e} of max |logits| from "
+            f"the teacher-forced forward's")
+    new_tokens = run["prompts"] * run["new"]
+    log("encdec", step="serve", prompts=run["prompts"], frames=run["frames"],
+        text=run["text"], new=run["new"], prefill_k2=prefill_k2,
+        decode_k2=decode_k2, prefill_s=f"{prefill_s:.4f}",
+        decode_s=f"{decode_s:.4f}",
+        decode_tokens_per_s=f"{new_tokens / decode_s:.1f}",
+        decode_step_ms_first=f"{1e3 * step_s[0]:.3f}",
+        decode_step_ms_median=f"{1e3 * statistics.median(step_s):.3f}",
+        prefill_vs_train_max_abs=f"{prefill_err:.3e}",
+        decode_vs_forward=f"{worst_rel:.3e}", gate=f"{SERVE_LOGITS_TOL:.4f}",
+        decode_one_step_excess=f"{worst_excess:.3e}",
+        greedy_checked=checked, greedy_near_ties=ties,
+        peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    del params, caches, mkv, tf
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"prefill_k2": prefill_k2, "decode_k2": decode_k2,
+            "tokens_per_s": new_tokens / decode_s}
+
+
+# the bf16 FFN products at lm_350m's FFN (8192 tokens: B 2 x S 4096) and
+# at phi35_moe's experts (4096 tokens in groups of 512: 640 slots an
+# expert)
+FFN_PRODUCTS = {"lm_350m": ((8192, 1024), (1024, 4096)),
+                "phi35_moe": ((16, 640, 4096), (16, 4096, 6400))}
+
+
+def phase_ffn_f32_products(gen) -> dict:
+    """[encdec] step=bf16 ffn: ``common.matmul_f32`` (one cuBLAS call with
+    bf16 inputs and an f32 output, ``aten::mm.dtype`` / ``bmm.dtype``) at
+    ``FFN_PRODUCTS`` against the f32 product of f32 copies of the same
+    bf16 inputs (exact products; only the order of the f32 sums differs):
+    max abs error within 2e-5 of the largest magnitude. Its gradients
+    equal, bitwise, autograd's of the product it replaced
+    (``matmul(a, b).float()``), also under non-reentrant checkpointing.
+    Logs the ms of the three forms (CUDA events)."""
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.models import common
+
+    require(hasattr(torch.ops.aten.mm, "dtype"),
+            f"torch {torch.__version__} has no aten::mm.dtype")
+    out = {}
+    for arch, (sa, sb) in FFN_PRODUCTS.items():
+        a = torch.randn(sa, generator=gen, device="cuda").bfloat16()
+        b = (torch.randn(sb, generator=gen, device="cuda")
+             / math.sqrt(sb[-2])).bfloat16()
+        got = common.matmul_f32(a, b)
+        want = torch.matmul(a.float(), b.float())
+        require(got.dtype == torch.float32, "[encdec] matmul_f32 dtype")
+        err = float((got.double() - want.double()).abs().max())
+        rel = err / float(want.abs().max())
+        require(rel <= 2e-5, f"[encdec] matmul_f32 {arch}: {rel:.3e} of the "
+                f"largest magnitude from the f32 product")
+        g = torch.randn(got.shape, generator=gen, device="cuda")
+        grads = {}
+        for form, fn in (("old", lambda x, y: torch.matmul(x, y).float()),
+                         ("new", common.matmul_f32),
+                         ("new_ckpt", lambda x, y: checkpoint(
+                             common.matmul_f32, x, y, use_reentrant=False))):
+            x, y = (t.detach().requires_grad_() for t in (a, b))
+            grads[form] = torch.autograd.grad(fn(x, y), (x, y), g)
+        for form in ("new", "new_ckpt"):
+            require(all(torch.equal(p, q) for p, q in
+                        zip(grads[form], grads["old"])),
+                    f"[encdec] matmul_f32 {arch} {form} gradients differ "
+                    f"from autograd's of matmul(a, b).float()")
+        ms = time_ms(lambda: common.matmul_f32(a, b))
+        old_ms = time_ms(lambda: torch.matmul(a, b).float())
+        up_ms = time_ms(lambda: torch.matmul(a.float(), b.float()))
+        out[arch] = dict(rel=rel, ms=ms, bf16_out_ms=old_ms,
+                         f32_upcast_ms=up_ms)
+        log("encdec", step="bf16 ffn", arch=arch, a=tuple(sa), b=tuple(sb),
+            torch=torch.__version__, err_over_max=f"{rel:.3e}", limit="2e-5",
+            grads_bitwise_old=True, ms_mm_dtype=f"{ms:.4f}",
+            ms_bf16_out_then_f32=f"{old_ms:.4f}",
+            ms_f32_upcast=f"{up_ms:.4f}")
+        del a, b, got, want, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_encdec(gen) -> dict:
+    """[encdec]: rounds, grads (2 + 2 f32 layers at 4096 frames and 512
+    text tokens), serve and the bf16 FFN products."""
+    t0 = time.perf_counter()
+    rounds = phase_encdec_rounds()
+    grads = phase_grads("encdec grads", ENCDEC, layers=2, seq=4096)
+    served = phase_encdec_serve()
+    ffn = phase_ffn_f32_products(gen)
+    log("encdec", step="done", seconds=f"{time.perf_counter() - t0:.1f}")
+    return {"rounds": rounds, "grads": grads, "serve": served, "ffn": ffn}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; no card",
@@ -4548,6 +4903,7 @@ def main() -> int:
     kernels = phase_kernels(rows, gen)
     flash = phase_flash(gen)
     flash_wide = phase_flash_wide(gen)
+    flash_encdec = phase_flash_encdec(gen)
     second_order = phase_flash_second_order(gen)
     # The slice-14 phases that need most of the card run before any
     # full-size round: after the later phases, 11.93 GiB of the card stay
@@ -4624,6 +4980,8 @@ def main() -> int:
     log("slice 14 phases",
         seconds=f"{time.perf_counter() - t_slice14 + t_early14:.1f}",
         early_seconds=f"{t_early14:.1f}")
+    free_graphs()
+    encdec = phase_encdec(gen)
     log("new phases", seconds=f"{time.perf_counter() - t_new:.1f}")
     launches = {"quantize": flat_counts["quantize"],
                 "dequantize": flat_counts["dequantize"],
@@ -4676,8 +5034,23 @@ def main() -> int:
             name, flash_wide[name][arch], wide_launches[arch],
             f"B {b} x S {s} x {hq}:{hkv} heads x {hd}, bf16, causal")
             for arch, (b, s, hq, hkv, hd) in FLASH_WIDE.items()}
+        # the encoder-decoder's non-causal shapes: the encoder's and the
+        # training cross-attention's with [encdec]'s rounds' launches (each
+        # round's K2 calls: 12 encoder, 12 decoder, 12 cross a client
+        # step), the decode step's with its serve launches
+        ed = encdec["rounds"][name]
+        ed_launches = {"encoder": ed, "cross_train": ed,
+                       "cross_decode": encdec["serve"]["decode_k2"]
+                       if name == "flash_attention_fwd" else 0}
+        ed_rows = {shape: flash_entry(
+            name, flash_encdec["kernels"][name][shape], ed_launches[shape],
+            f"B {b} x Sq {sq} x Skv {skv} x {hq}:{hkv} heads x {hd}, bf16, "
+            f"non-causal")
+            for shape, (b, sq, skv, hq, hkv, hd) in FLASH_ENCDEC.items()}
+        if name == "flash_attention_fwd":
+            ed_rows["cross_decode"]["vs_plain_einsum"] = flash_encdec["decode"]
         line["kernels"].append(dict(
-            e512, seq4096=e4096, hd256=e256, wide=wide))
+            e512, seq4096=e4096, hd256=e256, wide=wide, encdec=ed_rows))
     line["kernels"] += [
         entry(name, r, launches[name],
               shape=f"{LRU_MAIN} f32 (hybrid rounds)",
@@ -4701,7 +5074,10 @@ def main() -> int:
         "flash_attention_fwd": {
             "stablelm_3b prefill": served["stablelm_3b"]["prefill_k2_launches"],
             "phi35_moe prefill": served_moe["prefill_k2_launches"],
-            "llava_next_34b prefill": vlm["prefill_k2_launches"]},
+            "llava_next_34b prefill": vlm["prefill_k2_launches"],
+            "seamless_m4t_medium prefill": encdec["serve"]["prefill_k2"],
+            "seamless_m4t_medium 32 decode steps":
+                encdec["serve"]["decode_k2"]},
         "lru_scan_fwd": chunk_launches("recurrentgemma_2b", "lru_scan_fwd"),
         "wkv6_fwd": chunk_launches("rwkv6_3b", "wkv6_fwd"),
     }

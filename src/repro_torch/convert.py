@@ -10,6 +10,9 @@ per layer, so the axis is unstacked and the list is numbered. Each leaf
 keeps its own dtype (the hybrid's f32 ``lam``, or an MoE layer's f32
 ``moe.router``, beside bf16 weights); qkv biases and MoE experts are
 leaves like any other.
+An encoder-decoder's tree has two stacks, ``enc_layers`` (``encoder_layers``
+deep) and ``dec_layers`` (``num_layers``), both stacked by the reference,
+which become ``enc_layers.<i>.*`` and ``dec_layers.<i>.*``.
 ``params_to_numpy`` is the inverse, for comparisons. Neither imports JAX:
 a numpy bf16 array (ml_dtypes) is read through a ``uint16`` view, and bf16
 tensors come back as exact f32 numpy arrays.
@@ -22,7 +25,10 @@ dtype, for checkpoints that either package restores.
 (``transformer.init_caches``, or with ``pool=True`` the serve slot pool):
 the reference stacks a uniform stack's caches on a leading layers axis
 (a position leaf (L,), in a pool (slots, L)); the port keeps a list of
-one cache dict per layer.
+one cache dict per layer. ``memory_kv_from_jax`` and ``memory_kv_to_numpy``
+translate an encoder-decoder's cross-attention memory K/V: the reference's
+pair of stacked (L, B, Sm, Hkv, hd) arrays, the port's list of one (k, v)
+pair per decoder layer.
 """
 
 from __future__ import annotations
@@ -56,30 +62,40 @@ def _flatten(tree, prefix=""):
             yield name, val
 
 
+def _stacks(cfg) -> Dict[str, int]:
+    """The layer stacks of ``cfg``'s tree and their depths."""
+    if cfg.is_encoder_decoder:
+        return {"enc_layers": cfg.encoder_layers, "dec_layers": cfg.num_layers}
+    return {"layers": cfg.num_layers}
+
+
 def params_from_jax(cfg, tree, device="cuda") -> Dict[str, torch.Tensor]:
     device = compat.resolve_device(device)
+    stacks = _stacks(cfg)
     out: Dict[str, torch.Tensor] = {}
-    for name, leaf in _flatten({k: v for k, v in tree.items() if k != "layers"}):
+    for name, leaf in _flatten({k: v for k, v in tree.items()
+                                if k not in stacks}):
         out[name] = _to_tensor(leaf, device)
-    layers = tree["layers"]
-    if isinstance(layers, (list, tuple)):
-        if len(layers) != cfg.num_layers:
-            raise ValueError(f"layers: {len(layers)} trees, num_layers is "
-                             f"{cfg.num_layers}")
-        for i, layer in enumerate(layers):
-            for name, leaf in _flatten(layer):
-                out[f"layers.{i}.{name}"] = _to_tensor(leaf, device)
-        return out
-    for name, leaf in _flatten(layers):
-        if not torch.is_tensor(leaf):
-            leaf = np.asarray(leaf)
-        if leaf.shape[0] != cfg.num_layers:
-            raise ValueError(
-                f"layers.{name}: leading axis {leaf.shape[0]} is not "
-                f"num_layers={cfg.num_layers}"
-            )
-        for i in range(cfg.num_layers):
-            out[f"layers.{i}.{name}"] = _to_tensor(leaf[i], device)
+    for stack, depth in stacks.items():
+        layers = tree[stack]
+        if isinstance(layers, (list, tuple)):
+            if len(layers) != depth:
+                raise ValueError(f"{stack}: {len(layers)} trees, depth is "
+                                 f"{depth}")
+            for i, layer in enumerate(layers):
+                for name, leaf in _flatten(layer):
+                    out[f"{stack}.{i}.{name}"] = _to_tensor(leaf, device)
+            continue
+        for name, leaf in _flatten(layers):
+            if not torch.is_tensor(leaf):
+                leaf = np.asarray(leaf)
+            if leaf.shape[0] != depth:
+                raise ValueError(
+                    f"{stack}.{name}: leading axis {leaf.shape[0]} is not "
+                    f"the depth {depth}"
+                )
+            for i in range(depth):
+                out[f"{stack}.{i}.{name}"] = _to_tensor(leaf[i], device)
     return out
 
 
@@ -91,7 +107,10 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def _stacked(cfg) -> bool:
-    """Whether the reference stacks the layers (``transformer._uniform``)."""
+    """Whether the reference stacks the layers (``transformer._uniform``;
+    an encoder-decoder's two stacks always)."""
+    if cfg.is_encoder_decoder:
+        return True
     return len(set(blocks.layer_kinds(cfg))) == 1 and cfg.scan_layers
 
 
@@ -106,26 +125,30 @@ def _layout(cfg, params: Dict[str, object], stack):
     """The port's flat dict (leaves already converted) as the reference's
     nested tree, layers stacked by ``stack`` or listed as the reference
     keeps them."""
+    stacks = _stacks(cfg)
     tree: dict = {}
-    per_layer = [dict() for _ in range(cfg.num_layers)]
+    per_layer = {name: [dict() for _ in range(depth)]
+                 for name, depth in stacks.items()}
     for name, leaf in params.items():
-        if name.startswith("layers."):
+        head = name.split(".", 1)[0]
+        if head in stacks:
             _, idx, rest = name.split(".", 2)
-            per_layer[int(idx)][rest] = leaf
+            per_layer[head][int(idx)][rest] = leaf
         else:
             _insert(tree, name, leaf)
-    if _stacked(cfg):
-        layers: dict = {}
-        for rest in per_layer[0]:
-            _insert(layers, rest, stack([lp[rest] for lp in per_layer]))
-        tree["layers"] = layers
-    else:
-        tree["layers"] = []
-        for lp in per_layer:
-            layer: dict = {}
-            for rest, leaf in lp.items():
-                _insert(layer, rest, leaf)
-            tree["layers"].append(layer)
+    for head, layers in per_layer.items():
+        if _stacked(cfg):
+            stacked: dict = {}
+            for rest in layers[0]:
+                _insert(stacked, rest, stack([lp[rest] for lp in layers]))
+            tree[head] = stacked
+        else:
+            tree[head] = []
+            for lp in layers:
+                layer: dict = {}
+                for rest, leaf in lp.items():
+                    _insert(layer, rest, leaf)
+                tree[head].append(layer)
     return tree
 
 
@@ -214,3 +237,19 @@ def caches_to_numpy(cfg, caches, *, pool: bool = False):
     return {k: np.stack([lp[k] for lp in layers],
                         axis=1 if (pool and k == "pos") else 0)
             for k in layers[0]}
+
+
+def memory_kv_from_jax(cfg, memory_kv, device="cuda"):
+    """The reference's cross-attention memory (mk, mv), each (L, B, Sm, Hkv,
+    hd), as the port's list of one (k, v) pair per decoder layer."""
+    device = compat.resolve_device(device)
+    mk, mv = memory_kv
+    return [(_to_tensor(mk[i], device), _to_tensor(mv[i], device))
+            for i in range(cfg.num_layers)]
+
+
+def memory_kv_to_numpy(memory_kv):
+    """Inverse of :func:`memory_kv_from_jax`: (mk, mv) stacked on a leading
+    layers axis, numpy (bf16 as exact f32)."""
+    return (np.stack([_numpy(k) for k, _ in memory_kv]),
+            np.stack([_numpy(v) for _, v in memory_kv]))

@@ -4,7 +4,10 @@ Runs DrJAX local-SGD rounds of a full-size model (default: lm_350m in the
 ``chip_smoke.py`` flat and hierarchical settings: cohort 4, 2 local steps,
 int8; the smoke's long rounds are ``--seq 4096 --batch 2``; its hybrid
 rounds are ``--arch recurrentgemma_2b --seq 4096 --batch 1 --cohort 2
---compression none``, its ssm rounds the same with ``--arch rwkv6_3b``),
+--compression none``, its ssm rounds the same with ``--arch rwkv6_3b``,
+its [encdec] rounds ``--arch seamless_m4t_medium --seq 4096 --batch 2
+--cohort 2 --compression none``, with ``--seq`` frames and
+``registry.make_batch``'s text),
 warms up one round, then traces one round with
 ``torch.profiler`` and prints the round's wall time, the device's busy time
 (the sum of kernel times; one stream, so kernels do not overlap) and idle
@@ -87,9 +90,12 @@ def profile(pods: int, seq: int = 512, batch: int = 4, rounds_warm: int = 1,
                             cohort_size=args.cohort)
 
     def data(r):
+        lead = (pods, args.cohort // pods) if pods else (args.cohort,)
+        if cfg.is_encoder_decoder:  # frames, tokens and labels
+            return registry.make_batch(cfg, args.batch, args.seq, seed=r,
+                                       lead=lead + (args.local_steps,))
         d = sampler.round_batch(r, args.local_steps, args.batch, args.seq,
                                 device="cuda")
-        lead = (pods, args.cohort // pods) if pods else (args.cohort,)
         return {k: d[k].reshape(lead + tuple(d[k].shape[1:]))
                 for k in ("tokens", "labels")}
 

@@ -59,7 +59,9 @@ from ..models import registry
 
 def make_prefill_step(cfg, *, max_len: Optional[int] = None):
     """``prefill_step(params, batch)`` -> (last logits (B, V), caches sized
-    for ``max_len``) (``repro/launch/steps.py:276``)."""
+    for ``max_len``) (``repro/launch/steps.py:276``); an encoder-decoder's
+    batch holds ``frames`` beside ``tokens`` (``registry.make_prefill_fn``).
+    """
     inner = registry.make_prefill_fn(cfg, max_len=max_len)
 
     def prefill_step(params, batch):
@@ -71,8 +73,17 @@ def make_prefill_step(cfg, *, max_len: Optional[int] = None):
 
 def make_decode_step(cfg):
     """``decode_step(params, token (B, 1), caches)`` -> (logits (B, V),
-    caches) (``repro/launch/steps.py:302``)."""
+    caches) (``repro/launch/steps.py:302``); an encoder-decoder's is
+    ``decode_step(params, token, caches, memory_kv)`` (``:304-307``)."""
     inner = registry.make_decode_fn(cfg)
+
+    if cfg.is_encoder_decoder:
+
+        def decode_step(params, token, caches, memory_kv):
+            with torch.no_grad():
+                return inner(params, token, caches, memory_kv)
+
+        return decode_step
 
     def decode_step(params, token, caches):
         with torch.no_grad():

@@ -1,6 +1,6 @@
 """End-to-end training driver (``repro/launch/train.py``).
 
-Trains any architecture of ``registry.ARCH_IDS`` (``--arch``) with DrJAX
+Trains any decoder of ``registry.ARCH_IDS`` (``--arch``) with DrJAX
 local-SGD / FedAvg / DiLoCo rounds, optionally with int8 delta
 compression, on one CUDA card (``--device cuda``, the default; it raises
 without a card) or, for small runs, the CPU (``--device cpu``):
@@ -43,7 +43,11 @@ depend on its index alone, so the replay is exact:
 magnitude (``LocalSGDConfig.topk_fraction``).
 
 Same flags, defaults and final JSON line as the reference, except
-``--chaos``, which is rejected (the chaos soak is not ported yet). One
+``--chaos``, which is rejected (the chaos soak is not ported yet). An
+encoder-decoder (seamless_m4t_medium) is refused with a ``ValueError``:
+this module's batches are tokens and labels, as the reference's
+``launch/train.py`` builds them, which cannot train one either; its rounds run through
+``algorithms.rounds.make_local_sgd_round`` on ``registry.make_batch``. One
 difference from the reference: the programmatic :func:`train` takes
 ``args.ckpt_dir = None`` to run the rounds without a checkpoint manager
 (no flag sets it); ``--fail-at`` then raises, since nothing could be
@@ -173,6 +177,14 @@ def train(args) -> TrainResult:
                          "from; args.ckpt_dir is None")
     device = compat.resolve_device(args.device)
     cfg = registry.get_config(args.arch)
+    if cfg.is_encoder_decoder:
+        # the reference's launch/train.py feeds tokens and labels only
+        # (repro/launch/train.py:139): it cannot train one either
+        raise ValueError(
+            f"{cfg.name} is an encoder-decoder: launch.train's batches hold "
+            f"tokens and labels, not frames; run its rounds through "
+            f"algorithms.rounds.make_local_sgd_round(registry.loss_fn) on a "
+            f"registry.make_batch batch")
     if args.reduced:
         cfg = cfg.reduced()
         args.seq = min(args.seq, 64)

@@ -1,5 +1,5 @@
 """GQA self-attention (``repro/models/attention.py``): train, prefill,
-decode and chunked prefill.
+decode and chunked prefill; and the encoder-decoder's cross-attention.
 
 Parameters: wq (D, Hq, hd), wk/wv (D, Hkv, hd), wo (Hq, hd, D) and, with
 ``cfg.qkv_bias``, bq (Hq, hd) and bk/bv (Hkv, hd), as in the reference:
@@ -32,7 +32,12 @@ The caches are written in place and returned (the counterpart of the
 reference's donated caches); their positions may differ per batch row, so
 a batch of slots decodes each row at its own position.
 
-Left out for later slices: cross-attention.
+:func:`cross_attention` (``repro/models/attention.py:711-727``) attends
+the decoder's queries to precomputed encoder memory K/V, with no rotary
+embedding on either side and no mask: ``naive_attention(causal=False)``
+under ``attn_impl="naive"``, else K2 non-causal in every mode, a decode
+step's single query included (the reference runs ``blocked_attention``
+there, an XLA scan outside any Pallas kernel).
 """
 
 from __future__ import annotations
@@ -91,6 +96,21 @@ def self_attention(cfg, q, k, v, *, causal=True, window=0):
     if cfg.attn_impl in ("blocked", "flash"):
         return ops.flash_attention(q, k, v, causal=causal, window=window)
     raise ValueError(f"attn_impl {cfg.attn_impl!r} is not ported")
+
+
+def cross_attention(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
+                    memory_k: torch.Tensor, memory_v: torch.Tensor):
+    """x (B, Sq, D) attends to the encoder memory's K/V (B, Sm, Hkv, hd)
+    -> (B, Sq, D) (``repro/models/attention.py:711 cross_attention``)."""
+    q = _proj(x, p["wq"], p.get("bq"))
+    if cfg.attn_impl == "naive":
+        out = naive_attention(q, memory_k, memory_v, causal=False, window=0)
+    elif cfg.attn_impl in ("blocked", "flash"):
+        out = ops.flash_attention(q, memory_k, memory_v, causal=False,
+                                  window=0)
+    else:
+        raise ValueError(f"attn_impl {cfg.attn_impl!r} is not ported")
+    return out_proj(p, out)
 
 
 # ---------------------------------------------------------------------------

@@ -41,9 +41,14 @@ def sub(params: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]
 
 
 def layer_kinds(cfg):
-    """Per-layer block kinds: the dense, MoE and VLM families are all
-    attention, the hybrid family repeats ``block_pattern``, the ssm family
-    (RWKV-6) is all rwkv."""
+    """Per-layer block kinds of a decoder-only stack
+    (``repro/models/blocks.py:43-58``): the dense, MoE and VLM families are
+    all attention, the hybrid family repeats ``block_pattern``, the ssm
+    family (RWKV-6) is all rwkv. The encoder-decoder's stacks are
+    :mod:`encdec`'s own and do not come here."""
+    if cfg.is_encoder_decoder:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: its stacks are "
+                         f"models/encdec.py's")
     if cfg.family in ("dense", "moe", "vlm"):
         return ["attention"] * cfg.num_layers
     if cfg.family == "ssm":
@@ -51,11 +56,7 @@ def layer_kinds(cfg):
     if cfg.family == "hybrid":
         pat = cfg.block_pattern
         return [pat[i % len(pat)] for i in range(cfg.num_layers)]
-    raise NotImplementedError(
-        f"repro_torch ports the dense, moe, vlm, hybrid and ssm families; "
-        f"{cfg.name} is "
-        f"{cfg.family}"
-    )
+    raise ValueError(f"{cfg.name}: unknown decoder family {cfg.family!r}")
 
 
 MODES = ("train", "prefill", "decode", "chunk")

@@ -5,11 +5,11 @@ Layers are functions of explicit parameter tensors, so the same code runs a
 model's own parameters and a client's copy inside a training round. Matrix
 products run in the activation dtype (bf16 on the card, f32 in the CPU
 tests) with f32 accumulation, as the reference's ``preferred_element_type``
-products cast back to that dtype. Two differ in bf16: the MLP's up and gate
-products are rounded to bf16 before the f32 gate (the reference keeps them
-in f32), and the logits are an f32 product of f32 copies (exact products of
-bf16 values, as the reference's). Norms, rotary embeddings, softmax and the
-loss run in f32 as in the reference.
+products cast back to that dtype. Two keep an f32 result, as the
+reference's: the gated FFN's up and gate products (:func:`matmul_f32`,
+dense and MoE), and the logits, an f32 product of f32 copies (exact
+products of bf16 values). Norms, rotary embeddings, softmax and the loss
+run in f32 as in the reference.
 """
 
 from __future__ import annotations
@@ -21,6 +21,51 @@ import torch
 import torch.nn.functional as F
 
 F32 = torch.float32
+
+
+class _MatmulF32(torch.autograd.Function):
+    """``a @ b`` of two bf16 (or f16) CUDA tensors, 2-d (``aten::mm.dtype``)
+    or batched 3-d (``aten::bmm.dtype``), as one cuBLAS call with an f32
+    output. Those ops have no autograd formula, so the backward is written
+    here: the same products with the f32 cotangent rounded to the inputs'
+    dtype (what autograd of ``matmul(a, b).float()`` computes), each
+    gradient one product in the input dtype with f32 accumulation."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        mm = torch.mm if a.ndim == 2 else torch.bmm
+        return mm(a, b, out_dtype=F32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = torch.matmul(g, b.transpose(-1, -2))
+        if ctx.needs_input_grad[1]:
+            db = torch.matmul(a.transpose(-1, -2), g)
+        return da, db
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as an f32 tensor from inputs of the activation dtype: the
+    reference's ``einsum(..., preferred_element_type=f32)``. ``a`` is (...,
+    K) against ``b`` (K, N), or (E, M, K) against (E, K, N). In f32 it is
+    ``torch.matmul``. For bf16 on the card it is one GEMM with an f32
+    output (:class:`_MatmulF32`), with no f32 copy of either input; on the
+    CPU, or where this torch lacks ``aten::mm.dtype``, the product of f32
+    copies, which is the exact products of the bf16 values summed in
+    f32."""
+    if a.dtype == F32 and b.dtype == F32:
+        return torch.matmul(a, b)
+    if not (a.is_cuda and hasattr(torch.ops.aten.mm, "dtype")):
+        return torch.matmul(a.to(F32), b.to(F32))
+    if b.ndim == 2:
+        out = _MatmulF32.apply(a.reshape(-1, a.shape[-1]), b)
+        return out.reshape(*a.shape[:-1], b.shape[-1])
+    return _MatmulF32.apply(a, b)
 
 
 def normal_init(generator: torch.Generator, shape: Sequence[int],

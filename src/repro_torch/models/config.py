@@ -1,9 +1,9 @@
 """Model configuration (``repro/models/config.py``), carried over as data.
 
 The same frozen dataclass and the same ``reduced()`` as the reference, so a
-config means the same model in both packages. The port runs the dense,
-MoE, VLM, hybrid and ssm (RWKV-6) families; the encoder-decoder fields are
-kept so configs carry over unchanged, and the model code rejects them.
+config means the same model in both packages. The port runs every family
+of the reference: the dense, MoE, VLM, hybrid and ssm (RWKV-6) decoders
+and the encoder-decoder (``models/encdec.py``).
 
 The parameter accounting (``repro/models/config.py:98-186``) is the
 reference's formulas: ``param_count`` counts every weight at the
@@ -57,7 +57,7 @@ class ModelConfig:
 
     mesh_strategy: str = "tp"
     scan_layers: bool = True
-    remat: str = "none"  # none | full
+    remat: str = "none"  # none | full | dots
     attn_impl: str = "blocked"  # blocked | flash | naive
     tp_comm: str = "bf16"
     q_block: int = 512

@@ -10,10 +10,10 @@ each group. A (token, choice) takes the next free slot of its expert in
 (token, choice) order; past capacity it is dropped. Dispatch and combine
 are one-hot products, the experts' gated FFNs plain batched matmuls over
 the expert axis (the reference computes them outside any Pallas kernel).
-As in ``mlp.apply``, each product accumulates in f32 but comes back in
-the model dtype before the gate ``act(g) * h`` is taken in f32: in bf16,
-h and g are rounded to bf16 first, where the reference keeps both in f32
-(``preferred_element_type``; ROADMAP.md lists the departure). The aux loss is
+As in ``mlp.apply``, the up and gate products are f32 results
+(``common.matmul_f32``, the reference's ``preferred_element_type``,
+``repro/models/moe.py:154-155``) and the gate ``act(g) * h`` is taken in
+f32 and cast back to the model dtype. The aux loss is
 ``E * sum(frac_tokens * frac_gates) / k`` (GShard eq. 4).
 
 Ties between gates go to the lower expert index, as ``jax.lax.top_k``
@@ -137,8 +137,8 @@ def apply(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor, *,
     # dispatch: (G, E*C, T) @ (G, T, D) -> the experts' inputs
     xin = torch.matmul(dispatch.reshape(ng, gs, e * cap).transpose(1, 2), xg)
     xe = xin.reshape(ng, e, cap, d).transpose(0, 1).reshape(e, ng * cap, d)
-    h = torch.bmm(xe, p["wi"]).to(F32)
-    g = torch.bmm(xe, p["wg"]).to(F32)
+    h = common.matmul_f32(xe, p["wi"])
+    g = common.matmul_f32(xe, p["wg"])
     h = (act(g) * h).to(x.dtype)
     eout = torch.bmm(h, p["wo"]).to(x.dtype)                   # (E, G*C, D)
     eout = eout.reshape(e, ng, cap, d).transpose(0, 1).reshape(ng, e * cap, d)

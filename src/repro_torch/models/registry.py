@@ -1,11 +1,11 @@
 """Architecture registry (``repro/models/registry.py``): config lookup,
-parameter init, the loss, the serve functions and the serve slot pool's
-layout. The port registers every decoder-only architecture of the
-reference: the dense lm_350m, lm_1b, lm_8b, yi_34b, internlm2_20b,
-qwen2_72b (qkv bias) and stablelm_3b, the MoE phi35_moe and qwen3_moe, the
-VLM llava_next_34b, recurrentgemma_2b (hybrid: RG-LRU and local attention)
-and rwkv6_3b (ssm: RWKV-6). The encoder-decoder seamless_m4t_medium and
-the dry-run input specs wait.
+parameter init, the loss, the serve functions, the training batch's
+shapes and the serve slot pool's layout. The port registers every
+architecture of the reference: the dense lm_350m, lm_1b, lm_8b, yi_34b,
+internlm2_20b, qwen2_72b (qkv bias) and stablelm_3b, the MoE phi35_moe and
+qwen3_moe, the VLM llava_next_34b, recurrentgemma_2b (hybrid: RG-LRU and
+local attention), rwkv6_3b (ssm: RWKV-6) and the encoder-decoder
+seamless_m4t_medium (:mod:`encdec`). The dry-run input specs wait.
 
 The slot pool (``repro/models/registry.py:198-265``) is the per-layer
 cache list of :func:`transformer.init_caches` at ``slots`` rows in the
@@ -13,23 +13,26 @@ no-ring layout, every position leaf (:data:`POS_LEAF`) given one entry
 per slot. In the port's unstacked layout every batch-bearing leaf has its
 batch axis first, so the slot axis of every leaf is 0
 (:func:`slot_vmap_axes`), where the reference's stacked leaves carry it at
-1, after the layers axis."""
+1, after the layers axis. Chunked prefill and the slot pool take
+token-only decoders, as the reference's do."""
 
 from __future__ import annotations
 
 import importlib
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
 from .. import compat
-from . import transformer, vlm
+from . import encdec, transformer, vlm
 from .config import ModelConfig
 
 ARCH_IDS = ("lm_350m", "lm_1b", "lm_8b", "yi_34b", "internlm2_20b",
             "qwen2_72b", "stablelm_3b", "phi35_moe", "qwen3_moe",
-            "llava_next_34b", "recurrentgemma_2b", "rwkv6_3b")
+            "llava_next_34b", "recurrentgemma_2b", "rwkv6_3b",
+            "seamless_m4t_medium")
 
 
 def get_config(arch: str) -> ModelConfig:
@@ -42,25 +45,71 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
                 device="cuda") -> Dict[str, torch.Tensor]:
     """Fresh parameters as a flat dict of tensors on ``device``, drawn from a
     ``torch.Generator`` on ``device`` seeded with ``seed`` (the same seed
-    gives other numbers on the CPU than on the card)."""
+    gives other numbers on the CPU than on the card): the family's module,
+    :class:`encdec.EncDecLM` or :class:`transformer.TransformerLM`."""
     dev = compat.resolve_device(device)
     generator = torch.Generator(device=dev).manual_seed(seed)
+    lm = encdec.EncDecLM if cfg.is_encoder_decoder else transformer.TransformerLM
     with torch.no_grad():
-        model = transformer.TransformerLM(cfg, generator, device=dev)
+        model = lm(cfg, generator, device=dev)
     return {k: v.detach() for k, v in model.named_parameters()}
 
 
 def family_module(cfg: ModelConfig):
-    """The module of ``cfg``'s family (``repro/models/registry.py:56``):
-    :mod:`vlm` or :mod:`transformer`; encoder-decoders are not ported."""
+    """The module of ``cfg``'s family (``repro/models/registry.py:53-59``):
+    :mod:`encdec`, :mod:`vlm` or :mod:`transformer`."""
     if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported")
+        return encdec
     return vlm if cfg.family == "vlm" else transformer
 
 
 def loss_fn(cfg: ModelConfig, params, batch) -> torch.Tensor:
     return family_module(cfg).loss_fn(cfg, params, batch)
+
+
+def train_batch_shapes(cfg: ModelConfig, batch: int, seq: int):
+    """{name: (shape, dtype)} of one training step's batch
+    (``repro/models/registry.py:90-108 train_batch_spec``): an
+    encoder-decoder's frames (B, seq, D) and max(seq // 8, 16) text
+    tokens and labels; a VLM's patch embeddings (at most half of ``seq``)
+    before the text; else seq tokens and labels."""
+    if cfg.is_encoder_decoder:
+        st = max(seq // 8, 16)
+        return {"frames": ((batch, seq, cfg.d_model), cfg.torch_dtype),
+                "tokens": ((batch, st), torch.int32),
+                "labels": ((batch, st), torch.int32)}
+    if cfg.family == "vlm":
+        nf = max(min(cfg.num_frontend_tokens, seq // 2), 1)
+        return {"embeds": ((batch, nf, cfg.d_model), cfg.torch_dtype),
+                "tokens": ((batch, seq - nf), torch.int32),
+                "labels": ((batch, seq - nf), torch.int32)}
+    return {"tokens": ((batch, seq), torch.int32),
+            "labels": ((batch, seq), torch.int32)}
+
+
+def make_batch(cfg: ModelConfig, batch: int, seq: int, *, seed: int = 0,
+               lead=(), device="cuda") -> Dict[str, torch.Tensor]:
+    """A training batch of :func:`train_batch_shapes` from numpy streams
+    spawned off ``SeedSequence(seed)``, one per leaf in name order: token
+    ids uniform below the vocabulary, embeddings standard normals cast to
+    the model dtype. ``lead`` prefixes every shape (e.g. (cohort,
+    local_steps) for a round's data). The counterpart of the reference's
+    ``make_concrete_batch``, whose ``jax.random`` numbers differ."""
+    dev = compat.resolve_device(device)
+    shapes = train_batch_shapes(cfg, batch, seq)
+    streams = np.random.SeedSequence(seed).spawn(len(shapes))
+    out = {}
+    for (name, (shape, dtype)), ss in zip(sorted(shapes.items()), streams):
+        rng = np.random.default_rng(ss)
+        shape = tuple(lead) + shape
+        if dtype == torch.int32:
+            a = torch.from_numpy(
+                rng.integers(0, cfg.vocab_size, shape).astype(np.int32))
+        else:
+            a = torch.from_numpy(
+                rng.standard_normal(shape, dtype=np.float32)).to(dtype)
+        out[name] = a.to(dev)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -78,8 +127,19 @@ def make_prefill_fn(cfg: ModelConfig, *, max_len: Optional[int] = None):
     """``prefill_fn(params, batch)`` -> (last logits, caches sized for
     ``max_len``, default the prompt length) (``repro/models/registry.py:
     149``); a VLM's batch holds ``embeds`` (B, P, D) beside ``tokens``,
-    and its caches hold P + S positions."""
+    and its caches hold P + S positions; an encoder-decoder's holds
+    ``frames`` (B, Sf, D) beside ``tokens``, and its memory K/V are
+    dropped, as the reference drops them (``registry.py:155-162``)."""
     mod = family_module(cfg)
+
+    if cfg.is_encoder_decoder:
+
+        def prefill_fn(params, batch):
+            logits, caches, _ = mod.prefill(cfg, params, batch["frames"],
+                                            batch["tokens"], max_len=max_len)
+            return logits, caches
+
+        return prefill_fn
 
     if cfg.family == "vlm":
 
@@ -98,8 +158,16 @@ def make_prefill_fn(cfg: ModelConfig, *, max_len: Optional[int] = None):
 def make_decode_fn(cfg: ModelConfig):
     """``decode_fn(params, token (B, 1), caches)`` -> (logits (B, V),
     caches) (``repro/models/registry.py:180``); an MoE layer routes each
-    row alone (``transformer.decode_step``)."""
+    row alone (``transformer.decode_step``). An encoder-decoder's is
+    ``decode_fn(params, token, caches, memory_kv)`` (``:183-189``)."""
     mod = family_module(cfg)
+
+    if cfg.is_encoder_decoder:
+
+        def decode_fn(params, token, caches, memory_kv):
+            return mod.decode_step(cfg, params, token, caches, memory_kv)
+
+        return decode_fn
 
     def decode_fn(params, token, caches):
         return mod.decode_step(cfg, params, token, caches)

@@ -13,7 +13,11 @@ run a client's own copy of the parameters through the same code
 on a leading axis for ``lax.scan`` (a hybrid stack is a list); here each
 layer is its own module of its kind (``blocks.layer_kinds``) and the stack
 is a Python loop. ``remat="full"`` checkpoints each layer
-(``torch.utils.checkpoint``, non-reentrant). The layers' aux losses (MoE
+(``torch.utils.checkpoint``, non-reentrant); ``remat="dots"`` checkpoints
+it selectively (``repro/models/transformer.py:86-89``, the reference's
+``dots_with_no_batch_dims_saveable``): the outputs of the matrix products
+without batch dims are saved, the rest (batched products, K2's op, the
+norms and activations) is recomputed. The layers' aux losses (MoE
 load balancing) are summed through the stack, and :func:`loss_fn` adds
 0.01 of the sum to the cross-entropy, as the reference.
 
@@ -41,7 +45,8 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from . import blocks, common
 
@@ -74,7 +79,7 @@ class TransformerLM(nn.Module):
         super().__init__()
         if cfg.tie_embeddings:
             raise NotImplementedError("tied embeddings are not ported")
-        kinds = blocks.layer_kinds(cfg)  # rejects the families not ported
+        kinds = blocks.layer_kinds(cfg)  # rejects the encoder-decoder
         self.cfg = cfg
         pv, d, dt = padded_vocab(cfg), cfg.d_model, cfg.torch_dtype
         self.embed = Embedding(pv, d, dt, generator, device)
@@ -92,14 +97,29 @@ def layer_params(params: Dict[str, torch.Tensor], i: int):
     return blocks.sub(params, f"layers.{i}.")
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the matrix products without batch dims (``torch.matmul`` of an
+    activation and a weight dispatches ``aten.mm``; ``common.matmul_f32``
+    ``aten.mm.dtype`` on the card); recompute everything else."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+              torch.ops.aten.mm.dtype):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts,
+                                  _dots_policy)
+
+
 def apply_layers(cfg, params: Dict[str, torch.Tensor], x: torch.Tensor,
                  positions: torch.Tensor, start: int = 0,
                  stop: Optional[int] = None):
     """Layers ``start`` to ``stop`` (default: all) of the stack on the
     activation ``x`` (B, S, D), each checkpointed under ``remat="full"``
-    when grad mode is on: the backbone of :func:`forward`, and a pipeline
-    stage's work (a contiguous range of layers). Returns ``(x, aux)``, the
-    sum of the layers' aux losses (0.0 without an MoE layer)."""
+    (selectively under ``"dots"``) when grad mode is on: the backbone of
+    :func:`forward`, and a pipeline stage's work (a contiguous range of
+    layers). Returns ``(x, aux)``, the sum of the layers' aux losses (0.0
+    without an MoE layer)."""
     kinds = blocks.layer_kinds(cfg)
     aux = 0.0
     for i in range(start, len(kinds) if stop is None else stop):
@@ -108,7 +128,11 @@ def apply_layers(cfg, params: Dict[str, torch.Tensor], x: torch.Tensor,
         if cfg.remat == "full" and torch.is_grad_enabled():
             x, a = checkpoint(layer, x, positions, use_reentrant=False,
                               preserve_rng_state=False)
-        elif cfg.remat in ("none", "full"):
+        elif cfg.remat == "dots" and torch.is_grad_enabled():
+            x, a = checkpoint(layer, x, positions, use_reentrant=False,
+                              preserve_rng_state=False,
+                              context_fn=_DOTS_CONTEXT)
+        elif cfg.remat in ("none", "full", "dots"):
             x, a = layer(x, positions)
         else:
             raise ValueError(f"remat {cfg.remat!r} is not ported")

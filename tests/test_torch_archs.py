@@ -2,11 +2,13 @@
 the CPU: the dense lm_1b, lm_8b, yi_34b, internlm2_20b and qwen2_72b (qkv
 bias), the MoE phi35_moe and qwen3_moe, and the VLM llava_next_34b.
 
-- ``registry.ARCH_IDS`` is the reference's less the encoder-decoder; each
-  config equals the reference's field for field, full and reduced, and
-  ``param_count`` / ``active_param_count`` equal the reference's for all
-  twelve architectures; the port's tensors hold exactly ``param_count``
-  weights but the vocabulary padding.
+- ``registry.ARCH_IDS`` is the reference's thirteen; each config equals
+  the reference's field for field, full and reduced, and ``param_count`` /
+  ``active_param_count`` equal the reference's for all thirteen
+  architectures; the port's tensors hold exactly ``param_count`` weights
+  but the vocabulary padding (and, in the encoder-decoder, the norms the
+  reference's formula leaves out). The encoder-decoder's own tests are in
+  ``tests/test_torch_encdec.py``.
 - ``loss_fn`` and every gradient of each new architecture, reduced, f32,
   within 2e-5 (rtol = atol, the reference's model tolerance) of
   ``jax.value_and_grad`` of the reference's, from the reference's
@@ -117,10 +119,9 @@ def _batch(cfg, b=2, s=16, seed=0):
 # ---------------------------------------------------------------------------
 
 
-def test_arch_ids_are_the_references_decoders():
-    assert len(registry.ARCH_IDS) == 12
-    assert set(registry.ARCH_IDS) == set(jreg.ARCH_IDS) - {
-        "seamless_m4t_medium"}
+def test_arch_ids_are_the_references_thirteen():
+    assert len(registry.ARCH_IDS) == 13
+    assert set(registry.ARCH_IDS) == set(jreg.ARCH_IDS)
 
 
 @pytest.mark.parametrize("arch", registry.ARCH_IDS)
@@ -153,6 +154,15 @@ def test_param_counts_match_reference(arch):
         pad = transformer.padded_vocab(small) - small.vocab_size
         assert sum(p.numel() for p in params.values()) == (
             small.param_count() + 2 * pad * small.d_model)
+    if tcfg.is_encoder_decoder:
+        # and the decoder's ln_x and the encoder's final norm, which the
+        # reference's formula leaves out
+        small = tcfg.reduced()
+        params = registry.init_params(small, seed=0, device="cpu")
+        pad = transformer.padded_vocab(small) - small.vocab_size
+        assert sum(p.numel() for p in params.values()) == (
+            small.param_count() + 2 * pad * small.d_model
+            + (small.num_layers + 1) * small.d_model)
 
 
 # ---------------------------------------------------------------------------

@@ -190,6 +190,12 @@ def _assert_within_bf16_step(got, want):
         (1, 24, 56, 4, 1, 256, False, 0),       # hd 256, non-causal
         (1, 1100, 1100, 4, 4, 64, True, 0),     # many kv tiles, ragged tail
         (1, 1030, 1030, 10, 1, 256, True, 512),  # MQA window: the G-sum
+        # the encoder-decoder (seamless_m4t_medium): encoder self-attention,
+        # cross-attention in training and in a decode step, non-causal
+        (2, 4096, 4096, 16, 16, 64, False, 0),
+        (2, 512, 4096, 16, 16, 64, False, 0),
+        (4, 1, 4096, 16, 16, 64, False, 0),
+        (1, 100, 1000, 4, 2, 64, False, 0),     # ragged Sq and Skv
     ],
 )
 def test_flash_attention_matches_plain(card, b, sq, skv, hq, hkv, hd, causal,
@@ -1163,3 +1169,55 @@ def test_serve_step_replay_bitwise_to_eager(card, arch):
               "rwkv6_3b": "wkv6_fwd"}.get(arch)
     if kernel:
         assert graphed.replayed[kernel] == counts[kernel] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sa,sb", [((2, 4096, 1024), (1024, 4096)),
+                                   ((16, 640, 4096), (16, 4096, 6400))])
+def test_matmul_f32_matches_the_f32_product(card, sa, sb):
+    """``common.matmul_f32`` of bf16 inputs (lm_350m's FFN; phi35_moe's
+    experts, batched): one GEMM with an f32 output, within 2e-5 of the
+    largest magnitude of the f32 product of f32 copies (the same exact
+    products, summed in another order); its gradients are autograd's of
+    ``matmul(a, b).float()``, bitwise."""
+    from repro_torch.models import common
+
+    gen = torch.Generator(device=card).manual_seed(0)
+    a = torch.randn(sa, generator=gen, device=card).bfloat16()
+    b = (torch.randn(sb, generator=gen, device=card)
+         / sb[-2] ** 0.5).bfloat16()
+    got = common.matmul_f32(a, b)
+    want = torch.matmul(a.float(), b.float())
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert float((got - want).abs().max()) <= 2e-5 * float(want.abs().max())
+    g = torch.randn(got.shape, generator=gen, device=card)
+    grads = []
+    for fn in (common.matmul_f32, lambda x, y: torch.matmul(x, y).float()):
+        x, y = (t.detach().requires_grad_() for t in (a, b))
+        grads.append(torch.autograd.grad(fn(x, y), (x, y), g))
+    for p, q in zip(*grads):
+        assert p.dtype == torch.bfloat16 and torch.equal(p, q)
+
+
+@pytest.mark.cuda
+def test_remat_dots_bitwise_to_none_on_card(card):
+    """2 layers of lm_350m at full width, bf16, B 2 x S 512: loss and every
+    gradient under ``remat="dots"`` (the products without batch dims saved,
+    ``aten.mm.dtype`` among them; K2 and the rest recomputed) bitwise
+    those of ``remat="none"``."""
+    import dataclasses
+
+    from repro_torch.models import registry
+
+    cfg = dataclasses.replace(registry.get_config("lm_350m"), num_layers=2)
+    params = registry.init_params(cfg, seed=0, device="cuda")
+    batch = registry.make_batch(cfg, 2, 512, seed=0, device="cuda")
+    runs = []
+    for remat in ("none", "dots"):
+        c = dataclasses.replace(cfg, remat=remat)
+        p = {k: v.clone().requires_grad_() for k, v in params.items()}
+        loss = registry.loss_fn(c, p, batch)
+        runs.append((loss.detach(), torch.autograd.grad(loss, list(p.values()))))
+    assert torch.equal(runs[0][0], runs[1][0])
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert torch.equal(a, b)
