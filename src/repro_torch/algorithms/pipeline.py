@@ -53,7 +53,7 @@ class PipelineConfig:
     ``num_microbatches`` the M microbatches fed through per round. The
     reference's ``stage_axes``, ``mesh`` and sharding switch place the
     stages on a mesh, which one card does not have (ROADMAP queue 1
-    item 7)."""
+    item 2)."""
 
     num_stages: int
     num_microbatches: int

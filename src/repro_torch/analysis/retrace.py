@@ -39,7 +39,7 @@ reference code                 why it cannot arise here
                                a constant of the code, not an input
 ``retrace/mesh-keyed-leg``     no executable is keyed by a mesh until
                                ``ElasticHierarchicalRound`` takes ``mesh=``
-                               (ROADMAP queue 1 item 7); it then counts
+                               (ROADMAP queue 1 item 2); it then counts
                                replica levels only
                                (``plan.placement_kinds``): a stage level
                                is not resized by an elastic event

@@ -21,7 +21,7 @@ Ported: ``program`` (with ``placement_kinds``), ``broadcast``, ``map_fn``
 ``masked_reduce_mean`` (the straggler rounds' reduction),
 ``stage_transfer`` and ``stage_map`` (pipeline stages) and
 ``partition_size``. Left out for later slices: the sharding annotations
-(no-ops on one card until ROADMAP queue 1 item 7).
+(no-ops on one card until ROADMAP queue 1 item 2).
 """
 
 from __future__ import annotations

@@ -11,7 +11,7 @@ which ``broadcast``/``reduce_*`` address) or ``"stages"`` (model pipeline
 stages, which exchange values by ``stage_transfer`` and run per-stage
 functions by ``stage_map``). Left out for later slices: the per-placement
 mesh axes and sharding switches (the port runs on one device, where they
-are no-ops until ROADMAP queue 1 item 7).
+are no-ops until ROADMAP queue 1 item 2).
 """
 
 from __future__ import annotations

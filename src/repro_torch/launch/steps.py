@@ -27,9 +27,11 @@ operation of the decode leg acts on each row alone but one: an MoE
 layer's expert capacity couples the tokens of a routing group, so two
 slots routed together that pick the same expert could drop one of them,
 and a free slot's garbage could evict a live token. The decode leg
-therefore routes each row as its own group of one token (the decode
-mode of ``blocks.block_apply``), which is what the
-reference's batch-1 decode of each slot does; the chunk leg of the fused
+therefore routes each row as its own group of one token
+(``registry.make_decode_fn(cfg, route_rows=True)``; only these steps
+pass it, and a plain decode step routes its batch as one group, as the
+reference's ``decode_step``), which is what the reference's batch-1
+decode of each slot does; the chunk leg of the fused
 step routes the chunk's tokens as their own groups, as the reference's
 separate chunk call. So a row's result is the same whatever the other
 rows hold.
@@ -44,7 +46,7 @@ every call runs eagerly. Either way the first call for a key counts as a
 build on its ``runtime.executor.TraceCounter``.
 
 The mesh, FSDP and training-step parts of the reference's ``steps.py``
-wait for the distributed layer (ROADMAP queue 1, item 7).
+wait for the distributed layer (ROADMAP queue 1, item 2).
 """
 
 from __future__ import annotations
@@ -136,7 +138,7 @@ def make_slot_decode_step(cfg):
     go into ``tokens`` and the pool advances, in place; both are returned.
     Free slots decode garbage the host never reads (fixed shapes, no
     masks). Each slot's token routes alone through MoE layers."""
-    decode_fn = registry.make_decode_fn(cfg)
+    decode_fn = registry.make_decode_fn(cfg, route_rows=True)
 
     def slot_decode_step(params, tokens, pool):
         with torch.no_grad():
@@ -181,7 +183,7 @@ def make_serve_step(cfg):
     so the request decodes on the very next step. ``tokens`` and the pool
     are written in place and returned. The decode leg routes each slot's
     token alone through MoE layers."""
-    decode_fn = registry.make_decode_fn(cfg)
+    decode_fn = registry.make_decode_fn(cfg, route_rows=True)
     chunk_fn = registry.make_chunk_prefill_fn(cfg)
     dims = registry.cache_batch_dims(cfg)
 

@@ -42,8 +42,16 @@ depend on its index alone, so the replay is exact:
 ``--compression topk`` sparsifies each client's delta to its top 1% by
 magnitude (``LocalSGDConfig.topk_fraction``).
 
-Same flags, defaults and final JSON line as the reference, except
-``--chaos``, which is rejected (the chaos soak is not ported yet). An
+``--chaos`` runs the chaos soak instead of training
+(``runtime.chaos.run_chaos_soak``, logical mode): 48 rounds unless
+``--rounds`` is given, a checkpoint every ``min(--ckpt-every, 8)`` rounds
+into a temporary directory (never ``--ckpt-dir``), ``--seed`` and
+``--device`` passed through; it prints the report's JSON and raises if an
+invariant fails:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --chaos --device cpu
+
+Same flags, defaults and final JSON line as the reference. An
 encoder-decoder (seamless_m4t_medium) is refused with a ``ValueError``:
 this module's batches are tokens and labels, as the reference's
 ``launch/train.py`` builds them, which cannot train one either; its rounds run through
@@ -130,12 +138,34 @@ def parse_args(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
-    ap.add_argument("--chaos", action="store_true", help=argparse.SUPPRESS)
-    args = ap.parse_args(argv)
-    if args.chaos:
-        ap.error("--chaos is not ported to repro_torch yet (the chaos soak "
-                 "comes in a later slice)")
-    return args
+    ap.add_argument("--chaos", action="store_true",
+                    help="run the chaos soak instead of training: composed "
+                         "fault injection (device failures, pod dropout and "
+                         "regrowth, straggler deadlines, checkpoint faults, "
+                         "serve traffic) with the production invariants "
+                         "asserted (see repro_torch.runtime.chaos)")
+    return ap.parse_args(argv)
+
+
+def chaos(args):
+    """The soak of ``--chaos`` (``repro/launch/train.py:96-111``): its
+    :class:`~repro_torch.runtime.chaos.ChaosReport`."""
+    from ..runtime.chaos import ChaosConfig, run_chaos_soak
+
+    report = run_chaos_soak(ChaosConfig(
+        rounds=args.rounds if args.rounds != 100 else 48,
+        seed=args.seed,
+        checkpoint_every=min(args.ckpt_every, 8),
+        ckpt_dir=None,  # soak state is throwaway; never reuse --ckpt-dir
+        device=args.device,
+    ))
+    logger.info(
+        "chaos soak survived: %d failures, %d elastic events, "
+        "%d fallback restores, bitwise=%s",
+        report.device_failures, len(report.elastic_events),
+        report.fallback_restores, report.oracle_bitwise_equal,
+    )
+    return report
 
 
 def round_mask(strag: StragglerSimulator, round_idx: int, args, device):
@@ -256,6 +286,9 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.chaos:
+        print(json.dumps(chaos(args).to_json(), indent=2))
+        return
     print(json.dumps(train(args).summary))
 
 

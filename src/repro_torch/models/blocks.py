@@ -85,17 +85,25 @@ def _store(cache, new):
     return cache
 
 
-def _ffn(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor, mode: str):
-    """The block's FFN: (out, aux loss), aux 0.0 for a dense MLP; an MoE
-    decode routes each row alone."""
+def _ffn(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor, route_rows: bool):
+    """The block's FFN: (out, aux loss), aux 0.0 for a dense MLP. An MoE
+    layer routes the batch's tokens in ``moe.apply``'s groups, or with
+    ``route_rows`` each row as its own group of one token."""
     if cfg.family == "moe":
         return moe.apply(cfg, sub(p, "moe."), x,
-                         group_size=1 if mode == "decode" else None)
+                         group_size=1 if route_rows else None)
     return mlp.apply(cfg, sub(p, "mlp."), x), 0.0
 
 
 def block_apply(cfg, kind: str, p: Dict[str, torch.Tensor], x: torch.Tensor,
-                positions: torch.Tensor, *, mode: str = "train", cache=None):
+                positions: torch.Tensor, *, mode: str = "train", cache=None,
+                route_rows: bool = False):
+    """One layer in ``mode`` (``MODES``): ``(x, aux)`` in train mode, else
+    ``(x, cache)`` with the cache updated in place. ``route_rows`` (decode
+    mode only) routes each row's token through an MoE layer as its own
+    group: the serve slot steps' per-slot routing."""
+    if route_rows and mode != "decode":
+        raise ValueError("route_rows is for decode mode")
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}: one of {MODES}")
     h = common.rmsnorm_apply(p["ln1.scale"], x, cfg.norm_eps)
@@ -147,7 +155,7 @@ def block_apply(cfg, kind: str, p: Dict[str, torch.Tensor], x: torch.Tensor,
     else:
         raise ValueError(f"block kind {kind!r} is not ported")
     h2 = common.rmsnorm_apply(p["ln2.scale"], x, cfg.norm_eps)
-    out, aux = _ffn(cfg, p, h2, mode)
+    out, aux = _ffn(cfg, p, h2, route_rows)
     x = x + out
     return (x, aux) if mode == "train" else (x, cache)
 

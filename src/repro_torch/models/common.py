@@ -7,7 +7,8 @@ products run in the activation dtype (bf16 on the card, f32 in the CPU
 tests) with f32 accumulation, as the reference's ``preferred_element_type``
 products cast back to that dtype. Two keep an f32 result, as the
 reference's: the gated FFN's up and gate products (:func:`matmul_f32`,
-dense and MoE), and the logits, an f32 product of f32 copies (exact
+dense and MoE, whose gradients take the f32 cotangent as the reference's
+transposes do), and the logits, an f32 product of f32 copies (exact
 products of bf16 values). Norms, rotary embeddings, softmax and the loss
 run in f32 as in the reference.
 """
@@ -23,30 +24,75 @@ import torch.nn.functional as F
 F32 = torch.float32
 
 
+def split3_bf16(g: torch.Tensor):
+    """An f32 tensor as three bf16 terms, ``hi + mid + lo == g`` exactly:
+    ``hi = bf16(g)``, ``mid = bf16(g - hi)``, ``lo = bf16(g - hi - mid)``.
+    Each term takes at least the next 8 of f32's 24 significand bits (the
+    differences are exact in f32) and bf16 keeps f32's exponent range, so
+    three cover ``g``. A product of a term with a bf16 value is exact in
+    f32."""
+    hi = g.to(torch.bfloat16)
+    r = g - hi.to(F32)
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.to(F32)).to(torch.bfloat16)
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The f32 product of two bf16 tensors, 2-d or batched 3-d: on the card
+    one cuBLAS call with an f32 output (``aten::mm.dtype`` /
+    ``bmm.dtype``), elsewhere the product of f32 copies (the same exact
+    products, summed in f32 in another order)."""
+    if a.is_cuda:
+        return (torch.mm if a.ndim == 2 else torch.bmm)(a, b, out_dtype=F32)
+    return torch.matmul(a.to(F32), b.to(F32))
+
+
+def matmul_f32_grads(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor,
+                     need=(True, True)):
+    """``(da, db)`` of ``a @ b`` with the f32 result's cotangent ``g``, as
+    the reference transposes ``einsum(..., preferred_element_type=f32)``:
+    each gradient ``bf16(g . f32(operand))``, exact products summed in
+    f32. ``g`` enters as its three bf16 terms (:func:`split3_bf16`), each
+    one GEMM with an f32 output against the bf16 operand; the three are
+    summed in f32 and cast to the inputs' dtype. ``None`` where ``need``
+    is false. Under grad mode (a backward with ``create_graph``, as
+    MAML's outer gradient takes) each product is a :class:`_MatmulF32`,
+    so the gradients are differentiable in turn."""
+    mm = _MatmulF32.apply if torch.is_grad_enabled() else _mm_f32
+    hi, *rest = split3_bf16(g)
+    da = db = None
+    if need[0]:
+        bt = b.transpose(-1, -2)
+        da = sum((mm(t, bt) for t in rest), mm(hi, bt)).to(a.dtype)
+    if need[1]:
+        at = a.transpose(-1, -2)
+        db = sum((mm(at, t) for t in rest), mm(at, hi)).to(b.dtype)
+    return da, db
+
+
 class _MatmulF32(torch.autograd.Function):
-    """``a @ b`` of two bf16 (or f16) CUDA tensors, 2-d (``aten::mm.dtype``)
-    or batched 3-d (``aten::bmm.dtype``), as one cuBLAS call with an f32
-    output. Those ops have no autograd formula, so the backward is written
-    here: the same products with the f32 cotangent rounded to the inputs'
-    dtype (what autograd of ``matmul(a, b).float()`` computes), each
-    gradient one product in the input dtype with f32 accumulation."""
+    """``a @ b`` of two bf16 tensors, 2-d or batched 3-d, with an f32
+    output (:func:`_mm_f32`: one cuBLAS call on the card). Those ops have
+    no autograd formula, so the backward is written here:
+    :func:`matmul_f32_grads`, the f32 cotangent against the bf16
+    operands."""
 
     @staticmethod
     def forward(ctx, a, b):
         ctx.save_for_backward(a, b)
-        mm = torch.mm if a.ndim == 2 else torch.bmm
-        return mm(a, b, out_dtype=F32)
+        return _mm_f32(a, b)
 
     @staticmethod
     def backward(ctx, g):
         a, b = ctx.saved_tensors
-        g = g.to(a.dtype)
-        da = db = None
-        if ctx.needs_input_grad[0]:
-            da = torch.matmul(g, b.transpose(-1, -2))
-        if ctx.needs_input_grad[1]:
-            db = torch.matmul(a.transpose(-1, -2), g)
-        return da, db
+        return matmul_f32_grads(a, b, g, ctx.needs_input_grad[:2])
+
+
+def _gemm_f32_output(a: torch.Tensor) -> bool:
+    """Whether :func:`matmul_f32` runs :class:`_MatmulF32` for ``a``: bf16
+    on the card, where this torch has ``aten::mm.dtype``."""
+    return (a.is_cuda and a.dtype == torch.bfloat16
+            and hasattr(torch.ops.aten.mm, "dtype"))
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -60,7 +106,7 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     f32."""
     if a.dtype == F32 and b.dtype == F32:
         return torch.matmul(a, b)
-    if not (a.is_cuda and hasattr(torch.ops.aten.mm, "dtype")):
+    if not _gemm_f32_output(a):
         return torch.matmul(a.to(F32), b.to(F32))
     if b.ndim == 2:
         out = _MatmulF32.apply(a.reshape(-1, a.shape[-1]), b)

@@ -24,12 +24,15 @@ all-zero row: a comparison with ``arange(cap)``, which, unlike
 ``F.one_hot``, neither raises on such an index nor reads the index back to
 the host (a CUDA graph captures it).
 
-``group_size`` overrides the grouping: a decode step routes each row as a
-group of one token (``blocks.block_apply``), as the reference's serve
-steps decode each slot alone, since capacity couples the tokens of a
-group. The reference's int8 expert-combine over a tensor-
-parallel mesh (``tp_comm == "int8"``) waits for the distributed layer;
-without a mesh the reference takes the plain contraction, as here.
+``group_size`` overrides the grouping: the serve slot steps' decode
+routes each row as a group of one token (``blocks.block_apply(...,
+route_rows=True)``), as the reference's serve steps decode each slot
+alone, since capacity couples the tokens of a group; a plain
+``decode_step`` routes its batch as one group, as the reference's.
+
+The reference's int8 expert-combine over a tensor-parallel mesh
+(``tp_comm == "int8"``) waits for the distributed layer; without a mesh
+the reference takes the plain contraction, as here.
 """
 
 from __future__ import annotations

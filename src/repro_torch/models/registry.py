@@ -155,10 +155,12 @@ def make_prefill_fn(cfg: ModelConfig, *, max_len: Optional[int] = None):
     return prefill_fn
 
 
-def make_decode_fn(cfg: ModelConfig):
+def make_decode_fn(cfg: ModelConfig, *, route_rows: bool = False):
     """``decode_fn(params, token (B, 1), caches)`` -> (logits (B, V),
-    caches) (``repro/models/registry.py:180``); an MoE layer routes each
-    row alone (``transformer.decode_step``). An encoder-decoder's is
+    caches) (``repro/models/registry.py:180``); an MoE layer routes the B
+    tokens as one batch, as the reference's. ``route_rows`` is internal to
+    the serve slot steps (``launch/steps.py``): each row's token routes
+    alone (``transformer.decode_step``). An encoder-decoder's is
     ``decode_fn(params, token, caches, memory_kv)`` (``:183-189``)."""
     mod = family_module(cfg)
 
@@ -170,7 +172,8 @@ def make_decode_fn(cfg: ModelConfig):
         return decode_fn
 
     def decode_fn(params, token, caches):
-        return mod.decode_step(cfg, params, token, caches)
+        return mod.decode_step(cfg, params, token, caches,
+                               route_rows=route_rows)
 
     return decode_fn
 

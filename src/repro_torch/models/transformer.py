@@ -169,13 +169,14 @@ def _inputs(cfg, params: Dict[str, torch.Tensor], tokens, embeds, positions):
 
 def forward(cfg, params: Dict[str, torch.Tensor], tokens: Optional[torch.Tensor],
             positions: Optional[torch.Tensor] = None, *, embeds=None,
-            mode: str = "train", caches=None):
+            mode: str = "train", caches=None, route_rows: bool = False):
     """tokens (B, S) (after ``embeds`` (B, P, D), when given) -> logits
     (B, P + S, padded_vocab) f32 in train mode; in the serve modes
     ("prefill", "decode", "chunk", ``blocks.MODES``) ``(last logits (B,
     V), caches)``, the per-layer caches updated in place
     (``repro/models/transformer.py:161 forward``, whose serve callers all
-    take the last position's logits)."""
+    take the last position's logits). ``route_rows``: see
+    :func:`decode_step`."""
     x, positions = _inputs(cfg, params, tokens, embeds, positions)
     if mode == "train":
         return _logits(cfg, params, apply_layers(cfg, params, x, positions)[0])
@@ -185,7 +186,8 @@ def forward(cfg, params: Dict[str, torch.Tensor], tokens: Optional[torch.Tensor]
     for i, kind in enumerate(kinds):
         x, caches[i] = blocks.block_apply(cfg, kind, layer_params(params, i),
                                           x, positions, mode=mode,
-                                          cache=caches[i])
+                                          cache=caches[i],
+                                          route_rows=route_rows)
     return _logits(cfg, params, x[:, -1]), caches
 
 
@@ -236,13 +238,15 @@ def prefill(cfg, params: Dict[str, torch.Tensor],
 
 
 def decode_step(cfg, params: Dict[str, torch.Tensor], token: torch.Tensor,
-                caches):
+                caches, *, route_rows: bool = False):
     """token (B, 1) -> (logits (B, V) f32, caches advanced one position)
     (``repro/models/transformer.py:245 decode_step``). The MoE layers
-    route each row's token as its own group, as the reference's serve
-    steps (a batch-1 decode of each slot); the reference's ``decode_step``
-    itself routes B > 1 rows as one group."""
-    return forward(cfg, params, token, mode="decode", caches=caches)
+    route the B tokens as one batch, as the reference's. ``route_rows``
+    routes each row's token as its own group instead: the serve slot
+    steps (``launch/steps.py``) pass it, as the reference's vmap of a
+    batch-1 decode over the slots routes each slot alone."""
+    return forward(cfg, params, token, mode="decode", caches=caches,
+                   route_rows=route_rows)
 
 
 def chunk_prefill(cfg, params: Dict[str, torch.Tensor], tokens: torch.Tensor,

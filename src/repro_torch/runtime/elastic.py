@@ -7,16 +7,19 @@ carries over unchanged, and client state lives for one round only, so
 nothing is lost with a failed pod.
 
 Ported: :func:`make_elastic_hierarchical_round`, plain and
-straggler-masked, on :class:`runtime.executor.ElasticHierarchicalRound`.
-Left out until elasticity across cards (ROADMAP queue 1 item 7):
-``ElasticSchedule``, ``rescale_partition``, ``available_mesh_shapes`` and
-the other mesh helpers.
+straggler-masked, on :class:`runtime.executor.ElasticHierarchicalRound`,
+and the helpers that need no mesh, :class:`ElasticSchedule` and
+:func:`rescale_partition`. ``available_mesh_shapes``,
+``pod_device_pool`` and ``mesh_for_surviving_pods`` wait for the
+distributed layer (ROADMAP queue 1 item 2).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
+import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
@@ -25,6 +28,37 @@ from ..algorithms.rounds import _make_client_update
 from ..core.primitives import reciprocal
 from ..optim.optimizers import apply_updates
 from .executor import ElasticHierarchicalRound
+
+
+@dataclasses.dataclass
+class ElasticSchedule:
+    """Cohort-size policy as the device pool grows or shrinks
+    (``repro/runtime/elastic.py:30``): ``groups_per_device`` keeps the load
+    per device constant (weak scaling, the paper's Fig. 4 regime)."""
+
+    groups_per_device: int = 1
+
+    def cohort_size(self, num_devices: int) -> int:
+        return max(1, num_devices * self.groups_per_device)
+
+
+def rescale_partition(round_data, old_n: int, new_n: int):
+    """A round's stacked cohort data from ``old_n`` to ``new_n`` groups
+    (``repro/runtime/elastic.py:45``): a shrink drops the tail groups, a
+    growth repeats the groups in order. Leaves are tensors or numpy
+    arrays; a leaf whose leading axis is not ``old_n`` (or a scalar, or a
+    non-array) is returned as it is."""
+
+    def leaf(x):
+        if not hasattr(x, "shape") or x.ndim == 0 or x.shape[0] != old_n:
+            return x
+        if new_n <= old_n:
+            return x[:new_n]
+        reps = -(-new_n // old_n)
+        cat = torch.cat if torch.is_tensor(x) else np.concatenate
+        return cat([x] * reps, 0)[:new_n]
+
+    return pytree.tree_map(leaf, round_data)
 
 
 def make_elastic_hierarchical_round(loss_fn: Callable, client_opt, server_opt,

@@ -54,7 +54,7 @@ compiles a plan for repeated rounds:
   set of argument shapes and dtypes, that is per pod count.
 
 Left out for later slices: ``ElasticHierarchicalRound``'s physical mesh
-(``mesh=``, ROADMAP queue 1 item 7) and the per-stage sharding
+(``mesh=``, ROADMAP queue 1 item 2) and the per-stage sharding
 constraints (no-ops on one card).
 """
 
@@ -583,7 +583,7 @@ class ElasticHierarchicalRound:
 
     ``mesh=`` (the reference's physical path, which re-homes the server
     state and the pod partials on a degraded mesh) waits for ROADMAP
-    queue 1 item 7 and raises.
+    queue 1 item 2 and raises.
     """
 
     def __init__(self, client_fn: Callable, cross_fn: Callable, *,
@@ -644,8 +644,8 @@ class ElasticHierarchicalRound:
         if mesh is not None:
             raise NotImplementedError(
                 "ElasticHierarchicalRound.step(mesh=...): the physical "
-                "mesh path waits for ROADMAP queue 1 item 7 (elasticity "
-                "across cards)")
+                "mesh path waits for ROADMAP queue 1 item 2 (the distributed "
+                "layer)")
         leaves = pytree.tree_leaves(round_data)
         if not leaves:
             raise ValueError("round_data must have at least one leaf")

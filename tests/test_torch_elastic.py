@@ -159,7 +159,7 @@ class TestElasticSplit:
         params, data, cfg = _setup()
         server = optim.fedavg_momentum(1.0)
         tparams = _t(params)
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 2"):
             _elastic(cfg, server).step(tparams, server.init(tparams),
                                        _t(data), mesh=object())
 

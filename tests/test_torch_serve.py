@@ -192,9 +192,11 @@ def _two_slot_pool(cfg, params):
 
 
 def _slot_logits(cfg, params, pool, tokens):
+    """The slot decode's logits: per-row routing, as ``launch.steps``'s
+    slot steps take it."""
     from torch.utils import _pytree as pytree
 
-    decode = registry.make_decode_fn(cfg)
+    decode = registry.make_decode_fn(cfg, route_rows=True)
     with torch.no_grad():
         logits, _ = decode(params, torch.tensor(tokens, dtype=torch.int32)[
             :, None], pytree.tree_map(torch.clone, pool))

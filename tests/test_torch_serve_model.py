@@ -21,6 +21,8 @@
   the oracle (R5).
 - K4's and K5's first order stays the plain backward, bitwise, with no
   plain second-order call.
+- MoE ``decode_step`` at B 2 routes the batch as one group, as the
+  reference's; the slot steps' per-row routing is the control.
 """
 
 import functools
@@ -106,6 +108,42 @@ def _decode(jcfg, tcfg, jparams, tparams, jlast, jcaches, tcaches, steps):
         tok = np.argmax(np.asarray(jl), -1)[:, None].astype(np.int32)
     _close_caches(tcfg, tcaches, jcaches, "decoded caches")
     return jcaches, tcaches
+
+
+def test_moe_decode_routes_the_batch_as_one_group():
+    """Reduced phi35_moe (f32) at B 2: ``transformer.decode_step`` routes
+    the two rows' tokens as one group, as the reference's ``decode_step``
+    (``repro/models/transformer.py:245``): 4 greedy steps from the
+    reference's prefill, logits within 2e-5 of the largest magnitude. The
+    control: the slot steps' per-row routing (``route_rows=True``, capacity
+    1 an expert alone against 1 for two tokens together at top 2 of 4)
+    moves some step's logits away from the reference's."""
+    jcfg, tcfg, jparams, tparams = _models("phi35_moe")
+    toks = _tokens(5, 2, 8, jcfg.vocab_size)
+    jlast, jcaches = _jitted(jcfg)[0](jparams, jnp.asarray(toks), max_len=16)
+    tok = np.argmax(np.asarray(jlast), -1)[:, None].astype(np.int32)
+    tcaches = convert.caches_from_jax(tcfg, jax.device_get(jcaches),
+                                      device="cpu")
+    rows = convert.caches_from_jax(tcfg, jax.device_get(jcaches),
+                                   device="cpu")
+    moved = 0
+    for i in range(4):
+        jl, jcaches = _jitted(jcfg)[1](jparams, jnp.asarray(tok), jcaches)
+        want = np.asarray(jl)
+        with torch.no_grad():
+            tl, tcaches = transformer.decode_step(tcfg, tparams,
+                                                  torch.from_numpy(tok),
+                                                  tcaches)
+            rl, rows = transformer.decode_step(tcfg, tparams,
+                                               torch.from_numpy(tok), rows,
+                                               route_rows=True)
+        np.testing.assert_allclose(tl.numpy(), want, rtol=TOL,
+                                   atol=TOL * np.abs(want).max(),
+                                   err_msg=f"decode {i}")
+        moved += not np.allclose(rl.numpy(), want, rtol=TOL,
+                                 atol=TOL * np.abs(want).max())
+        tok = np.argmax(want, -1)[:, None].astype(np.int32)
+    assert moved
 
 
 @pytest.mark.parametrize("arch", ARCHS)
