@@ -1796,10 +1796,12 @@ def phase_train(phase: str, layers: int = 0, biases: bool = False, **over):
     return counts
 
 
-def hier_round_fn(cfg, args, pods: int, fused, straggler: bool = False):
+def hier_round_fn(cfg, args, pods: int, fused, straggler: bool = False,
+                  mesh=None):
     """The pod-hierarchical int8 round (``pods`` pods of ``args.cohort //
     pods`` clients), fused reduce+compress or the generic composition, or
-    (``straggler``) the masked round, which compresses per client."""
+    (``straggler``) the masked round, which compresses per client; on
+    ``mesh`` with pods over "pod" and clients over "data"."""
     import functools
 
     from repro_torch.algorithms import rounds
@@ -1810,7 +1812,9 @@ def hier_round_fn(cfg, args, pods: int, fused, straggler: bool = False):
     round_cfg = rounds.LocalSGDConfig(
         partition_size=args.cohort // pods, num_local_steps=args.local_steps,
         grad_clip=1.0, compression="int8", num_pods=pods, fused_reduce=fused,
-        straggler_mask=straggler)
+        straggler_mask=straggler, mesh=mesh,
+        partition_axes=None if mesh is None else {"pods": "pod",
+                                                  "clients": "data"})
     return rounds.make_hierarchical_local_sgd_round(
         functools.partial(registry.loss_fn, cfg), client_opt, server_opt,
         round_cfg), server_opt
@@ -4982,6 +4986,326 @@ def phase_chaos(smi: str) -> dict:
     return {"report": j, "seconds": seconds, "launches": counts}
 
 
+# [mesh]: the distributed layer on the card. The card machine has one
+# H100, so (a) is a one-rank NCCL mesh in this process, and (b) and (c)
+# are gloo worlds whose ranks share the card (gloo carries broadcast and
+# all_reduce of CUDA tensors): they run the multi-rank paths, they do not
+# time a multi-card run. The spawned ranks run this file with
+# ``--mesh-rank`` and load the kernels [build] built.
+MESH_TIMEOUT_S = 300.0
+MESH_SOAK = dict(rounds=20, seed=1, num_pods=4, clients_per_pod=2,
+                 num_device_failures=1, num_elastic_events=2,
+                 num_ckpt_faults=1, checkpoint_every=4, audit_every=8,
+                 serve_traffic=False)
+
+
+def mesh_flat_round(mesh=None, ann: bool = True):
+    """[flat]'s int8 round of full lm_350m (cohort 4, seq 512), its clients
+    over "data" of ``mesh`` when given."""
+    import functools
+
+    from repro_torch.algorithms import rounds
+    from repro_torch.launch import train
+    from repro_torch.models import registry
+
+    args = flat_args()
+    cfg = registry.get_config(args.arch)
+    client_opt, server_opt = train.optimizers(args)
+    round_cfg = rounds.LocalSGDConfig(
+        partition_size=args.cohort, num_local_steps=args.local_steps,
+        grad_clip=1.0, compression="int8",
+        partition_axes="data" if mesh is not None else None, mesh=mesh,
+        use_sharding_annotations=ann)
+    return cfg, args, rounds.make_local_sgd_round(
+        functools.partial(registry.loss_fn, cfg), client_opt, server_opt,
+        round_cfg), server_opt
+
+
+def mesh_rounds(fn, params, state, data, rounds: int) -> dict:
+    """``rounds`` rounds from ``params``: losses, seconds, launches, peak."""
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    losses, seconds = [], []
+    for r in range(rounds):
+        t0 = time.perf_counter()
+        params, state, metrics = fn(params, state, data(r))
+        losses.append(float(metrics["loss"]))
+        seconds.append(time.perf_counter() - t0)
+    return dict(params=params, losses=losses, seconds=seconds,
+                launches=ops.launch_counts(),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def flat_data(cfg, args):
+    from repro_torch.data.grouped import CohortSampler, GroupedCorpus
+
+    sampler = CohortSampler(GroupedCorpus(vocab_size=cfg.vocab_size),
+                            cohort_size=args.cohort)
+
+    def data(r):
+        d = sampler.round_batch(r, args.local_steps, args.batch, args.seq,
+                                device="cuda")
+        return {"tokens": d["tokens"], "labels": d["labels"]}
+
+    return data
+
+
+def phase_mesh_one_rank(workdir: str) -> dict:
+    """[mesh] (a): a (pod 1, data 1) mesh from ``mesh_for_placements`` in a
+    world of one NCCL rank. [flat]'s int8 round (K1a, K1b, K2) with its
+    clients over "data", and [hier]'s fused int8 round 2 x 2 at 12 layers
+    (K2, K3b) with pods over "pod" and clients over "data": losses and
+    parameters bitwise the mesh-free rounds', launch counts equal. Saves
+    the mesh-free flat round's first parameters for (b)."""
+    import torch.distributed as dist
+
+    from repro_torch import compat
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import registry
+
+    backend = compat.init_process_group(
+        0, 1, init_method=f"file://{workdir}/rendezvous_a", device="cuda")
+    require(backend == "nccl", f"one-rank mesh on {backend}, not nccl")
+    mesh = mesh_lib.mesh_for_placements({"pods": 1, "clients": 1},
+                                        device="cuda")
+    out = {}
+    cfg, args, plain_fn, server_opt = mesh_flat_round()
+    _, _, mesh_fn, _ = mesh_flat_round(mesh)
+    data = flat_data(cfg, args)
+    params = registry.init_params(cfg, seed=args.seed, device="cuda")
+    state = server_opt.init(params)
+    one = mesh_rounds(plain_fn, params, state, data, 1)
+    torch.save({k: v.cpu() for k, v in params.items()},
+               os.path.join(workdir, "base.pt"))
+    torch.save({k: v.cpu() for k, v in one["params"].items()},
+               os.path.join(workdir, "round1.pt"))
+    del one
+    plain = mesh_rounds(plain_fn, params, state, data, 2)
+    meshed = mesh_rounds(mesh_fn, params, state, data, 2)
+    require(plain["losses"] == meshed["losses"],
+            f"[mesh] flat losses {meshed['losses']} != mesh-free "
+            f"{plain['losses']}")
+    require_equal([meshed["params"][k] for k in plain["params"]],
+                  list(plain["params"].values()), "[mesh] flat params")
+    require(plain["launches"] == meshed["launches"]
+            and meshed["launches"]["quantize"] >= 2 * args.cohort
+            and meshed["launches"]["flash_attention_fwd"] > 0,
+            f"[mesh] flat launches {meshed['launches']} vs mesh-free "
+            f"{plain['launches']}")
+    out["flat"] = meshed["launches"]
+    log("mesh", step="a", round="flat", mesh="(pod 1, data 1)",
+        backend=backend, losses=[round(v, 5) for v in meshed["losses"]],
+        round_s=[round(v, 3) for v in meshed["seconds"]],
+        mesh_free_round_s=[round(v, 3) for v in plain["seconds"]],
+        bitwise=True, launches=json.dumps(meshed["launches"]))
+    del plain, meshed, params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    hargs = flat_args(rounds=2)
+    hcfg = hier_config(hargs)
+    hparams = registry.init_params(hcfg, seed=hargs.seed, device="cuda")
+    plain_h, hserver = hier_round_fn(hcfg, hargs, pods=2, fused=True)
+    mesh_h, _ = hier_round_fn(hcfg, hargs, pods=2, fused=True, mesh=mesh)
+    hstate = hserver.init(hparams)
+    hflat = flat_data(hcfg, hargs)
+
+    def hdata(r):
+        return {k: v.reshape((2, 2) + tuple(v.shape[1:]))
+                for k, v in hflat(r).items()}
+
+    hruns = {name: mesh_rounds(fn, hparams, hstate, hdata, 2)
+             for name, fn in (("plain", plain_h), ("mesh", mesh_h))}
+    plain, meshed = hruns["plain"], hruns["mesh"]
+    require(plain["losses"] == meshed["losses"],
+            f"[mesh] hier losses {meshed['losses']} != {plain['losses']}")
+    require_equal([meshed["params"][k] for k in plain["params"]],
+                  list(plain["params"].values()), "[mesh] hier params")
+    require(plain["launches"] == meshed["launches"]
+            and meshed["launches"]["reduce_compress_roundtrip"] >= 2,
+            f"[mesh] hier launches {meshed['launches']} vs "
+            f"{plain['launches']}")
+    out["hier"] = meshed["launches"]
+    log("mesh", step="a", round="hier", layers=hcfg.num_layers,
+        mesh="(pod 1, data 1)", backend=backend,
+        losses=[round(v, 5) for v in meshed["losses"]],
+        round_s=[round(v, 3) for v in meshed["seconds"]],
+        mesh_free_round_s=[round(v, 3) for v in plain["seconds"]],
+        bitwise=True, launches=json.dumps(meshed["launches"]))
+    del hruns, hparams, hstate
+    dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_world(kind: str, world: int, workdir: str) -> list:
+    """Spawn ``world`` ranks of this file (``--mesh-rank``) on a gloo world
+    sharing the card, wait for them all under one deadline (killing them
+    all on a failure or at the deadline) and return each rank's JSON."""
+    rdzv = os.path.join(workdir, f"rendezvous_{kind}")
+    procs = []
+    for rank in range(world):
+        log_path = os.path.join(workdir, f"{kind}_rank{rank}.log")
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-rank", kind,
+             str(rank), str(world), rdzv, workdir],
+            stdout=open(log_path, "w"), stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + MESH_TIMEOUT_S
+    while any(p.poll() is None for p in procs):
+        if (any(p.poll() not in (None, 0) for p in procs)
+                or time.monotonic() > deadline):
+            break
+        time.sleep(0.1)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    results, bad = [], []
+    for rank, p in enumerate(procs):
+        path = os.path.join(workdir, f"{kind}_rank{rank}.json")
+        if p.returncode != 0 or not os.path.exists(path):
+            with open(os.path.join(workdir, f"{kind}_rank{rank}.log")) as fh:
+                bad.append(f"rank {rank} exit {p.returncode}:\n"
+                           f"{fh.read()[-3000:]}")
+            continue
+        with open(path) as fh:
+            results.append(json.load(fh))
+    require(not bad, f"[mesh] {kind} world failed:\n" + "\n".join(bad))
+    return results
+
+
+def mesh_rank_main(kind: str, rank: int, world: int, rdzv: str,
+                   workdir: str) -> int:
+    """One rank of a [mesh] gloo world (``python3 chip_smoke.py
+    --mesh-rank <kind> <rank> <world> <rendezvous> <dir>``)."""
+    from repro_torch import compat
+    from repro_torch.kernels import _build
+
+    require(all(_build.KERNELS.path(n).exists() for n in _build.SOURCES),
+            "[mesh] a spawned rank found no built kernels under build/")
+    compat.init_process_group(rank, world, init_method=f"file://{rdzv}",
+                              device="cuda", backend="gloo")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = (mesh_rank_flat(rank, world, workdir) if kind == "b"
+           else mesh_rank_soak(rank, world, workdir))
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(os.path.join(workdir, f"{kind}_rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+    return 0
+
+
+def mesh_rank_flat(rank: int, world: int, workdir: str) -> dict:
+    """(b) on one rank: [flat]'s first round with the 4 clients sharded 2 a
+    rank over "data", then with ``use_sharding_annotations=False``
+    (DrJAX-NS, 4 clients a rank): each one's peak and the parameters held
+    to (a)'s mesh-free round (rank 0)."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import registry
+
+    mesh = mesh_lib.make_mesh((world,), ("data",), device="cuda")
+    out = {}
+    want = (torch.load(os.path.join(workdir, "round1.pt")) if rank == 0
+            else None)
+    base = (torch.load(os.path.join(workdir, "base.pt")) if rank == 0
+            else None)
+    for name, ann in (("drjax", True), ("ns", False)):
+        cfg, args, fn, server_opt = mesh_flat_round(mesh, ann)
+        params = registry.init_params(cfg, seed=args.seed, device="cuda")
+        run = mesh_rounds(fn, params, server_opt.init(params),
+                          flat_data(cfg, args), 1)
+        got = {k: v.cpu() for k, v in run["params"].items()}
+        res = dict(loss=run["losses"][0], round_s=run["seconds"][0],
+                   peak_gib=run["peak_gib"], launches=run["launches"])
+        if rank == 0:
+            steps = quant_steps({k: want[k].float() - base[k].float()
+                                 for k in want})
+            res["worst"], res["equal"] = agree_within_step(
+                got, want, steps, rel=2.0 ** -7)
+            res["bitwise"] = all(torch.equal(got[k], want[k]) for k in want)
+        out[name] = res
+        del params, run, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_rank_soak(rank: int, world: int, workdir: str) -> dict:
+    """(c) on one rank: the physical chaos soak at the reference's
+    acceptance config (``tests/test_chaos.py:194-201``) on the card."""
+    from repro_torch.runtime import chaos
+
+    rep = chaos.run_chaos_soak(chaos.ChaosConfig(
+        **MESH_SOAK, physical_mesh=True, device="cuda",
+        ckpt_dir=os.path.join(workdir, "soak_ckpt")))
+    return rep.to_json()
+
+
+def phase_mesh() -> dict:
+    """[mesh]: (a) one NCCL rank in this process, (b) the flat int8 round on
+    2 gloo ranks sharing the card against (a) and against DrJAX-NS (the
+    paper's Fig. 6 as client copies a rank, 2 against 4), (c) the physical
+    chaos soak on 8 gloo ranks sharing the card, every invariant
+    required."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="mesh_") as workdir:
+        counts = phase_mesh_one_rank(workdir)
+        t_a = time.perf_counter() - t0
+        flat = mesh_world("b", 2, workdir)
+        r0 = flat[0]
+        for name in ("drjax", "ns"):
+            require(r0[name]["worst"] <= 1.0,
+                    f"[mesh] (b) {name} beyond the int8 round tolerance of "
+                    f"(a)'s mesh-free round: {r0[name]['worst']}")
+            require(all(r[name]["loss"] == r0[name]["loss"] for r in flat),
+                    f"[mesh] (b) {name} losses differ between ranks")
+        log("mesh", step="b", ranks=2, backend="gloo",
+            clients_per_rank={"drjax": 2, "ns": 4},
+            peak_gib={name: [round(r[name]["peak_gib"], 2) for r in flat]
+                      for name in ("drjax", "ns")},
+            round_s={name: [round(r[name]["round_s"], 3) for r in flat]
+                     for name in ("drjax", "ns")},
+            loss={name: r0[name]["loss"] for name in ("drjax", "ns")},
+            worst_over_tolerance={name: round(r0[name]["worst"], 4)
+                                  for name in ("drjax", "ns")},
+            equal_fraction={name: round(r0[name]["equal"], 6)
+                            for name in ("drjax", "ns")},
+            ns_bitwise=r0["ns"]["bitwise"],
+            launches=json.dumps({name: r0[name]["launches"]
+                                 for name in ("drjax", "ns")}))
+        t_b = time.perf_counter() - t0 - t_a
+        soak = mesh_world("c", 8, workdir)
+    rep = soak[0]
+    require(all(r["oracle_bitwise_equal"] and r["physical_mesh"]
+                for r in soak), "[mesh] (c) soak not bitwise its oracle")
+    require(rep["reshards"] >= len(rep["elastic_events"]) >= 1
+            and rep["cross_compiles"] == rep["meshes_seen"] >= 2
+            and rep["mesh_migrate_ms"] > 0,
+            f"[mesh] (c) reshards {rep['reshards']}, cross legs "
+            f"{rep['cross_compiles']}, meshes {rep['meshes_seen']}, "
+            f"migrate {rep['mesh_migrate_ms']} ms")
+    log("mesh", step="c", ranks=8, backend="gloo", reshards=rep["reshards"],
+        meshes_seen=rep["meshes_seen"], cross_compiles=rep["cross_compiles"],
+        mesh_migrate_ms=rep["mesh_migrate_ms"],
+        elastic_events=json.dumps(rep["elastic_events"]),
+        restarts=rep["restarts"], fallback_restores=rep["fallback_restores"],
+        loss_first=rep["loss_first"], loss_final=rep["loss_final"],
+        wall_s=[r["wall_s"] for r in soak])
+    log("mesh", seconds=f"{time.perf_counter() - t0:.1f}",
+        one_rank_s=f"{t_a:.1f}", two_ranks_s=f"{t_b:.1f}",
+        soak_s=f"{time.perf_counter() - t0 - t_a - t_b:.1f}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; no card",
@@ -4994,6 +5318,9 @@ def main() -> int:
     sys.path.insert(0, str(src))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["--mesh-rank"]:  # a rank of a [mesh] gloo world
+        kind, rank, world, rdzv, workdir = sys.argv[2:7]
+        return mesh_rank_main(kind, int(rank), int(world), rdzv, workdir)
 
     t_start = time.perf_counter()
     smi = phase_build()
@@ -5088,6 +5415,8 @@ def main() -> int:
     encdec = phase_encdec(gen)
     free_graphs()
     phase_chaos(smi)
+    free_graphs()
+    phase_mesh()
     log("new phases", seconds=f"{time.perf_counter() - t_new:.1f}")
     launches = {"quantize": flat_counts["quantize"],
                 "dequantize": flat_counts["dequantize"],

@@ -30,7 +30,7 @@ and ``run_plan`` of it runs the same calls as the direct loop.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Sequence, Union
+from typing import Any, Callable, Sequence, Union
 
 import torch
 from torch.utils import _pytree as pytree
@@ -50,13 +50,17 @@ __all__ = [
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     """``num_stages`` is the stage-kind placement's size S,
-    ``num_microbatches`` the M microbatches fed through per round. The
-    reference's ``stage_axes``, ``mesh`` and sharding switch place the
-    stages on a mesh, which one card does not have (ROADMAP queue 1
-    item 2)."""
+    ``num_microbatches`` the M microbatches fed through per round.
+    ``stage_axes`` names the mesh dim the stage level shards over
+    (conventionally "stage", ``launch.mesh.level_axes_for``) on ``mesh``,
+    a ``DeviceMesh``: each rank then runs its own stages, and the
+    transfer exchanges them over that dim."""
 
     num_stages: int
     num_microbatches: int
+    stage_axes: Any = None
+    mesh: Any = None
+    use_sharding_annotations: bool = True
 
 
 def pipeline_bubble_fraction(num_stages: int, num_microbatches: int) -> float:
@@ -124,7 +128,11 @@ def make_pipelined_round(stage_fns: Union[Callable, Sequence[Callable]],
         return drjax.stage_transfer(y, shift=1), out
 
     @drjax.program(placements={"stages": s},
-                   placement_kinds={"stages": "stages"})
+                   placement_kinds={"stages": "stages"},
+                   partition_axes=({"stages": cfg.stage_axes}
+                                   if cfg.stage_axes is not None else None),
+                   mesh=cfg.mesh,
+                   use_sharding_annotations=cfg.use_sharding_annotations)
     def round_fn(microbatches, act0):
         if prims.is_recording() and core_api._under_trace():
             return _scanned_ticks(tick, microbatches, act0, ticks, s)

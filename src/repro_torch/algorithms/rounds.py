@@ -19,13 +19,17 @@ Ported: ``LocalSGDConfig``, the client update, ``make_local_sgd_round``,
 (``cfg.straggler_mask`` and a ``mask`` argument: the masked reduction
 averages over the groups that finished). The asynchronous rounds are in
 ``async_rounds.py``.
+
+On a mesh (``cfg.mesh``, ``cfg.partition_axes``) each rank runs its own
+clients and the means are collectives; ``cfg.use_sharding_annotations=
+False`` is DrJAX-NS.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import torch
 from torch.utils import _pytree as pytree
@@ -42,6 +46,12 @@ from ..optim.optimizers import Optimizer, apply_updates, clip_by_global_norm
 class LocalSGDConfig:
     partition_size: int
     num_local_steps: int = 4
+    # The mesh dim(s) the clients shard over (e.g. "data"), a DeviceMesh,
+    # and the sharding switch (False: DrJAX-NS, every rank runs every
+    # client).
+    partition_axes: Any = None
+    mesh: Any = None
+    use_sharding_annotations: bool = True
     grad_clip: float = 0.0
     compression: Optional[str] = None  # None | "int8" | "topk"
     topk_fraction: float = 0.01
@@ -66,6 +76,29 @@ def _tree_sub(a, b):
     return pytree.tree_map(
         lambda x, y: x.to(torch.float32) - y.to(torch.float32), a, b
     )
+
+
+def _hier_axes(cfg: LocalSGDConfig):
+    """Per-placement mesh axes of the nested {pods, clients} stack
+    (``repro/algorithms/rounds.py:65-80``): a mapping passes through, a
+    tuple of two or more axes gives its first to pods and the rest to
+    clients, a single axis goes to clients (pods stay logical)."""
+    axes = cfg.partition_axes
+    if axes is None:
+        return None
+    if isinstance(axes, dict):
+        return axes
+    if isinstance(axes, (tuple, list)) and len(axes) >= 2:
+        rest = tuple(axes[1:])
+        return {"pods": axes[0], "clients": rest if len(rest) > 1 else rest[0]}
+    if isinstance(axes, (tuple, list)):
+        axes = axes[0]
+    return {"pods": None, "clients": axes}
+
+
+def _sharding(cfg: LocalSGDConfig, partition_axes) -> dict:
+    return dict(partition_axes=partition_axes, mesh=cfg.mesh,
+                use_sharding_annotations=cfg.use_sharding_annotations)
 
 
 def _value_and_grad(loss_fn: Callable, params, batch):
@@ -123,7 +156,8 @@ def make_local_sgd_round(loss_fn: Callable, client_opt: Optimizer,
     """
     client_update = _make_client_update(loss_fn, client_opt, cfg)
 
-    @drjax.program(partition_size=cfg.partition_size)
+    @drjax.program(partition_size=cfg.partition_size,
+                   **_sharding(cfg, cfg.partition_axes))
     def round_fn(global_params, server_state, round_data, mask=None):
         with torch.no_grad():
             params_b = drjax.broadcast(global_params)
@@ -175,7 +209,8 @@ def make_hierarchical_local_sgd_round(loss_fn: Callable, client_opt: Optimizer,
                 layer_axis=1)
 
     @drjax.program(placements={"pods": cfg.num_pods,
-                               "clients": cfg.partition_size})
+                               "clients": cfg.partition_size},
+                   **_sharding(cfg, _hier_axes(cfg)))
     def round_fn(global_params, server_state, round_data, mask=None):
         with torch.no_grad():
             params_b = drjax.broadcast(global_params)
@@ -277,7 +312,8 @@ def make_fedsgd_round(loss_fn: Callable, server_opt: Optimizer,
         loss, grads = _value_and_grad(loss_fn, params, batch)
         return grads, loss
 
-    @drjax.program(partition_size=cfg.partition_size)
+    @drjax.program(partition_size=cfg.partition_size,
+                   **_sharding(cfg, cfg.partition_axes))
     def round_fn(global_params, server_state, batches, weights=None):
         with torch.no_grad():
             params_b = drjax.broadcast(global_params)

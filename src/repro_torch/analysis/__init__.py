@@ -14,7 +14,8 @@ Two halves:
     donate_argnums=...)`` does with a donation (refused donations with
     the why, unused ones, loop-carry eligibility); ``CompiledPlan`` runs
     it and raises on its errors;
-  - :func:`analyze_retrace`: fingerprint-unstable captures, and
+  - :func:`analyze_retrace`: fingerprint-unstable captures, a donated
+    plan keyed by a mesh elastic events resize, and
     :func:`explain_fingerprint_mismatch` for two plans that should share
     an executable and do not;
   - :func:`estimate_comm_cost`: per-stage wire bytes from the IR (DCN vs
@@ -102,7 +103,8 @@ def analyze_plan(plan, *, donate_argnums=(), cross_validate: bool = False,
     report.findings.extend(placement_safety.check_placement_safety(plan))
     report.findings.extend(
         donation.analyze_donation(plan, donate_argnums=donate_argnums))
-    report.findings.extend(retrace.analyze_retrace(plan))
+    report.findings.extend(
+        retrace.analyze_retrace(plan, donate_argnums=donate_argnums))
     if comm_cost:
         cost = commcost.estimate_comm_cost(plan)
         report.comm_cost = cost

@@ -13,6 +13,11 @@ Rules:
   falls back to a plain version around it.
 * ``no-torch-compile``: no ``torch.compile`` on the main path (the package
   and ``chip_smoke.py``): every kernel of the port is written by hand.
+* ``mesh-axes-literal``: no hard-coded tuple or list of two or more mesh
+  axis names (``pod``, ``data``, ``superpod``, ``stage``, ``model``) under
+  ``src/repro_torch/`` outside ``launch/mesh.py``, the one home of mesh
+  axis-name tuples (the reference's rule, with the port's mesh file as
+  its home).
 
 Suppression: append ``# lint: disable=<rule>`` (comma-separated for
 several rules) to the flagged line or the line above it.
@@ -191,6 +196,35 @@ def _no_torch_compile(root: str) -> List[LintViolation]:
                     "no-torch-compile", _rel(path, root), node.lineno,
                     "torch.compile on the main path: a kernel of the port "
                     "is written by hand, never generated"))
+    return out
+
+
+# A frozenset (an ast.Set, never a Tuple), so the rule cannot flag itself.
+_MESH_AXIS_NAMES = frozenset({"pod", "data", "superpod", "stage", "model"})
+_MESH_AXES_HOME = "src/repro_torch/launch/mesh.py"
+
+
+@rule("mesh-axes-literal",
+      "no hard-coded mesh axis-name tuples under src/repro_torch/ outside "
+      "launch/mesh.py: import REPLICA_AXES or use the mesh helpers")
+def _mesh_axes_literal(root: str) -> List[LintViolation]:
+    out = []
+    for path in _port_files(root):
+        rel = _rel(path, root)
+        if rel == _MESH_AXES_HOME:
+            continue
+        for node in ast.walk(_parse(path)):
+            if (isinstance(node, (ast.Tuple, ast.List))
+                    and len(node.elts) >= 2
+                    and all(isinstance(e, ast.Constant)
+                            and isinstance(e.value, str)
+                            and e.value in _MESH_AXIS_NAMES
+                            for e in node.elts)):
+                names = ", ".join(repr(e.value) for e in node.elts)
+                out.append(LintViolation(
+                    "mesh-axes-literal", rel, node.lineno,
+                    f"hard-coded mesh axes ({names}): import them from "
+                    "repro_torch.launch.mesh (REPLICA_AXES, level_axes_for)"))
     return out
 
 

@@ -21,6 +21,14 @@ constants of a plan and of all its sub-plans and flags:
   round, every round misses the cache; pass it as a plan input instead;
 * ``retrace/large-const`` (info): a tensor constant above 1 MiB, hashed on
   every compile and baked into the executable.
+* ``retrace/mesh-keyed-leg`` (warning, needs ``donate_argnums``): a
+  donated plan spanning two or more replica placement levels. Its
+  executable is keyed by a mesh (``runtime.executor._mesh_key``) that an
+  elastic event resizes, and donated inputs cannot be replayed on the new
+  mesh: split the round so that only the small cross-pod leg is donated
+  (``runtime.elastic.make_elastic_hierarchical_round``). Only replica
+  levels count (``plan.placement_kinds``): an elastic event does not
+  resize a stage level.
 
 :func:`explain_fingerprint_mismatch` is the differential half: given two
 plans that should share an executable and do not, it names the component
@@ -37,12 +45,6 @@ reference code                 why it cannot arise here
                                hashed by their code
 ``retrace/weak-type-input``    torch has no weak types: a Python number is
                                a constant of the code, not an input
-``retrace/mesh-keyed-leg``     no executable is keyed by a mesh until
-                               ``ElasticHierarchicalRound`` takes ``mesh=``
-                               (ROADMAP queue 1 item 2); it then counts
-                               replica levels only
-                               (``plan.placement_kinds``): a stage level
-                               is not resized by an elastic event
 =============================  ==========================================
 """
 
@@ -56,8 +58,7 @@ import torch
 from ..core import interpreter as interp
 from .findings import Finding
 
-NOT_PORTED = ("retrace/object-const", "retrace/weak-type-input",
-              "retrace/mesh-keyed-leg")
+NOT_PORTED = ("retrace/object-const", "retrace/weak-type-input")
 
 _LARGE_CONST_BYTES = 1 << 20
 _LIFT = "lift_fresh_copy"
@@ -69,8 +70,19 @@ def _captured(node) -> bool:
     return any(interp._op_name(u) != _LIFT for u in node.users)
 
 
-def analyze_retrace(plan) -> List[Finding]:
+def analyze_retrace(plan, donate_argnums=()) -> List[Finding]:
     findings: List[Finding] = []
+    n_replica_levels = sum(1 for k in plan.placement_kinds if k != "stages")
+    if donate_argnums and n_replica_levels >= 2:
+        findings.append(Finding(
+            "retrace/mesh-keyed-leg", "warning",
+            f"plan donates argnums {tuple(donate_argnums)} but spans "
+            f"{n_replica_levels} replica placement levels: its executable "
+            "is keyed by a mesh that elastic events (pod dropout/regrowth) "
+            "can change, and donated buffers cannot be replayed on the new "
+            "mesh; split the round so only the cross-pod leg is donated "
+            "(see runtime.elastic.make_elastic_hierarchical_round)",
+        ))
     for pi, p in enumerate(interp._all_plans(plan)):
         where = "top-level plan" if pi == 0 else f"sub-plan {pi}"
         for ci, (node, val) in enumerate(p.const_env().items()):

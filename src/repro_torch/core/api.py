@@ -20,8 +20,12 @@ Ported: ``program`` (with ``placement_kinds``), ``broadcast``, ``map_fn``
 ``reduce_mean``, ``reduce_max``, ``reduce_weighted_mean``,
 ``masked_reduce_mean`` (the straggler rounds' reduction),
 ``stage_transfer`` and ``stage_map`` (pipeline stages) and
-``partition_size``. Left out for later slices: the sharding annotations
-(no-ops on one card until ROADMAP queue 1 item 2).
+``partition_size``, with the reference's sharding switches
+(``partition_axes``, ``mesh``, ``use_sharding_annotations``,
+``use_spmd_axis_name``): on a ``DeviceMesh`` a partitioned value is a
+DTensor sharded over its levels' mesh dims, ``map_fn`` runs its body on
+each rank's own groups and the reductions are collectives
+(``core/sharding.py``).
 """
 
 from __future__ import annotations
@@ -33,8 +37,10 @@ from typing import Callable, Mapping, Optional
 import torch
 from torch.utils import _pytree as pytree
 
+from .. import compat
 from . import placement as placement_lib
 from . import primitives as prims
+from . import sharding
 
 __all__ = [
     "program",
@@ -61,7 +67,11 @@ def program(
     *,
     partition_size: Optional[int] = None,
     placements: Optional[Mapping[str, int]] = None,
+    partition_axes=None,
     placement_kinds: Optional[Mapping[str, str]] = None,
+    mesh=None,
+    use_sharding_annotations: bool = True,
+    use_spmd_axis_name: bool = True,
 ):
     """Decorator declaring a DrJAX program over ``partition_size=n`` groups
     (the paper's API, one "clients" placement) or an ordered stack
@@ -69,7 +79,17 @@ def program(
     ``placement_kinds`` marks levels as pipeline stages
     (``{"stages": "stages"}``): they communicate by :func:`stage_transfer`
     and :func:`stage_map` instead of broadcast/reduce; unnamed levels are
-    ``"replicas"``."""
+    ``"replicas"``.
+
+    ``mesh`` (a ``DeviceMesh``, built on every rank) and ``partition_axes``
+    (a mesh dim name for one placement, or ``{placement: axes}``) shard
+    each level's groups over its mesh dims; every rank of the mesh calls
+    the program (SPMD). Inside it, server values after a reduction are
+    replicated DTensors and mix with plain tensors (implicit
+    replication); it returns them as the plain tensors every rank holds,
+    and a partitioned result as a DTensor. ``use_sharding_annotations=
+    False`` is DrJAX-NS (Fig. 6): nothing is sharded and every rank
+    computes every group."""
     if fn is not None:
         raise TypeError(
             "drjax.program requires a partition size: use "
@@ -79,14 +99,24 @@ def program(
         raise ValueError("Pass either partition_size or placements, not both.")
     if placements is None and partition_size is None:
         raise ValueError("partition_size (or placements) is required.")
-    ctx = placement_lib.make_context(partition_size, placements=placements,
-                                     placement_kinds=placement_kinds)
+    ctx = placement_lib.make_context(
+        partition_size, placements=placements, partition_axes=partition_axes,
+        placement_kinds=placement_kinds, mesh=mesh,
+        use_sharding_annotations=use_sharding_annotations,
+        use_spmd_axis_name=use_spmd_axis_name)
 
     def deco(f: Callable) -> Callable:
         @functools.wraps(f)
         def wrapped(*args, **kwargs):
             with placement_lib.placement_context(ctx):
-                return f(*args, **kwargs)
+                if not ctx.sharded() or prims.is_recording():
+                    return f(*args, **kwargs)
+                from torch.distributed.tensor.experimental import (
+                    implicit_replication)
+
+                with implicit_replication():
+                    out = f(*args, **kwargs)
+                return sharding.unwrap_replicated(out)
 
         wrapped.drjax_context = ctx
         return wrapped
@@ -193,7 +223,10 @@ def reduce_weighted_mean(tree, weights, placement: Optional[str] = None):
             x = prims.reduce_sum(x, placement=name)
         return x
 
-    denom = rsum(weights)
+    def place(x):  # on a mesh: the rank's own groups, as the leaf's
+        return sharding.constrain_partitioned(x, ctx, depth_in)
+
+    denom = rsum(place(weights))
     all_dropped = denom == 0
     safe_denom = torch.where(all_dropped, torch.ones_like(denom), denom)
 
@@ -207,8 +240,8 @@ def reduce_weighted_mean(tree, weights, placement: Optional[str] = None):
                 f"the group axes {expected} (one entry per group of "
                 f"placement(s) {list(ctx.names[:depth_in])})."
             )
-        w = weights.reshape(expected + (1,) * (x.ndim - depth_in))
-        s = rsum(x * w)
+        w = place(weights.reshape(expected + (1,) * (x.ndim - depth_in)))
+        s = rsum(place(x) * w)
         trail = (1,) * (s.ndim - depth_out)
         dropped = all_dropped.reshape(tuple(all_dropped.shape) + trail)
         denom_b = safe_denom.reshape(tuple(safe_denom.shape) + trail)
@@ -239,6 +272,9 @@ def map_groups(body: Callable, sizes, lead: int, *leaves, n_mapped=None):
     sizes = tuple(sizes)
     n = len(leaves) if n_mapped is None else n_mapped
     mapped, whole = leaves[:n], leaves[n:]
+    ref = next((x for x in mapped if sharding.is_dtensor(x)), None)
+    if ref is not None:
+        return _map_dtensors(body, lead, len(sizes), ref, mapped, whole)
     stacked = None
     for idx in itertools.product(*(range(k) for k in sizes)):
         sel = (slice(None),) * lead + idx
@@ -260,6 +296,39 @@ def map_groups(body: Callable, sizes, lead: int, *leaves, n_mapped=None):
             buf[sel] = x
         del outs  # free this group's outputs before the next group runs
     return stacked
+
+
+def _map_dtensors(body: Callable, lead: int, depth: int, ref, mapped, whole):
+    """A map node run on a mesh (a compiled plan's): each rank maps its
+    own groups, the local shards of ``ref``'s placement; a plain mapped
+    leaf is cut to the same groups, and the outputs are placed as
+    ``ref``."""
+    from torch.distributed.tensor import DTensor
+
+    mesh, placements = ref.device_mesh, tuple(ref.placements)
+
+    def local(x):
+        if sharding.is_dtensor(x):
+            if tuple(x.placements) != placements:
+                raise ValueError("map_fn: mapped DTensors placed "
+                                 f"{tuple(x.placements)} and {placements}")
+            return x.to_local()
+        rep = DTensor.from_local(x, mesh, compat.replicated_placements(mesh),
+                                 run_check=False)
+        return rep.redistribute(mesh, placements).to_local()
+
+    locs = [local(x) for x in mapped]
+    wholes = [x.to_local() if sharding.is_dtensor(x) else x for x in whole]
+    d = lead + depth
+    outs = map_groups(body, tuple(locs[0].shape[lead:d]), lead, *locs,
+                      *wholes, n_mapped=len(locs))
+    out = []
+    for o in outs:
+        shape = tuple(ref.shape[:d]) + tuple(o.shape[d:])
+        out.append(DTensor.from_local(
+            o, mesh, placements, run_check=False, shape=torch.Size(shape),
+            stride=sharding.contiguous_stride(shape)))
+    return out
 
 
 def _under_trace() -> bool:
@@ -511,11 +580,32 @@ def map_fn(fn: Callable, tree, placement: Optional[str] = None):
 
     if prims.is_recording() and _under_trace():
         stacked = _RecordedMap.apply(body, sizes, lead, *leaves)
+    elif ctx.sharded() and not prims.is_recording():
+        stacked = _map_on_mesh(ctx, body, lead, depth, leaves)
     elif _in_functorch_transform():
         stacked = _stack_groups(body, sizes, lead, *leaves)
     else:
         stacked = map_groups(body, sizes, lead, *leaves)
     return pytree.tree_unflatten(list(stacked), out_specs[0])
+
+
+def _map_on_mesh(ctx: placement_lib.PlacementContext, body: Callable,
+                 lead: int, depth: int, leaves):
+    """``map_fn`` on a mesh: each rank runs ``body`` on its own groups (the
+    local shards) and the outputs are DTensors placed as the inputs. With
+    ``use_spmd_axis_name=False`` each rank runs every group (the inputs
+    gathered exactly) and keeps its own groups' outputs."""
+    d = lead + depth
+    local = [sharding.to_local(x, ctx, d) for x in leaves]
+    if not ctx.use_spmd_axis_name:
+        for i in range(d):
+            local = [sharding.gather_level(x, ctx, i) for x in local]
+    sizes = tuple(local[0].shape[lead:d])
+    outs = map_groups(body, sizes, lead, *local)
+    if not ctx.use_spmd_axis_name:
+        return [sharding.constrain_partitioned(o, ctx, d) for o in outs]
+    return [sharding.wrap(o, ctx, d, sharding.global_shape(o, ctx, d))
+            for o in outs]
 
 
 def _stage_placement_name(ctx: placement_lib.PlacementContext,
@@ -569,9 +659,8 @@ def stage_map(fns, tree, placement: Optional[str] = None):
     *tuple* ``tree`` passes its elements as separate positional arguments.
     Levels outside the stage level stay mapped (each of their groups runs
     the stage function on its own slice), and the results are stacked
-    back on the stage axis. The reference re-constrains them to the stage
-    level's sharding; on one card that is a no-op (ROADMAP queue 1 item
-    7)."""
+    back on the stage axis. On a mesh each rank runs its own stages on its
+    own groups and the result is placed at the stage level's depth."""
     ctx = placement_lib.current_context()
     name = _stage_placement_name(ctx, placement)
     if callable(fns):
@@ -586,7 +675,14 @@ def stage_map(fns, tree, placement: Optional[str] = None):
             "every stage)."
         )
     leaves, in_spec = pytree.tree_flatten(tree)
-    outer = ctx.sizes[:i]
+    stages = range(size)
+    on_mesh = ctx.sharded() and not prims.is_recording()
+    if on_mesh:  # each rank runs its own stages on its own groups
+        leaves = [sharding.to_local(x, ctx, i + 1) for x in leaves]
+        n_local, dims = leaves[0].shape[i], sharding.level_dims(ctx, i)
+        first = n_local * sharding.block_index(ctx.mesh, dims) if dims else 0
+        stages = range(first, first + n_local)
+    outer = tuple(leaves[0].shape[:i]) if leaves else ctx.sizes[:i]
     out_specs = []
 
     def run_stage(s: int):
@@ -599,16 +695,20 @@ def stage_map(fns, tree, placement: Optional[str] = None):
             out_specs.append(spec)
             return out_leaves
 
-        sliced = [x.select(i, s) for x in leaves]
+        sliced = [x.select(i, s - stages[0]) for x in leaves]
         if not outer:
             return body(*sliced)
         return _stack_groups(body, outer, 0, *sliced)
 
-    per_stage = [run_stage(s) for s in range(size)]
+    per_stage = [run_stage(s) for s in stages]
     if any(spec != out_specs[0] for spec in out_specs):
         raise ValueError("stage_map: the stages returned trees of different "
                          "structures")
     stacked = [torch.stack(parts, dim=i) for parts in zip(*per_stage)]
+    if on_mesh:
+        stacked = [sharding.wrap(x, ctx, i + 1,
+                                 sharding.global_shape(x, ctx, i + 1))
+                   for x in stacked]
     return pytree.tree_unflatten(stacked, out_specs[0])
 
 

@@ -17,6 +17,13 @@ flat-packed into one ``(*groups, R, 256)`` buffer per dtype and the
 intra-pod leg is one ``reduce_mean`` tagged ``compress="int8"``, whose
 execution is the fused reduce+compress kernel. Gradients are identical
 either way: the roundtrip is straight-through.
+
+On a mesh the stages are the primitives' collectives (``core/sharding.py``);
+the fused leg gathers each pod's clients exactly and runs the kernel on
+the whole stack, and a ``compress_fn`` sees the whole pod partials (top-k
+counts over all of them, as the reference's does). The flat API's derived
+stack keeps the context's mesh and axes where its group counts can shard
+over them (:func:`_axes_if_divisible`, the reference's m | n rule).
 """
 
 from __future__ import annotations
@@ -27,16 +34,37 @@ from typing import Callable, Optional
 
 from torch.utils import _pytree as pytree
 
-from .. import compression
+from .. import compat, compression
 from . import api
 from . import placement as placement_lib
 from . import primitives as prims
+from . import sharding
 
 _SUPER = "pods"
 
 # Set REPRO_NO_FUSED_REDUCE=1 to force the generic two-stage composition
 # even for recognized compressors. An explicit ``use_fused=True`` overrides.
 _NO_FUSED_ENV = "REPRO_NO_FUSED_REDUCE"
+
+
+def _axes_if_divisible(axes, groups: int, mesh):
+    """A derived level keeps its mesh axes only if its group count can
+    shard over them (devices | groups); otherwise it stays logical. With
+    no mesh the axes are kept as documentation, and axes the mesh lacks
+    are kept too, so the later placement fails loudly
+    (``repro/core/hierarchical.py:50-64``)."""
+    if axes is None or mesh is None:
+        return axes
+    axes_t = (axes,) if isinstance(axes, str) else tuple(axes)
+    if not axes_t:
+        return None
+    sizes = dict(zip(compat.mesh_axis_names(mesh), compat.mesh_shape(mesh)))
+    devices = 1
+    for a in axes_t:
+        if a not in sizes:
+            return axes
+        devices *= sizes[a]
+    return axes if groups % devices == 0 else None
 
 
 def _fusable(tree, ctx, compress_fn, use_fused: Optional[bool]) -> bool:
@@ -70,20 +98,38 @@ def _fusable(tree, ctx, compress_fn, use_fused: Optional[bool]) -> bool:
 def _staged_reduce(tree, ctx, compress_fn, use_fused: Optional[bool]):
     """The two-stage reduction under the ambient (nested) context."""
     inner = ctx.names[-1]
+    d = ctx.depth
     if _fusable(tree, ctx, compress_fn, use_fused):
+        on_mesh = ctx.sharded()
+        if on_mesh:  # pack each rank's own groups
+            tree = pytree.tree_map(lambda x: sharding.to_local(x, ctx, d),
+                                   tree)
         bufs, spec = compression.flat_pack(
-            tree, lead_ndim=ctx.depth, cols=compression.PACK_COLS
+            tree, lead_ndim=d, cols=compression.PACK_COLS
         )
         outs = {}
         for key, buf in bufs.items():
+            if on_mesh:
+                buf = sharding.wrap(buf, ctx, d,
+                                    sharding.global_shape(buf, ctx, d))
             v = prims.reduce_mean(buf, placement=inner, compress="int8")
             for name in reversed(ctx.names[:-1]):
                 v = prims.reduce_mean(v, placement=name)
             outs[key] = v
-        return compression.flat_unpack(outs, spec, lead_ndim=0)
+        out = compression.flat_unpack(sharding.unwrap_replicated(outs), spec,
+                                      lead_ndim=0)
+        return (sharding.constrain_tree(out, ctx, partitioned=False)
+                if on_mesh else out)
     partials = api.reduce_mean(tree, placement=inner)
     if compress_fn is not None:
-        partials = compress_fn(partials)
+        if ctx.sharded():  # the compressor sees the whole partials
+            whole = pytree.tree_map(
+                lambda x: sharding.gather_partitioned(x, ctx, d - 1),
+                partials)
+            partials = sharding.constrain_tree(compress_fn(whole), ctx,
+                                               partitioned=True, depth=d - 1)
+        else:
+            partials = compress_fn(partials)
     out = partials
     for name in reversed(ctx.names[:-1]):
         out = api.reduce_mean(out, placement=name)
@@ -128,14 +174,30 @@ def hierarchical_reduce_mean(
     per = n // num_supergroups
     inner_name = ctx.placement
     super_name = _SUPER if inner_name != _SUPER else "superpods"
-    nested = placement_lib.PlacementContext(placements=(
-        placement_lib.Placement(super_name, num_supergroups),
-        placement_lib.Placement(inner_name, per),
-    ))
-    regrouped = pytree.tree_map(
-        lambda leaf: leaf.reshape((num_supergroups, per) + tuple(leaf.shape[1:])),
-        tree,
+    axes = ctx.axes_tuple()
+    # The outermost mesh axis carries the slow (cross-pod) leg, the rest
+    # stays with the per-pod groups, each only where its count shards.
+    super_axes = _axes_if_divisible(axes[0] if axes else None,
+                                    num_supergroups, ctx.mesh)
+    inner_axes = _axes_if_divisible(axes[1:] if len(axes) > 1 else None,
+                                    per, ctx.mesh)
+    nested = placement_lib.PlacementContext(
+        placements=(
+            placement_lib.Placement(super_name, num_supergroups, super_axes),
+            placement_lib.Placement(inner_name, per, inner_axes),
+        ),
+        mesh=ctx.mesh,
+        use_sharding_annotations=ctx.use_sharding_annotations,
+        use_spmd_axis_name=ctx.use_spmd_axis_name,
     )
+
+    def regroup(leaf):
+        if ctx.sharded():  # whole on every rank, then the nested placement
+            leaf = sharding.gather_partitioned(leaf, ctx, 1)
+        leaf = leaf.reshape((num_supergroups, per) + tuple(leaf.shape[1:]))
+        return sharding.constrain_partitioned(leaf, nested, 2)
+
+    regrouped = pytree.tree_map(regroup, tree)
     with placement_lib.placement_context(nested):
         return _staged_reduce(regrouped, nested, compress_fn, use_fused)
 

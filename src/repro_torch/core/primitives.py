@@ -59,6 +59,14 @@ powers of two.
 ``stage_transfer`` has no kernel: the reference lowers it with
 ``mlir.lower_fun`` of its jnp implementation, a roll and a zero fill,
 which are plain tensor ops here too.
+
+**On a mesh** (a context with a ``DeviceMesh`` and sharding annotations,
+outside a trace) each primitive runs its ``core/sharding.py`` form on the
+rank's own groups: broadcast expands onto them, the reductions add the
+local partial and ``all_reduce`` it over the level's mesh dims, the
+int8-tagged mean and the transfer gather the level exactly first. A
+traced program records the mesh-free ops: a plan takes its mesh when it
+is compiled (``runtime.executor.compile_plan(mesh=)``).
 """
 
 from __future__ import annotations
@@ -70,6 +78,7 @@ import torch
 
 from ..kernels import ops as kernel_ops
 from . import placement as placement_lib
+from . import sharding
 
 COMM_OPS = ("broadcast", "reduce_sum", "reduce_mean", "reduce_max",
             "stage_transfer")
@@ -107,8 +116,8 @@ def parse_placements(spec: str) -> Tuple[placement_lib.Placement, ...]:
     out = []
     for entry in spec.split(","):
         name, size, *kind = entry.split(":")
-        out.append(placement_lib.Placement(name, int(size),
-                                           kind[0] if kind else "replicas"))
+        out.append(placement_lib.Placement(
+            name, int(size), kind=kind[0] if kind else "replicas"))
     return tuple(out)
 
 
@@ -121,6 +130,14 @@ def _resolve(placement: Optional[str]) -> Tuple[placement_lib.Placement, int]:
     ctx = placement_lib.current_context()
     i = ctx.index_of(placement)
     return ctx.placements[i], i
+
+
+def _mesh_ctx() -> Optional[placement_lib.PlacementContext]:
+    """The ambient context when the primitives run on its mesh."""
+    if _RECORDING:
+        return None
+    ctx = placement_lib.current_context()
+    return ctx if ctx.sharded() else None
 
 
 def _check_kind(pl: placement_lib.Placement, prim: str, expect: str) -> None:
@@ -417,6 +434,9 @@ def broadcast(x: torch.Tensor, placement: Optional[str] = None) -> torch.Tensor:
     if _RECORDING:
         return _Broadcast.apply(
             x, stack_spec(placement_lib.current_context()), i)
+    ctx = _mesh_ctx()
+    if ctx is not None:
+        return sharding.broadcast(x, ctx, i)
     return _expand(x, i, pl.size)
 
 
@@ -427,6 +447,9 @@ def reduce_sum(x: torch.Tensor, placement: Optional[str] = None) -> torch.Tensor
     if _RECORDING:
         return _ReduceSum.apply(
             x, stack_spec(placement_lib.current_context()), i)
+    ctx = _mesh_ctx()
+    if ctx is not None:
+        return sharding.reduce_sum(x, ctx, i)
     return x.sum(dim=i)
 
 
@@ -436,6 +459,9 @@ def reduce_max(x: torch.Tensor, placement: Optional[str] = None) -> torch.Tensor
     pl, i = _resolve(placement)
     _check_kind(pl, "reduce_max", "replicas")
     _check_operand_depth(x, i + 1, "reduce_max")
+    ctx = _mesh_ctx()
+    if ctx is not None:
+        return sharding.reduce_max(x, ctx, i)
     return _ReduceMax.apply(x, stack_spec(placement_lib.current_context()), i)
 
 
@@ -473,6 +499,14 @@ def reduce_mean(x: torch.Tensor, placement: Optional[str] = None, *,
     if _RECORDING:
         return _ReduceMean.apply(
             x, stack_spec(placement_lib.current_context()), i, compress, qaxis)
+    ctx = _mesh_ctx()
+    if ctx is not None:
+        if compress is None:
+            return sharding.reduce_sum(x, ctx, i, scale=reciprocal(pl.size))
+        return sharding.reduce_mean_int8(
+            x, ctx, i,
+            lambda full, axis: _FusedReduceMean.apply(full, axis, pl.size,
+                                                      qaxis))
     if compress is None:
         return x.sum(dim=i) * reciprocal(pl.size)
     return _FusedReduceMean.apply(x, i, pl.size, qaxis)
@@ -493,4 +527,9 @@ def stage_transfer(x: torch.Tensor, placement: Optional[str] = None, *,
         return _StageTransfer.apply(
             x, stack_spec(placement_lib.current_context()), i, int(shift),
             bool(wrap))
+    ctx = _mesh_ctx()
+    if ctx is not None:
+        return sharding.stage_transfer(
+            x, ctx, i, lambda full, axis: _transfer(full, axis, int(shift),
+                                                    bool(wrap)))
     return _transfer(x, i, int(shift), bool(wrap))

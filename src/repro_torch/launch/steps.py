@@ -45,8 +45,9 @@ donated, one executable per chunk bucket and one decode step. On the CPU
 every call runs eagerly. Either way the first call for a key counts as a
 build on its ``runtime.executor.TraceCounter``.
 
-The mesh, FSDP and training-step parts of the reference's ``steps.py``
-wait for the distributed layer (ROADMAP queue 1, item 2).
+The training-step functions of the reference's ``steps.py`` (with their
+mesh, FSDP and logical axis rules: the model-parallel half of the
+distributed layer) wait for ROADMAP queue 1 item 3, with ``dryrun``.
 """
 
 from __future__ import annotations

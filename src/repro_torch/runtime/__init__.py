@@ -1,9 +1,9 @@
-"""Distributed runtime (``repro/runtime``). Ported: failure injection and
+"""Distributed runtime (``repro/runtime``): failure injection and
 checkpoint-restart recovery, straggler simulation and masks, the compiled
-plan executor (``runtime.executor``) and the elastic hierarchical round
-(``runtime.elastic``) with its mesh-free helpers, and the chaos soak in
-its logical mode (``runtime.chaos``). Left out for the distributed layer:
-elasticity across cards (meshes) and the soak's physical mode."""
+plan executor (``runtime.executor``, on one device or on a mesh), the
+elastic hierarchical round (``runtime.elastic``) with its mesh helpers and
+its physical path on a mesh of the surviving pods' ranks, and the chaos
+soak in its logical and physical modes (``runtime.chaos``)."""
 
 from .elastic import ElasticSchedule, rescale_partition
 from .failure import (

@@ -37,12 +37,33 @@ adversity, and asserts the system's production invariants as hard checks:
   survived by a fallback restore strictly below the killed step
   (``mid_write_kills_survived == mid_write_kills_injected``).
 
-The reference's physical mode (``physical_mesh=True``: a real ``(pod,
-data)`` mesh rebuilt from the surviving devices at every elastic event)
-needs the distributed layer (ROADMAP queue 1 item 2) and raises
-``NotImplementedError``; its report columns (``reshards``,
-``mesh_migrate_ms``, ``meshes_seen``) are zero here, as the reference's
-are in logical mode.
+**Physical mode** (``physical_mesh=True``, the reference's): the soak
+runs in a world of at least ``num_pods * clients_per_pod`` ranks
+(``compat.init_process_group``; every rank calls ``run_chaos_soak`` with
+the same config), one rank standing for each device of the reference's
+pod pool (:func:`~repro_torch.runtime.elastic.pod_device_pool`). Each
+round runs on the ``(pod, data)`` mesh of that round's surviving pods
+(:func:`~repro_torch.runtime.elastic.mesh_for_surviving_pods`), built
+once per alive set on every rank (construction is collective) and passed
+to ``ElasticHierarchicalRound.step(mesh=)``:
+
+* the schedule is drawn identically on every rank, and every rank runs
+  the loop; a dropped pod's ranks sit out its rounds;
+* each rank checkpoints into its own ``<ckpt_dir>/rank_<r>``, so the
+  torn, corrupt and ``kill@`` faults need no cross-rank file protocol;
+  after a restore to step s the ranks of round s - 1's mesh hold the
+  current state, and the next step broadcasts it to any other rank;
+* serve bursts, where the config asks for them, run on rank 0 alone;
+* the oracle replays on the same meshes; ``reshards``,
+  ``mesh_migrate_ms`` and ``meshes_seen`` are the executor's (taken
+  before the replay), and the physical invariants hold
+  (``reshards >= elastic events``, ``cross_compiles == meshes_seen``).
+  The counters that differ between ranks are agreed by ``all_reduce``:
+  the losses and audits of the rounds each rank ran, the cross legs
+  built (one per mesh across the world), the slowest migration; the
+  bitwise verdict is that of the ranks in the last round's mesh.
+
+In logical mode those report columns are zero, as the reference's are.
 
 ``ChaosConfig(minutes=N)`` replaces the fixed round count with a
 wall-clock budget: a probe round is timed (:func:`_calibrate_round_s`) and
@@ -68,6 +89,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import tempfile
 import time
 from typing import Any, Dict, List, Optional, Tuple
@@ -150,8 +172,8 @@ class ChaosConfig:
     # audits
     audit_every: int = 12
 
-    # the reference's physical elasticity (a real (pod, data) mesh): needs
-    # the distributed layer, so True raises
+    # physical elasticity: the rounds on a real (pod, data) mesh of the
+    # surviving pods' ranks, in a world of num_pods * clients_per_pod ranks
     physical_mesh: bool = False
 
     # time budget: scale the schedule to ~N minutes of wall clock instead
@@ -665,6 +687,15 @@ class _ServeTraffic:
         }
 
 
+def _agree_max(values: List[float], device) -> List[float]:
+    """The elementwise max of ``values`` over every rank of the world."""
+    import torch.distributed as dist
+
+    t = torch.tensor(values, dtype=torch.float64, device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return t.tolist()
+
+
 def _host(tree) -> List[np.ndarray]:
     return [t.detach().cpu().numpy() for t in pytree.tree_leaves(tree)]
 
@@ -678,15 +709,36 @@ def run_chaos_soak(cfg: Optional[ChaosConfig] = None, *,
     from ..algorithms.rounds import LocalSGDConfig, make_local_sgd_round
     from .elastic import make_elastic_hierarchical_round
 
+    from .elastic import mesh_for_surviving_pods, pod_device_pool
+
     t_start = time.time()
     cfg = cfg or ChaosConfig()
-    if cfg.physical_mesh:
-        raise NotImplementedError(
-            "run_chaos_soak(physical_mesh=True): the soak on a real (pod, "
-            "data) mesh waits for ROADMAP queue 1 item 2 (the distributed "
-            "layer)")
     device = compat.resolve_device(cfg.device)
     C = cfg.clients_per_pod
+
+    # --- physical elasticity: a real (pod, data) mesh per alive set -----
+    pool, rank = None, 0
+    if cfg.physical_mesh:
+        import torch.distributed as dist
+
+        need = cfg.num_pods * C
+        if not dist.is_initialized() or dist.get_world_size() < need:
+            raise RuntimeError(
+                f"physical_mesh soak needs a world of {need} ranks "
+                f"({cfg.num_pods} pods x {C} clients): join one with "
+                "compat.init_process_group on every rank first")
+        pool, rank = pod_device_pool(cfg.num_pods, C), dist.get_rank()
+    mesh_cache: Dict[Tuple[int, ...], Any] = {}
+
+    def mesh_for(alive: Tuple[int, ...]):
+        # one mesh per alive set for the whole soak (oracle included), built
+        # by every rank in the same order
+        if pool is None:
+            return None
+        if alive not in mesh_cache:
+            mesh_cache[alive] = mesh_for_surviving_pods(pool, alive,
+                                                        device=device.type)
+        return mesh_cache[alive]
 
     client_opt = optim.sgd(cfg.client_lr)
     server_opt = optim.fedavg_momentum(1.0, momentum=cfg.server_momentum)
@@ -719,9 +771,11 @@ def run_chaos_soak(cfg: Optional[ChaosConfig] = None, *,
                                device=device),
         }
 
+        probe_mesh = mesh_for(tuple(range(cfg.num_pods)))
+
         def probe_round():
             _, _, m = elastic.step(init_state["params"], init_state["server"],
-                                   probe_batch)
+                                   probe_batch, mesh=probe_mesh)
             float(m["loss"])
 
         cfg = scale_config_to_minutes(cfg, _calibrate_round_s(probe_round))
@@ -748,6 +802,8 @@ def run_chaos_soak(cfg: Optional[ChaosConfig] = None, *,
     tmp = (tempfile.TemporaryDirectory(prefix="chaos_ckpt_")
            if cfg.ckpt_dir is None else None)
     ckpt_dir = cfg.ckpt_dir or tmp.name
+    if pool is not None:
+        ckpt_dir = os.path.join(ckpt_dir, f"rank_{rank}")
     remaining_faults = dict(schedule.ckpt_faults)
     injected_faults: Dict[int, str] = {}
 
@@ -766,7 +822,8 @@ def run_chaos_soak(cfg: Optional[ChaosConfig] = None, *,
     injector = FailureInjector(schedule.failure_rounds)
     fired_failures: List[int] = []
 
-    serve = _ServeTraffic(cfg) if schedule.serve_rounds else None
+    serve = (_ServeTraffic(cfg) if schedule.serve_rounds and rank == 0
+             else None)
 
     # per-round records keyed by round index: a replay overwrites with the
     # identical value (step_fn is deterministic in the round), so replays
@@ -775,6 +832,13 @@ def run_chaos_soak(cfg: Optional[ChaosConfig] = None, *,
     masked_t: Dict[int, float] = {}
     sync_t: Dict[int, float] = {}
     audit_errs: Dict[int, float] = {}
+
+    def on_recovery(_i: int, s: Optional[int]) -> None:
+        recovery_log.append(s)
+        if pool is not None:  # the ranks that ran round s - 1 are current
+            elastic.set_state_holders(
+                None if not s else pool[list(schedule.alive_pods[s - 1])]
+                .reshape(-1))
 
     def step_fn(r: int, state):
         try:
@@ -787,15 +851,21 @@ def run_chaos_soak(cfg: Optional[ChaosConfig] = None, *,
         mask, mt, st_ = schedule.round_mask_and_times(r, p)
         masked_t[r], sync_t[r] = mt, st_
         batch = {"data": (x, y), "mask": mask}
-        params, server, metrics = elastic.step(
-            state["params"], state["server"], batch)
+        # a rank whose inputs are stale (it receives the state in this
+        # step's migration) does not audit the round
+        current = elastic.holds_state(rank)
+        out = elastic.step(state["params"], state["server"], batch,
+                           mesh=mesh_for(schedule.alive_pods[r]))
         if serve is not None and r in schedule.serve_rounds:
             # the burst goes out BEFORE the host waits for the loss: on the
             # card the round is still queued, so these latencies are
             # contended
             serve.burst(r, schedule)
+        if out is None:  # this rank's pod is down: it sits the round out
+            return state
+        params, server, metrics = out
         losses[r] = float(metrics["loss"])
-        if r in schedule.audit_rounds:
+        if r in schedule.audit_rounds and current:
             n = p * C
             ref_p, _, _ = flat_round(n)(
                 state["params"], state["server"],
@@ -816,7 +886,7 @@ def run_chaos_soak(cfg: Optional[ChaosConfig] = None, *,
         max_restarts=cfg.max_restarts,
         recoverable=DEFAULT_RECOVERABLE,
         backoff_base_s=cfg.backoff_base_s,
-        on_recovery=lambda _i, s: recovery_log.append(s),
+        on_recovery=on_recovery,
     )
 
     # --- fallback accounting: a recovery fell back iff it restored below
@@ -848,25 +918,60 @@ def run_chaos_soak(cfg: Optional[ChaosConfig] = None, *,
     if tmp is not None:
         tmp.cleanup()
 
+    # physical counters: taken BEFORE the oracle, whose replay re-adopts
+    # every mesh
+    reshards = elastic.reshard_count
+    mesh_migrate_ms = elastic.mesh_migrate_ms
+    meshes_seen = elastic.meshes_seen
+
     # --- oracle: the same schedule, uninterrupted, on the SAME executor;
     # it must build nothing and reproduce the final state bitwise ---
     traces_before = elastic.client_trace_count
     cross_before = elastic.cross_compile_count
+    elastic.set_state_holders(None)  # every rank starts from init_state
     o_state = init_state
     for r in range(cfg.rounds):
         p = schedule.pod_counts[r]
         x, y = schedule.data_for_round(r, p)
         mask, _, _ = schedule.round_mask_and_times(r, p)
-        pp, ss, _ = elastic.step(o_state["params"], o_state["server"],
-                                 {"data": (x, y), "mask": mask})
-        o_state = {"params": pp, "server": ss}
+        out = elastic.step(o_state["params"], o_state["server"],
+                           {"data": (x, y), "mask": mask},
+                           mesh=mesh_for(schedule.alive_pods[r]))
+        if out is not None:
+            o_state = {"params": out[0], "server": out[1]}
     oracle_extra = (elastic.client_trace_count - traces_before) + (
         elastic.cross_compile_count - cross_before
     )
-    bitwise = all(
-        np.array_equal(a, b)
-        for a, b in zip(_host(final_state), _host(o_state))
-    )
+    final_mesh = mesh_for(schedule.alive_pods[cfg.rounds - 1])
+    bitwise = (final_mesh is not None and final_mesh.get_coordinate() is None
+               ) or all(np.array_equal(a, b) for a, b in
+                        zip(_host(final_state), _host(o_state)))
+    cross_compiles = elastic.cross_compile_count
+    client_traces = elastic.client_trace_count
+    if pool is not None:
+        from . import executor
+
+        # one cross leg per mesh across the world; the rest as above
+        built = set(elastic.cross_meshes())
+        agreed = _agree_max(
+            [float(executor._mesh_key(m) in built) for m in
+             mesh_cache.values()]
+            + [float(client_traces), float(oracle_extra), mesh_migrate_ms,
+               float(not bitwise)]
+            + [losses.get(r, -np.inf) for r in range(cfg.rounds)]
+            + [audit_errs.get(r, -np.inf)
+               for r in sorted(schedule.audit_rounds)],
+            device)
+        k, n = len(mesh_cache), cfg.rounds
+        built_v, counts, loss_v, audit_v = (
+            agreed[:k], agreed[k:k + 4], agreed[k + 4:k + 4 + n],
+            agreed[k + 4 + n:])
+        cross_compiles = int(sum(built_v))
+        client_traces, oracle_extra = int(counts[0]), int(counts[1])
+        mesh_migrate_ms, bitwise = counts[2], counts[3] == 0.0
+        losses = {r: v for r, v in enumerate(loss_v) if v != -np.inf}
+        audit_errs = {r: v for r, v in zip(sorted(schedule.audit_rounds),
+                                           audit_v) if v != -np.inf}
 
     mp50, mp99 = _percentiles([masked_t[r] for r in sorted(masked_t)])
     sp50, sp99 = _percentiles([sync_t[r] for r in sorted(sync_t)])
@@ -890,14 +995,14 @@ def run_chaos_soak(cfg: Optional[ChaosConfig] = None, *,
         ckpt_faults_injected=dict(injected_faults),
         elastic_events=schedule.elastic_events,
         pods_seen=tuple(sorted(set(schedule.pod_counts))),
-        client_leg_traces=elastic.client_trace_count,
-        client_retraces=max(0, elastic.client_trace_count - 1),
-        cross_compiles=elastic.cross_compile_count,
+        client_leg_traces=client_traces,
+        client_retraces=max(0, client_traces - 1),
+        cross_compiles=cross_compiles,
         oracle_extra_traces=oracle_extra,
-        physical_mesh=False,
-        reshards=0,
-        mesh_migrate_ms=0.0,
-        meshes_seen=0,
+        physical_mesh=cfg.physical_mesh,
+        reshards=reshards,
+        mesh_migrate_ms=round(mesh_migrate_ms, 3),
+        meshes_seen=meshes_seen,
         mid_write_kills_injected=len(kill_steps),
         mid_write_kills_survived=kills_survived,
         straggler={

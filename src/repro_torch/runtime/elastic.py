@@ -7,17 +7,17 @@ carries over unchanged, and client state lives for one round only, so
 nothing is lost with a failed pod.
 
 Ported: :func:`make_elastic_hierarchical_round`, plain and
-straggler-masked, on :class:`runtime.executor.ElasticHierarchicalRound`,
-and the helpers that need no mesh, :class:`ElasticSchedule` and
-:func:`rescale_partition`. ``available_mesh_shapes``,
-``pod_device_pool`` and ``mesh_for_surviving_pods`` wait for the
-distributed layer (ROADMAP queue 1 item 2).
+straggler-masked, on :class:`runtime.executor.ElasticHierarchicalRound`
+(whose ``step(mesh=)`` runs it on a mesh of the surviving pods' ranks),
+:class:`ElasticSchedule`, :func:`rescale_partition`, and the mesh helpers
+:func:`available_mesh_shapes`, :func:`pod_device_pool` (of ranks) and
+:func:`mesh_for_surviving_pods`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, List, Tuple
 
 import numpy as np
 import torch
@@ -145,3 +145,91 @@ def make_elastic_hierarchical_round(loss_fn: Callable, client_opt, server_opt,
     return ElasticHierarchicalRound(client_leg, cross_leg,
                                     clients_per_pod=cfg.partition_size,
                                     device=device)
+
+
+def available_mesh_shapes(num_devices: int, model_parallelism: int = 1, *,
+                          placements=None) -> List:
+    """Every mesh shape that tiles a (possibly degraded) pool of
+    ``num_devices`` ranks exactly (``repro/runtime/elastic.py:190``): the
+    requested model parallelism first, then each halving down to 1.
+
+    Without ``placements``: ``(data, model)`` pairs. With ``placements``
+    (any spec ``launch.mesh.level_axes_for`` takes): every level but the
+    outermost keeps its size and the outermost absorbs the pool; each
+    entry is ``(shape, axes)``, the axes from ``level_axes_for``."""
+    if placements is None:
+        shapes: List[Tuple[int, int]] = []
+        mp = model_parallelism
+        while mp >= 1:
+            if num_devices % mp == 0:
+                shape = (num_devices // mp, mp)
+                if shape not in shapes:
+                    shapes.append(shape)
+            if mp == 1:
+                break
+            mp //= 2
+        return shapes
+
+    from ..launch.mesh import _normalize_stack, level_axes_for
+
+    stack = _normalize_stack(placements)
+    if not stack:
+        raise ValueError("placements must not be empty")
+    level_axes = level_axes_for(stack)
+    inner_sizes = tuple(s for _, s, _ in stack[1:])
+    inner = 1
+    for s in inner_sizes:
+        inner *= s
+    out: List[Tuple[Tuple[int, ...], Tuple[str, ...]]] = []
+    mp = model_parallelism
+    while mp >= 1:
+        denom = inner * mp
+        if denom and num_devices % denom == 0 and num_devices >= denom:
+            shape: Tuple[int, ...] = (num_devices // denom,) + inner_sizes
+            axes: Tuple[str, ...] = level_axes
+            if model_parallelism > 1:
+                shape = shape + (mp,)
+                axes = axes + ("model",)
+            if (shape, axes) not in out:
+                out.append((shape, axes))
+        if mp == 1:
+            break
+        mp //= 2
+    return out
+
+
+def pod_device_pool(num_pods: int, clients_per_pod: int,
+                    devices=None) -> np.ndarray:
+    """The world's ranks as a ``(num_pods, clients_per_pod)`` array: row p
+    holds pod p's ranks, the unit of loss when a pod drops
+    (``repro/runtime/elastic.py:258``). ``devices``: the ranks to lay out
+    (default ``0 .. world_size - 1``)."""
+    if devices is None:
+        import torch.distributed as dist
+
+        devices = range(dist.get_world_size())
+    devs = [int(d) for d in devices]
+    need = num_pods * clients_per_pod
+    if len(devs) < need:
+        raise ValueError(
+            f"pod pool needs {need} ranks ({num_pods} pods x "
+            f"{clients_per_pod} clients) but only {len(devs)} are available")
+    return np.asarray(devs[:need], dtype=np.int64).reshape(num_pods,
+                                                           clients_per_pod)
+
+
+def mesh_for_surviving_pods(pool: np.ndarray, alive, *, device="cuda"):
+    """The degraded ``(pod, data)`` mesh over the surviving pods (``alive``:
+    their ids, rows of ``pool``): whole rows go, a pod is never re-tiled
+    (``repro/runtime/elastic.py:276``). Built through
+    ``launch.mesh.mesh_for_placements``'s rank subset; collective: every
+    rank of the world calls it."""
+    from ..launch.mesh import mesh_for_placements
+
+    alive = tuple(int(a) for a in alive)
+    if not alive:
+        raise ValueError("need at least one surviving pod to build a mesh")
+    sub = np.asarray(pool)[list(alive), :]
+    return mesh_for_placements(
+        {"pods": sub.shape[0], "clients": sub.shape[1]},
+        devices=sub.reshape(-1), device=device)

@@ -52,10 +52,23 @@ compiles a plan for repeated rounds:
   once per pod, whatever the pod count; the cross-pod leg (the mean of the
   stacked pod partials and the server update) is one unit per distinct
   set of argument shapes and dtypes, that is per pod count.
-
-Left out for later slices: ``ElasticHierarchicalRound``'s physical mesh
-(``mesh=``, ROADMAP queue 1 item 2) and the per-stage sharding
-constraints (no-ops on one card).
+* On a mesh (``compile_plan(plan, mesh=, placement_axes=)``, a
+  ``DeviceMesh`` and ``{placement: mesh dim(s)}``, the reference's
+  ``_make_constrainer``): the plan's partitioned inputs are placed as
+  DTensors on their levels' mesh dims, ``GROUP_COMPUTE`` stages run on
+  each rank's own groups (a map node on the local shards), and
+  ``BROADCAST``/``REDUCE``/``TRANSFER`` stages run as the primitives'
+  collectives (``core/sharding.py``). Such a plan runs its stages eagerly,
+  by design: a CUDA graph cannot hold a collective of the gloo backend,
+  and the DTensor dispatch is host work. A plan with a loop or a cond
+  stage is refused on a mesh at compile time. The executable cache keys
+  the mesh too (:func:`_mesh_key`: dim names, shape, rank identity and
+  the placement axes).
+* ``ElasticHierarchicalRound.step(mesh=)`` is the physical elastic path:
+  every rank of pod row p runs pod p's client leg (one trace), the pod
+  partials enter the cross leg sharded over the pod dim, the cross leg is
+  cached per (argument shapes, mesh), and on a mesh change the server
+  state migrates by a broadcast from the lowest rank that holds it.
 """
 
 from __future__ import annotations
@@ -452,6 +465,87 @@ def _arg_key(args) -> Tuple:
                  else (type(a).__name__, a) for a in args)
 
 
+def _mesh_key(mesh, placement_axes=None) -> Tuple:
+    """A mesh's cache key: dim names and sizes, the ranks (identity: the
+    same shape re-mapped onto other ranks after a pod dropped is another
+    mesh) and the placement axes."""
+    from .. import compat
+
+    if mesh is None:
+        return (None, None, None)
+    return (tuple(zip(compat.mesh_axis_names(mesh), compat.mesh_shape(mesh))),
+            compat.mesh_ranks(mesh),
+            tuple(sorted((placement_axes or {}).items())))
+
+
+class _MeshProgram:
+    """A plan run on a mesh, stage by stage (``compile_plan(mesh=)``):
+    inputs placed at their depths, local stages on DTensors (a map node
+    on each rank's own groups), communication stages as the primitives'
+    collectives under a context of the node's own stack, the plan's
+    placement axes and the mesh. Replicated outputs come back as the
+    plain tensors every rank holds."""
+
+    def __init__(self, plan, mesh, placement_axes):
+        from ..core import placement as placement_lib
+
+        self.plan, self.mesh = plan, mesh
+        self.axes = dict(placement_axes or {})
+        self.ctx = self._context(tuple(
+            placement_lib.Placement(n, s, kind=k)
+            for (n, s), k in zip(plan.placements, plan.placement_kinds)))
+
+    def _context(self, levels):
+        from ..core import placement as placement_lib
+
+        return placement_lib.PlacementContext(
+            placements=tuple(dataclasses.replace(p, axes=self.axes.get(p.name))
+                             for p in levels), mesh=self.mesh)
+
+    def _comm(self, stage, x):
+        from ..core import placement as placement_lib
+        from ..core import primitives as prims
+
+        node = stage.node
+        ctx = self._context(prims.parse_placements(node.args[1]))
+        name = ctx.names[node.args[2]]
+        with placement_lib.placement_context(ctx):
+            if isinstance(stage, interp.Broadcast):
+                return prims.broadcast(x, placement=name)
+            if isinstance(stage, interp.Transfer):
+                return prims.stage_transfer(x, placement=name,
+                                            shift=node.args[3],
+                                            wrap=node.args[4])
+            if stage.op == "reduce_mean":
+                extra = list(node.args[3:5])
+                return prims.reduce_mean(
+                    x, placement=name,
+                    compress=extra[0] if extra else None,
+                    qaxis=extra[1] if len(extra) > 1 else -1)
+            return getattr(prims, stage.op)(x, placement=name)
+
+    def __call__(self, args: Sequence[Any]) -> List[Any]:
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        from ..core import sharding
+
+        placed = [sharding.constrain_partitioned(a, self.ctx, d)
+                  if d > 0 and isinstance(a, torch.Tensor) else a
+                  for a, d in zip(args, self.plan.partitioned_invars)]
+        env = interp._Env(self.plan, placed)
+        with implicit_replication():
+            for stage in self.plan.stages:
+                if isinstance(stage, interp.LocalCompute):
+                    for node in stage.nodes:
+                        env.run(node)
+                else:
+                    x = env.read(stage.node.args[0])
+                    env.write(stage.node, self._comm(stage, x))
+                    env.consumed(stage.node)
+            outs = [env.read(a) for a in self.plan.out_atoms]
+        return sharding.unwrap_replicated(outs)
+
+
 class CompiledPlan:
     """A plan compiled for repeated rounds on one device (lazily, per
     argument shapes). ``trace_count`` is how many times the active entry
@@ -459,14 +553,24 @@ class CompiledPlan:
     ``num_units`` counts its executable units (captured graphs and host
     control units), ``num_stage_units`` the plan's stages after fusion."""
 
-    def __init__(self, plan, *, device: str, donate_argnums=()):
+    def __init__(self, plan, *, device: str, donate_argnums=(), mesh=None,
+                 placement_axes=None):
         if device not in ("cpu", "cuda"):
             raise ValueError(f"compile_plan: unsupported device {device!r}")
         self.plan = plan
         self.device = device
         self.donate_argnums = tuple(donate_argnums)
+        self.mesh = mesh
+        self.placement_axes = dict(placement_axes or {})
         self.fingerprint = plan_fingerprint(plan)
         self._entry: Optional[_CacheEntry] = None
+        if mesh is not None:
+            control = [st for st in plan.stages if not _inline(st)]
+            if control:
+                raise ValueError(
+                    "compile_plan(mesh=): a plan with a loop or a cond stage "
+                    f"({type(control[0]).__name__}) runs on one rank's whole "
+                    "groups; on a mesh only straight-line plans compile")
         # Donation and structure are checked now: a donation the executor
         # cannot honour, or a plan that cannot be captured, raises here,
         # at compile time, before any round and any write.
@@ -485,11 +589,15 @@ class CompiledPlan:
 
     def _entry_for(self, args) -> _CacheEntry:
         key = (self.fingerprint, self.device, _arg_key(args),
-               self.donate_argnums)
+               self.donate_argnums,
+               _mesh_key(self.mesh, self.placement_axes))
         entry = _EXEC_CACHE.get(key)
         if entry is None:
             counter = TraceCounter()
-            program = counter.wrap(lambda: _Program(self.plan, self.device))()
+            program = counter.wrap(
+                lambda: _Program(self.plan, self.device) if self.mesh is None
+                else _MeshProgram(self.plan, self.mesh,
+                                  self.placement_axes))()
             entry = _CacheEntry(program=program, counter=counter)
             _EXEC_CACHE[key] = entry
         self._entry = entry
@@ -503,7 +611,7 @@ class CompiledPlan:
         outs = list(self._entry_for(args).program(list(args)))
         if self.donate_argnums:
             outs = self._donate(args, outs)
-        if self.device == "cuda":
+        if self.device == "cuda" and self.mesh is None:
             donated = set(self.donate_argnums)
             outs = [o if j in donated else _own(o) for j, o in enumerate(outs)]
         return outs
@@ -547,11 +655,15 @@ def _describe(v) -> str:
     return "no output" if v is None else type(v).__name__
 
 
-def compile_plan(plan, *, device: str = "cuda", donate_argnums=()) -> CompiledPlan:
+def compile_plan(plan, *, device: str = "cuda", donate_argnums=(),
+                 mesh=None, placement_axes=None) -> CompiledPlan:
     """Compile a MapReducePlan for ``device`` (the card unless the caller
     asks for the CPU). The plan returns its carry first: each argument in
-    ``donate_argnums`` is updated in place with the output of its index."""
-    return CompiledPlan(plan, device=device, donate_argnums=donate_argnums)
+    ``donate_argnums`` is updated in place with the output of its index.
+    ``mesh`` (a ``DeviceMesh``) and ``placement_axes`` (``{placement: mesh
+    dim(s)}``) run it on a mesh, every rank of the mesh calling it."""
+    return CompiledPlan(plan, device=device, donate_argnums=donate_argnums,
+                        mesh=mesh, placement_axes=placement_axes)
 
 
 # ---------------------------------------------------------------------------
@@ -581,9 +693,28 @@ class ElasticHierarchicalRound:
     planning and compiling client legs (their capture runs at the first
     call).
 
-    ``mesh=`` (the reference's physical path, which re-homes the server
-    state and the pod partials on a degraded mesh) waits for ROADMAP
-    queue 1 item 2 and raises.
+    ``step(..., mesh=)`` is the physical path, on a ``(pod, data)``
+    ``DeviceMesh`` of the surviving pods' ranks
+    (``runtime.elastic.mesh_for_surviving_pods``), called by every rank of
+    the world:
+
+    * every rank of pod row p runs pod p's client leg, the same one trace
+      for the whole run (the reference pins the leg to one device);
+    * the pod partials enter the cross leg as DTensors sharded over the
+      pod dim; the leg gathers them exactly over that dim, so every rank
+      runs the same mean and server update on the same bits, and its
+      cache is keyed by (argument shapes, mesh): one cross leg per mesh
+      (``cross_compile_count == meshes_seen`` when the pod count follows
+      the mesh). The gather stays outside the leg's CUDA graph;
+    * on a mesh change the server state migrates: a broadcast along each
+      mesh dim from the lowest rank of the new mesh that holds the current
+      state, so a regrown pod's ranks receive it (``reshard_count``
+      counts the changes, ``mesh_migrate_ms`` their broadcasts'
+      milliseconds, ``meshes_seen`` the distinct meshes). Which ranks hold
+      the current state is tracked across steps; after a checkpoint
+      restore the caller names them (:meth:`set_state_holders`);
+    * a rank outside the mesh (a dropped pod) keeps the same bookkeeping,
+      takes no part in a collective and gets ``None``.
     """
 
     def __init__(self, client_fn: Callable, cross_fn: Callable, *,
@@ -598,6 +729,12 @@ class ElasticHierarchicalRound:
         self._cross: Dict[Tuple, Tuple[Callable, List[Any]]] = {}
         self.client_trace_count = 0
         self.client_trace_s = 0.0
+        # the physical path's bookkeeping (the same on every rank)
+        self._active_key: Optional[Tuple] = None
+        self._keys_seen: set = set()
+        self._holders: Optional[frozenset] = None  # None: every rank
+        self.reshard_count = 0
+        self.mesh_migrate_ms = 0.0
 
     def _client_leg(self, params, pod_data):
         leaves = pytree.tree_leaves((params, pod_data))
@@ -616,10 +753,17 @@ class ElasticHierarchicalRound:
         compiled, spec = self._clients[key]
         return pytree.tree_unflatten(list(compiled(*leaves)), spec)
 
-    def _cross_leg(self, params, server_state, partials):
+    def _cross_leg(self, params, server_state, partials, mesh=None):
+        if mesh is not None:
+            from ..core import sharding
+
+            # the pod partials, sharded over the pod dim, gathered exactly
+            partials = pytree.tree_map(
+                lambda x: sharding.gather_dim(x.to_local(), 0, mesh, (0,)),
+                partials)
         leaves, in_spec = pytree.tree_flatten((params, server_state,
                                                partials))
-        key = _arg_key(leaves)
+        key = (_arg_key(leaves), _mesh_key(mesh))
         if key not in self._cross:
             spec: List[Any] = []
             cross_fn = self.cross_fn  # not self: no cycle holds the graph
@@ -640,23 +784,123 @@ class ElasticHierarchicalRound:
         """One round: ``round_data`` leaves lead with (num_pods,
         clients_per_pod, ...); the pod count may change between calls.
         Returns ``cross_fn``'s outputs (new params, new server state,
-        metrics)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "ElasticHierarchicalRound.step(mesh=...): the physical "
-                "mesh path waits for ROADMAP queue 1 item 2 (the distributed "
-                "layer)")
+        metrics). With ``mesh`` (every rank of the world calls it) the pod
+        count is the mesh's first dim, and a rank outside the mesh gets
+        ``None``."""
         leaves = pytree.tree_leaves(round_data)
         if not leaves:
             raise ValueError("round_data must have at least one leaf")
-        pod_outs = [
-            self._client_leg(params, pytree.tree_map(lambda x: x[p],
-                                                     round_data))
-            for p in range(leaves[0].shape[0])]
-        partials = pytree.tree_map(lambda *xs: torch.stack(xs), *pod_outs)
-        del pod_outs
-        return self._cross_leg(params, server_state, partials)
+        num_pods = leaves[0].shape[0]
+        if mesh is None:
+            pod_outs = [
+                self._client_leg(params, pytree.tree_map(lambda x: x[p],
+                                                         round_data))
+                for p in range(num_pods)]
+            partials = pytree.tree_map(lambda *xs: torch.stack(xs),
+                                       *pod_outs)
+            del pod_outs
+            return self._cross_leg(params, server_state, partials)
+        from .. import compat
+
+        if compat.mesh_shape(mesh)[0] != num_pods:
+            raise ValueError(f"round data of {num_pods} pods on a mesh of "
+                             f"{compat.mesh_shape(mesh)[0]} pod rows")
+        coord = mesh.get_coordinate()
+        params, server_state = self._adopt_mesh(mesh, coord is not None,
+                                                params, server_state)
+        if coord is None:
+            return None
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        from ..core import sharding
+
+        pod = coord[0]
+        out = self._client_leg(params, pytree.tree_map(lambda x: x[pod],
+                                                       round_data))
+        placements = [Shard(0)] + [Replicate()] * (len(coord) - 1)
+
+        def on_pods(x):
+            shape = (num_pods,) + tuple(x.shape)
+            return DTensor.from_local(
+                x.unsqueeze(0), mesh, placements, run_check=False,
+                shape=torch.Size(shape),
+                stride=sharding.contiguous_stride(shape))
+
+        partials = pytree.tree_map(on_pods, out)
+        return self._cross_leg(params, server_state, partials, mesh)
+
+    def _adopt_mesh(self, mesh, member: bool, params, server_state):
+        """Install ``mesh`` (``repro/runtime/executor.py:734-769``): on a
+        change, or where a rank of it does not hold the current state,
+        the state is broadcast to its ranks from the lowest rank that
+        holds it. The same bookkeeping runs on every rank."""
+        from .. import compat
+
+        key = _mesh_key(mesh)
+        ranks = compat.mesh_ranks(mesh)
+        changed = key != self._active_key
+        holders = (set(ranks) if self._holders is None
+                   else set(ranks) & self._holders)
+        if changed or len(holders) < len(ranks):
+            t0 = time.perf_counter()
+            if member:
+                params, server_state = _broadcast_tree(
+                    (params, server_state), mesh, min(holders or ranks))
+                if self.device == "cuda":
+                    torch.cuda.synchronize()
+                self.mesh_migrate_ms += (time.perf_counter() - t0) * 1e3
+            if changed and self._active_key is not None:
+                self.reshard_count += 1
+            self._active_key = key
+            self._keys_seen.add(key)
+        self._holders = frozenset(ranks)
+        return params, server_state
+
+    def set_state_holders(self, ranks=None) -> None:
+        """The ranks whose state is current (``None``: every rank), as
+        after a restore from per-rank checkpoints: the next physical step
+        broadcasts from them to any other rank of its mesh."""
+        self._holders = None if ranks is None else frozenset(
+            int(r) for r in ranks)
+
+    def holds_state(self, rank: int) -> bool:
+        """Does ``rank`` hold the current state before the next step (so
+        that its inputs to that step are not stale)?"""
+        return self._holders is None or int(rank) in self._holders
 
     @property
     def cross_compile_count(self) -> int:
         return len(self._cross)
+
+    @property
+    def meshes_seen(self) -> int:
+        """Distinct meshes adopted so far (0 in logical mode)."""
+        return len(self._keys_seen)
+
+    def cross_meshes(self) -> List[Tuple]:
+        """The mesh keys of the cross legs this rank built."""
+        return [k[1] for k in self._cross]
+
+
+def _broadcast_tree(tree, mesh, src: int):
+    """Every tensor of ``tree`` as rank ``src`` holds it, on every rank of
+    ``mesh``: one broadcast along each mesh dim, innermost first, each
+    from the coordinate of ``src`` on that dim (the caller's tensors are
+    copied, never written)."""
+    import torch.distributed as dist
+
+    grid = torch.as_tensor(mesh.mesh)
+    src_coord = [int(c[0]) for c in torch.nonzero(grid == src,
+                                                  as_tuple=True)]
+    coord = mesh.get_coordinate()
+    leaves, spec = pytree.tree_flatten(tree)
+    out = [x.detach().clone() if isinstance(x, torch.Tensor) else x
+           for x in leaves]
+    for d in reversed(range(len(coord))):
+        at = list(coord)
+        at[d] = src_coord[d]
+        root = int(grid[tuple(at)])
+        for x in out:
+            if isinstance(x, torch.Tensor):
+                dist.broadcast(x, src=root, group=mesh.get_group(d))
+    return pytree.tree_unflatten(out, spec)

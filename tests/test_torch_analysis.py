@@ -685,9 +685,22 @@ class TestRetrace:
         assert "0.25" in diff and "0.5" in diff
 
     def test_no_mesh_keyed_leg_without_a_mesh(self):
+        """A donated plan over two replica levels is keyed by a mesh that
+        an elastic event resizes: the reference's warning, with its
+        severity; without a donation, or over one level, none."""
         plan, _ = nested_plan()
-        assert not plan.analyze(donate_argnums=(0,)).by_code(
+        (found,) = plan.analyze(donate_argnums=(0,)).by_code(
             "retrace/mesh-keyed-leg")
+        assert found.severity == "warning" and "2 replica" in found.message
+        assert not plan.analyze().by_code("retrace/mesh-keyed-leg")
+        for name in ("nested_2x4", "quadratic_round"):
+            jp, tp, _ = _plans(name)
+            want = [(f.code, f.severity) for f in jp.analyze(
+                donate_argnums=(0,)).findings
+                if f.code == "retrace/mesh-keyed-leg"]
+            got = [(f.code, f.severity) for f in tp.analyze(
+                donate_argnums=(0,)).by_code("retrace/mesh-keyed-leg")]
+            assert got == want and bool(got) == (name == "nested_2x4")
 
     def test_fingerprint_parts_define_the_fingerprint(self):
         plan, _ = scan_round_plan()
@@ -948,7 +961,8 @@ class TestLints:
         assert report["ok"] and report["violations"] == []
         assert set(report["rules"]) == {"no-reference-import",
                                         "no-try-in-kernels",
-                                        "no-torch-compile"}
+                                        "no-torch-compile",
+                                        "mesh-axes-literal"}
 
     def test_lints_importable_without_torch(self):
         code = ("import sys; sys.path.insert(0, 'src');"

@@ -1,5 +1,5 @@
-"""The port's chaos soak (``repro_torch/runtime/chaos.py``, logical mode)
-and its mesh-free elastic helpers against the reference's
+"""The port's chaos soak (``repro_torch/runtime/chaos.py``, logical and
+physical modes) and its mesh-free elastic helpers against the reference's
 (``repro/runtime/chaos.py``, ``repro/runtime/elastic.py``), on the CPU.
 
 * ``ChaosSchedule``: every draw bitwise the reference's at the CI shape
@@ -16,8 +16,12 @@ and its mesh-free elastic helpers against the reference's
   holding; again with serve bursts every 8 rounds (bursts, requests,
   completions, the injected fault and its recovery, builds flat).
 * ``assert_invariants`` refuses a report broken in each invariant alone.
-* ``launch.train --chaos``, ``physical_mesh=True``, the time budget, and
-  ``ElasticSchedule`` / ``rescale_partition``.
+* ``launch.train --chaos``, the time budget, and ``ElasticSchedule`` /
+  ``rescale_partition``.
+* The physical mode on 8 gloo ranks at the reference's acceptance config
+  (``tests/test_chaos.py:194-201``): every invariant, ``meshes_seen`` and
+  ``reshards`` as the reference's schedule implies, the losses within 1e-6
+  relative of the logical soak's.
 
 The reference runs as its own tests run it (``run_chaos_soak``), the
 torch side on one intra-op thread.
@@ -36,6 +40,8 @@ import jax  # noqa: E402
 from repro.optim import server as jserver  # noqa: E402
 from repro.runtime import chaos as jchaos  # noqa: E402
 from repro.runtime import elastic as jelastic  # noqa: E402
+import _torch_dist  # noqa: E402
+import _torch_dist_checks  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.runtime import chaos, elastic  # noqa: E402
 
@@ -156,10 +162,65 @@ def test_default_device_is_the_card():
         chaos.run_chaos_soak(chaos.ChaosConfig(**CI))
 
 
-def test_physical_mesh_waits_for_the_distributed_layer():
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        chaos.run_chaos_soak(chaos.ChaosConfig(**CI, physical_mesh=True,
-                                               device="cpu"))
+@pytest.fixture(scope="module")
+def world8(tmp_path_factory):
+    """The physical soak at the reference's acceptance config on 8 gloo
+    ranks (4 pods x 2 clients), beside each rank's logical soak
+    (``_torch_dist_checks.physical_soak``)."""
+    return _torch_dist.run_world(8, ["physical_soak"],
+                                 str(tmp_path_factory.mktemp("soak8")))
+
+
+def test_physical_soak_passes_every_invariant(world8):
+    for r in world8["physical_soak"]:
+        rep = r["report"]
+        assert rep["physical_mesh"] and rep["oracle_bitwise_equal"]
+        assert rep["reshards"] >= len(rep["elastic_events"]) >= 2
+        assert rep["cross_compiles"] == rep["meshes_seen"] >= 2
+        assert rep["mesh_migrate_ms"] > 0
+        assert rep["client_retraces"] == 0 and rep["oracle_extra_traces"] == 0
+        assert rep["audit"]["max_rel_err"] <= 1e-6
+        chaos.ChaosReport(**{**rep, "failure_rounds": tuple(
+            rep["failure_rounds"]), "ckpt_faults_injected": {
+            int(k): v for k, v in rep["ckpt_faults_injected"].items()}}
+        ).assert_invariants()
+
+
+def test_physical_soak_meshes_follow_the_reference_schedule(world8):
+    """meshes_seen is the number of distinct alive sets of the reference's
+    schedule, and reshards the number of changes of alive set along the
+    rounds the soak ran (replays after a restore included)."""
+    alive = jchaos.ChaosSchedule.from_config(jchaos.ChaosConfig(
+        **_torch_dist_checks.SOAK)).alive_pods
+    ran, start = [], 0
+    rep = world8["physical_soak"][0]["report"]
+    for fail, restored in zip(rep["failure_rounds"], rep["restores"]):
+        ran += list(range(start, fail))
+        start = restored or 0
+    ran += list(range(start, rep["rounds"]))
+    changes = sum(alive[a] != alive[b] for a, b in zip(ran, ran[1:]))
+    for r in world8["physical_soak"]:
+        assert r["report"]["meshes_seen"] == len(set(alive))
+        assert r["report"]["reshards"] == changes
+
+
+def test_physical_soak_matches_the_logical_soak(world8):
+    """Every rank's report agrees with the others' and, counters aside,
+    with the logical soak's: the losses within 1e-6 relative."""
+    first = world8["physical_soak"][0]["report"]
+    for r in world8["physical_soak"]:
+        rep, log = r["report"], r["logical"]
+        for key in ("restarts", "restores", "failure_rounds", "reshards",
+                    "meshes_seen", "cross_compiles", "elastic_events",
+                    "completed_steps", "replayed_steps", "loss_first",
+                    "loss_final", "straggler", "audit"):
+            assert rep[key] == first[key], key
+        for key in ("restarts", "restores", "elastic_events",
+                    "fallback_restores", "mid_write_kills_survived",
+                    "straggler"):
+            assert rep[key] == log[key], key
+        for key in ("loss_first", "loss_final"):
+            assert abs(rep[key] - log[key]) <= 1e-6 * abs(log[key])
 
 
 def _converted_init(monkeypatch):

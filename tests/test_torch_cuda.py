@@ -1247,3 +1247,62 @@ def test_remat_dots_bitwise_to_none_on_card(card):
     assert torch.equal(runs[0][0], runs[1][0])
     for a, b in zip(runs[0][1], runs[1][1]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_mesh_rounds_bitwise(card, tmp_path):
+    """[mesh] (a) at reduced lm_350m: a (pod 1, data 1) mesh from
+    ``mesh_for_placements`` in a world of one NCCL rank. The flat int8
+    round with its clients over "data" and the hierarchical fused int8
+    round 2 x 2 with pods over "pod": losses and parameters bitwise the
+    mesh-free rounds', the kernel launches equal."""
+    import argparse
+    import functools
+
+    import torch.distributed as dist
+
+    from repro_torch.algorithms import rounds
+    from repro_torch.data.grouped import CohortSampler, GroupedCorpus
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train
+    from repro_torch.models import registry
+
+    assert compat.init_process_group(
+        0, 1, init_method=f"file://{tmp_path}/rendezvous",
+        device="cuda") == "nccl"
+    try:
+        mesh = mesh_lib.mesh_for_placements({"pods": 1, "clients": 1},
+                                            device="cuda")
+        cfg = registry.get_config("lm_350m").reduced()
+        args = argparse.Namespace(algorithm="local_sgd", client_lr=0.05)
+        sampler = CohortSampler(GroupedCorpus(vocab_size=cfg.vocab_size),
+                                cohort_size=4)
+        d = sampler.round_batch(0, 2, 2, 32, device="cuda")
+        flat = {"tokens": d["tokens"], "labels": d["labels"]}
+        hier = {k: v.reshape((2, 2) + tuple(v.shape[1:]))
+                for k, v in flat.items()}
+        for pods, data, axes in ((0, flat, "data"),
+                                 (2, hier, {"pods": "pod", "clients": "data"})):
+            runs = []
+            for on_mesh in (False, True):
+                client_opt, server_opt = train.optimizers(args)
+                rcfg = rounds.LocalSGDConfig(
+                    partition_size=4 // max(pods, 1), num_local_steps=2,
+                    grad_clip=1.0, compression="int8", num_pods=pods,
+                    mesh=mesh if on_mesh else None,
+                    partition_axes=axes if on_mesh else None)
+                make = (rounds.make_hierarchical_local_sgd_round if pods
+                        else rounds.make_local_sgd_round)
+                fn = make(functools.partial(registry.loss_fn, cfg),
+                          client_opt, server_opt, rcfg)
+                params = registry.init_params(cfg, seed=0, device="cuda")
+                ops.reset_launches()
+                new, _, m = fn(params, server_opt.init(params), data)
+                runs.append((float(m["loss"]), new, ops.launch_counts()))
+            (la, pa, ca), (lb, pb, cb) = runs
+            assert la == lb and ca == cb
+            assert ca["reduce_compress_roundtrip" if pods else "quantize"] > 0
+            for k in pa:
+                assert torch.equal(pa[k], pb[k]), k
+    finally:
+        dist.destroy_process_group()

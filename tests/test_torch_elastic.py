@@ -16,6 +16,9 @@ against ``tests/test_executor.py::TestElasticSplit`` and
   dropped): params and server state within atol 1e-5, the loss and the
   finishers within 1e-6 relative.
 * Reduced lm_350m's step is bitwise the port's hierarchical round too.
+* ``step(mesh=)`` on 6 gloo ranks (3 -> 2 -> 3 pods): one client trace, one
+  cross leg per mesh, bitwise a same-mesh replay, within 1e-5 of the
+  logical steps (``_torch_dist_checks.elastic_steps``).
 """
 
 import dataclasses
@@ -30,6 +33,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from torch.utils import _pytree as pytree  # noqa: E402
 
+import _torch_dist  # noqa: E402
 from _torch_programs import _round_data, load_model  # noqa: E402
 from repro import optim as jopt  # noqa: E402
 from repro.algorithms import rounds as jrounds  # noqa: E402
@@ -38,6 +42,14 @@ from repro_torch import optim  # noqa: E402
 from repro_torch.algorithms import rounds  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
 from repro_torch.runtime.elastic import make_elastic_hierarchical_round  # noqa: E402
+
+
+@pytest.fixture(scope="module")
+def world6(tmp_path_factory):
+    """The physical elastic steps in a world of 6 gloo ranks (3 pods of
+    2), from ``_torch_dist_checks.elastic_steps``."""
+    return _torch_dist.run_world(6, ["elastic_steps"],
+                                 str(tmp_path_factory.mktemp("elastic6")))
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -155,13 +167,44 @@ class TestElasticSplit:
         assert elastic.cross_compile_count == 2  # the P = 4 leg was cached
         assert _bitwise(first, again)
 
-    def test_mesh_waits_for_elasticity_across_cards(self):
-        params, data, cfg = _setup()
-        server = optim.fedavg_momentum(1.0)
-        tparams = _t(params)
-        with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-            _elastic(cfg, server).step(tparams, server.init(tparams),
-                                       _t(data), mesh=object())
+    def test_physical_steps_follow_the_mesh(self, world6):
+        """step(mesh=) over 3 -> 2 -> 3 pods of 2 clients on 6 ranks (pod 1
+        drops, then comes back): one client trace per run, one cross leg
+        per mesh on the ranks that ran on both (cross_compile_count ==
+        meshes_seen), a reshard per change, pod 1's ranks sitting out and
+        then receiving the state, every rank ending on the same bits."""
+        res = world6["elastic_steps"]
+        for rank, r in enumerate(res):
+            run = r["first"]
+            assert run["client_traces"] == 1
+            assert run["meshes"] == 2 and run["reshards"] == 2
+            assert run["migrate_ms"] > 0
+            if rank in (2, 3):  # pod 1
+                assert run["cross"] == 1
+                assert run["losses"][2:4] == [None, None]
+            else:
+                assert run["cross"] == run["meshes"]
+            assert run["losses"][4] == res[0]["first"]["losses"][4]
+            for k, v in res[0]["first"]["params"].items():
+                np.testing.assert_array_equal(run["params"][k], v)
+
+    def test_physical_steps_replay_bitwise_and_match_logical(self, world6):
+        """A second run on the same meshes is bitwise the first, and within
+        the rounds' atol 1e-5 (the losses 1e-6 relative) of the logical
+        steps, which run every pod in one process."""
+        for r in world6["elastic_steps"]:
+            first, again, logical = r["first"], r["again"], r["logical"]
+            assert first["losses"] == again["losses"]
+            for k in first["params"]:
+                np.testing.assert_array_equal(first["params"][k],
+                                              again["params"][k])
+                np.testing.assert_allclose(first["params"][k],
+                                           logical["params"][k], rtol=0,
+                                           atol=1e-5)
+            for a, b in zip(first["losses"], logical["losses"]):
+                if a is not None:
+                    assert abs(a - b) <= 1e-6 * abs(b)
+            assert logical["cross"] == 2 and logical["meshes"] == 0
 
     def test_default_device_is_the_card(self):
         params, data, cfg = _setup()

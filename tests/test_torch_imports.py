@@ -59,7 +59,8 @@ def test_imports_without_jax():
             "repro_torch.analysis.lints", "repro_torch.algorithms.pipeline",
             "repro_torch.algorithms.maml",
             "repro_torch.algorithms.btm", "repro_torch.launch.steps",
-            "repro_torch.launch.serve",
+            "repro_torch.launch.serve", "repro_torch.launch.mesh",
+            "repro_torch.core.sharding",
             "repro_torch.configs.stablelm_3b"} <= set(modules)
     code = (
         "import sys\n"
