@@ -31,10 +31,18 @@ Phases, each reported on its own line (any failure raises, exit != 0):
    function's FLOP at the bf16 tensor-core rate (or its bytes, if larger),
    with the f32 SIMT bound of the f32 route beside it. Every K2 case and
    wrapper is run again under ``torch.profiler`` (one trace per sweep and
-   per main shape, ``kernel_names``): bf16 calls must launch the
-   tensor-core kernels (``repro::flash::tc::``) and no SIMT kernel, f32
-   calls the SIMT kernels; each wrapper's kernel names at the main shapes
-   are logged. Then K2's second order (P3) at B 2 x S 512 x 16 heads x
+   per main shape, ``kernel_names``): a bf16 call at head dim 64 or 128
+   must launch the wgmma forward and ``bwd_dkdv`` (``repro::flash::wg::``,
+   ``flash_attention_sm90.cu``) and the mma.sync ``bwd_dq``
+   (``repro::flash::tc::``), a bf16 call at another head dim the mma.sync
+   kernels, an f32 call the SIMT kernels, and nothing else
+   (``flash_kernels``); each wrapper's kernel names at the main shapes
+   are logged, and the SASS of both K2 libraries holds HGMMA and UTMALDG
+   in each wgmma kernel and in no other (``flash_sass``). Every phase
+   that trains or serves a bf16 model at head dim 64 or 128 ([flat],
+   [long], [hier], [encdec], [serve], [mesh], ...) checks that each K2
+   launch went through that route's entry point
+   (``flash_attention.ROUTE_LAUNCHES``, ``require_flash_entries``). Then K2's second order (P3) at B 2 x S 512 x 16 heads x
    64, f32 and bf16, causal: the double backward through
    ``ops.flash_attention`` against autograd's double backward through the
    plain forward on the card (f32 within 1e-4 of the largest magnitude,
@@ -448,44 +456,100 @@ def phase_build():
     for name in _build.SOURCES:
         _build.KERNELS.library(name)
     log("build", seconds=f"{secs:.2f}", sources=",".join(_build.SOURCES),
-        dir=_build.KERNELS.build_dir)
-    for row in tc_resources(_build.KERNELS.logs.get("flash_attention")):
+        dir=_build.KERNELS.build_dir,
+        source_seconds=json.dumps({k: round(v, 2) for k, v in
+                                   _build.KERNELS.source_seconds.items()}))
+    for row in flash_resources(_build.KERNELS.logs):
         log("build", **row)
     return smi
 
 
-def tc_resources(ptxas_log):
+# K2's tensor-core kernels by library: the mma.sync kernels (namespace tc;
+# their dynamic shared memory from repro_flash_tc_smem) and the wgmma
+# kernels (wg; repro_flash_wg_smem), with the number of instantiations.
+FLASH_TC_LIBS = (("flash_attention", "tc", "repro_flash_tc_smem", 15),
+                 ("flash_attention_sm90", "wg", "repro_flash_wg_smem", 4))
+FLASH_WHICH = {"fwd_kernel": 0, "bwd_dq_kernel": 1, "bwd_dkdv_kernel": 2}
+
+
+def flash_resources(logs: dict) -> list:
     """Registers and spills (nvcc -Xptxas -v) and dynamic shared memory of
-    every instantiation of K2's tensor-core kernels; nothing when the
-    library was not built by this process."""
+    every instantiation of K2's tensor-core kernels, the mma.sync ones of
+    flash_attention.cu and the wgmma ones of flash_attention_sm90.cu (which
+    must not spill); nothing for a library this process did not build."""
     import re
 
     from repro_torch.kernels import _build
 
-    lib = _build.KERNELS.library("flash_attention")
-    lines = (ptxas_log or "").splitlines()
     rows = []
-    for i, line in enumerate(lines):
-        m = re.search(
-            r"Compiling entry function '\S*2tc\d+(tc_\w+?)(?:ILi(\d+)E|E)", line)
-        if not m:
+    for name, ns, smem_fn, want in FLASH_TC_LIBS:
+        lines = (logs.get(name) or "").splitlines()
+        if not lines:
             continue
-        props = " ".join(lines[i + 1:i + 4])
-        regs = re.search(r"Used (\d+) registers", props)
-        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                          props)
-        kernel, hd = m.group(1), m.group(2)
-        which = {"tc_fwd_kernel": 0, "tc_bwd_dq_kernel": 1,
-                 "tc_bwd_dkdv_kernel": 2}.get(kernel)
-        smem = lib.repro_flash_tc_smem(which, int(hd)) if hd else 0
-        rows.append(dict(kernel=kernel, hd=hd or "-",
-                         registers=regs.group(1) if regs else "?",
-                         spill_stores=spill.group(1) if spill else "?",
-                         spill_loads=spill.group(2) if spill else "?",
-                         dynamic_smem_bytes=smem))
-    require(not ptxas_log or len(rows) == 19,
-            f"expected 19 tensor-core kernels in the ptxas report, got {len(rows)}")
+        smem_of = getattr(_build.KERNELS.library(name), smem_fn)
+        found = []
+        for i, line in enumerate(lines):
+            m = re.search(rf"Compiling entry function '\S*2{ns}\d+({ns}_\w+?)"
+                          r"(?:ILi(\d+)E|E)", line)
+            if not m:
+                continue
+            props = " ".join(lines[i + 1:i + 4])
+            regs = re.search(r"Used (\d+) registers", props)
+            spill = re.search(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", props)
+            kernel, hd = m.group(1), m.group(2)
+            which = FLASH_WHICH.get(kernel[len(ns) + 1:])
+            found.append(dict(kernel=kernel, hd=hd or "-",
+                              registers=regs.group(1) if regs else "?",
+                              spill_stores=spill.group(1) if spill else "?",
+                              spill_loads=spill.group(2) if spill else "?",
+                              dynamic_smem_bytes=smem_of(which, int(hd))
+                              if hd else 0))
+        require(len(found) == want, f"expected {want} {ns} kernels in "
+                f"{name}'s ptxas report, got {len(found)}")
+        if ns == "wg":
+            require(all(r["spill_stores"] == r["spill_loads"] == "0"
+                        for r in found), f"a wgmma kernel spills: {found}")
+        rows += found
     return rows
+
+
+def flash_sass() -> dict:
+    """{kernel<hd>: [HGMMA, UTMALDG] count} in the SASS of K2's two
+    libraries (``cuobjdump -sass``): every wgmma kernel multiplies on
+    HGMMA and loads through the TMA, the mma.sync and SIMT kernels do
+    neither."""
+    import re
+
+    from repro_torch import compat
+    from repro_torch.kernels import _build
+
+    tool = Path(compat.nvcc_path()).with_name("cuobjdump")
+    counts, name = {}, None
+    for lib in ("flash_attention", "flash_attention_sm90"):
+        sass = subprocess.run(
+            [str(tool), "-sass", str(_build.KERNELS.path(lib))],
+            capture_output=True, text=True, check=True).stdout
+        for line in sass.splitlines():
+            m = re.search(r"Function : _ZN5repro5flash(?:2(?:tc|wg))?\d+"
+                          r"(\w+?_kernel)(\S*)", line)
+            if m:
+                hd = re.search(r"Li(\d+)E", m.group(2))
+                name = f"{m.group(1)}<{hd.group(1)}>" if hd else m.group(1)
+                counts[name] = [0, 0]
+            elif name and re.search(r"\bHGMMA\b", line):
+                counts[name][0] += 1
+            elif name and re.search(r"\bUTMALDG\b", line):
+                counts[name][1] += 1
+    wg = {k: v for k, v in counts.items() if k.startswith("wg_")}
+    require(sorted(wg) == ["wg_bwd_dkdv_kernel<128>", "wg_bwd_dkdv_kernel<64>",
+                           "wg_fwd_kernel<128>", "wg_fwd_kernel<64>"],
+            f"K2 SASS holds the wgmma kernels {sorted(wg)}")
+    for kernel, (mma, tma) in counts.items():
+        require(mma > 0 and tma > 0 if kernel.startswith("wg_")
+                else mma == tma == 0,
+                f"{kernel}: {mma} HGMMA and {tma} UTMALDG in its SASS")
+    return counts
 
 
 def phase_kernels(rows: int, gen):
@@ -665,6 +729,9 @@ FLASH_SOURCE = {
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/models/attention.py:437"),
 }
+# the bf16 forward and bwd_dkdv at head dims 64 and 128
+FLASH_SM90_SOURCE = dict(
+    source="src/repro_torch/kernels/csrc/flash_attention_sm90.cu")
 FLASH_SWEEP = (  # (B, Sq, Skv, Hq, Hkv, hd, causal, window)
     (2, 200, 200, 8, 8, 80, True, 0),
     (1, 300, 300, 4, 2, 128, True, 0),
@@ -672,6 +739,12 @@ FLASH_SWEEP = (  # (B, Sq, Skv, Hq, Hkv, hd, causal, window)
     (2, 100, 100, 8, 1, 32, True, 0),       # G = 8
     (1, 1000, 1000, 4, 2, 64, True, 256),   # window, ragged S
     (1, 24, 56, 4, 2, 32, False, 0),        # non-causal, Sq != Skv
+)
+# the wgmma kernels' 128-row tiles: ragged Sq and Skv, G 7, 8 and 16
+FLASH_WG_SWEEP = (
+    (1, 129, 65, 8, 1, 128, False, 0),
+    (2, 63, 127, 7, 1, 64, False, 0),
+    (1, 1000, 1000, 16, 1, 128, True, 256),
 )
 
 
@@ -870,17 +943,73 @@ def kernel_split(calls: dict, reps: int = 10) -> dict:
     return split
 
 
-def require_flash_route(names, dtype, what) -> None:
-    """bf16 K2 runs on the tensor-core kernels (``repro::flash::tc::``) and
-    no SIMT kernel; f32 K2 on the SIMT kernels."""
-    names = [n for n in names if "repro::flash::" in n]
-    tc = [n for n in names if "repro::flash::tc::" in n]
-    if dtype == torch.bfloat16:
-        require(tc and len(tc) == len(names),
-                f"{what}: bf16 K2 must run only tensor-core kernels, ran {names}")
-    else:
-        require(names and not tc,
-                f"{what}: f32 K2 must run the SIMT kernels, ran {names}")
+# bf16 K2 at these head dims runs the forward and bwd_dkdv on wgmma
+# (flash_attention_sm90.cu, namespace wg); every other call, and bwd_dq,
+# on flash_attention.cu: bf16 on mma.sync (tc), f32 on the SIMT kernels.
+WG_HEAD_DIMS = (64, 128)
+FLASH_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dq",
+               "flash_attention_bwd_dkdv")
+
+
+def flash_kernels(dtype, hd: int, g: int, which=FLASH_NAMES) -> set:
+    """Short names of the device kernels that the K2 calls ``which`` launch
+    for ``dtype`` at head dim ``hd`` with G = Hq / Hkv (the smoke's own
+    oracle of the launchers' route table)."""
+    out = set()
+    for name in which:
+        kernel = name[len("flash_attention_"):] + "_kernel"
+        if dtype != torch.bfloat16:
+            out.add(kernel)
+        elif hd in WG_HEAD_DIMS and name != "flash_attention_bwd_dq":
+            out.add("wg_" + kernel)
+        else:
+            out.add("tc_" + kernel)
+            if name == "flash_attention_bwd_dkdv" and g > 1:
+                out.add("tc_sum_heads_kernel")
+    return out
+
+
+def flash_entries(dtype, hd: int) -> dict:
+    """{K2 call: the extern "C" entry point it takes} for ``dtype`` at
+    head dim ``hd`` (the same oracle)."""
+    wg = dtype == torch.bfloat16 and hd in WG_HEAD_DIMS
+    return {"flash_attention_fwd": "repro_flash_wg_fwd" if wg
+            else "repro_flash_fwd",
+            "flash_attention_bwd_dq": "repro_flash_bwd_dq",
+            "flash_attention_bwd_dkdv": "repro_flash_wg_bwd_dkdv" if wg
+            else "repro_flash_bwd_dkdv"}
+
+
+def short_kernel(name: str) -> str:
+    """``tc_fwd_kernel`` of ``void repro::flash::tc::tc_fwd_kernel<64>(...)``."""
+    return name.split("(")[0].split("<")[0].split("::")[-1]
+
+
+def require_flash_route(names, dtype, hd, g, what, which=FLASH_NAMES) -> None:
+    """The K2 kernels among ``names`` (a trace of the calls ``which``) are
+    exactly :func:`flash_kernels`' for this dtype, head dim and G."""
+    got = {short_kernel(n) for n in names if "repro::flash::" in n}
+    want = flash_kernels(dtype, hd, g, which)
+    require(got == want, f"{what}: K2 ran {sorted(got)}, want {sorted(want)}")
+
+
+def require_flash_entries(what: str, wgmma: bool = False,
+                          need=("repro_flash_wg_fwd",
+                                "repro_flash_wg_bwd_dkdv")) -> None:
+    """Every K2 launch since the last ``ops.reset_launches`` went through
+    the entry point :func:`flash_entries` gives its dtype and head dim
+    (``flash_attention.ROUTE_LAUNCHES``); with ``wgmma``, each entry of
+    ``need`` launched."""
+    from repro_torch.kernels import flash_attention as fa
+
+    wrong = {k: n for k, n in fa.ROUTE_LAUNCHES.items()
+             if k[0] not in flash_entries(k[1], k[2]).values()}
+    require(not wrong, f"{what}: K2 launches off their route: {wrong}")
+    by_entry = {}
+    for (entry, _, _), n in fa.ROUTE_LAUNCHES.items():
+        by_entry[entry] = by_entry.get(entry, 0) + n
+    require(not wgmma or all(by_entry.get(e, 0) > 0 for e in need),
+            f"{what}: the wgmma K2 kernels {need} did not launch: {by_entry}")
 
 
 def flash_bounds(nbytes: float, flop: float, dtype):
@@ -934,7 +1063,7 @@ def flash_measure(gen, b, s, hq, hkv, hd, window, skv=None,
     shape = ((b, s, f"{hq}:{hkv}", hd, window) if skv == s and causal else
              (b, s, skv, f"{hq}:{hkv}", hd, "causal" if causal
               else "non-causal"))
-    return dict(shape=shape, dtype=q.dtype,
+    return dict(shape=shape, dtype=q.dtype, hd=hd, g=hq // hkv,
                 work=flash_work(q, k, pairs), errs=errs_by, ms=ms,
                 plain=plain, lib=(lib_fwd, lib_bwd, lib_err),
                 calls=dict(calls, case=case_kernels, sdpa=lib_call))
@@ -944,20 +1073,22 @@ def flash_report(m: dict, traced: dict) -> dict:
     """The route checks of :func:`flash_measure`'s calls on their traced
     kernel names (``traced``: label -> names), the log lines, and the
     results by kernel."""
-    shape, dtype = m["shape"], m["dtype"]
+    shape, dtype, hd, g = m["shape"], m["dtype"], m["hd"], m["g"]
     lib_fwd, lib_bwd, lib_err = m["lib"]
-    require_flash_route(traced["case"], dtype, f"K2 {shape}")
+    require_flash_route(traced["case"], dtype, hd, g, f"K2 {shape}")
     results = {}
     for name, (nbytes, flop) in m["work"].items():
         names = traced[name]
-        require_flash_route(names, dtype, f"{name} {shape}")
+        require_flash_route(names, dtype, hd, g, f"{name} {shape}", (name,))
         b_ms, by, by_log = flash_bounds(nbytes, flop, dtype)
         f32_ms, _ = bound(nbytes, flop)
         ms, plain, err = m["ms"][name], m["plain"][name], m["errs"][name]
         results[name] = dict(
             err=err, ms=ms, plain_ms=plain,
             library_ms=lib_fwd if name == "flash_attention_fwd" else lib_bwd,
-            bound_ms=b_ms, bound_by=by, bound_ms_f32_simt=f32_ms)
+            bound_ms=b_ms, bound_by=by, bound_ms_f32_simt=f32_ms, hd=hd,
+            kernels=sorted(short_kernel(n) for n in names
+                           if "repro::flash::" in n))
         log("kernels", name=name, shape=shape, ms=f"{ms:.4f}",
             plain_ms=f"{plain:.4f}",
             library_ms=f"{results[name]['library_ms']:.4f}",
@@ -980,9 +1111,9 @@ def flash_main(gen, b, s, hq, hkv, hd, window):
 
 def flash_sweep(gen, cases, phase: str, name: str) -> None:
     """K2 against its plain versions over ``cases`` in f32 and bf16; then
-    one trace of every case's kernels: bf16 on the tensor-core kernels,
-    f32 on the SIMT kernels."""
-    calls, dtypes = {}, {}
+    one trace of every case's kernels, each call on exactly its route's
+    kernels (:func:`require_flash_route`)."""
+    calls, routes = {}, {}
     for case in cases:
         for dtype in (torch.float32, torch.bfloat16):
             _, errs, kernels = flash_case(gen, *case, dtype)
@@ -990,16 +1121,21 @@ def flash_sweep(gen, cases, phase: str, name: str) -> None:
             log(phase, name=name, shape=case[:6], causal=case[6],
                 window=case[7], dtype=dt,
                 errs=json.dumps({k: f"{v:.3e}" for k, v in errs.items()}))
-            calls[f"{case} {dt}"], dtypes[f"{case} {dt}"] = kernels, dtype
+            calls[f"{case} {dt}"] = kernels
+            routes[f"{case} {dt}"] = (dtype, case[5], case[3] // case[4])
     for label, names in kernel_names(calls).items():
-        require_flash_route(names, dtypes[label], f"K2 {label}")
+        require_flash_route(names, *routes[label], f"K2 {label}")
     log(phase, name=f"{name} routes", cases=len(calls),
-        bf16="repro::flash::tc:: only", f32="SIMT only")
+        bf16="wg:: forward and bwd_dkdv at hd 64/128, tc:: the rest",
+        f32="SIMT only")
 
 
 def phase_flash(gen):
-    """K2 against its plain versions, and its times at the main shapes."""
+    """K2 against its plain versions, its libraries' SASS, and its times
+    at the main shapes."""
+    log("kernels", name="K2 SASS", hgmma_utmaldg=json.dumps(flash_sass()))
     flash_sweep(gen, FLASH_SWEEP, "kernels", "K2 sweep")
+    flash_sweep(gen, FLASH_WG_SWEEP, "kernels", "K2 wgmma sweep")
     results = {}
     for key, (b, s) in FLASH_MAIN.items():
         for name, r in flash_main(gen, b, s, 16, 16, 64, 0).items():
@@ -1649,12 +1785,23 @@ def flat_args(**over):
 
 def require_flash_launches(counts: dict, args, layers: int) -> None:
     """Every layer of every client step ran the K2 forward twice (once
-    more in the checkpoint recompute) and each backward kernel once."""
+    more in the checkpoint recompute) and each backward kernel once, each
+    launch on its route; a bf16 model at head dim 64 or 128 on the wgmma
+    forward and bwd_dkdv (:func:`require_flash_entries`)."""
+    from repro_torch.models import registry
+
     steps = args.rounds * args.cohort * args.local_steps * layers
     require(counts["flash_attention_fwd"] >= 2 * steps
             and counts["flash_attention_bwd_dq"] >= steps
             and counts["flash_attention_bwd_dkdv"] >= steps,
             f"K2 launched {counts}, need fwd >= {2 * steps}, each bwd >= {steps}")
+    require_flash_entries(f"K2 of {args.arch}", wgmma=layers > 0
+                          and wgmma_model(registry.get_config(args.arch)))
+
+
+def wgmma_model(cfg) -> bool:
+    """A model whose K2 calls take the wgmma forward (and bwd_dkdv)."""
+    return cfg.head_dim in WG_HEAD_DIMS and cfg.torch_dtype == torch.bfloat16
 
 
 def require_lru_launches(counts: dict, args, layers: int) -> None:
@@ -2249,7 +2396,7 @@ def phase_plan(wire_payload: int):
     del oracle_rounds
     replay_args = flat(pc, sc, data(6))
     names = kernel_names({"replay": lambda: compiled(*replay_args)})["replay"]
-    require(any("repro::flash::tc::" in n for n in names)
+    require(any("repro::flash::wg::wg_fwd_kernel" in n for n in names)
             and any("reduce_compress_kernel" in n for n in names),
             f"one replay ran no repro kernel by name: {names[:20]}")
     size = executor.executor_cache_size()
@@ -4352,6 +4499,9 @@ def phase_serve(arch: str, seed: int = 0, run: dict = None) -> dict:
                 == SERVE_ORACLE_REQUESTS * cfg.num_layers,
                 f"[serve] prefill launched K2 {counts['flash_attention_fwd']} "
                 f"times")
+        require_flash_entries(f"[serve] {arch} prefill",
+                              wgmma=wgmma_model(cfg),
+                              need=("repro_flash_wg_fwd",))
         gated = cfg.family != "moe"
         require(worst <= SERVE_LOGITS_TOL or not gated,
                 f"[serve] prefill vs chunks: {worst:.3e} of max |logits|")
@@ -4679,6 +4829,7 @@ def phase_encdec_rounds() -> dict:
         counts = ops.launch_counts()
         launches.append({k: v for k, v in counts.items() if v})
         want = steps * per_step
+        require_flash_entries(f"[encdec] round {r}", wgmma=wgmma_model(cfg))
         require(counts["flash_attention_fwd"] == want
                 and counts["flash_attention_bwd_dq"] == want
                 and counts["flash_attention_bwd_dkdv"] == want,
@@ -5085,6 +5236,7 @@ def phase_mesh_one_rank(workdir: str) -> dict:
     del one
     plain = mesh_rounds(plain_fn, params, state, data, 2)
     meshed = mesh_rounds(mesh_fn, params, state, data, 2)
+    require_flash_entries("[mesh] flat", wgmma=wgmma_model(cfg))
     require(plain["losses"] == meshed["losses"],
             f"[mesh] flat losses {meshed['losses']} != mesh-free "
             f"{plain['losses']}")
@@ -5439,9 +5591,15 @@ def main() -> int:
                         for name, r in kernels.items()]}
     def flash_entry(name, r, n, shape):
         # bf16 K2 runs on tensor cores: its bound is at their rate, with the
-        # f32 SIMT bound of the f32 route beside it
-        return entry(name, dict(r, **FLASH_SOURCE[name]), n, shape=shape,
-                     route_detail="tensor cores (bf16, mma.sync, hi/lo split)",
+        # f32 SIMT bound of the f32 route beside it; the forward and
+        # bwd_dkdv at head dims 64 and 128 on wgmma
+        wg = r["hd"] in WG_HEAD_DIMS and name != "flash_attention_bwd_dq"
+        return entry(name, {**r, **FLASH_SOURCE[name],
+                            **(FLASH_SM90_SOURCE if wg else {})},
+                     n, shape=shape, device_kernels=r["kernels"],
+                     route_detail="tensor cores (bf16, wgmma from TMA rings, "
+                     "warp-specialised, hi/lo split)" if wg else
+                     "tensor cores (bf16, mma.sync, hi/lo split)",
                      bound_rate="bf16 tensor cores, 989 TFLOP/s",
                      bound_ms_f32_simt=r["bound_ms_f32_simt"])
 

@@ -2,11 +2,13 @@
 # Run the kernel phases and the direct [flat] and [hier] rounds of
 # chip_smoke.py from two checkouts on one card, in turns (parent, change,
 # change, parent; PAIRS=n repeats that n times), so their kernel times and
-# peak memory compare within one machine. Phases k2dev (K2 at the main
-# shapes) and int8dev (K1a, K1b, K3a, K3b, K3c at lm_350m's packed delta)
-# call the kernels through kernels/ops.py and split each one's event time
-# into device time (kernels only, from one torch.profiler trace) and the
-# host's launch path (back-to-back calls).
+# peak memory compare within one machine. Phase flash runs K2's sweeps
+# and every shape the smoke times it at (FLASH_MAIN, FLASH_WIDE,
+# FLASH_ENCDEC). Phases k2dev (K2 at the main shapes) and int8dev (K1a,
+# K1b, K3a, K3b, K3c at lm_350m's packed delta) call the kernels through
+# kernels/ops.py and split each one's event time into device time
+# (kernels only, from one torch.profiler trace) and the host's launch
+# path (back-to-back calls).
 # Usage, from the root of the
 # change's checkout with the parent unpacked under build/parent
 # (git archive <parent> | tar -x -C build/parent):
@@ -41,6 +43,8 @@ if 'kernels' in phases:
     c.phase_kernels(rows, gen)
 if 'flash' in phases:
     c.phase_flash(gen)
+    c.phase_flash_wide(gen)
+    c.phase_flash_encdec(gen)
 def split(phase, shape, calls):
     # event time against device time (one trace) and the launch path
     import time

@@ -10,14 +10,15 @@ library with a plain C interface:
 into ``build/kernels/`` at the root of the checkout (listed in
 ``.gitignore``). The file name carries a hash of the sources and flags, so an
 edited source is rebuilt and an unchanged one is reused. All sources are
-compiled together, one nvcc process each, on the first call to
-:func:`library`. No fast math: the kernels must divide and round exactly as
-the reference does. No source links libcuda (``-lcuda``):
-``rglru_scan.cu`` encodes its TMA tensor maps with libcuda's
-``cuTensorMapEncodeTiled``, which it looks up at run time through the
-CUDA runtime's ``cudaGetDriverEntryPoint``. ``-Xptxas -v`` makes nvcc report
-each kernel's registers, spills and shared memory; a build keeps that
-report per source in ``KernelBuild.logs``.
+compiled together, one nvcc process each (from a thread pool), on the
+first call to :func:`library`. No fast math: the kernels must divide and
+round exactly as the reference does. No source links libcuda (``-lcuda``):
+``rglru_scan.cu`` and ``flash_attention_sm90.cu`` encode their TMA tensor
+maps with libcuda's ``cuTensorMapEncodeTiled``, which ``common.cuh`` looks
+up at run time through the CUDA runtime's ``cudaGetDriverEntryPoint``.
+``-Xptxas -v`` makes nvcc report each kernel's registers, spills and shared
+memory; a build keeps that report per source in ``KernelBuild.logs``, and
+each source's nvcc wall seconds in ``KernelBuild.source_seconds``.
 
 No build failure is caught: a missing nvcc or a compile error raises.
 """
@@ -31,14 +32,15 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Optional
 
 from .. import compat
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("quantize", "reduce_compress", "flash_attention", "rglru_scan",
-           "wkv6")
+SOURCES = ("quantize", "reduce_compress", "flash_attention",
+           "flash_attention_sm90", "rglru_scan", "wkv6")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -76,6 +78,14 @@ SIGNATURES = {
                                  *_FLASH_TAIL),
         "repro_flash_tc_smem": (_C, _C),
     },
+    # the same signatures as repro_flash_fwd and repro_flash_bwd_dkdv
+    # (bf16 only, and no scratch); (which, hd)
+    "flash_attention_sm90": {
+        "repro_flash_wg_fwd": (_P, _P, _P, _C, _P, _P, _P, *_FLASH_TAIL),
+        "repro_flash_wg_bwd_dkdv": (_P, _P, _P, _C, _P, _P, _P, _P, _P,
+                                    *_FLASH_TAIL),
+        "repro_flash_wg_smem": (_C, _C),
+    },
     # (a, b, h0, dtype, h, B, S, W, tma, stream),
     # (a, h, g, h0, dtype, da, db, dh0, B, S, W, tma, stream): tma 0 is the
     # SIMT route, 1 the TMA route; and (dtype, backward)
@@ -103,6 +113,7 @@ class KernelBuild:
     def __init__(self):
         self.build_dir = BUILD_DIR
         self.build_seconds: Optional[float] = None
+        self.source_seconds: Dict[str, float] = {}
         self.logs: Dict[str, str] = {}
         self._libs: Dict[str, ctypes.CDLL] = {}
         self._lock = threading.Lock()
@@ -132,23 +143,27 @@ class KernelBuild:
                     "CUDA kernels cannot be built"
                 )
             self.build_dir.mkdir(parents=True, exist_ok=True)
-            procs: List[tuple] = []
-            for name in todo:
+
+            def compile_one(name: str):
                 out = self._target(name)
                 tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-                cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-                       str(CSRC / f"{name}.cu")]
-                procs.append((name, out, tmp, subprocess.Popen(
-                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                    text=True)))
+                t = time.perf_counter()
+                proc = subprocess.run(
+                    [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                     str(CSRC / f"{name}.cu")],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)
+                return name, out, tmp, proc, time.perf_counter() - t
+
             errors = []
-            for name, out, tmp, proc in procs:
-                log, _ = proc.communicate()
-                self.logs[name] = log
-                if proc.returncode != 0:
-                    errors.append(f"nvcc {name}.cu failed:\n{log}")
-                else:
-                    os.replace(tmp, out)
+            with ThreadPoolExecutor(len(todo)) as pool:
+                for name, out, tmp, proc, secs in pool.map(compile_one, todo):
+                    self.logs[name] = proc.stdout
+                    self.source_seconds[name] = secs
+                    if proc.returncode != 0:
+                        errors.append(f"nvcc {name}.cu failed:\n{proc.stdout}")
+                    else:
+                        os.replace(tmp, out)
             if errors:
                 raise RuntimeError("\n".join(errors))
         self.build_seconds = time.perf_counter() - t0

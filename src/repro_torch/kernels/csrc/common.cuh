@@ -1,13 +1,22 @@
-// Shared helpers for the int8 row-quantization kernels.
+// Shared helpers of the kernels.
 //
-// A "row" is one 256-wide slice of a flat-packed buffer (PACK_COLS in
-// repro_torch/compression/api.py): one warp owns one row, each lane eight
-// consecutive values, loaded with 16-byte vector loads.
+// The int8 row-quantization kernels: a "row" is one 256-wide slice of a
+// flat-packed buffer (PACK_COLS in repro_torch/compression/api.py): one
+// warp owns one row, each lane eight consecutive values, loaded with
+// 16-byte vector loads.
+//
+// The TMA kernels (rglru_scan.cu, flash_attention_sm90.cu): mbarriers, and
+// on the host libcuda's cuTensorMapEncodeTiled, looked up at run time
+// through the CUDA runtime's cudaGetDriverEntryPoint (no source links
+// libcuda), and a once-per-device shared-memory limit.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums; libcuda is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace repro {
 
@@ -114,6 +123,105 @@ __device__ __forceinline__ void load_q8(const int8_t* p, float v[kPerLane]) {
 
 inline unsigned int row_blocks(long long rows) {
   return static_cast<unsigned int>((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
+}
+
+// ------------------------------------------------------- TMA, mbarriers --
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Returns once the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Makes this thread's shared-memory writes visible to the TMA (async proxy).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, looked up once (null if missing).
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t rc = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t rc = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return rc == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+constexpr int kMaxDevices = 64;
+
+// Raises kernel's dynamic shared-memory limit to `bytes`, once for each
+// device (the attribute is the device's; `done` is the caller's record of
+// the devices done): a TMA launch then costs the host little more than
+// encoding its maps.
+template <typename K>
+cudaError_t allow_smem_once(std::atomic<bool> (&done)[kMaxDevices], K kernel,
+                            int bytes) {
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return rc;
+  if (dev < kMaxDevices && done[dev].load(std::memory_order_acquire)) {
+    return cudaSuccess;
+  }
+  rc = cudaFuncSetAttribute(kernel,
+                            cudaFuncAttributeMaxDynamicSharedMemorySize,
+                            bytes);
+  if (rc == cudaSuccess && dev < kMaxDevices) {
+    done[dev].store(true, std::memory_order_release);
+  }
+  return rc;
 }
 
 }  // namespace repro

@@ -22,7 +22,11 @@
 //   dv = p^T dout, dp = dout v^T, ds = p * (dp - D) * scale,
 //   dq = ds k, dk = ds^T q, dk and dv summed over the G heads of a kv head.
 //
-// Two routes, chosen by dtype (REPRO_FLASH_DISPATCH):
+// Two routes here, chosen by dtype (REPRO_FLASH_DISPATCH); the route
+// table of kernels/flash_attention.py (ROUTES) sends the bf16 forward and
+// bwd_dkdv at head dims 64 and 128 to flash_attention_sm90.cu's wgmma
+// kernels instead, so this file's tensor-core forward and bwd_dkdv are
+// instantiated at head dims 16, 32, 80 and 256 only, and bwd_dq at all.
 //
 // bf16: tensor cores (namespace tc, kernels tc_*). The FlashAttention-2
 // structure on mma.sync.m16n8k16 (bf16 operands, f32 accumulators). What
@@ -63,19 +67,20 @@
 //   head's f32 partials to scratch (2, B, Skv, Hq, hd) and tc_sum_heads
 //   sums the G partials of a kv head in the order g = 0..G-1 and rounds
 //   once. Deterministic, and G times the blocks of a loop over heads.
-// Not done yet: wgmma and TMA with warp specialisation (the producer /
-// consumer ring of the usual Hopper attention kernel), which is where the
-// rest of the tensor-core rate is.
+// wgmma and TMA with warp specialisation (the producer / consumer ring of
+// the usual Hopper attention kernel) are flash_attention_sm90.cu's; bwd_dq
+// on them is not done yet.
 // Resources of the bf16 route (nvcc -Xptxas -v for sm_90a, as chip_smoke.py
 // logs them at [build]; dynamic shared memory from fwd_smem, dq_smem,
-// dkdv_smem): registers per thread, spills, shared memory per block.
+// dkdv_smem): registers per thread, spills, shared memory per block; "-"
+// where flash_attention_sm90.cu serves the call.
 //   head dim          16     32     64     80    128    256
-//   tc_fwd   regs     78     80    104    135    148    255
-//            smem  15360  25600  46080  56320  87040 101376
+//   tc_fwd   regs     78     80      -    135      -    255
+//            smem  15360  25600      -  56320      - 101376
 //   tc_dq    regs    127    128    168    168    168    245
 //            smem  18432  30720  55296  67584 104448 135168
-//   tc_dkdv  regs    122    164    188    175    249    248
-//            smem  19456  31744  56320  45568  70144 135680
+//   tc_dkdv  regs    122    164      -    175      -    248
+//            smem  19456  31744      -  45568      - 135680
 //   tc_sum_heads: 32 registers, no shared memory.
 // No instantiation spills (0 bytes spill stores and loads in every one).
 // Each score takes an accurate expf (the reference's exp to ~1 ulp), not
@@ -92,7 +97,7 @@
 // scores live in the 16 lanes of one half-warp, so row max and row sum are
 // shuffles. One kernel computes D and dq per q tile, one dk and dv per kv
 // tile (looping over the G query heads and their q tiles).
-#include "common.cuh"
+#include "flash_common.cuh"
 
 #include <algorithm>
 
@@ -102,17 +107,11 @@ namespace flash {
 
 constexpr int kThreads = 256;        // 16 x 16; thread (tx, ty) owns rows
                                      // R*ty..R*ty+R-1 x cols R*tx..R*tx+R-1
-constexpr float kNegInf = -1e30f;    // the reference's NEG_INF
 
 // Rows of a tile: 64, or 32 where 64-row f32 tiles would not fit in shared
 // memory (the backward kernels at head dim 256). The forward keeps 64.
 template <int HD> constexpr int bwd_tile() { return HD > 128 ? 32 : 64; }
 constexpr int kFwdTile = 64;
-
-struct Shape {
-  int Sq, Skv, Hq, Hkv, causal, window;
-  float scale;
-};
 
 // The SIMT kernels run f32 only (bf16 takes the tensor-core route).
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -127,14 +126,6 @@ __device__ __forceinline__ bool tile_visible(const Shape& s, int q0, int k0) {
   if (s.causal && k0 > q0 + TILE - 1) return false;
   if (s.window > 0 && k0 + TILE - 1 <= q0 - s.window) return false;
   return true;
-}
-
-// The reference's element mask (flash_attention.py:76-83).
-__device__ __forceinline__ bool pair_visible(const Shape& s, int qp, int kp) {
-  bool ok = kp < s.Skv;
-  if (s.causal) ok = ok && kp <= qp;
-  if (s.window > 0) ok = ok && kp > qp - s.window;
-  return ok;
 }
 
 // dst[d * (TILE + 4) + r] = f32(src[r * row_stride + d]) for r < rows, else 0.
@@ -554,8 +545,6 @@ using bf16 = __nv_bfloat16;
 constexpr int kPad = 8;     // bf16 of padding per shared row (16 bytes)
 constexpr int kStages = 2;  // the cp.async ring
 
-__host__ __device__ constexpr int cdiv(int n, int d) { return (n + d - 1) / d; }
-
 // Tiles per head dim. Forward and bwd_dq: 4 warps of 16 query rows, kv
 // tiles of BKV rows. bwd_dkdv: 4 warps of 16 kv rows (x DS at head dim 256,
 // each set of 4 taking HD / DS of the dk/dv columns), q tiles of BQ rows.
@@ -566,10 +555,6 @@ template <int HD> struct DkdvTiles {
   static constexpr int BKV = 64, DS = HD > 128 ? 2 : 1;
   static constexpr int BQ = HD > 64 ? 32 : 64, THREADS = 128 * DS;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // 16 bytes global -> shared, or 16 zero bytes when !valid (src not read).
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -630,30 +615,6 @@ __device__ __forceinline__ int bt_off(int lane, int ld) {
   return (((lane >> 3) & 1) * 8 + (lane & 7)) * ld + (lane >> 4) * 8;
 }
 
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-
-// Two f32 values as bf16 pairs hi = bf16(x) and lo = bf16(x - hi).
-__device__ __forceinline__ void split(float x, float y, uint32_t& hi,
-                                      uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  hi = as_u32(h);
-  lo = as_u32(__floats2bfloat162_rn(x - hf.x, y - hf.y));
-}
-
-// The A fragments (hi and lo) of columns 16 kc .. 16 kc + 15 of a 16-row
-// f32 tile held as C fragments c[n][4] of its n8 blocks.
-template <int N>
-__device__ __forceinline__ void split_a(float (&c)[N][4], int kc,
-                                        uint32_t hi[4], uint32_t lo[4]) {
-  split(c[2 * kc][0], c[2 * kc][1], hi[0], lo[0]);
-  split(c[2 * kc][2], c[2 * kc][3], hi[1], lo[1]);
-  split(c[2 * kc + 1][0], c[2 * kc + 1][1], hi[2], lo[2]);
-  split(c[2 * kc + 1][2], c[2 * kc + 1][3], hi[3], lo[3]);
-}
-
 // ROWS rows of HD bf16 (row stride `stride` elements) into shared memory
 // with row stride HD + kPad; rows >= `rows` are zero-filled.
 template <int HD, int ROWS, int NT>
@@ -677,43 +638,6 @@ __device__ __forceinline__ void load_vec(float* dst, const float* src,
     cp_async4(dst + r, src + (ok ? static_cast<long long>(r) * stride : 0),
               ok);
   }
-}
-
-// The reference's block-pair test (flash_attention.py:58-65) for a q tile
-// of bq rows at q0 and a kv tile of bkv rows at k0.
-__device__ __forceinline__ bool tiles_visible(const Shape& s, int q0, int bq,
-                                              int k0, int bkv) {
-  if (s.causal && k0 > q0 + bq - 1) return false;
-  if (s.window > 0 && k0 + bkv - 1 <= q0 - s.window) return false;
-  return true;
-}
-
-// Every pair of the two tiles is visible and in range: no element mask.
-__device__ __forceinline__ bool tiles_full(const Shape& s, int q0, int bq,
-                                           int k0, int bkv) {
-  if (q0 + bq > s.Sq || k0 + bkv > s.Skv) return false;
-  if (s.causal && k0 + bkv - 1 > q0) return false;
-  if (s.window > 0 && k0 <= q0 + bq - 1 - s.window) return false;
-  return true;
-}
-
-// The visible kv tiles [t0, t1] of a q tile (a contiguous range).
-template <int BQ, int BKV>
-__device__ __forceinline__ void kv_range(const Shape& s, int q0, int& t0,
-                                         int& t1) {
-  t1 = cdiv(s.Skv, BKV) - 1;
-  if (s.causal) t1 = min(t1, (q0 + BQ - 1) / BKV);
-  t0 = 0;
-  while (t0 <= t1 && !tiles_visible(s, q0, BQ, t0 * BKV, BKV)) ++t0;
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // ---------------------------------------------------------------------------
@@ -1057,9 +981,8 @@ tc_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const long long lhead = static_cast<long long>(b) * s.Sq * s.Hq + h;
   const int rows_k = min(BKV, s.Skv - k0);
   // The visible q tiles [u0, u1] of this kv tile (a contiguous range).
-  int u0 = s.causal ? k0 / BQ : 0, u1 = cdiv(s.Sq, BQ) - 1;
-  while (u0 <= u1 && !tiles_visible(s, u0 * BQ, BQ, k0, BKV)) ++u0;
-  while (u1 >= u0 && !tiles_visible(s, u1 * BQ, BQ, k0, BKV)) --u1;
+  int u0, u1;
+  q_range<BQ, BKV>(s, k0, u0, u1);
 
   auto load_q_tile = [&](int u, int stage) {
     const int qt0 = u * BQ, rows = min(BQ, s.Sq - qt0);
@@ -1246,7 +1169,6 @@ static_assert(dkdv_smem<256, bwd_tile<256>()>() <= kMaxSmem, "dkdv at hd 256");
 static_assert(tc::fwd_smem<256>() <= kMaxSmem, "tc fwd at hd 256");
 static_assert(tc::dq_smem<256>() <= kMaxSmem, "tc dq at hd 256");
 static_assert(tc::dkdv_smem<256>() <= kMaxSmem, "tc dkdv at hd 256");
-static_assert(tc::dkdv_smem<128>() <= kMaxSmem, "tc dkdv at hd 128");
 
 // Above 48 KB a kernel takes dynamic shared memory only after this call;
 // without it the launch is refused (reported by cudaGetLastError).
@@ -1257,8 +1179,6 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-inline int tiles(int n, int tile) { return (n + tile - 1) / tile; }
-
 template <typename T, int HD>
 int launch_fwd(const void* q, const void* k, const void* v, void* out,
                void* out32, void* lse, int B, Shape s, cudaStream_t st) {
@@ -1266,7 +1186,7 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out,
   constexpr size_t smem = fwd_smem<HD, TILE>();
   const cudaError_t e = allow_smem(fwd_kernel<T, HD, TILE>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(tiles(s.Sq, TILE), s.Hq, B);
+  const dim3 grid(cdiv(s.Sq, TILE), s.Hq, B);
   fwd_kernel<T, HD, TILE><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out),
@@ -1282,7 +1202,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* out32,
   constexpr size_t smem = dq_smem<HD, TILE>();
   const cudaError_t e = allow_smem(bwd_dq_kernel<T, HD, TILE>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(tiles(s.Sq, TILE), s.Hq, B);
+  const dim3 grid(cdiv(s.Sq, TILE), s.Hq, B);
   bwd_dq_kernel<T, HD, TILE><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(out32),
@@ -1300,7 +1220,7 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
   constexpr size_t smem = dkdv_smem<HD, TILE>();
   const cudaError_t e = allow_smem(bwd_dkdv_kernel<T, HD, TILE>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(tiles(s.Skv, TILE), s.Hkv, B);
+  const dim3 grid(cdiv(s.Skv, TILE), s.Hkv, B);
   bwd_dkdv_kernel<T, HD, TILE><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
@@ -1317,7 +1237,7 @@ int launch_tc_fwd(const void* q, const void* k, const void* v, void* out,
   constexpr size_t smem = tc::fwd_smem<HD>();
   const cudaError_t e = allow_smem(tc::tc_fwd_kernel<HD>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(s.Hq, B, tiles(s.Sq, tc::FwdTiles<HD>::BQ));
+  const dim3 grid(s.Hq, B, cdiv(s.Sq, tc::FwdTiles<HD>::BQ));
   tc::tc_fwd_kernel<HD><<<grid, tc::FwdTiles<HD>::THREADS, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out),
@@ -1333,7 +1253,7 @@ int launch_tc_dq(const void* q, const void* k, const void* v,
   constexpr size_t smem = tc::dq_smem<HD>();
   const cudaError_t e = allow_smem(tc::tc_bwd_dq_kernel<HD>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(s.Hq, B, tiles(s.Sq, tc::FwdTiles<HD>::BQ));
+  const dim3 grid(s.Hq, B, cdiv(s.Sq, tc::FwdTiles<HD>::BQ));
   tc::tc_bwd_dq_kernel<HD><<<grid, tc::FwdTiles<HD>::THREADS, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const float*>(out32),
@@ -1357,7 +1277,7 @@ int launch_tc_dkdv(const void* q, const void* k, const void* v,
   constexpr size_t smem = tc::dkdv_smem<HD>();
   cudaError_t e = allow_smem(tc::tc_bwd_dkdv_kernel<HD>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(s.Hq, B, tiles(s.Skv, C::BKV));
+  const dim3 grid(s.Hq, B, cdiv(s.Skv, C::BKV));
   tc::tc_bwd_dkdv_kernel<HD><<<grid, C::THREADS, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
@@ -1377,10 +1297,17 @@ int launch_tc_dkdv(const void* q, const void* k, const void* v,
 
 // return f32 ? SIMT<float, hd>(args...) : TC<hd>(args...) for the
 // (dtype, head_dim) of the call: f32 takes the SIMT kernels, bf16 the
-// tensor-core kernels.
+// tensor-core kernels. WG_CASE is REPRO_FLASH_CASE, or REPRO_FLASH_F32_ONLY
+// for a kernel whose bf16 call at head dims 64 and 128 takes
+// flash_attention_sm90.cu's wgmma kernel instead (the forward and
+// bwd_dkdv: kernels/flash_attention.py:ROUTES).
 #define REPRO_FLASH_CASE(SIMT, TC, HD, ...)                                \
   case HD: return f32 ? SIMT<float, HD>(__VA_ARGS__) : TC<HD>(__VA_ARGS__);
-#define REPRO_FLASH_DISPATCH(SIMT, TC, ...)                                \
+#define REPRO_FLASH_F32_ONLY(SIMT, TC, HD, ...)                            \
+  case HD:                                                                 \
+    return f32 ? SIMT<float, HD>(__VA_ARGS__)                              \
+               : static_cast<int>(cudaErrorInvalidValue);
+#define REPRO_FLASH_DISPATCH(SIMT, TC, WG_CASE, ...)                       \
   do {                                                                     \
     if (dtype != kF32 && dtype != kBF16) {                                 \
       return static_cast<int>(cudaErrorInvalidValue);                      \
@@ -1389,29 +1316,13 @@ int launch_tc_dkdv(const void* q, const void* k, const void* v,
     switch (hd) {                                                          \
       REPRO_FLASH_CASE(SIMT, TC, 16, __VA_ARGS__)                          \
       REPRO_FLASH_CASE(SIMT, TC, 32, __VA_ARGS__)                          \
-      REPRO_FLASH_CASE(SIMT, TC, 64, __VA_ARGS__)                          \
+      WG_CASE(SIMT, TC, 64, __VA_ARGS__)                                   \
       REPRO_FLASH_CASE(SIMT, TC, 80, __VA_ARGS__)                          \
-      REPRO_FLASH_CASE(SIMT, TC, 128, __VA_ARGS__)                         \
+      WG_CASE(SIMT, TC, 128, __VA_ARGS__)                                  \
       REPRO_FLASH_CASE(SIMT, TC, 256, __VA_ARGS__)                         \
       default: return static_cast<int>(cudaErrorInvalidValue);             \
     }                                                                      \
   } while (0)
-
-inline Shape make_shape(int Sq, int Skv, int Hq, int Hkv, int causal,
-                        int window, float scale) {
-  Shape s;
-  s.Sq = Sq; s.Skv = Skv; s.Hq = Hq; s.Hkv = Hkv;
-  s.causal = causal; s.window = window; s.scale = scale;
-  return s;
-}
-
-// Grid limits: B and Hq <= 65535, and at most 65535 tiles of 32 rows
-// along Sq and Skv (the tensor-core grids' third dimension).
-inline bool bad_shape(int B, int Sq, int Skv, int Hq, int Hkv) {
-  return B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
-         B > 65535 || Hq > 65535 || tiles(Sq, 32) > 65535 ||
-         tiles(Skv, 32) > 65535;
-}
 
 }  // namespace flash
 }  // namespace repro
@@ -1433,8 +1344,8 @@ int repro_flash_fwd(const void* q, const void* k, const void* v, int dtype,
   }
   const Shape s = make_shape(Sq, Skv, Hq, Hkv, causal, window, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  REPRO_FLASH_DISPATCH(launch_fwd, launch_tc_fwd, q, k, v, out, out32, lse, B,
-                       s, st);
+  REPRO_FLASH_DISPATCH(launch_fwd, launch_tc_fwd, REPRO_FLASH_F32_ONLY, q, k,
+                       v, out, out32, lse, B, s, st);
 }
 
 // Backward, first kernel: delta (B, Sq, Hq) f32 = D, and dq in q's type.
@@ -1448,8 +1359,8 @@ int repro_flash_bwd_dq(const void* q, const void* k, const void* v,
   }
   const Shape s = make_shape(Sq, Skv, Hq, Hkv, causal, window, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  REPRO_FLASH_DISPATCH(launch_dq, launch_tc_dq, q, k, v, out32, dout, lse,
-                       delta, dq, B, s, st);
+  REPRO_FLASH_DISPATCH(launch_dq, launch_tc_dq, REPRO_FLASH_CASE, q, k, v,
+                       out32, dout, lse, delta, dq, B, s, st);
 }
 
 // Backward, second kernel (after the first, which writes delta): dk and dv
@@ -1465,29 +1376,33 @@ int repro_flash_bwd_dkdv(const void* q, const void* k, const void* v,
   }
   const Shape s = make_shape(Sq, Skv, Hq, Hkv, causal, window, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  REPRO_FLASH_DISPATCH(launch_dkdv, launch_tc_dkdv, q, k, v, dout, lse, delta,
-                       dk, dv, part, B, s, st);
+  REPRO_FLASH_DISPATCH(launch_dkdv, launch_tc_dkdv, REPRO_FLASH_F32_ONLY, q,
+                       k, v, dout, lse, delta, dk, dv, part, B, s, st);
 }
 
-// Dynamic shared memory (bytes) of the bf16 route's kernel `which` (0 the
-// forward, 1 bwd_dq, 2 bwd_dkdv) at head dim hd, or -1.
+// Dynamic shared memory (bytes) of the mma.sync kernel `which` (0 the
+// forward, 1 bwd_dq, 2 bwd_dkdv) at head dim hd, or -1 where it has no
+// such instantiation.
 int repro_flash_tc_smem(int which, int hd) {
+  switch (hd) {
 #define REPRO_FLASH_SMEM(HD)                                               \
   case HD:                                                                 \
     return which == 0   ? static_cast<int>(tc::fwd_smem<HD>())             \
            : which == 1 ? static_cast<int>(tc::dq_smem<HD>())              \
            : which == 2 ? static_cast<int>(tc::dkdv_smem<HD>())            \
                         : -1;
-  switch (hd) {
     REPRO_FLASH_SMEM(16)
     REPRO_FLASH_SMEM(32)
-    REPRO_FLASH_SMEM(64)
     REPRO_FLASH_SMEM(80)
-    REPRO_FLASH_SMEM(128)
     REPRO_FLASH_SMEM(256)
+#undef REPRO_FLASH_SMEM
+    case 64:
+    case 128:
+      return which == 1 ? static_cast<int>(hd == 64 ? tc::dq_smem<64>()
+                                                    : tc::dq_smem<128>())
+                        : -1;
     default: return -1;
   }
-#undef REPRO_FLASH_SMEM
 }
 
 }  // extern "C"

@@ -62,9 +62,9 @@
 //   which the TMA zero-fills, is replaced by h0 (or 0) at t = 0. a_next
 //   and dh carry across tiles; dh0 = a_0 * dh_0 at the end.
 // The maps are encoded on the host for each call (cuTensorMapEncodeTiled,
-// reached through cudaGetDriverEntryPoint: no -lcuda) and passed as
-// __grid_constant__ parameters; each kernel's shared-memory limit is set
-// once.
+// reached through cudaGetDriverEntryPoint by common.cuh's encode_tiled: no
+// -lcuda) and passed as __grid_constant__ parameters; each kernel's
+// shared-memory limit is set once.
 //
 // SIMT route (simt_fwd_kernel, simt_bwd_kernel), for everything else (W
 // 45, 33, 1 or 100 in bf16; a contiguous view at an odd offset): one
@@ -75,10 +75,6 @@
 // tma 0 asks for SIMT, 1 for TMA. Not done: a chunked two-pass scan that is
 // parallel over time (it fills the card but changes the order of the f32
 // operations).
-#include <cuda.h>  // CUtensorMap and its enums; libcuda is not linked
-
-#include <atomic>
-
 #include "common.cuh"
 
 namespace repro {
@@ -229,48 +225,6 @@ __device__ __forceinline__ void load_steps(float v[kU], const T* p, int j0) {
   for (int u = 0; u < kU; ++u) v[u] = to_f32(p[(j0 + u) * kWT]);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// Returns once the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
 // Box [kWT, kTTile, 1] at (w, t, b) into shared memory; completes on `bar`.
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
                                          uint64_t* bar, int w, int t, int b) {
@@ -303,11 +257,6 @@ template <int N> __device__ __forceinline__ void bulk_wait_read() {
 
 __device__ __forceinline__ void bulk_wait_all() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-// Makes this thread's shared-memory writes visible to the TMA (async proxy).
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // The ring of one block: NIN input tiles and NOUT output tiles a stage,
@@ -566,32 +515,6 @@ inline dim3 grid_of(int B, int W, int wt) {
   return dim3((W + wt - 1) / wt, B);
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, looked up once (null if missing).
-inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t rc = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t rc = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return rc == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // The 3-D (W, S, B) map of a contiguous (B, S, W) tensor, boxes
 // [kWT, kTTile, 1], zero fill out of bounds. False if the encoder refuses it
 // (an address or a row that is not a multiple of 16 bytes).
@@ -613,30 +536,6 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int dtype, int B,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-constexpr int kMaxDevices = 64;
-
-// Raises kernel's dynamic shared-memory limit to `bytes`, once for each
-// device (the attribute is the device's; `done` is the caller's record of
-// the devices done): a TMA launch then costs the host little more than
-// encoding its maps.
-template <typename K>
-cudaError_t allow_smem_once(std::atomic<bool> (&done)[kMaxDevices], K kernel,
-                            int bytes) {
-  int dev = 0;
-  cudaError_t rc = cudaGetDevice(&dev);
-  if (rc != cudaSuccess) return rc;
-  if (dev < kMaxDevices && done[dev].load(std::memory_order_acquire)) {
-    return cudaSuccess;
-  }
-  rc = cudaFuncSetAttribute(kernel,
-                            cudaFuncAttributeMaxDynamicSharedMemorySize,
-                            bytes);
-  if (rc == cudaSuccess && dev < kMaxDevices) {
-    done[dev].store(true, std::memory_order_release);
-  }
-  return rc;
 }
 
 template <typename T>

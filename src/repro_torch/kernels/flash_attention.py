@@ -1,4 +1,5 @@
-"""Launchers of the CUDA flash attention kernels (``csrc/flash_attention.cu``).
+"""Launchers of the CUDA flash attention kernels (``csrc/flash_attention.cu``
+and ``csrc/flash_attention_sm90.cu``).
 
 The counterpart of ``repro/kernels/flash_attention.py::flash_attention``
 (forward) and of ``repro/models/attention.py::_flash_bwd_rule`` (the
@@ -6,18 +7,24 @@ backward of ``flash_attention_xla``), in the reference's layout: q
 (B, Sq, Hq, hd), k/v (B, Skv, Hkv, hd), f32 or bf16, contiguous, on one
 card. Three kernels: the forward (with the f32 output and the logsumexp L
 that the backward reads), ``bwd_dq`` (D and dq) and ``bwd_dkdv`` (dk and
-dv, after ``bwd_dq``). bf16 inputs run on the tensor cores, f32 inputs on
-the SIMT kernels (the source's header says why). Each launcher checks what
-the kernel takes and raises on anything else, allocates its outputs (and,
-for bf16 ``bwd_dkdv`` with Hq > Hkv, the f32 per-head partials that a
-second kernel sums in order) with ``torch.empty`` and launches on the
-current stream. CUDA tensors only; ``kernels.ops`` dispatches CPU tensors
-to ``kernels.ref`` and counts the launches.
+dv, after ``bwd_dq``). :data:`ROUTES` names the kernel each call launches,
+by dtype and head dim: f32 runs the SIMT kernels, bf16 the ``mma.sync``
+tensor-core kernels, except the bf16 forward and ``bwd_dkdv`` at head dims
+64 and 128, which run the ``wgmma`` kernels of ``flash_attention_sm90.cu``
+(TMA rings, warp specialisation; the sources' headers say why). Each
+launcher checks what the kernel takes and raises on anything else,
+allocates its outputs (and, where the ``mma.sync`` ``bwd_dkdv`` runs with
+Hq > Hkv, the f32 per-head partials that a second kernel sums in order)
+with ``torch.empty`` and launches on the current stream. CUDA tensors only;
+``kernels.ops`` dispatches CPU tensors to ``kernels.ref`` and counts the
+launches; :data:`ROUTE_LAUNCHES` counts them here by entry point, dtype
+and head dim.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Dict, Tuple
 
 import torch
 
@@ -26,6 +33,32 @@ from .quantize import DTYPE_CODES
 
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 _MAX_GRID_YZ = 65535
+
+# (library, extern "C" entry point) of each kernel
+_SIMT = {"fwd": ("flash_attention", "repro_flash_fwd"),
+         "bwd_dq": ("flash_attention", "repro_flash_bwd_dq"),
+         "bwd_dkdv": ("flash_attention", "repro_flash_bwd_dkdv")}
+_WGMMA = {"fwd": ("flash_attention_sm90", "repro_flash_wg_fwd"),
+          "bwd_dq": _SIMT["bwd_dq"],
+          "bwd_dkdv": ("flash_attention_sm90", "repro_flash_wg_bwd_dkdv")}
+# (dtype, head dim) -> {kernel: (library, entry point)}. The f32 and the
+# mma.sync routes share the entry points of flash_attention.cu, which pick
+# the SIMT or the tensor-core kernel by dtype.
+ROUTES = {
+    (dtype, hd): (_WGMMA if dtype == torch.bfloat16 and hd in (64, 128)
+                  else _SIMT)
+    for dtype in (torch.float32, torch.bfloat16) for hd in HEAD_DIMS
+}
+# The one entry point that takes f32 scratch for per-head partials (bf16,
+# Hq > Hkv); the wgmma bwd_dkdv sums the heads in registers.
+_PARTIALS_ENTRY = _SIMT["bwd_dkdv"]
+
+# Launches by (entry point, dtype, head dim) since the last reset.
+ROUTE_LAUNCHES: Dict[Tuple[str, torch.dtype, int], int] = {}
+
+
+def reset_route_launches() -> None:
+    ROUTE_LAUNCHES.clear()
 
 
 def _check_qkv(what: str, q, k, v):
@@ -83,6 +116,18 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _launch(what: str, q: torch.Tensor, kernel: str, *args) -> None:
+    """Calls the entry point that :data:`ROUTES` gives ``kernel`` for q's
+    dtype and head dim (which ``_check_qkv`` has checked) with ``args``,
+    raises on a failed launch and counts it."""
+    library, entry = ROUTES[(q.dtype, q.shape[-1])][kernel]
+    with torch.cuda.device(q.device):
+        rc = getattr(_build.KERNELS.library(library), entry)(*args)
+    _build.check(rc, what)
+    key = (entry, q.dtype, q.shape[-1])
+    ROUTE_LAUNCHES[key] = ROUTE_LAUNCHES.get(key, 0) + 1
+
+
 def fwd(q, k, v, *, causal: bool, window: int):
     """-> (out in q's dtype, out_f32, L (B, Sq, Hq) f32). The f32 output
     and L are what the backward reads; for f32 inputs ``out_f32`` is
@@ -93,13 +138,10 @@ def fwd(q, k, v, *, causal: bool, window: int):
     out32 = None if q.dtype == torch.float32 else torch.empty(
         q.shape, dtype=torch.float32, device=q.device)
     lse = torch.empty((b, sq, hq), dtype=torch.float32, device=q.device)
-    lib = _build.KERNELS.library("flash_attention")
-    with torch.cuda.device(q.device):
-        rc = lib.repro_flash_fwd(
+    _launch("flash_attention_fwd", q, "fwd",
             q.data_ptr(), k.data_ptr(), v.data_ptr(), DTYPE_CODES[q.dtype],
             out.data_ptr(), None if out32 is None else out32.data_ptr(),
             lse.data_ptr(), *_common(dims, causal, window, _stream(q)))
-    _build.check(rc, "flash_attention_fwd")
     return out, out if out32 is None else out32, lse
 
 
@@ -115,14 +157,11 @@ def bwd_dq(q, k, v, out32, lse, dout, *, causal: bool, window: int):
                q.device)
     dq = torch.empty_like(q)
     delta = torch.empty((b, sq, hq), dtype=torch.float32, device=q.device)
-    lib = _build.KERNELS.library("flash_attention")
-    with torch.cuda.device(q.device):
-        rc = lib.repro_flash_bwd_dq(
+    _launch("flash_attention_bwd_dq", q, "bwd_dq",
             q.data_ptr(), k.data_ptr(), v.data_ptr(), DTYPE_CODES[q.dtype],
             out32.data_ptr(), dout.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dq.data_ptr(),
             *_common(dims, causal, window, _stream(q)))
-    _build.check(rc, "flash_attention_bwd_dq")
     return dq, delta
 
 
@@ -137,16 +176,16 @@ def bwd_dkdv(q, k, v, lse, delta, dout, *, causal: bool, window: int):
                q.device)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    part = None
-    if q.dtype == torch.bfloat16 and hq > hkv:
-        part = torch.empty((2, b, skv, hq, hd), dtype=torch.float32,
-                           device=q.device)
-    lib = _build.KERNELS.library("flash_attention")
-    with torch.cuda.device(q.device):
-        rc = lib.repro_flash_bwd_dkdv(
+    scratch = ()
+    if ROUTES[(q.dtype, hd)]["bwd_dkdv"] == _PARTIALS_ENTRY:
+        part = None
+        if q.dtype == torch.bfloat16 and hq > hkv:
+            part = torch.empty((2, b, skv, hq, hd), dtype=torch.float32,
+                               device=q.device)
+        scratch = (None if part is None else part.data_ptr(),)
+    _launch("flash_attention_bwd_dkdv", q, "bwd_dkdv",
             q.data_ptr(), k.data_ptr(), v.data_ptr(), DTYPE_CODES[q.dtype],
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), None if part is None else part.data_ptr(),
+            dv.data_ptr(), *scratch,
             *_common(dims, causal, window, _stream(q)))
-    _build.check(rc, "flash_attention_bwd_dkdv")
     return dk, dv

@@ -741,13 +741,15 @@ for _fn in KERNEL_WRAPPERS:
 
 
 def reset_launches() -> None:
-    """Every wrapper's count to 0, K4's launches by route
+    """Every wrapper's count to 0, K2's launches by entry point
+    (``flash_attention.ROUTE_LAUNCHES``), K4's by route
     (``rglru_scan.ROUTE_LAUNCHES``) and the plain calls of
     :func:`plain_counts`."""
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
     for name in _PLAIN_CALLS:
         _PLAIN_CALLS[name] = 0
+    _fa.reset_route_launches()
     _lru.reset_route_launches()
 
 
@@ -757,14 +759,15 @@ def launch_counts() -> Dict[str, int]:
 
 class uncounted:
     """``with uncounted() as made:`` wrapper calls inside the block leave
-    the counters (and K4's by route) as they were: a CUDA graph capture
-    records its launches, it does not make them. On exit ``made`` holds
-    the calls made inside by wrapper name (those a replay of the capture
-    launches)."""
+    the counters (and K2's and K4's by route) as they were: a CUDA graph
+    capture records its launches, it does not make them. On exit ``made``
+    holds the calls made inside by wrapper name (those a replay of the
+    capture launches)."""
 
     def __enter__(self) -> Dict[str, int]:
         self.before = launch_counts()
         self.routes = dict(_lru.ROUTE_LAUNCHES)
+        self.flash_routes = dict(_fa.ROUTE_LAUNCHES)
         self.made: Dict[str, int] = {}
         return self.made
 
@@ -775,6 +778,8 @@ class uncounted:
         for fn in KERNEL_WRAPPERS:
             fn.launches = self.before[fn.__name__]
         _lru.ROUTE_LAUNCHES.update(self.routes)
+        _fa.ROUTE_LAUNCHES.clear()
+        _fa.ROUTE_LAUNCHES.update(self.flash_routes)
 
 
 def plain_counts() -> Dict[str, int]:

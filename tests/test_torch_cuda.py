@@ -196,6 +196,15 @@ def _assert_within_bf16_step(got, want):
         (2, 512, 4096, 16, 16, 64, False, 0),
         (4, 1, 4096, 16, 16, 64, False, 0),
         (1, 100, 1000, 4, 2, 64, False, 0),     # ragged Sq and Skv
+        # the wgmma kernels' 128-row tiles (bf16, hd 64 and 128): Sq and
+        # Skv of 1, 63, 65, 127, 129 and 1000; G 1, 4, 7, 8, 16
+        (1, 1, 129, 4, 4, 64, False, 0),
+        (2, 63, 65, 4, 1, 128, False, 0),
+        (1, 127, 127, 7, 1, 64, True, 0),
+        (1, 129, 129, 8, 1, 128, True, 0),
+        (1, 65, 1000, 16, 1, 64, False, 0),
+        (1, 1000, 1000, 16, 2, 128, True, 256),  # window 256
+        (1, 1000, 63, 4, 4, 128, False, 0),      # Sq > Skv
     ],
 )
 def test_flash_attention_matches_plain(card, b, sq, skv, hq, hkv, hd, causal,
@@ -235,8 +244,9 @@ def test_flash_attention_matches_plain(card, b, sq, skv, hq, hkv, hd, causal,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,window", [
-    ((2, 256, 256, 8, 2, 64), 0),
+    ((2, 256, 256, 8, 2, 64), 0),      # wgmma bwd_dkdv, G 4
     ((1, 700, 700, 10, 1, 256), 256),  # hd 256 MQA: per-head partials
+    ((1, 700, 700, 16, 1, 128), 0),    # wgmma bwd_dkdv, G 16
 ])
 def test_flash_attention_backward_is_deterministic_under_checkpoint(
         card, shape, window):
@@ -256,11 +266,14 @@ def test_flash_attention_backward_is_deterministic_under_checkpoint(
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 200, 200, 4, 4, 64),
+                                   (1, 150, 150, 8, 2, 128),
                                    (1, 150, 150, 10, 1, 256)])
 def test_flash_attention_route_by_dtype(card, shape, dtype):
-    """bf16 K2 launches only the tensor-core kernels (and, for Hq > Hkv,
-    the ordered sum of the per-head partials); f32 K2 only the SIMT
-    kernels. Names from ``torch.profiler``."""
+    """bf16 K2 at head dim 64 or 128 launches the wgmma forward and
+    bwd_dkdv and the mma.sync bwd_dq (no per-head partials to sum); at
+    other head dims the mma.sync kernels (and, for Hq > Hkv, the ordered
+    sum of the per-head partials); f32 K2 only the SIMT kernels. Names
+    from ``torch.profiler``."""
     import time
 
     q, k, v, do = _qkvd(card, *shape, dtype)
@@ -278,13 +291,44 @@ def test_flash_attention_route_by_dtype(card, shape, dtype):
     names = {e.key for e in prof.key_averages()
              if e.device_type.name == "CUDA" and "repro::flash::" in e.key}
     short = {n.split("(")[0].split("::")[-1].split("<")[0] for n in names}
-    if dtype == torch.bfloat16:
+    if dtype == torch.bfloat16 and shape[5] in (64, 128):
+        want = {"wg_fwd_kernel", "tc_bwd_dq_kernel", "wg_bwd_dkdv_kernel"}
+        assert short == want, names
+    elif dtype == torch.bfloat16:
         want = {"tc_fwd_kernel", "tc_bwd_dq_kernel", "tc_bwd_dkdv_kernel"}
         if shape[3] > shape[4]:
             want.add("tc_sum_heads_kernel")
         assert short == want, names
     else:
         assert short == {"fwd_kernel", "bwd_dq_kernel", "bwd_dkdv_kernel"}, names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_wgmma_forward_replays_in_a_cuda_graph(card, hd):
+    """The wgmma forward captured in a CUDA graph (its tensor maps hold the
+    raw pointers of the captured call) replays bitwise the eager call."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, _ = _qkvd(card, 2, 300, 300, 8, 2, hd, torch.bfloat16)
+    eager = fa.fwd(q, k, v, causal=True, window=0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fa.fwd(q, k, v, causal=True, window=0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    fa.reset_route_launches()
+    with torch.cuda.graph(graph):
+        captured = fa.fwd(q, k, v, causal=True, window=0)
+    assert fa.ROUTE_LAUNCHES == {("repro_flash_wg_fwd", torch.bfloat16,
+                                  hd): 1}
+    for t in captured:
+        t.fill_(float("nan"))
+    graph.replay()
+    torch.cuda.synchronize()
+    for got, want in zip(captured, eager):
+        assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
