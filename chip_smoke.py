@@ -32,17 +32,20 @@ Phases, each reported on its own line (any failure raises, exit != 0):
    with the f32 SIMT bound of the f32 route beside it. Every K2 case and
    wrapper is run again under ``torch.profiler`` (one trace per sweep and
    per main shape, ``kernel_names``): a bf16 call at head dim 64 or 128
-   must launch the wgmma forward and ``bwd_dkdv`` (``repro::flash::wg::``,
-   ``flash_attention_sm90.cu``) and the mma.sync ``bwd_dq``
-   (``repro::flash::tc::``), a bf16 call at another head dim the mma.sync
-   kernels, an f32 call the SIMT kernels, and nothing else
-   (``flash_kernels``); each wrapper's kernel names at the main shapes
-   are logged, and the SASS of both K2 libraries holds HGMMA and UTMALDG
-   in each wgmma kernel and in no other (``flash_sass``). Every phase
-   that trains or serves a bf16 model at head dim 64 or 128 ([flat],
-   [long], [hier], [encdec], [serve], [mesh], ...) checks that each K2
-   launch went through that route's entry point
-   (``flash_attention.ROUTE_LAUNCHES``, ``require_flash_entries``). Then K2's second order (P3) at B 2 x S 512 x 16 heads x
+   must launch the wgmma forward, ``bwd_dq`` and ``bwd_dkdv``
+   (``repro::flash::wg::``, ``flash_attention_sm90.cu``), a bf16 call at
+   another head dim the mma.sync kernels (``repro::flash::tc::``), a bf16
+   forward of at most 16 query rows a kv head (Sq * G) the split-KV
+   decode kernels of ``flash_decode.cu`` instead (``FLASH_DECODE_SWEEP``:
+   Sq * G of 1, 4, 16 and 17, Skv of 1 to 4097, every head dim), an f32
+   call the SIMT kernels, and nothing else (``flash_kernels``); each
+   wrapper's kernel names at the main shapes are logged, and the SASS of
+   the three K2 libraries holds HGMMA and UTMALDG in each wgmma kernel
+   and in no other (``flash_sass``). Every phase that trains or serves a
+   bf16 model ([flat], [long], [hier], [encdec], [serve], [mesh], ...)
+   checks that each K2 launch went through that route's entry point
+   (``flash_attention.ROUTE_LAUNCHES``, ``require_flash_entries``), and
+   [encdec]'s decode steps that every K2 launch took the decode entry. Then K2's second order (P3) at B 2 x S 512 x 16 heads x
    64, f32 and bf16, causal: the double backward through
    ``ops.flash_attention`` against autograd's double backward through the
    plain forward on the card (f32 within 1e-4 of the largest magnitude,
@@ -327,7 +330,8 @@ Phases, each reported on its own line (any failure raises, exit != 0):
    its ms.
 
 Then one JSON line with every kernel's launches, error and times (the K2
-rows with their launches in [pipeline], [maml] and [btm], the
+rows with their launches in [pipeline], [maml] and [btm], the split-KV
+decode forward on a line of its own with [encdec]'s decode-step launches, the
 ``FLASH_WIDE`` shapes under ``wide`` with the launches of the slice-14
 phase that ran each, the ``FLASH_ENCDEC`` shapes under ``encdec`` with
 [encdec]'s launches, and ``bwd_dkdv``'s with the plain second order's
@@ -467,8 +471,8 @@ def phase_build():
 # K2's tensor-core kernels by library: the mma.sync kernels (namespace tc;
 # their dynamic shared memory from repro_flash_tc_smem) and the wgmma
 # kernels (wg; repro_flash_wg_smem), with the number of instantiations.
-FLASH_TC_LIBS = (("flash_attention", "tc", "repro_flash_tc_smem", 15),
-                 ("flash_attention_sm90", "wg", "repro_flash_wg_smem", 4))
+FLASH_TC_LIBS = (("flash_attention", "tc", "repro_flash_tc_smem", 13),
+                 ("flash_attention_sm90", "wg", "repro_flash_wg_smem", 6))
 FLASH_WHICH = {"fwd_kernel": 0, "bwd_dq_kernel": 1, "bwd_dkdv_kernel": 2}
 
 
@@ -514,11 +518,14 @@ def flash_resources(logs: dict) -> list:
     return rows
 
 
+DECODE_KERNELS = ("decode_split_kernel", "decode_combine_kernel")
+
+
 def flash_sass() -> dict:
-    """{kernel<hd>: [HGMMA, UTMALDG] count} in the SASS of K2's two
+    """{kernel<hd>: [HGMMA, UTMALDG] count} in the SASS of K2's three
     libraries (``cuobjdump -sass``): every wgmma kernel multiplies on
-    HGMMA and loads through the TMA, the mma.sync and SIMT kernels do
-    neither."""
+    HGMMA and loads through the TMA, the mma.sync, SIMT and split-KV
+    decode kernels do neither."""
     import re
 
     from repro_torch import compat
@@ -526,7 +533,7 @@ def flash_sass() -> dict:
 
     tool = Path(compat.nvcc_path()).with_name("cuobjdump")
     counts, name = {}, None
-    for lib in ("flash_attention", "flash_attention_sm90"):
+    for lib in ("flash_attention", "flash_attention_sm90", "flash_decode"):
         sass = subprocess.run(
             [str(tool), "-sass", str(_build.KERNELS.path(lib))],
             capture_output=True, text=True, check=True).stdout
@@ -543,8 +550,13 @@ def flash_sass() -> dict:
                 counts[name][1] += 1
     wg = {k: v for k, v in counts.items() if k.startswith("wg_")}
     require(sorted(wg) == ["wg_bwd_dkdv_kernel<128>", "wg_bwd_dkdv_kernel<64>",
+                           "wg_bwd_dq_kernel<128>", "wg_bwd_dq_kernel<64>",
                            "wg_fwd_kernel<128>", "wg_fwd_kernel<64>"],
             f"K2 SASS holds the wgmma kernels {sorted(wg)}")
+    decode = sorted(k for k in counts if k.startswith("decode_"))
+    require(decode == sorted(["decode_combine_kernel"] + [
+        f"decode_split_kernel<{hd}>" for hd in (128, 16, 256, 32, 64, 80)]),
+        f"K2 SASS holds the decode kernels {decode}")
     for kernel, (mma, tma) in counts.items():
         require(mma > 0 and tma > 0 if kernel.startswith("wg_")
                 else mma == tma == 0,
@@ -729,9 +741,12 @@ FLASH_SOURCE = {
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/models/attention.py:437"),
 }
-# the bf16 forward and bwd_dkdv at head dims 64 and 128
+# the bf16 forward, bwd_dq and bwd_dkdv at head dims 64 and 128
 FLASH_SM90_SOURCE = dict(
     source="src/repro_torch/kernels/csrc/flash_attention_sm90.cu")
+# the bf16 forward of at most 16 query rows a kv head
+FLASH_DECODE_SOURCE = dict(
+    source="src/repro_torch/kernels/csrc/flash_decode.cu")
 FLASH_SWEEP = (  # (B, Sq, Skv, Hq, Hkv, hd, causal, window)
     (2, 200, 200, 8, 8, 80, True, 0),
     (1, 300, 300, 4, 2, 128, True, 0),
@@ -745,6 +760,22 @@ FLASH_WG_SWEEP = (
     (1, 129, 65, 8, 1, 128, False, 0),
     (2, 63, 127, 7, 1, 64, False, 0),
     (1, 1000, 1000, 16, 1, 128, True, 256),
+)
+# the split-KV decode forward (bf16, Sq * G <= 16 query rows a kv head):
+# Sq * G of 1, 4, 16 and 17 (the route's boundary), Skv of 2, 63, 257 and
+# 4097, every head dim, causal, window and non-causal (no call with one
+# visible key a row: there dq is 0 up to rounding, which no relative gate
+# holds)
+FLASH_DECODE_SWEEP = (
+    (4, 1, 4097, 16, 16, 64, False, 0),
+    (3, 1, 2, 4, 4, 128, False, 0),
+    (2, 1, 257, 8, 2, 80, False, 0),
+    (1, 4, 63, 16, 4, 256, True, 32),
+    (1, 16, 4097, 2, 2, 32, True, 0),
+    (2, 2, 257, 16, 2, 128, False, 0),
+    (1, 2, 63, 8, 4, 16, False, 0),
+    (1, 17, 257, 4, 4, 64, False, 0),
+    (1, 1, 4097, 17, 1, 128, False, 0),
 )
 
 
@@ -943,24 +974,37 @@ def kernel_split(calls: dict, reps: int = 10) -> dict:
     return split
 
 
-# bf16 K2 at these head dims runs the forward and bwd_dkdv on wgmma
-# (flash_attention_sm90.cu, namespace wg); every other call, and bwd_dq,
-# on flash_attention.cu: bf16 on mma.sync (tc), f32 on the SIMT kernels.
+# bf16 K2 at these head dims runs the forward, bwd_dq and bwd_dkdv on
+# wgmma (flash_attention_sm90.cu, namespace wg); every other call on
+# flash_attention.cu: bf16 on mma.sync (tc), f32 on the SIMT kernels. A
+# bf16 forward of at most DECODE_ROWS query rows a kv head (Sq * G) runs
+# the split-KV kernels of flash_decode.cu instead, at every head dim.
 WG_HEAD_DIMS = (64, 128)
+DECODE_ROWS = 16
 FLASH_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dq",
                "flash_attention_bwd_dkdv")
 
 
-def flash_kernels(dtype, hd: int, g: int, which=FLASH_NAMES) -> set:
+def takes_decode(dtype, rows) -> bool:
+    """A bf16 forward of ``rows`` = Sq * G query rows a kv head takes the
+    decode kernels (None: rows unknown, so no)."""
+    return dtype == torch.bfloat16 and rows is not None and rows <= DECODE_ROWS
+
+
+def flash_kernels(dtype, hd: int, g: int, which=FLASH_NAMES,
+                  rows=None) -> set:
     """Short names of the device kernels that the K2 calls ``which`` launch
-    for ``dtype`` at head dim ``hd`` with G = Hq / Hkv (the smoke's own
-    oracle of the launchers' route table)."""
+    for ``dtype`` at head dim ``hd`` with G = Hq / Hkv and ``rows`` = Sq *
+    G query rows a kv head (the smoke's own oracle of the launchers' route
+    table)."""
     out = set()
     for name in which:
         kernel = name[len("flash_attention_"):] + "_kernel"
         if dtype != torch.bfloat16:
             out.add(kernel)
-        elif hd in WG_HEAD_DIMS and name != "flash_attention_bwd_dq":
+        elif name == "flash_attention_fwd" and takes_decode(dtype, rows):
+            out.update(DECODE_KERNELS)
+        elif hd in WG_HEAD_DIMS:
             out.add("wg_" + kernel)
         else:
             out.add("tc_" + kernel)
@@ -969,13 +1013,18 @@ def flash_kernels(dtype, hd: int, g: int, which=FLASH_NAMES) -> set:
     return out
 
 
-def flash_entries(dtype, hd: int) -> dict:
+def flash_entries(dtype, hd: int, decode: bool = False) -> dict:
     """{K2 call: the extern "C" entry point it takes} for ``dtype`` at
-    head dim ``hd`` (the same oracle)."""
+    head dim ``hd``, for a forward of few query rows with ``decode`` (the
+    same oracle)."""
     wg = dtype == torch.bfloat16 and hd in WG_HEAD_DIMS
-    return {"flash_attention_fwd": "repro_flash_wg_fwd" if wg
-            else "repro_flash_fwd",
-            "flash_attention_bwd_dq": "repro_flash_bwd_dq",
+    if decode and dtype == torch.bfloat16:
+        fwd = "repro_flash_decode"
+    else:
+        fwd = "repro_flash_wg_fwd" if wg else "repro_flash_fwd"
+    return {"flash_attention_fwd": fwd,
+            "flash_attention_bwd_dq": "repro_flash_wg_bwd_dq" if wg
+            else "repro_flash_bwd_dq",
             "flash_attention_bwd_dkdv": "repro_flash_wg_bwd_dkdv" if wg
             else "repro_flash_bwd_dkdv"}
 
@@ -985,25 +1034,34 @@ def short_kernel(name: str) -> str:
     return name.split("(")[0].split("<")[0].split("::")[-1]
 
 
-def require_flash_route(names, dtype, hd, g, what, which=FLASH_NAMES) -> None:
+def require_flash_route(names, dtype, hd, g, what, which=FLASH_NAMES,
+                        rows=None) -> None:
     """The K2 kernels among ``names`` (a trace of the calls ``which``) are
-    exactly :func:`flash_kernels`' for this dtype, head dim and G."""
+    exactly :func:`flash_kernels`' for this dtype, head dim, G and query
+    rows a kv head."""
     got = {short_kernel(n) for n in names if "repro::flash::" in n}
-    want = flash_kernels(dtype, hd, g, which)
+    want = flash_kernels(dtype, hd, g, which, rows)
     require(got == want, f"{what}: K2 ran {sorted(got)}, want {sorted(want)}")
 
 
 def require_flash_entries(what: str, wgmma: bool = False,
-                          need=("repro_flash_wg_fwd",
-                                "repro_flash_wg_bwd_dkdv")) -> None:
+                          need=("repro_flash_wg_fwd", "repro_flash_wg_bwd_dq",
+                                "repro_flash_wg_bwd_dkdv"),
+                          decode=None) -> None:
     """Every K2 launch since the last ``ops.reset_launches`` went through
     the entry point :func:`flash_entries` gives its dtype and head dim
-    (``flash_attention.ROUTE_LAUNCHES``); with ``wgmma``, each entry of
-    ``need`` launched."""
+    (``flash_attention.ROUTE_LAUNCHES``): a bf16 forward through the
+    full-sequence entry or, for few query rows, the decode entry; with
+    ``decode`` True only the latter, False only the former. With
+    ``wgmma``, each entry of ``need`` launched."""
     from repro_torch.kernels import flash_attention as fa
 
+    def allowed(dtype, hd):
+        modes = (False, True) if decode is None else (decode,)
+        return {e for m in modes for e in flash_entries(dtype, hd, m).values()}
+
     wrong = {k: n for k, n in fa.ROUTE_LAUNCHES.items()
-             if k[0] not in flash_entries(k[1], k[2]).values()}
+             if k[0] not in allowed(k[1], k[2])}
     require(not wrong, f"{what}: K2 launches off their route: {wrong}")
     by_entry = {}
     for (entry, _, _), n in fa.ROUTE_LAUNCHES.items():
@@ -1064,6 +1122,7 @@ def flash_measure(gen, b, s, hq, hkv, hd, window, skv=None,
              (b, s, skv, f"{hq}:{hkv}", hd, "causal" if causal
               else "non-causal"))
     return dict(shape=shape, dtype=q.dtype, hd=hd, g=hq // hkv,
+                rows=s * (hq // hkv),
                 work=flash_work(q, k, pairs), errs=errs_by, ms=ms,
                 plain=plain, lib=(lib_fwd, lib_bwd, lib_err),
                 calls=dict(calls, case=case_kernels, sdpa=lib_call))
@@ -1073,13 +1132,16 @@ def flash_report(m: dict, traced: dict) -> dict:
     """The route checks of :func:`flash_measure`'s calls on their traced
     kernel names (``traced``: label -> names), the log lines, and the
     results by kernel."""
-    shape, dtype, hd, g = m["shape"], m["dtype"], m["hd"], m["g"]
+    shape, dtype, hd, g, rows = (m["shape"], m["dtype"], m["hd"], m["g"],
+                                 m["rows"])
     lib_fwd, lib_bwd, lib_err = m["lib"]
-    require_flash_route(traced["case"], dtype, hd, g, f"K2 {shape}")
+    require_flash_route(traced["case"], dtype, hd, g, f"K2 {shape}",
+                        rows=rows)
     results = {}
     for name, (nbytes, flop) in m["work"].items():
         names = traced[name]
-        require_flash_route(names, dtype, hd, g, f"{name} {shape}", (name,))
+        require_flash_route(names, dtype, hd, g, f"{name} {shape}", (name,),
+                            rows)
         b_ms, by, by_log = flash_bounds(nbytes, flop, dtype)
         f32_ms, _ = bound(nbytes, flop)
         ms, plain, err = m["ms"][name], m["plain"][name], m["errs"][name]
@@ -1122,12 +1184,14 @@ def flash_sweep(gen, cases, phase: str, name: str) -> None:
                 window=case[7], dtype=dt,
                 errs=json.dumps({k: f"{v:.3e}" for k, v in errs.items()}))
             calls[f"{case} {dt}"] = kernels
-            routes[f"{case} {dt}"] = (dtype, case[5], case[3] // case[4])
+            routes[f"{case} {dt}"] = (dtype, case[5], case[3] // case[4],
+                                      case[1] * (case[3] // case[4]))
     for label, names in kernel_names(calls).items():
-        require_flash_route(names, *routes[label], f"K2 {label}")
+        dtype, hd, g, rows = routes[label]
+        require_flash_route(names, dtype, hd, g, f"K2 {label}", rows=rows)
     log(phase, name=f"{name} routes", cases=len(calls),
-        bf16="wg:: forward and bwd_dkdv at hd 64/128, tc:: the rest",
-        f32="SIMT only")
+        bf16="wg:: at hd 64/128, tc:: the rest; the forward of <= 16 "
+        "query rows a kv head on the decode kernels", f32="SIMT only")
 
 
 def phase_flash(gen):
@@ -1136,6 +1200,7 @@ def phase_flash(gen):
     log("kernels", name="K2 SASS", hgmma_utmaldg=json.dumps(flash_sass()))
     flash_sweep(gen, FLASH_SWEEP, "kernels", "K2 sweep")
     flash_sweep(gen, FLASH_WG_SWEEP, "kernels", "K2 wgmma sweep")
+    flash_sweep(gen, FLASH_DECODE_SWEEP, "kernels", "K2 decode sweep")
     results = {}
     for key, (b, s) in FLASH_MAIN.items():
         for name, r in flash_main(gen, b, s, 16, 16, 64, 0).items():
@@ -1796,11 +1861,13 @@ def require_flash_launches(counts: dict, args, layers: int) -> None:
             and counts["flash_attention_bwd_dkdv"] >= steps,
             f"K2 launched {counts}, need fwd >= {2 * steps}, each bwd >= {steps}")
     require_flash_entries(f"K2 of {args.arch}", wgmma=layers > 0
-                          and wgmma_model(registry.get_config(args.arch)))
+                          and wgmma_model(registry.get_config(args.arch)),
+                          decode=False)
 
 
 def wgmma_model(cfg) -> bool:
-    """A model whose K2 calls take the wgmma forward (and bwd_dkdv)."""
+    """A model whose K2 calls take the wgmma forward, bwd_dq and
+    bwd_dkdv."""
     return cfg.head_dim in WG_HEAD_DIMS and cfg.torch_dtype == torch.bfloat16
 
 
@@ -4829,7 +4896,8 @@ def phase_encdec_rounds() -> dict:
         counts = ops.launch_counts()
         launches.append({k: v for k, v in counts.items() if v})
         want = steps * per_step
-        require_flash_entries(f"[encdec] round {r}", wgmma=wgmma_model(cfg))
+        require_flash_entries(f"[encdec] round {r}", wgmma=wgmma_model(cfg),
+                              decode=False)
         require(counts["flash_attention_fwd"] == want
                 and counts["flash_attention_bwd_dq"] == want
                 and counts["flash_attention_bwd_dkdv"] == want,
@@ -4870,6 +4938,7 @@ def phase_encdec_serve() -> dict:
     greedy token equal to the teacher-forced argmax, except where that
     position's two top logits lie within twice the step's logits
     difference (counted)."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.launch import steps
     from repro_torch.models import encdec, registry
@@ -4908,6 +4977,14 @@ def phase_encdec_serve() -> dict:
         decode_k2 = ops.launch_counts()["flash_attention_fwd"]
         require(decode_k2 == run["new"] * cfg.num_layers,
                 f"[encdec] decode launched K2 {decode_k2} times")
+        # every cross-attention call of a decode step (Sq 1, 16:16 heads)
+        # took the split-KV decode kernels
+        require_flash_entries("[encdec] decode steps", decode=True)
+        decode_route = {k: n for k, n in fa.ROUTE_LAUNCHES.items()
+                        if k[0] == "repro_flash_decode"}
+        require(sum(decode_route.values()) == decode_k2,
+                f"[encdec] decode steps: {decode_route} of {decode_k2} K2 "
+                f"launches on the decode kernels")
         require(int(caches[0]["pos"]) == run["text"] + run["new"],
                 "[encdec] decode caches")
         train_last = encdec.decode_stack(cfg, params, prompt, None,
@@ -4942,7 +5019,9 @@ def phase_encdec_serve() -> dict:
     new_tokens = run["prompts"] * run["new"]
     log("encdec", step="serve", prompts=run["prompts"], frames=run["frames"],
         text=run["text"], new=run["new"], prefill_k2=prefill_k2,
-        decode_k2=decode_k2, prefill_s=f"{prefill_s:.4f}",
+        decode_k2=decode_k2, decode_route=json.dumps(
+            {k[0]: n for k, n in decode_route.items()}),
+        prefill_s=f"{prefill_s:.4f}",
         decode_s=f"{decode_s:.4f}",
         decode_tokens_per_s=f"{new_tokens / decode_s:.1f}",
         decode_step_ms_first=f"{1e3 * step_s[0]:.3f}",
@@ -5589,17 +5668,24 @@ def main() -> int:
 
     line = {"kernels": [entry(name, r, launches[name])
                         for name, r in kernels.items()]}
-    def flash_entry(name, r, n, shape):
+    def flash_entry(name, r, n, shape, entry_name=None):
         # bf16 K2 runs on tensor cores: its bound is at their rate, with the
-        # f32 SIMT bound of the f32 route beside it; the forward and
-        # bwd_dkdv at head dims 64 and 128 on wgmma
-        wg = r["hd"] in WG_HEAD_DIMS and name != "flash_attention_bwd_dq"
-        return entry(name, {**r, **FLASH_SOURCE[name],
-                            **(FLASH_SM90_SOURCE if wg else {})},
+        # f32 SIMT bound of the f32 route beside it; at head dims 64 and
+        # 128 on wgmma, and a forward of few query rows on the split-KV
+        # decode kernels
+        decode = DECODE_KERNELS[0] in r["kernels"]
+        wg = r["hd"] in WG_HEAD_DIMS and not decode
+        source = (FLASH_DECODE_SOURCE if decode else
+                  FLASH_SM90_SOURCE if wg else {})
+        detail = ("split-KV (bf16, mma.sync m16 of the query rows, hi/lo "
+                  "split, splits folded in order)" if decode else
+                  "tensor cores (bf16, wgmma from TMA rings, "
+                  "warp-specialised, hi/lo split)" if wg else
+                  "tensor cores (bf16, mma.sync, hi/lo split)")
+        return entry(entry_name or name,
+                     {**r, **FLASH_SOURCE[name], **source},
                      n, shape=shape, device_kernels=r["kernels"],
-                     route_detail="tensor cores (bf16, wgmma from TMA rings, "
-                     "warp-specialised, hi/lo split)" if wg else
-                     "tensor cores (bf16, mma.sync, hi/lo split)",
+                     route_detail=detail,
                      bound_rate="bf16 tensor cores, 989 TFLOP/s",
                      bound_ms_f32_simt=r["bound_ms_f32_simt"])
 
@@ -5644,6 +5730,16 @@ def main() -> int:
             ed_rows["cross_decode"]["vs_plain_einsum"] = flash_encdec["decode"]
         line["kernels"].append(dict(
             e512, seq4096=e4096, hd256=e256, wide=wide, encdec=ed_rows))
+    # the split-KV decode forward on its own line: the encoder-decoder's
+    # decode-step cross-attention, with the launches of [encdec]'s 32
+    # decode steps (every one on the decode kernels)
+    b, sq, skv, hq, hkv, hd = FLASH_ENCDEC["cross_decode"]
+    line["kernels"].append(flash_entry(
+        "flash_attention_fwd",
+        flash_encdec["kernels"]["flash_attention_fwd"]["cross_decode"],
+        encdec["serve"]["decode_k2"],
+        f"B {b} x Sq {sq} x Skv {skv} x {hq}:{hkv} heads x {hd}, bf16, "
+        f"non-causal", entry_name="flash_attention_fwd_decode"))
     line["kernels"] += [
         entry(name, r, launches[name],
               shape=f"{LRU_MAIN} f32 (hybrid rounds)",

@@ -4,7 +4,8 @@
 # change, parent; PAIRS=n repeats that n times), so their kernel times and
 # peak memory compare within one machine. Phase flash runs K2's sweeps
 # and every shape the smoke times it at (FLASH_MAIN, FLASH_WIDE,
-# FLASH_ENCDEC). Phases k2dev (K2 at the main shapes) and int8dev (K1a,
+# FLASH_ENCDEC). Phases k2dev (K2 at the main shapes, and the forward and
+# SDPA's at the decode step's cross-attention) and int8dev (K1a,
 # K1b, K3a, K3b, K3c at lm_350m's packed delta) call the kernels through
 # kernels/ops.py and split each one's event time into device time
 # (kernels only, from one torch.profiler trace) and the host's launch
@@ -73,6 +74,19 @@ if 'k2dev' in phases:
         })
         del q, k, v, do, out32, lse, delta
         torch.cuda.empty_cache()
+    # the encoder-decoder's decode-step cross-attention (a forward only:
+    # decoding has no backward), beside SDPA's forward on the same inputs
+    b, sq, skv, hq, hkv, hd = c.FLASH_ENCDEC['cross_decode']
+    (q, k, v, do, out32, lse, delta), _, _ = c.flash_case(
+        gen, b, sq, skv, hq, hkv, hd, False, 0, torch.bfloat16)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    split('k2dev', 'cross_decode', {
+        'fwd': lambda: ops.flash_attention_fwd(q, k, v, causal=False),
+        'sdpa_fwd': lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=True),
+    })
+    del q, k, v, do, out32, lse, delta, qt, kt, vt
+    torch.cuda.empty_cache()
 if 'int8dev' in phases:
     # the int8 kernels through ops, the main path's entry points, at
     # lm_350m's packed delta (2 pods x 2 clients for K3a/K3b)

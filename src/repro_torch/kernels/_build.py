@@ -40,7 +40,7 @@ from .. import compat
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("quantize", "reduce_compress", "flash_attention",
-           "flash_attention_sm90", "rglru_scan", "wkv6")
+           "flash_attention_sm90", "flash_decode", "rglru_scan", "wkv6")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -78,13 +78,22 @@ SIGNATURES = {
                                  *_FLASH_TAIL),
         "repro_flash_tc_smem": (_C, _C),
     },
-    # the same signatures as repro_flash_fwd and repro_flash_bwd_dkdv
-    # (bf16 only, and no scratch); (which, hd)
+    # the same signatures as repro_flash_fwd, repro_flash_bwd_dq and
+    # repro_flash_bwd_dkdv (bf16 only, and no scratch); (which, hd)
     "flash_attention_sm90": {
         "repro_flash_wg_fwd": (_P, _P, _P, _C, _P, _P, _P, *_FLASH_TAIL),
+        "repro_flash_wg_bwd_dq": (_P, _P, _P, _C, _P, _P, _P, _P, _P,
+                                  *_FLASH_TAIL),
         "repro_flash_wg_bwd_dkdv": (_P, _P, _P, _C, _P, _P, _P, _P, _P,
                                     *_FLASH_TAIL),
         "repro_flash_wg_smem": (_C, _C),
+    },
+    # repro_flash_fwd's signature with the per-split scratch after lse
+    # (bf16 only); (hd)
+    "flash_decode": {
+        "repro_flash_decode": (_P, _P, _P, _C, _P, _P, _P, _P,
+                               *_FLASH_TAIL),
+        "repro_flash_decode_chunk": (_C,),
     },
     # (a, b, h0, dtype, h, B, S, W, tma, stream),
     # (a, h, g, h0, dtype, da, db, dh0, B, S, W, tma, stream): tma 0 is the

@@ -23,10 +23,12 @@
 //   dq = ds k, dk = ds^T q, dk and dv summed over the G heads of a kv head.
 //
 // Two routes here, chosen by dtype (REPRO_FLASH_DISPATCH); the route
-// table of kernels/flash_attention.py (ROUTES) sends the bf16 forward and
-// bwd_dkdv at head dims 64 and 128 to flash_attention_sm90.cu's wgmma
-// kernels instead, so this file's tensor-core forward and bwd_dkdv are
-// instantiated at head dims 16, 32, 80 and 256 only, and bwd_dq at all.
+// table of kernels/flash_attention.py (ROUTES) sends every bf16 call at
+// head dims 64 and 128 (forward, bwd_dq, bwd_dkdv) to
+// flash_attention_sm90.cu's wgmma kernels instead, so this file's
+// tensor-core kernels are instantiated at head dims 16, 32, 80 and 256
+// only; and a bf16 forward of at most 16 query rows a kv head, at every
+// head dim, to flash_decode.cu's split-KV kernels.
 //
 // bf16: tensor cores (namespace tc, kernels tc_*). The FlashAttention-2
 // structure on mma.sync.m16n8k16 (bf16 operands, f32 accumulators). What
@@ -68,8 +70,8 @@
 //   sums the G partials of a kv head in the order g = 0..G-1 and rounds
 //   once. Deterministic, and G times the blocks of a loop over heads.
 // wgmma and TMA with warp specialisation (the producer / consumer ring of
-// the usual Hopper attention kernel) are flash_attention_sm90.cu's; bwd_dq
-// on them is not done yet.
+// the usual Hopper attention kernel) are flash_attention_sm90.cu's, for
+// all three kernels at head dims 64 and 128.
 // Resources of the bf16 route (nvcc -Xptxas -v for sm_90a, as chip_smoke.py
 // logs them at [build]; dynamic shared memory from fwd_smem, dq_smem,
 // dkdv_smem): registers per thread, spills, shared memory per block; "-"
@@ -77,8 +79,8 @@
 //   head dim          16     32     64     80    128    256
 //   tc_fwd   regs     78     80      -    135      -    255
 //            smem  15360  25600      -  56320      - 101376
-//   tc_dq    regs    127    128    168    168    168    245
-//            smem  18432  30720  55296  67584 104448 135168
+//   tc_dq    regs    127    128      -    168      -    245
+//            smem  18432  30720      -  67584      - 135168
 //   tc_dkdv  regs    122    164      -    175      -    248
 //            smem  19456  31744      -  45568      - 135680
 //   tc_sum_heads: 32 registers, no shared memory.
@@ -556,63 +558,10 @@ template <int HD> struct DkdvTiles {
   static constexpr int BQ = HD > 64 ? 32 : 64, THREADS = 128 * DS;
 };
 
-// 16 bytes global -> shared, or 16 zero bytes when !valid (src not read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
-               "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::
                "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Waits until at most one committed group of this thread is in flight.
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// Four 8x8 bf16 matrices from shared memory; lane i gives the address of
-// row i % 8 of matrix i / 8.
-__device__ __forceinline__ void ldsm4(uint32_t r[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)) : "memory");
-}
-__device__ __forceinline__ void ldsm4_t(uint32_t r[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)) : "memory");
-}
-
-// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col).
-__device__ __forceinline__ void mma(float c[4], const uint32_t a[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Lane offsets (in bf16) into a tile with row stride LD, for ldsm4:
-// a_off: the A fragment of a 16x16 block of a row-major [m][k] tile;
-// b_off: the B fragments of two n8 blocks (16 rows) x k16 of an [n][k] tile
-//        (registers: b0, b1 of the first n block, then of the second);
-// bt_off: the same from a [k][n] tile, with ldsm4_t.
-__device__ __forceinline__ int a_off(int lane, int ld) {
-  return (lane & 15) * ld + (lane >> 4) * 8;
-}
-__device__ __forceinline__ int b_off(int lane, int ld) {
-  return ((lane >> 4) * 8 + (lane & 7)) * ld + ((lane >> 3) & 1) * 8;
-}
-__device__ __forceinline__ int bt_off(int lane, int ld) {
-  return (((lane >> 3) & 1) * 8 + (lane & 7)) * ld + (lane >> 4) * 8;
 }
 
 // ROWS rows of HD bf16 (row stride `stride` elements) into shared memory
@@ -688,7 +637,7 @@ tc_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                              ks, rows);
     }
     cp_async_commit();
-    cp_async_wait_one();
+    cp_async_wait<1>();
     __syncthreads();
     const bf16* Kt = Ks + st * BKV * LD;
     const bf16* Vt = Vs + st * BKV * LD;
@@ -870,7 +819,7 @@ tc_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                              ks, rows);
     }
     cp_async_commit();
-    cp_async_wait_one();
+    cp_async_wait<1>();
     __syncthreads();
     const bf16* Kt = Ks + st * BKV * LD;
     const bf16* Vt = Vs + st * BKV * LD;
@@ -1009,7 +958,7 @@ tc_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int st = (u - u0) & 1;
     if (u < u1) load_q_tile(u + 1, st ^ 1);
     cp_async_commit();
-    cp_async_wait_one();
+    cp_async_wait<1>();
     __syncthreads();
     const bf16* Qt = Qs + st * BQ * LD;
     const bf16* dOt = dOs + st * BQ * LD;
@@ -1297,17 +1246,17 @@ int launch_tc_dkdv(const void* q, const void* k, const void* v,
 
 // return f32 ? SIMT<float, hd>(args...) : TC<hd>(args...) for the
 // (dtype, head_dim) of the call: f32 takes the SIMT kernels, bf16 the
-// tensor-core kernels. WG_CASE is REPRO_FLASH_CASE, or REPRO_FLASH_F32_ONLY
-// for a kernel whose bf16 call at head dims 64 and 128 takes
-// flash_attention_sm90.cu's wgmma kernel instead (the forward and
-// bwd_dkdv: kernels/flash_attention.py:ROUTES).
+// tensor-core kernels, except at head dims 64 and 128 (REPRO_FLASH_F32_ONLY),
+// where a bf16 call takes flash_attention_sm90.cu's wgmma kernels instead
+// (kernels/flash_attention.py:ROUTES): no mma.sync kernel is instantiated
+// there.
 #define REPRO_FLASH_CASE(SIMT, TC, HD, ...)                                \
   case HD: return f32 ? SIMT<float, HD>(__VA_ARGS__) : TC<HD>(__VA_ARGS__);
 #define REPRO_FLASH_F32_ONLY(SIMT, TC, HD, ...)                            \
   case HD:                                                                 \
     return f32 ? SIMT<float, HD>(__VA_ARGS__)                              \
                : static_cast<int>(cudaErrorInvalidValue);
-#define REPRO_FLASH_DISPATCH(SIMT, TC, WG_CASE, ...)                       \
+#define REPRO_FLASH_DISPATCH(SIMT, TC, ...)                                \
   do {                                                                     \
     if (dtype != kF32 && dtype != kBF16) {                                 \
       return static_cast<int>(cudaErrorInvalidValue);                      \
@@ -1316,9 +1265,9 @@ int launch_tc_dkdv(const void* q, const void* k, const void* v,
     switch (hd) {                                                          \
       REPRO_FLASH_CASE(SIMT, TC, 16, __VA_ARGS__)                          \
       REPRO_FLASH_CASE(SIMT, TC, 32, __VA_ARGS__)                          \
-      WG_CASE(SIMT, TC, 64, __VA_ARGS__)                                   \
+      REPRO_FLASH_F32_ONLY(SIMT, TC, 64, __VA_ARGS__)                      \
       REPRO_FLASH_CASE(SIMT, TC, 80, __VA_ARGS__)                          \
-      WG_CASE(SIMT, TC, 128, __VA_ARGS__)                                  \
+      REPRO_FLASH_F32_ONLY(SIMT, TC, 128, __VA_ARGS__)                     \
       REPRO_FLASH_CASE(SIMT, TC, 256, __VA_ARGS__)                         \
       default: return static_cast<int>(cudaErrorInvalidValue);             \
     }                                                                      \
@@ -1344,8 +1293,8 @@ int repro_flash_fwd(const void* q, const void* k, const void* v, int dtype,
   }
   const Shape s = make_shape(Sq, Skv, Hq, Hkv, causal, window, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  REPRO_FLASH_DISPATCH(launch_fwd, launch_tc_fwd, REPRO_FLASH_F32_ONLY, q, k,
-                       v, out, out32, lse, B, s, st);
+  REPRO_FLASH_DISPATCH(launch_fwd, launch_tc_fwd, q, k, v, out, out32, lse, B,
+                       s, st);
 }
 
 // Backward, first kernel: delta (B, Sq, Hq) f32 = D, and dq in q's type.
@@ -1359,8 +1308,8 @@ int repro_flash_bwd_dq(const void* q, const void* k, const void* v,
   }
   const Shape s = make_shape(Sq, Skv, Hq, Hkv, causal, window, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  REPRO_FLASH_DISPATCH(launch_dq, launch_tc_dq, REPRO_FLASH_CASE, q, k, v,
-                       out32, dout, lse, delta, dq, B, s, st);
+  REPRO_FLASH_DISPATCH(launch_dq, launch_tc_dq, q, k, v, out32, dout, lse,
+                       delta, dq, B, s, st);
 }
 
 // Backward, second kernel (after the first, which writes delta): dk and dv
@@ -1376,8 +1325,8 @@ int repro_flash_bwd_dkdv(const void* q, const void* k, const void* v,
   }
   const Shape s = make_shape(Sq, Skv, Hq, Hkv, causal, window, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  REPRO_FLASH_DISPATCH(launch_dkdv, launch_tc_dkdv, REPRO_FLASH_F32_ONLY, q,
-                       k, v, dout, lse, delta, dk, dv, part, B, s, st);
+  REPRO_FLASH_DISPATCH(launch_dkdv, launch_tc_dkdv, q, k, v, dout, lse, delta,
+                       dk, dv, part, B, s, st);
 }
 
 // Dynamic shared memory (bytes) of the mma.sync kernel `which` (0 the
@@ -1396,11 +1345,6 @@ int repro_flash_tc_smem(int which, int hd) {
     REPRO_FLASH_SMEM(80)
     REPRO_FLASH_SMEM(256)
 #undef REPRO_FLASH_SMEM
-    case 64:
-    case 128:
-      return which == 1 ? static_cast<int>(hd == 64 ? tc::dq_smem<64>()
-                                                    : tc::dq_smem<128>())
-                        : -1;
     default: return -1;
   }
 }

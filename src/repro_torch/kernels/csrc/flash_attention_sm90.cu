@@ -1,12 +1,14 @@
-// GQA flash attention on Hopper's wgmma and TMA (sm_90a): the bf16 forward
-// and bwd_dkdv at head dims 64 and 128.
+// GQA flash attention on Hopper's wgmma and TMA (sm_90a): the bf16
+// forward, bwd_dq and bwd_dkdv at head dims 64 and 128.
 //
 // Replaces, for those calls:
 // - the forward: the Pallas TPU kernel
-//   src/repro/kernels/flash_attention.py:103 (flash_attention);
-// - bwd_dkdv: src/repro/models/attention.py:437 _flash_bwd_rule, the XLA
-//   backward of flash_attention_xla (dk and dv; D and dq stay on
-//   flash_attention.cu's bwd_dq, which runs first).
+//   src/repro/kernels/flash_attention.py:103 (flash_attention), except a
+//   call of at most 16 query rows a kv head, which flash_decode.cu's
+//   split-KV kernels take;
+// - bwd_dq and bwd_dkdv: src/repro/models/attention.py:437
+//   _flash_bwd_rule, the XLA backward of flash_attention_xla (D and dq,
+//   then dk and dv).
 // The contract, the layouts and the arithmetic are flash_attention.cu's
 // (its header): s = (q . k) * scale in f32, masked scores -1e30, out =
 // acc / max(l, 1e-30), L = m + log(max(l, 1e-30)); p = exp(s - L), ds =
@@ -16,9 +18,9 @@
 //
 // What bounds it: bf16 tensor-core operations, 989 TFLOP/s dense on the
 // H100 SXM, counted per visible (q, k) pair as chip_smoke.flash_work counts
-// them: 4 hd FLOP forward, 8 hd in bwd_dkdv. The split makes the issued
-// products 6 hd forward and 12 hd in bwd_dkdv. What the design does about
-// it:
+// them: 4 hd FLOP forward, 6 hd in bwd_dq, 8 hd in bwd_dkdv. The split
+// makes the issued products 6 hd forward, 8 hd in bwd_dq and 12 hd in
+// bwd_dkdv. What the design does about it:
 // - wgmma. Four warps issue one asynchronous m64nNk16 product from shared
 //   memory (SS) or with A in registers (RS); the accumulators stay in
 //   registers. A warpgroup's C fragment of S (or S^T) is, per warp, the A
@@ -33,8 +35,8 @@
 //   it, and stores past Sq or Skv are clipped). The wgmma descriptors use
 //   the same swizzle: K-major operands (Q and K in S = Q K^T) step 32
 //   bytes along a box row for each k16 and a box for each 64 columns;
-//   MN-major operands (V in O += P V, dO and Q in dV and dK) step 16 rows
-//   (2048 bytes) for each k16, and their N = hd spans the boxes, whose
+//   MN-major operands (V in O += P V, K in dQ += dS K, dO and Q in dV and
+//   dK) step 16 rows (2048 bytes) for each k16, and their N = hd spans the boxes, whose
 //   stride is the descriptor's leading byte offset. The maps are encoded
 //   on the host for each call (common.cuh: encode_tiled) and passed as
 //   __grid_constant__ parameters; they hold raw pointers, which a CUDA
@@ -60,6 +62,25 @@
 // loaded); the online softmax in registers; O += P_hi V + P_lo V (RS,
 // m64n{hd}, 8 k steps each). Shared memory at hd 128: Q 32 KB + 2 x (K, V)
 // 64 KB = 160 KB (+ 1 KB of alignment); at hd 64 half.
+//
+// bwd_dq (wg_bwd_dq_kernel), the forward's structure. Grid (Hq, B, q
+// tiles), the heaviest causal q tile first. A block owns 128 q rows, 64
+// per consumer warpgroup. The producer loads Q and dO once by TMA, then
+// each visible kv tile (BKV rows of K and V: 128 at hd 64, 64 at hd 128)
+// into a ring (2 stages at hd 64, 3 at hd 128). While Q and dO land, each
+// consumer warp computes D = rowsum(f32(dO) out32) of its 16 rows from
+// device memory (16-byte loads, two lanes a row), writes it to delta and
+// keeps D and L of its two rows a thread in registers. A consumer
+// warpgroup, per kv tile: S = Q K^T and dP = dO V^T (SS, m64n{BKV}, both
+// K-major); p = exp(S scale - L) and dS = p (dP - D) scale in registers
+// (the element mask only where the tile is not fully visible to its 64
+// rows); dQ += dS_hi K + dS_lo K (RS, m64n{hd}, K read MN-major as V is
+// in the forward). dq stays in registers (hd / 2 floats a thread) and is
+// rounded once to bf16 at the end; no atomics, a fixed order. Registers:
+// dq, S and dP (BKV / 2 each) and dS's fragments: at hd 128 the 64-row kv
+// tile keeps them inside 240. Shared memory at hd 128: Q, dO 64 KB + 3 x
+// (K, V) 96 KB = 160 KB (+ 1 KB of alignment); at hd 64 Q, dO 32 KB + 2 x
+// 64 KB = 96 KB.
 //
 // bwd_dkdv (wg_bwd_dkdv_kernel). Grid (Hkv, B, kv tiles), kv tile 0 (seen
 // by every causal q tile) first. A block owns 64 kv rows of one kv head
@@ -88,8 +109,9 @@
 // Not done: intra-warpgroup overlap of one tile's softmax with the next
 // tile's S = Q K^T (FlashAttention-3's second stage of pipelining; at hd
 // 128 the registers of a second S tile are not there beside the split P),
-// bwd_dq on this design, and a split-KV kernel for decoding (Sq = 1 fills
-// one of the 64 rows of a wgmma).
+// and one kernel for both backward halves (dq by atomics, as
+// FlashAttention-3 does, would give up the fixed order). Calls of at most
+// 16 query rows a kv head (decoding) take flash_decode.cu's forward.
 #include "flash_common.cuh"
 
 namespace repro {
@@ -110,6 +132,17 @@ template <int HD> struct FwdCfg {
   // 1 KB to align the base for the swizzle, Q, the K and V ring, barriers
   static constexpr int SMEM =
       1024 + Q_BYTES + STAGES * 2 * KV_BYTES + 8 * (1 + 2 * STAGES);
+};
+
+template <int HD> struct DqCfg {
+  // kv tiles of 64 rows at hd 128: S and dP (BKV / 2 registers a thread
+  // each) beside dq (HD / 2) and dS's hi and lo fragments fit in 240
+  static constexpr int BQ = 128, BKV = HD > 64 ? 64 : 128;
+  static constexpr int STAGES = HD > 64 ? 3 : 2;
+  static constexpr int Q_BYTES = BQ * HD * 2, KV_BYTES = BKV * HD * 2;
+  // alignment, Q and dO, the K and V ring, barriers
+  static constexpr int SMEM =
+      1024 + 2 * Q_BYTES + STAGES * 2 * KV_BYTES + 8 * (1 + 2 * STAGES);
 };
 
 template <int HD> struct DkdvCfg {
@@ -371,6 +404,37 @@ __device__ __forceinline__ void probs(float (&sc)[NS][4], float (&dp)[NS][4],
   }
 }
 
+// bwd_dq: from S and dP (q rows qr and qr + 8, kv columns kc0 + 8 n +
+// (0, 1)), p = exp(s - L) and ds = p (dp - D) scale, masked as scores(),
+// each k block (16 kv columns) split at once into the RS operands of dQ +=
+// dS K. Rows past Sq have zero Q and dO rows, L = D = 0: ds = 0.
+template <bool MASK, int NS>
+__device__ __forceinline__ void dscores(float (&sc)[NS][4],
+                                        float (&dp)[NS][4],
+                                        uint32_t (&dhi)[NS / 2][4],
+                                        uint32_t (&dlo)[NS / 2][4],
+                                        const float (&Lr)[2],
+                                        const float (&Dr)[2], const Shape& s,
+                                        int qr, int kc0) {
+#pragma unroll
+  for (int kc = 0; kc < NS / 2; ++kc) {
+#pragma unroll
+    for (int n = 2 * kc; n < 2 * kc + 2; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        float x = __fmul_rn(sc[n][e], s.scale);
+        if (MASK && !pair_visible(s, qr + 8 * i, kc0 + n * 8 + (e & 1))) {
+          x = kNegInf;
+        }
+        const float p = expf(x - Lr[i]);
+        dp[n][e] = __fmul_rn(p * (dp[n][e] - Dr[i]), s.scale);
+      }
+    }
+    split_a<NS>(dp, kc, dhi[kc], dlo[kc]);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Forward. Shared memory: Q [HD / 64][BQ][64]; stage st: K, V
 // [HD / 64][BKV][64] each; barriers q_full, full[STAGES], empty[STAGES].
@@ -513,6 +577,178 @@ wg_fwd_kernel(const __grid_constant__ CUtensorMap tq,
       if (t4 == 0) {
         lse[(static_cast<long long>(b) * s.Sq + q0 + row) * s.Hq + h] =
             m[r] + logf(ls);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bwd_dq. Shared memory: Q, dO [HD / 64][BQ][64]; stage st: K, V
+// [HD / 64][BKV][64]; barriers q_full, full[STAGES], empty[STAGES].
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+wg_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const __grid_constant__ CUtensorMap tdo,
+                 const float* __restrict__ out32,
+                 const bf16* __restrict__ dout,
+                 const float* __restrict__ lse, float* __restrict__ delta,
+                 bf16* __restrict__ dq, Shape s) {
+  using C = DqCfg<HD>;
+  constexpr int BQ = C::BQ, BKV = C::BKV, ST = C::STAGES;
+  constexpr int NS = BKV / 8, ND = HD / 8;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  bf16* Qs = reinterpret_cast<bf16*>(base);
+  bf16* dOs = Qs + BQ * HD;
+  bf16* KVs = dOs + BQ * HD;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(
+      base + 2 * C::Q_BYTES + ST * 2 * C::KV_BYTES);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + ST;
+  const int h = blockIdx.x, b = blockIdx.y, hk = h / (s.Hq / s.Hkv);
+  const int q0 = (cdiv(s.Sq, BQ) - 1 - static_cast<int>(blockIdx.z)) * BQ;
+  int t0, t1;
+  kv_range<BQ, BKV>(s, q0, t0, t1);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(&full[i], 1);   // the producer's arrive.expect_tx
+      mbar_init(&empty[i], 8);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 2) {
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(q_full, 2 * C::Q_BYTES);
+      tma_tile<HD, BQ>(Qs, &tq, q_full, h, q0, b);
+      tma_tile<HD, BQ>(dOs, &tdo, q_full, h, q0, b);
+      for (int t = t0; t <= t1; ++t) {
+        const int i = t - t0, st = i % ST;
+        bf16* Ks = KVs + st * 2 * BKV * HD;
+        mbar_wait(&empty[st], ((i / ST) & 1) ^ 1);
+        mbar_expect_tx(&full[st], 2 * C::KV_BYTES);
+        tma_tile<HD, BKV>(Ks, &tk, &full[st], hk, t * BKV, b);
+        tma_tile<HD, BKV>(Ks + BKV * HD, &tv, &full[st], hk, t * BKV, b);
+      }
+    }
+  } else {
+    regs_inc<kConsumerRegs>();
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int r0 = wgi * 64 + warp * 16;  // this warp's rows of the q tile
+    const long long qs = static_cast<long long>(s.Hq) * HD;
+    const long long qbase = (static_cast<long long>(b) * s.Sq + q0) * qs +
+                            static_cast<long long>(h) * HD;
+    const long long lbase =
+        (static_cast<long long>(b) * s.Sq + q0) * s.Hq + h;
+    // D = rowsum(f32(dout) * out_f32) of the warp's 16 rows, while the TMA
+    // loads Q and dO: lane l sums half l % 2 of row l / 2 (16-byte loads),
+    // the pair of lanes adds the halves, and each thread takes D of its
+    // rows g and g + 8 from their pairs. L of those rows likewise stays
+    // in registers (0 past Sq, where dO is zero: ds = 0).
+    float Dr[2], Lr[2];
+    {
+      const int row = r0 + (lane >> 1);
+      float part = 0.0f;
+      if (q0 + row < s.Sq) {
+        const long long off = qbase + row * qs + (lane & 1) * (HD / 2);
+#pragma unroll
+        for (int c = 0; c < HD / 2; c += 8) {
+          const uint4 raw = *reinterpret_cast<const uint4*>(dout + off + c);
+          const float4 o0 = *reinterpret_cast<const float4*>(out32 + off + c);
+          const float4 o1 =
+              *reinterpret_cast<const float4*>(out32 + off + c + 4);
+          const __nv_bfloat162* d2 =
+              reinterpret_cast<const __nv_bfloat162*>(&raw);
+          const float2 a = __bfloat1622float2(d2[0]);
+          const float2 bb = __bfloat1622float2(d2[1]);
+          const float2 cc = __bfloat1622float2(d2[2]);
+          const float2 dd = __bfloat1622float2(d2[3]);
+          part = fmaf(a.x, o0.x, part);
+          part = fmaf(a.y, o0.y, part);
+          part = fmaf(bb.x, o0.z, part);
+          part = fmaf(bb.y, o0.w, part);
+          part = fmaf(cc.x, o1.x, part);
+          part = fmaf(cc.y, o1.y, part);
+          part = fmaf(dd.x, o1.z, part);
+          part = fmaf(dd.y, o1.w, part);
+        }
+      }
+      part += __shfl_xor_sync(0xffffffffu, part, 1);
+      if ((lane & 1) == 0 && q0 + row < s.Sq) {
+        delta[lbase + row * s.Hq] = part;
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        Dr[r] = __shfl_sync(0xffffffffu, part, 2 * (g + 8 * r));
+        const int q = q0 + r0 + g + 8 * r;
+        Lr[r] = q < s.Sq ? lse[lbase + (r0 + g + 8 * r) * s.Hq] : 0.0f;
+      }
+    }
+    const uint32_t q_tile = smem_u32(Qs) + wgi * 64 * kRow;
+    const uint32_t do_tile = smem_u32(dOs) + wgi * 64 * kRow;
+    float dqa[ND][4];
+    zero(dqa);
+    mbar_wait(q_full, 0);
+    for (int t = t0; t <= t1; ++t) {
+      const int i = t - t0, st = i % ST, k0 = t * BKV;
+      const uint32_t k_tile = smem_u32(KVs) + st * 2 * C::KV_BYTES;
+      const uint32_t v_tile = k_tile + C::KV_BYTES;
+      mbar_wait(&full[st], (i / ST) & 1);
+      // S = Q K^T and dP = dO V^T: 64 q rows x BKV kv columns
+      float sc[NS][4], dp[NS][4];
+      zero(sc);
+      zero(dp);
+      const uint64_t qd = here(desc_k(q_tile)), dod = here(desc_k(do_tile));
+      const uint64_t kd = desc_k(k_tile), vd = desc_k(v_tile);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        Mma<BKV>::ss(sc, qd + step_k<BQ>(kk), kd + step_k<BKV>(kk));
+      }
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        Mma<BKV>::ss(dp, dod + step_k<BQ>(kk), vd + step_k<BKV>(kk));
+      }
+      wg_commit();
+      wg_wait();
+      fence_acc(sc);
+      fence_acc(dp);
+      // dQ += dS_hi K + dS_lo K (K read MN-major, as V in the forward)
+      uint32_t dhi[BKV / 16][4], dlo[BKV / 16][4];
+      if (tiles_full(s, q0 + wgi * 64, 64, k0, BKV)) {
+        dscores<false>(sc, dp, dhi, dlo, Lr, Dr, s, q0 + r0 + g,
+                       k0 + 2 * t4);
+      } else {
+        dscores<true>(sc, dp, dhi, dlo, Lr, Dr, s, q0 + r0 + g, k0 + 2 * t4);
+      }
+      const uint64_t km = desc_mn<BKV>(k_tile);
+      wg_fence();
+#pragma unroll
+      for (int kc = 0; kc < BKV / 16; ++kc) {
+        Mma<HD>::rs(dqa, dhi[kc], km + step_mn(kc));
+        Mma<HD>::rs(dqa, dlo[kc], km + step_mn(kc));
+      }
+      wg_commit();
+      wg_wait();
+      fence_acc(dqa);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);  // stage st is read
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + g + 8 * r;
+      if (q0 + row >= s.Sq) continue;
+      const long long off = qbase + row * qs;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        *reinterpret_cast<__nv_bfloat162*>(dq + off + n * 8 + 2 * t4) =
+            __floats2bfloat162_rn(dqa[n][2 * r], dqa[n][2 * r + 1]);
       }
     }
   }
@@ -758,6 +994,29 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out,
 }
 
 template <int HD>
+int launch_dq(const void* q, const void* k, const void* v, const void* out32,
+              const void* dout, const void* lse, void* delta, void* dq,
+              int B, Shape s, cudaStream_t st) {
+  using C = DqCfg<HD>;
+  CUtensorMap mq, mk, mv, mdo;
+  if (!make_map(&mq, q, B, s.Sq, s.Hq, HD, C::BQ) ||
+      !make_map(&mk, k, B, s.Skv, s.Hkv, HD, C::BKV) ||
+      !make_map(&mv, v, B, s.Skv, s.Hkv, HD, C::BKV) ||
+      !make_map(&mdo, dout, B, s.Sq, s.Hq, HD, C::BQ)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  static std::atomic<bool> done[kMaxDevices];
+  const cudaError_t e = allow_smem_once(done, wg_bwd_dq_kernel<HD>, C::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(s.Hq, B, cdiv(s.Sq, C::BQ));
+  wg_bwd_dq_kernel<HD><<<grid, kThreads, C::SMEM, st>>>(
+      mq, mk, mv, mdo, static_cast<const float*>(out32),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<float*>(delta), static_cast<bf16*>(dq), s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
 int launch_dkdv(const void* q, const void* k, const void* v,
                 const void* dout, const void* lse, const void* delta,
                 void* dk, void* dv, int B, Shape s, cudaStream_t st) {
@@ -811,9 +1070,31 @@ int repro_flash_wg_fwd(const void* q, const void* k, const void* v,
   }
 }
 
-// bwd_dkdv of a bf16 call at head dim 64 or 128, after repro_flash_bwd_dq
-// (which writes delta): dk and dv (bf16), as repro_flash_bwd_dkdv but with
-// no scratch.
+// bwd_dq of a bf16 call at head dim 64 or 128: delta (B, Sq, Hq) f32 = D
+// and dq (bf16), as repro_flash_bwd_dq.
+int repro_flash_wg_bwd_dq(const void* q, const void* k, const void* v,
+                          int dtype, const void* out32, const void* dout,
+                          const void* lse, void* delta, void* dq, int B,
+                          int Sq, int Skv, int Hq, int Hkv, int hd,
+                          int causal, int window, float scale, void* stream) {
+  if (dtype != kBF16 || bad_shape(B, Sq, Skv, Hq, Hkv)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Shape s = make_shape(Sq, Skv, Hq, Hkv, causal, window, scale);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 64:
+      return wg::launch_dq<64>(q, k, v, out32, dout, lse, delta, dq, B, s, st);
+    case 128:
+      return wg::launch_dq<128>(q, k, v, out32, dout, lse, delta, dq, B, s,
+                                st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// bwd_dkdv of a bf16 call at head dim 64 or 128, after
+// repro_flash_wg_bwd_dq (which writes delta): dk and dv (bf16), as
+// repro_flash_bwd_dkdv but with no scratch.
 int repro_flash_wg_bwd_dkdv(const void* q, const void* k, const void* v,
                             int dtype, const void* dout, const void* lse,
                             const void* delta, void* dk, void* dv, int B,
@@ -835,12 +1116,15 @@ int repro_flash_wg_bwd_dkdv(const void* q, const void* k, const void* v,
   }
 }
 
-// Dynamic shared memory (bytes) of kernel `which` (0 the forward, 2
-// bwd_dkdv) at head dim hd, or -1.
+// Dynamic shared memory (bytes) of kernel `which` (0 the forward, 1
+// bwd_dq, 2 bwd_dkdv) at head dim hd, or -1.
 int repro_flash_wg_smem(int which, int hd) {
   if (hd != 64 && hd != 128) return -1;
   if (which == 0) {
     return hd == 64 ? wg::FwdCfg<64>::SMEM : wg::FwdCfg<128>::SMEM;
+  }
+  if (which == 1) {
+    return hd == 64 ? wg::DqCfg<64>::SMEM : wg::DqCfg<128>::SMEM;
   }
   if (which == 2) {
     return hd == 64 ? wg::DkdvCfg<64>::SMEM : wg::DkdvCfg<128>::SMEM;

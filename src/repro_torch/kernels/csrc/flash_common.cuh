@@ -1,7 +1,9 @@
-// What the two K2 sources share (flash_attention.cu: the SIMT and mma.sync
-// kernels; flash_attention_sm90.cu: the wgmma kernels): the call's shape,
-// the reference's visibility rule and block test, and the hi/lo bf16 split
-// of an f32 operand. flash_attention.cu's header states the contract.
+// What the K2 sources share (flash_attention.cu: the SIMT and mma.sync
+// kernels; flash_attention_sm90.cu: the wgmma kernels; flash_decode.cu:
+// the split-KV decode forward): the call's shape, the reference's
+// visibility rule and block test, the hi/lo bf16 split of an f32 operand
+// and the mma.sync building blocks. flash_attention.cu's header states the
+// contract.
 #pragma once
 
 #include "common.cuh"
@@ -98,6 +100,63 @@ __device__ __forceinline__ void split_a(float (&c)[N][4], int kc,
   split(c[2 * kc][2], c[2 * kc][3], hi[1], lo[1]);
   split(c[2 * kc + 1][0], c[2 * kc + 1][1], hi[2], lo[2]);
   split(c[2 * kc + 1][2], c[2 * kc + 1][3], hi[3], lo[3]);
+}
+
+// The mma.sync building blocks of flash_attention.cu's tensor-core kernels
+// and flash_decode.cu. 16 bytes global -> shared, or 16 zero bytes when
+// !valid (src not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
+               "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most N committed groups of this thread are in flight.
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 bf16 matrices from shared memory; lane i gives the address of
+// row i % 8 of matrix i / 8.
+__device__ __forceinline__ void ldsm4(uint32_t r[4], const __nv_bfloat16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)) : "memory");
+}
+__device__ __forceinline__ void ldsm4_t(uint32_t r[4],
+                                        const __nv_bfloat16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)) : "memory");
+}
+
+// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col).
+__device__ __forceinline__ void mma(float c[4], const uint32_t a[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Lane offsets (in bf16) into a tile with row stride LD, for ldsm4:
+// a_off: the A fragment of a 16x16 block of a row-major [m][k] tile;
+// b_off: the B fragments of two n8 blocks (16 rows) x k16 of an [n][k] tile
+//        (registers: b0, b1 of the first n block, then of the second);
+// bt_off: the same from a [k][n] tile, with ldsm4_t.
+__device__ __forceinline__ int a_off(int lane, int ld) {
+  return (lane & 15) * ld + (lane >> 4) * 8;
+}
+__device__ __forceinline__ int b_off(int lane, int ld) {
+  return ((lane >> 4) * 8 + (lane & 7)) * ld + ((lane >> 3) & 1) * 8;
+}
+__device__ __forceinline__ int bt_off(int lane, int ld) {
+  return (((lane >> 3) & 1) * 8 + (lane & 7)) * ld + (lane >> 4) * 8;
 }
 
 inline Shape make_shape(int Sq, int Skv, int Hq, int Hkv, int causal,

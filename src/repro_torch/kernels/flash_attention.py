@@ -1,5 +1,5 @@
-"""Launchers of the CUDA flash attention kernels (``csrc/flash_attention.cu``
-and ``csrc/flash_attention_sm90.cu``).
+"""Launchers of the CUDA flash attention kernels (``csrc/flash_attention.cu``,
+``csrc/flash_attention_sm90.cu`` and ``csrc/flash_decode.cu``).
 
 The counterpart of ``repro/kernels/flash_attention.py::flash_attention``
 (forward) and of ``repro/models/attention.py::_flash_bwd_rule`` (the
@@ -7,15 +7,18 @@ backward of ``flash_attention_xla``), in the reference's layout: q
 (B, Sq, Hq, hd), k/v (B, Skv, Hkv, hd), f32 or bf16, contiguous, on one
 card. Three kernels: the forward (with the f32 output and the logsumexp L
 that the backward reads), ``bwd_dq`` (D and dq) and ``bwd_dkdv`` (dk and
-dv, after ``bwd_dq``). :data:`ROUTES` names the kernel each call launches,
-by dtype and head dim: f32 runs the SIMT kernels, bf16 the ``mma.sync``
-tensor-core kernels, except the bf16 forward and ``bwd_dkdv`` at head dims
-64 and 128, which run the ``wgmma`` kernels of ``flash_attention_sm90.cu``
-(TMA rings, warp specialisation; the sources' headers say why). Each
-launcher checks what the kernel takes and raises on anything else,
-allocates its outputs (and, where the ``mma.sync`` ``bwd_dkdv`` runs with
-Hq > Hkv, the f32 per-head partials that a second kernel sums in order)
-with ``torch.empty`` and launches on the current stream. CUDA tensors only;
+dv, after ``bwd_dq``); the forward of a bf16 call with at most
+:data:`DECODE_ROWS` query rows a kv head (Sq * Hq / Hkv) takes a fourth,
+``fwd_decode``, the split-KV kernels of ``flash_decode.cu``. :data:`ROUTES`
+names the entry point each call takes, by dtype and head dim: f32 runs the
+SIMT kernels, bf16 the ``mma.sync`` tensor-core kernels, except at head
+dims 64 and 128, where all three run on the ``wgmma`` kernels of
+``flash_attention_sm90.cu`` (TMA rings, warp specialisation; the sources'
+headers say why). Each launcher checks what the kernel takes and raises on
+anything else, allocates its outputs (and, where the ``mma.sync``
+``bwd_dkdv`` runs with Hq > Hkv, the f32 per-head partials that a second
+kernel sums in order, or the decode forward's per-split partials) with
+``torch.empty`` and launches on the current stream. CUDA tensors only;
 ``kernels.ops`` dispatches CPU tensors to ``kernels.ref`` and counts the
 launches; :data:`ROUTE_LAUNCHES` counts them here by entry point, dtype
 and head dim.
@@ -23,6 +26,7 @@ and head dim.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Tuple
 
@@ -34,19 +38,26 @@ from .quantize import DTYPE_CODES
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 _MAX_GRID_YZ = 65535
 
+# The forward of a bf16 call with at most this many query rows a kv head
+# (Sq * G) takes the split-KV decode kernels: one m16 tile of rows.
+DECODE_ROWS = 16
+
 # (library, extern "C" entry point) of each kernel
 _SIMT = {"fwd": ("flash_attention", "repro_flash_fwd"),
          "bwd_dq": ("flash_attention", "repro_flash_bwd_dq"),
          "bwd_dkdv": ("flash_attention", "repro_flash_bwd_dkdv")}
 _WGMMA = {"fwd": ("flash_attention_sm90", "repro_flash_wg_fwd"),
-          "bwd_dq": _SIMT["bwd_dq"],
+          "bwd_dq": ("flash_attention_sm90", "repro_flash_wg_bwd_dq"),
           "bwd_dkdv": ("flash_attention_sm90", "repro_flash_wg_bwd_dkdv")}
+_DECODE = ("flash_decode", "repro_flash_decode")
 # (dtype, head dim) -> {kernel: (library, entry point)}. The f32 and the
 # mma.sync routes share the entry points of flash_attention.cu, which pick
-# the SIMT or the tensor-core kernel by dtype.
+# the SIMT or the tensor-core kernel by dtype; f32 decode calls keep the
+# SIMT forward.
 ROUTES = {
-    (dtype, hd): (_WGMMA if dtype == torch.bfloat16 and hd in (64, 128)
-                  else _SIMT)
+    (dtype, hd): dict(
+        _WGMMA if dtype == torch.bfloat16 and hd in (64, 128) else _SIMT,
+        fwd_decode=_DECODE if dtype == torch.bfloat16 else _SIMT["fwd"])
     for dtype in (torch.float32, torch.bfloat16) for hd in HEAD_DIMS
 }
 # The one entry point that takes f32 scratch for per-head partials (bf16,
@@ -128,20 +139,42 @@ def _launch(what: str, q: torch.Tensor, kernel: str, *args) -> None:
     ROUTE_LAUNCHES[key] = ROUTE_LAUNCHES.get(key, 0) + 1
 
 
+def takes_decode(dtype, sq: int, hq: int, hkv: int) -> bool:
+    """Whether a forward call takes ``fwd_decode``: bf16, and at most
+    :data:`DECODE_ROWS` query rows a kv head."""
+    return dtype == torch.bfloat16 and sq * (hq // hkv) <= DECODE_ROWS
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_chunk(hd: int) -> int:
+    """kv rows of a split of the decode forward at head dim ``hd`` (the
+    source's rule, asked once per head dim)."""
+    library, _ = _DECODE
+    return _build.KERNELS.library(library).repro_flash_decode_chunk(hd)
+
+
 def fwd(q, k, v, *, causal: bool, window: int):
     """-> (out in q's dtype, out_f32, L (B, Sq, Hq) f32). The f32 output
     and L are what the backward reads; for f32 inputs ``out_f32`` is
     ``out`` itself."""
     dims = _check_qkv("flash_attention_fwd", q, k, v)
-    b, sq, _, hq, _, _ = dims
+    b, sq, skv, hq, hkv, hd = dims
     out = torch.empty_like(q)
     out32 = None if q.dtype == torch.float32 else torch.empty(
         q.shape, dtype=torch.float32, device=q.device)
     lse = torch.empty((b, sq, hq), dtype=torch.float32, device=q.device)
-    _launch("flash_attention_fwd", q, "fwd",
+    kernel, scratch = "fwd", ()
+    if takes_decode(q.dtype, sq, hq, hkv):
+        # per split: acc (Sq * G, hd) and (m, l) of each query row
+        splits = -(-skv // _decode_chunk(hd))
+        part = torch.empty(b * hkv * splits * sq * (hq // hkv) * (hd + 2),
+                           dtype=torch.float32, device=q.device)
+        kernel, scratch = "fwd_decode", (part.data_ptr(),)
+    _launch("flash_attention_fwd", q, kernel,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), DTYPE_CODES[q.dtype],
             out.data_ptr(), None if out32 is None else out32.data_ptr(),
-            lse.data_ptr(), *_common(dims, causal, window, _stream(q)))
+            lse.data_ptr(), *scratch,
+            *_common(dims, causal, window, _stream(q)))
     return out, out if out32 is None else out32, lse
 
 

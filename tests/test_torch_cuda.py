@@ -205,6 +205,21 @@ def _assert_within_bf16_step(got, want):
         (1, 65, 1000, 16, 1, 64, False, 0),
         (1, 1000, 1000, 16, 2, 128, True, 256),  # window 256
         (1, 1000, 63, 4, 4, 128, False, 0),      # Sq > Skv
+        # the split-KV decode forward (bf16, Sq * G <= 16 query rows a kv
+        # head): Sq * G of 1, 4, 16 and 17 (the route's boundary: the
+        # full-sequence kernels), Skv of 2, 63, 257 and 4097 (Skv 1, where
+        # p = 1 and dq is 0 up to rounding, is held by the forward-only
+        # test_flash_decode_forward_repeats_bitwise), every head dim
+        (3, 1, 2, 4, 4, 64, False, 0),           # Sq * G 1, Skv 2
+        (2, 1, 4097, 8, 2, 128, False, 0),       # 4, 33 splits
+        (1, 1, 257, 16, 1, 64, False, 0),        # 16, MQA
+        (1, 4, 63, 16, 4, 80, True, 32),         # 16, window
+        (2, 2, 257, 16, 2, 256, False, 0),       # 16, hd 256
+        (1, 16, 4097, 2, 2, 32, True, 0),        # 16, causal Sq 16
+        (1, 2, 63, 8, 4, 16, False, 0),          # 4, hd 16
+        (1, 17, 257, 4, 4, 64, False, 0),        # 17: wgmma forward
+        (1, 1, 4097, 17, 1, 128, False, 0),      # 17 by G
+        (2, 17, 63, 2, 2, 80, True, 0),          # 17: mma.sync forward
     ],
 )
 def test_flash_attention_matches_plain(card, b, sq, skv, hq, hkv, hd, causal,
@@ -247,6 +262,7 @@ def test_flash_attention_matches_plain(card, b, sq, skv, hq, hkv, hd, causal,
     ((2, 256, 256, 8, 2, 64), 0),      # wgmma bwd_dkdv, G 4
     ((1, 700, 700, 10, 1, 256), 256),  # hd 256 MQA: per-head partials
     ((1, 700, 700, 16, 1, 128), 0),    # wgmma bwd_dkdv, G 16
+    ((1, 600, 600, 16, 2, 128), 128),  # wgmma bwd_dq and bwd_dkdv, G 8
 ])
 def test_flash_attention_backward_is_deterministic_under_checkpoint(
         card, shape, window):
@@ -267,12 +283,15 @@ def test_flash_attention_backward_is_deterministic_under_checkpoint(
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 200, 200, 4, 4, 64),
                                    (1, 150, 150, 8, 2, 128),
-                                   (1, 150, 150, 10, 1, 256)])
+                                   (1, 150, 150, 10, 1, 256),
+                                   (1, 1, 300, 8, 2, 64),
+                                   (1, 2, 300, 4, 4, 80)])
 def test_flash_attention_route_by_dtype(card, shape, dtype):
-    """bf16 K2 at head dim 64 or 128 launches the wgmma forward and
-    bwd_dkdv and the mma.sync bwd_dq (no per-head partials to sum); at
-    other head dims the mma.sync kernels (and, for Hq > Hkv, the ordered
-    sum of the per-head partials); f32 K2 only the SIMT kernels. Names
+    """bf16 K2 at head dim 64 or 128 launches the wgmma forward, bwd_dq
+    and bwd_dkdv (no per-head partials to sum); at other head dims the
+    mma.sync kernels (and, for Hq > Hkv, the ordered sum of the per-head
+    partials); a bf16 forward of at most 16 query rows a kv head the
+    split-KV decode kernels instead; f32 K2 only the SIMT kernels. Names
     from ``torch.profiler``."""
     import time
 
@@ -291,13 +310,19 @@ def test_flash_attention_route_by_dtype(card, shape, dtype):
     names = {e.key for e in prof.key_averages()
              if e.device_type.name == "CUDA" and "repro::flash::" in e.key}
     short = {n.split("(")[0].split("::")[-1].split("<")[0] for n in names}
+    decode = {"decode_split_kernel", "decode_combine_kernel"}
+    few_rows = shape[1] * (shape[3] // shape[4]) <= 16
     if dtype == torch.bfloat16 and shape[5] in (64, 128):
-        want = {"wg_fwd_kernel", "tc_bwd_dq_kernel", "wg_bwd_dkdv_kernel"}
+        want = {"wg_fwd_kernel", "wg_bwd_dq_kernel", "wg_bwd_dkdv_kernel"}
+        if few_rows:
+            want = want - {"wg_fwd_kernel"} | decode
         assert short == want, names
     elif dtype == torch.bfloat16:
         want = {"tc_fwd_kernel", "tc_bwd_dq_kernel", "tc_bwd_dkdv_kernel"}
         if shape[3] > shape[4]:
             want.add("tc_sum_heads_kernel")
+        if few_rows:
+            want = want - {"tc_fwd_kernel"} | decode
         assert short == want, names
     else:
         assert short == {"fwd_kernel", "bwd_dq_kernel", "bwd_dkdv_kernel"}, names
@@ -329,6 +354,74 @@ def test_flash_wgmma_forward_replays_in_a_cuda_graph(card, hd):
     torch.cuda.synchronize()
     for got, want in zip(captured, eager):
         assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,shape", [
+    ("bwd_dq", (2, 300, 300, 8, 2, 64)),
+    ("bwd_dq", (1, 200, 200, 16, 2, 128)),
+    ("fwd_decode", (4, 1, 4096, 16, 16, 64)),
+    ("fwd_decode", (2, 2, 1000, 16, 2, 128)),
+])
+def test_flash_new_kernels_replay_in_a_cuda_graph(card, kernel, shape):
+    """The wgmma bwd_dq (tensor maps of the captured call's pointers) and
+    the split-KV decode forward (its scratch allocated in the graph's
+    pool) captured in a CUDA graph replay bitwise the eager call, twice,
+    and the capture took the route's entry point."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, do = _qkvd(card, *shape, torch.bfloat16)
+    if kernel == "bwd_dq":
+        _, out32, lse = fa.fwd(q, k, v, causal=True, window=0)
+        call = lambda: fa.bwd_dq(q, k, v, out32, lse, do, causal=True,  # noqa: E731
+                                 window=0)
+        entry = "repro_flash_wg_bwd_dq"
+    else:
+        call = lambda: fa.fwd(q, k, v, causal=False, window=0)  # noqa: E731
+        entry = "repro_flash_decode"
+    eager = call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    fa.reset_route_launches()
+    with torch.cuda.graph(graph):
+        captured = call()
+    assert fa.ROUTE_LAUNCHES == {(entry, torch.bfloat16, shape[5]): 1}
+    for _ in range(2):
+        for t in captured:
+            t.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(captured, eager):
+            assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 1, 4096, 16, 16, 64),
+                                   (1, 3, 5000, 20, 4, 128),
+                                   (2, 1, 777, 8, 8, 256),
+                                   (3, 1, 1, 4, 4, 64),
+                                   (2, 16, 1, 2, 2, 80)])
+def test_flash_decode_forward_repeats_bitwise(card, shape):
+    """The split-KV decode forward gives bitwise the same out, out32 and
+    L from run to run (the splits are folded in a fixed order), within the
+    forward's gates of the plain version; Skv 1 included."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, _ = _qkvd(card, *shape, torch.bfloat16, seed=3)
+    fa.reset_route_launches()
+    first = fa.fwd(q, k, v, causal=False, window=0)
+    for got, want in zip(fa.fwd(q, k, v, causal=False, window=0), first):
+        assert torch.equal(got, want)
+    assert fa.ROUTE_LAUNCHES == {("repro_flash_decode", torch.bfloat16,
+                                  shape[5]): 2}
+    r_out, r_out32, r_lse = ref.flash_attention_ref(q, k, v, causal=False)
+    _assert_within_bf16_step(first[0], r_out)
+    torch.testing.assert_close(first[1], r_out32, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(first[2], r_lse, rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.cuda
