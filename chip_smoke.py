@@ -327,7 +327,21 @@ Phases, each reported on its own line (any failure raises, exit != 0):
    decode steps with memory K/V against a teacher-forced forward, and
    ``common.matmul_f32`` (the bf16 FFN's f32 up and gate products) at
    lm_350m's FFN and phi35_moe's experts against the f32 product, with
-   its ms.
+   its ms;
+27. after [chaos] and [mesh], ``tp``: the model-parallel half of the
+   distributed layer in gloo worlds whose ranks share the card
+   (``--mesh-rank tp|tpc``): (a) ``make_sgd_train_step`` of whole lm_1b
+   (2 AdamW steps, B 4 x S 512) on a (data 1, model 2) mesh, K2's wgmma
+   kernels on each rank's 8 heads, the losses within 2^-10 relative of the
+   mesh-free steps' and the update within 2^-2 of theirs (the worst
+   leaf's relative L2 gap; the start and the half-batch update must both
+   fail that gate); (b) ``make_prefill_step`` of qwen2_72b at 2 of 80
+   layers with ``tp_comm="int8"`` against the bf16 wire (cosine > 0.9999,
+   every int8 reduction within its bound, payload equal to
+   ``tpcomm.int8_wire_bytes``; each wire timed warm, without the spies
+   that check the bound); (c) ``make_drjax_round_step`` of lm_350m
+   (dp) on a (data 2, model 2) mesh of 4 ranks, with ``all_reduce``s over
+   "data" and "model", held to the mesh-free round.
 
 Then one JSON line with every kernel's launches, error and times (the K2
 rows with their launches in [pipeline], [maml] and [btm], the split-KV
@@ -5422,8 +5436,11 @@ def mesh_rank_main(kind: str, rank: int, world: int, rdzv: str,
                               device="cuda", backend="gloo")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    out = (mesh_rank_flat(rank, world, workdir) if kind == "b"
-           else mesh_rank_soak(rank, world, workdir))
+    if kind in ("tp", "tpc"):
+        out = tp_rank_main(kind, rank, world, workdir)
+    else:
+        out = (mesh_rank_flat(rank, world, workdir) if kind == "b"
+               else mesh_rank_soak(rank, world, workdir))
     import torch.distributed as dist
 
     dist.barrier()
@@ -5537,6 +5554,462 @@ def phase_mesh() -> dict:
     return counts
 
 
+
+# [tp]: the model-parallel half of the distributed layer on the card, in
+# gloo worlds whose ranks share it, as [mesh]'s (b) and (c): (a) and (b)
+# on a (data 1, model 2) mesh of 2 ranks, (c) on a (data 2, model 2) mesh
+# of 4. The multi-rank paths run; a multi-card run is not timed.
+TP_TRAIN = dict(arch="lm_1b", batch=4, seq=512, steps=2, lr=3e-4)
+TP_PREFILL = dict(arch="qwen2_72b", layers=2, batch=4, seq=512)
+TP_ROUND = dict(arch="lm_350m", partition=4, local_steps=2, batch=2,
+                seq=512)
+# (a) the mesh step's parameter update against the mesh-free step's: the
+# worst leaf's ||mesh - mesh-free|| / ||mesh-free - start|| (an update
+# that is unchanged reads 1; the mesh-free update from half the batch is
+# run beside it as a second control, and both controls must fail the
+# gate). On the H100 the sound run reads 0.177, the controls 1 and 0.970;
+# AdamW's step is blind to a gradient's scale, which the CPU world's SGD
+# steps check. The losses within 2^-10 relative (4.3e-5 read)
+TP_TRAIN_UPDATE_GAP = 2.0 ** -2
+TP_TRAIN_LOSS_REL = 2.0 ** -10
+# (c) the round's loss within PR 27's reduce tolerance of the mesh-free
+# round's
+TP_LOSS_REL = 2.0 ** -7
+# (b) the int8 prefill's logits against the bf16-wire prefill's
+TP_INT8_COSINE = 0.9999
+# (c) the round's new parameters: within 2^-4 of each leaf's largest
+# round update plus four bf16 steps of the parameter (its two local
+# steps, the clients' mean and the server step each round once; two
+# steps read 0.889 of the gate on the card)
+TP_ROUND_UPDATE_REL = 2.0 ** -4
+TP_ROUND_ULPS = 4
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 at each |x| (at least the smallest normal's)."""
+    e = torch.floor(torch.log2(x.float().abs().clamp_min(2.0 ** -126)))
+    return torch.pow(2.0, e - 7)
+
+
+def tp_spies(heads: list, worst: list):
+    """Record each K2 call's query heads (``ops.flash_attention``) and each
+    int8 reduction's worst ``|int8 sum - exact| / (sum_j s_j + m ulps)``
+    (``tpcomm.int8_sum``; the exact sum by an all_reduce of the f32
+    partials). Returns the function that removes them."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import partitioning, tpcomm
+
+    real_fa, real_sum = ops.flash_attention, tpcomm.int8_sum
+
+    def fa(q, *args, **kwargs):
+        heads.append(int(q.shape[2]))
+        return real_fa(q, *args, **kwargs)
+
+    def int8_sum(part):
+        out = real_sum(part)
+        dims = partitioning.model_dims()
+        exact = partitioning.all_reduce_sum(part, dims)
+        _, s = tpcomm._quant_rows(part)
+        scales = partitioning.all_reduce_sum(s, dims)
+        m = partitioning.model_size()
+        ulp = torch.nextafter(exact.abs(), torch.full_like(exact, math.inf)) \
+            - exact.abs()
+        worst.append(float(((out - exact).abs() / (scales + m * ulp)).max()))
+        return out
+
+    # models/attention.py calls K2 through this module attribute
+    ops.flash_attention, tpcomm.int8_sum = fa, int8_sum
+
+    def undo():
+        ops.flash_attention, tpcomm.int8_sum = real_fa, real_sum
+
+    return undo
+
+
+def tp_entries() -> dict:
+    from repro_torch.kernels import flash_attention as fa
+
+    out = {}
+    for (entry, _, _), n in fa.ROUTE_LAUNCHES.items():
+        out[entry] = out.get(entry, 0) + n
+    return out
+
+
+def tp_rank_train(rank: int, world: int, workdir: str) -> dict:
+    """(a) on one rank: two AdamW steps of whole lm_1b on the (data 1,
+    model 2) mesh, parameters and moments as DTensors; rank 0 then runs
+    the mesh-free steps from the same parameters and holds the mesh's to
+    them."""
+    import torch.distributed as dist
+
+    from repro_torch import optim
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.models import partitioning, registry
+
+    run = TP_TRAIN
+    mesh = mesh_lib.make_mesh((1, world), ("data", "model"), device="cuda")
+    cfg = registry.get_config(run["arch"])
+    whole = registry.init_params(cfg, seed=0, device="cuda")
+    batches = [registry.make_batch(cfg, run["batch"], run["seq"], seed=s,
+                                   device="cuda") for s in (1, 2)]
+    opt = optim.adamw(run["lr"])
+    step, _ = steps.make_sgd_train_step(cfg, mesh, lr=run["lr"], fsdp=False)
+    p_axes = registry.param_axes(cfg)
+    params = steps.shard_tree(whole, p_axes, mesh, steps.strategy_rules(
+        cfg, False))
+    state = opt.init(params)
+    heads, worst = [], []
+    undo = tp_spies(heads, worst)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    partitioning.reset_routes()
+    losses, seconds = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, b)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    undo()
+    out = dict(losses=losses, step_s=seconds,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches=ops.launch_counts(), entries=tp_entries(),
+               heads=sorted(set(heads)), routes=_routes(),
+               local_wq=tuple(params["layers.0.attn.wq"].to_local().shape))
+    got = {k: partitioning.full(v) for k, v in params.items()}
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 0:
+        plain, _ = steps.make_sgd_train_step(cfg, lr=run["lr"], fsdp=False)
+
+        def mesh_free(rows):
+            p, o, losses = whole, opt.init(whole), []
+            for b in batches:
+                p, o, loss = plain(p, o, {k: v[:rows] for k, v in b.items()})
+                losses.append(float(loss))
+            return p, losses
+
+        want, plain_losses = mesh_free(run["batch"])
+        equal, total = 0, 0
+        for k, w in want.items():
+            equal += int((got[k] == w).sum())
+            total += w.numel()
+        # the controls: the start (no update) and the mesh-free update from
+        # half the batch's rows
+        half, _ = mesh_free(run["batch"] // 2)
+        out.update(plain_losses=plain_losses,
+                   update_gap=update_gap(got, want, whole),
+                   control_gap={"unchanged": update_gap(whole, want, whole),
+                                "half_batch": update_gap(half, want, whole)},
+                   equal_fraction=equal / total)
+    dist.barrier()
+    return out
+
+
+def update_gap(got: dict, want: dict, start: dict) -> float:
+    """The worst leaf's ``||got - want|| / ||want - start||``: how far an
+    update from ``start`` lands from the update ``want`` made, relative to
+    that update's size (0 where both leave a leaf as it was)."""
+    worst = 0.0
+    for k, w in want.items():
+        gap = float((got[k].float() - w.float()).norm())
+        size = float((w.float() - start[k].float()).norm())
+        worst = max(worst, gap / size if size else
+                    (0.0 if gap == 0 else math.inf))
+    return worst
+
+
+def _routes() -> dict:
+    from repro_torch.models import partitioning
+
+    return {(k if isinstance(k, str) else "/".join(k)): v
+            for k, v in partitioning.ROUTES.items()}
+
+
+def tp_rank_prefill(rank: int, world: int, workdir: str) -> dict:
+    """(b) on one rank: the prefill of qwen2_72b at 2 of 80 layers, full
+    width, on the (data 1, model 2) mesh, with the bf16 wire and with
+    ``tp_comm="int8"``; rank 0 also runs the mesh-free prefill."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.models import partitioning, registry, tpcomm
+
+    run = TP_PREFILL
+    mesh = mesh_lib.make_mesh((1, world), ("data", "model"), device="cuda")
+    cfg = dataclasses.replace(registry.get_config(run["arch"]),
+                              num_layers=run["layers"])
+    params = registry.init_params(cfg, seed=0, device="cuda")
+    batch = {"tokens": registry.make_batch(cfg, run["batch"], run["seq"],
+                                           seed=3, device="cuda")["tokens"]}
+    out, logits = {}, {}
+    for wire in ("bf16", "int8"):
+        step = steps.make_prefill_step(cfg, mesh, tp_comm=wire,
+                                       max_len=run["seq"])
+        # an untimed call with the spies (K2's heads and each int8
+        # reduction against its exact sum, an all_reduce of the f32
+        # partials), then the timed call without them
+        heads, worst = [], []
+        undo = tp_spies(heads, worst)
+        try:
+            step(params, batch)
+        finally:
+            undo()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        partitioning.reset_routes()
+        t0 = time.perf_counter()
+        logits[wire], caches = step(params, batch)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        out[wire] = dict(seconds=seconds,
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                         launches=ops.launch_counts(), entries=tp_entries(),
+                         heads=sorted(set(heads)), routes=_routes(),
+                         bound=max(worst) if worst else None,
+                         cache=str(caches[0]["k"].placements))
+        del caches
+    a, b = logits["int8"].double(), logits["bf16"].double()
+    out["cosine"] = float((a * b).sum() / a.norm() / b.norm())
+    t = run["batch"] * run["seq"]
+    out["wire_bytes"] = run["layers"] * tpcomm.int8_wire_bytes(
+        world * t, cfg.d_model, world)
+    out["bf16_wire_bytes"] = run["layers"] * tpcomm.bf16_wire_bytes(
+        t, cfg.d_model, world)
+    if rank == 0:
+        plain = steps.make_prefill_step(cfg, max_len=run["seq"])(params,
+                                                                 batch)[0]
+        diff = (logits["bf16"].double() - plain.double()).abs()
+        out["plain_rel"] = float(diff.max() / plain.double().abs().max())
+    dist.barrier()
+    return out
+
+
+def tp_rank_round(rank: int, world: int, workdir: str) -> dict:
+    """(c) on one rank: the DrJAX round of lm_350m (dp strategy) on the
+    (data 2, model 2) mesh, every all_reduce's group recorded; rank 0 then
+    runs the mesh-free round."""
+    import torch.distributed as dist
+
+    from repro_torch import optim
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.models import registry
+
+    run = TP_ROUND
+    mesh = mesh_lib.make_mesh((2, world // 2), ("data", "model"),
+                              device="cuda")
+    cfg = registry.get_config(run["arch"])
+    params = registry.init_params(cfg, seed=0, device="cuda")
+    data = registry.make_batch(cfg, run["batch"], run["seq"], seed=5,
+                               lead=(run["partition"], run["local_steps"]),
+                               device="cuda")
+    state = optim.fedavg_momentum(1.0).init(params)
+    fn, *_ = steps.make_drjax_round_step(
+        cfg, mesh, partition_size=run["partition"],
+        num_local_steps=run["local_steps"])
+    groups, heads = [], []
+    real = dist.all_reduce
+
+    def spy(t, *args, group=None, **kwargs):
+        if group is not None:
+            groups.append(tuple(dist.get_process_group_ranks(group)))
+        return real(t, *args, group=group, **kwargs)
+
+    undo = tp_spies(heads, [])
+    dist.all_reduce = spy
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        new, _, metrics = fn({k: v.clone() for k, v in params.items()},
+                             state, data)
+        torch.cuda.synchronize()
+    finally:
+        dist.all_reduce = real
+        undo()
+    out = dict(loss=float(metrics["loss"]), round_s=time.perf_counter() - t0,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches=ops.launch_counts(), entries=tp_entries(),
+               heads=sorted(set(heads)), groups=sorted(set(groups)),
+               data_group=[int(r) for r in mesh["data"].mesh.tolist()],
+               model_group=[int(r) for r in mesh["model"].mesh.tolist()])
+    if rank == 0:
+        plain, *_ = steps.make_drjax_round_step(
+            cfg, partition_size=run["partition"],
+            num_local_steps=run["local_steps"])
+        want, _, pm = plain({k: v.clone() for k, v in params.items()},
+                            state, data)
+        worst = 0.0
+        for k, w in want.items():
+            update = float((w.float() - params[k].float()).abs().max())
+            diff = (new[k].float() - w.float()).abs()
+            tol = (TP_ROUND_UPDATE_REL * update
+                   + TP_ROUND_ULPS * bf16_ulp(w.float().abs()))
+            worst = max(worst, float((diff / tol).max()))
+        out.update(plain_loss=float(pm["loss"]), param_worst=worst)
+    dist.barrier()
+    return out
+
+
+def tp_rank_main(kind: str, rank: int, world: int, workdir: str) -> dict:
+    if kind == "tp":
+        train = tp_rank_train(rank, world, workdir)
+        # rank 0's mesh-free steps leave their blocks cached: the ranks
+        # share the card
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {"train": train,
+                "prefill": tp_rank_prefill(rank, world, workdir)}
+    return {"round": tp_rank_round(rank, world, workdir)}
+
+
+def phase_tp() -> dict:
+    """[tp]: (a) ``make_sgd_train_step`` of whole lm_1b (24 x d 2048, 16
+    heads x 128, tp, AdamW, FSDP off) on B 4 x S 512, 2 steps, on a (data
+    1, model 2) mesh of 2 gloo ranks sharing the card; (b) the prefill of
+    qwen2_72b at 2 of 80 layers, full width, B 4 x S 512, bf16 wire and
+    int8; (c) ``make_drjax_round_step`` of lm_350m (dp), partition 4, 2
+    local steps, B 2 x S 512, on a (data 2, model 2) mesh of 4 ranks.
+    Each held to the mesh-free step of rank 0 within its stated
+    tolerance; no part catches a failure."""
+    import tempfile
+
+    from repro_torch.models import registry
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="tp_") as workdir:
+        ab = mesh_world("tp", 2, workdir)
+        t_ab = time.perf_counter() - t0
+        c = mesh_world("tpc", 4, workdir)
+    # (a)
+    tr = [r["train"] for r in ab]
+    a0 = tr[0]
+    cfg = registry.get_config(TP_TRAIN["arch"])
+    local_heads = cfg.num_heads // 2
+    for r in tr:
+        require(r["heads"] == [local_heads],
+                f"[tp] (a) K2 ran on {r['heads']} heads, not {local_heads}")
+        require(all(r["entries"].get(e, 0) > 0 for e in
+                    ("repro_flash_wg_fwd", "repro_flash_wg_bwd_dq",
+                     "repro_flash_wg_bwd_dkdv")),
+                f"[tp] (a) the wgmma K2 kernels did not all launch: "
+                f"{r['entries']}")
+        require(r["losses"] == a0["losses"], "[tp] (a) ranks' losses differ")
+    for got, want in zip(a0["losses"], a0["plain_losses"]):
+        require(abs(got - want) <= TP_TRAIN_LOSS_REL * abs(want),
+                f"[tp] (a) loss {got} vs mesh-free {want}")
+    require(a0["update_gap"] <= TP_TRAIN_UPDATE_GAP,
+            f"[tp] (a) the mesh step's update is {a0['update_gap']} of the "
+            f"mesh-free step's away from it (gate {TP_TRAIN_UPDATE_GAP})")
+    require(all(v > TP_TRAIN_UPDATE_GAP for v in a0["control_gap"].values()),
+            f"[tp] (a) a control passes the update gate "
+            f"{TP_TRAIN_UPDATE_GAP}: {a0['control_gap']}")
+    route = "all_reduce" if "gather/all_reduce" in a0["routes"] else \
+        "all_gather"
+    log("tp", step="a", arch=TP_TRAIN["arch"], mesh="(data 1, model 2)",
+        ranks=2, backend="gloo", batch=TP_TRAIN["batch"], seq=TP_TRAIN["seq"],
+        losses=a0["losses"], mesh_free_losses=a0["plain_losses"],
+        update_gap=a0["update_gap"], update_gate=TP_TRAIN_UPDATE_GAP,
+        control_gap=json.dumps(a0["control_gap"]),
+        equal_fraction=round(a0["equal_fraction"], 6),
+        step_s=[[round(v, 3) for v in r["step_s"]] for r in tr],
+        peak_gib=[round(r["peak_gib"], 2) for r in tr],
+        local_heads=local_heads, local_wq=a0["local_wq"],
+        k2_launches=[{e: n for e, n in r["entries"].items()} for r in tr],
+        gather_route=route, routes=json.dumps(a0["routes"]))
+    # (b)
+    pf = [r["prefill"] for r in ab]
+    b0 = pf[0]
+    qcfg = registry.get_config(TP_PREFILL["arch"])
+    for r in pf:
+        for wire in ("bf16", "int8"):
+            require(r[wire]["heads"] == [qcfg.num_heads // 2],
+                    f"[tp] (b) {wire} K2 heads {r[wire]['heads']}")
+            require(r[wire]["entries"].get("repro_flash_wg_fwd", 0) > 0,
+                    f"[tp] (b) {wire}: no wgmma K2 forward")
+        i8 = r["int8"]["routes"]
+        require(i8.get("int8 gathers", 0) >= TP_PREFILL["layers"],
+                f"[tp] (b) int8 gathers {i8.get('int8 gathers')}")
+        require("int8 gathers" not in r["bf16"]["routes"],
+                "[tp] (b) the bf16 prefill gathered int8")
+        require(i8.get("int8 payload bytes") == r["wire_bytes"],
+                f"[tp] (b) int8 payload {i8.get('int8 payload bytes')} != "
+                f"int8_wire_bytes {r['wire_bytes']}")
+        require(r["int8"]["bound"] is not None and r["int8"]["bound"] <= 1.0,
+                f"[tp] (b) an int8 reduction beyond its bound: "
+                f"{r['int8']['bound']}")
+        require(r["cosine"] > TP_INT8_COSINE,
+                f"[tp] (b) int8 logits' cosine {r['cosine']}")
+    require(b0["plain_rel"] <= 2.0 ** -6,
+            f"[tp] (b) bf16 TP prefill vs mesh-free: {b0['plain_rel']} of "
+            "the largest logit")
+    log("tp", step="b", arch=TP_PREFILL["arch"],
+        layers=f"{TP_PREFILL['layers']} of {qcfg.num_layers}", ranks=2,
+        batch=TP_PREFILL["batch"], seq=TP_PREFILL["seq"],
+        cosine=b0["cosine"], int8_bound=b0["int8"]["bound"],
+        bf16_vs_mesh_free=b0["plain_rel"],
+        int8_gathers=b0["int8"]["routes"]["int8 gathers"],
+        int8_payload_bytes=b0["int8"]["routes"]["int8 payload bytes"],
+        int8_wire_bytes=b0["wire_bytes"], bf16_wire_bytes=b0["bf16_wire_bytes"],
+        prefill_s={w: [round(r[w]["seconds"], 3) for r in pf]
+                   for w in ("bf16", "int8")},
+        peak_gib={w: [round(r[w]["peak_gib"], 2) for r in pf]
+                  for w in ("bf16", "int8")},
+        cache=b0["int8"]["cache"],
+        k2_launches={w: [r[w]["entries"] for r in pf]
+                     for w in ("bf16", "int8")},
+        gather_route="all_reduce" if "gather/all_reduce" in
+        b0["int8"]["routes"] else "all_gather",
+        routes=json.dumps(b0["int8"]["routes"]))
+    # (c)
+    rd = [r["round"] for r in c]
+    c0 = rd[0]
+    rcfg = registry.get_config(TP_ROUND["arch"])
+    for r in rd:
+        groups = {tuple(g) for g in r["groups"]}
+        require(tuple(r["data_group"]) in groups,
+                f"[tp] (c) no all_reduce over 'data' {r['data_group']}: "
+                f"{r['groups']}")
+        require(tuple(r["model_group"]) in groups,
+                f"[tp] (c) no all_reduce over 'model' {r['model_group']} "
+                f"(a client's batch): {r['groups']}")
+        require(r["heads"] == [rcfg.num_heads],
+                f"[tp] (c) K2 heads {r['heads']}")
+        require(r["launches"].get("flash_attention_fwd", 0) > 0,
+                "[tp] (c) no K2 launch")
+        require(r["loss"] == c0["loss"], "[tp] (c) ranks' losses differ")
+    require(abs(c0["loss"] - c0["plain_loss"]) <= TP_LOSS_REL
+            * abs(c0["plain_loss"]),
+            f"[tp] (c) loss {c0['loss']} vs mesh-free {c0['plain_loss']}")
+    require(c0["param_worst"] <= 1.0,
+            f"[tp] (c) parameters {c0['param_worst']} of their tolerance")
+    log("tp", step="c", arch=TP_ROUND["arch"], mesh="(data 2, model 2)",
+        ranks=4, backend="gloo", partition=TP_ROUND["partition"],
+        local_steps=TP_ROUND["local_steps"], batch=TP_ROUND["batch"],
+        seq=TP_ROUND["seq"], loss=c0["loss"], mesh_free_loss=c0["plain_loss"],
+        param_worst=round(c0["param_worst"], 4),
+        round_s=[round(r["round_s"], 3) for r in rd],
+        peak_gib=[round(r["peak_gib"], 2) for r in rd],
+        all_reduce_groups=c0["groups"],
+        k2_launches=[r["entries"] for r in rd])
+    log("tp", seconds=f"{time.perf_counter() - t0:.1f}",
+        two_ranks_s=f"{t_ab:.1f}",
+        four_ranks_s=f"{time.perf_counter() - t0 - t_ab:.1f}")
+    return {"a": tr, "b": pf, "c": rd}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; no card",
@@ -5648,6 +6121,8 @@ def main() -> int:
     phase_chaos(smi)
     free_graphs()
     phase_mesh()
+    free_graphs()
+    phase_tp()
     log("new phases", seconds=f"{time.perf_counter() - t_new:.1f}")
     launches = {"quantize": flat_counts["quantize"],
                 "dequantize": flat_counts["dequantize"],

@@ -38,6 +38,16 @@ embedding on either side and no mask: ``naive_attention(causal=False)``
 under ``attn_impl="naive"``, else K2 non-causal in every mode, a decode
 step's single query included (the reference runs ``blocked_attention``
 there, an XLA scan outside any Pallas kernel).
+
+Tensor parallelism (``models/partitioning.py``): :func:`param_axes`,
+:func:`head_logical_axes` and :func:`cache_axes` are the reference's,
+sized for its production model axis of 16 (``attention.py:56``). Where a
+step kept the rank's query heads (``wq`` (D, Hq/m, hd), ``wo`` (Hq/m, hd,
+D)), :func:`qkv` enters a tensor-parallel region and K2 runs on the
+rank's heads alone; the kv heads are the rank's own where ``wk`` kept
+them, else every rank computes them all and :func:`local_kv` takes those
+its query heads read. :func:`out_proj` sums the ranks' f32 partial
+products over ``"model"``. The caches follow the same layout.
 """
 
 from __future__ import annotations
@@ -48,10 +58,75 @@ from typing import Dict
 import torch
 
 from ..kernels import ops, ref
-from . import common
+from . import common, partitioning
+from .partitioning import with_logical_constraint
 
 F32 = torch.float32
 NEG_INF = -1e30
+
+
+# the reference's production model axis (``repro/models/attention.py:56,
+# 561``): its axes depend on it, not on the mesh at hand
+_MODEL_AXIS = 16
+
+
+def _shard_heads(cfg) -> bool:
+    """Shard attention over heads when divisible, else over head_dim."""
+    return cfg.num_heads % _MODEL_AXIS == 0
+
+
+def head_logical_axes(cfg, kv: bool = False):
+    """The logical axes of q's (or k's and v's) head and head-dim dims
+    (``repro/models/attention.py:65-76``)."""
+    if _shard_heads(cfg):
+        if not kv:
+            return ("heads", None)
+        if cfg.num_kv_heads % _MODEL_AXIS == 0:
+            return ("kv_heads", None)
+        return (None, None)
+    return (None, "kv_head_dim")
+
+
+def param_axes(cfg, cross: bool = False):
+    if _shard_heads(cfg):
+        h, hd = "p_heads", "p_head_dim"
+    else:
+        h, hd = None, "kv_head_dim"
+    kvh = "p_kv_heads" if cfg.num_kv_heads % _MODEL_AXIS == 0 else None
+    kvd = "p_head_dim" if kvh else "kv_head_dim"
+    axes = {"wq": ("p_fsdp", h, hd), "wk": ("p_fsdp", kvh, kvd),
+            "wv": ("p_fsdp", kvh, kvd), "wo": (h, hd, "p_fsdp")}
+    if cfg.qkv_bias:
+        axes["bq"] = (h, hd)
+        axes["bk"] = (kvh, kvd)
+        axes["bv"] = (kvh, kvd)
+    return axes
+
+
+def cache_logical_axes(cfg):
+    """KV-cache sharding: kv heads over the model axis when divisible, else
+    head_dim (``repro/models/attention.py:564-569``)."""
+    if cfg.num_kv_heads and cfg.num_kv_heads % _MODEL_AXIS == 0:
+        return ("kv_batch", "seq", "kv_heads", None)
+    return ("kv_batch", "seq", None, "kv_head_dim")
+
+
+def cache_axes(cfg):
+    kv = cache_logical_axes(cfg)
+    return {"k": kv, "v": kv, "pos": ()}
+
+
+def tp_heads(cfg, p: Dict[str, torch.Tensor]) -> bool:
+    """Whether ``p`` holds the rank's query heads (the step's layout kept
+    them: ``partitioning.local_block``)."""
+    return partitioning.local_block(cfg, p["wq"], 1, param_axes(cfg)["wq"][1],
+                                    cfg.num_heads)
+
+
+def tp_kv_heads(cfg, p: Dict[str, torch.Tensor]) -> bool:
+    """Whether ``p`` holds the rank's kv heads."""
+    return partitioning.local_block(cfg, p["wk"], 1, param_axes(cfg)["wk"][1],
+                                    cfg.num_kv_heads)
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor, b=None) -> torch.Tensor:
@@ -63,17 +138,48 @@ def _proj(x: torch.Tensor, w: torch.Tensor, b=None) -> torch.Tensor:
 
 def qkv(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
         positions: torch.Tensor):
-    q = _proj(x, p["wq"], p.get("bq"))
-    k = _proj(x, p["wk"], p.get("bk"))
-    v = _proj(x, p["wv"], p.get("bv"))
+    """q, k, v (B, S, H, hd) with rotary embeddings; the rank's heads of
+    each where ``p`` holds them (entering a tensor-parallel region)."""
+    tp = tp_heads(cfg, p)
+    xq = partitioning.enter(x) if tp else x
+    xk = xq if tp_kv_heads(cfg, p) else x
+    q = _proj(xq, p["wq"], p.get("bq"))
+    k = _proj(xk, p["wk"], p.get("bk"))
+    v = _proj(xk, p["wv"], p.get("bv"))
     q = common.apply_rope(q, positions, cfg.rope_theta)
     k = common.apply_rope(k, positions, cfg.rope_theta)
+    qh, kvh = head_logical_axes(cfg), head_logical_axes(cfg, kv=True)
+    q = with_logical_constraint(q, ("batch", "seq") + qh)
+    k = with_logical_constraint(k, ("batch", "seq") + kvh)
+    v = with_logical_constraint(v, ("batch", "seq") + kvh)
     return q, k, v
 
 
-def out_proj(p: Dict[str, torch.Tensor], attn_out: torch.Tensor) -> torch.Tensor:
+def local_kv(cfg, q: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
+    """The kv heads (B, S, Hkv_l, hd) that the rank's query heads ``q``
+    (B, Sq, Hq_l, hd) read, from ``kv`` holding every kv head (computed
+    whole on every rank); ``kv`` itself when it is the rank's already or
+    the heads are not split."""
+    hq_l, hkv = q.shape[2], kv.shape[2]
+    if hq_l == cfg.num_heads or hkv != cfg.num_kv_heads:
+        return kv
+    g = cfg.num_heads // cfg.num_kv_heads
+    if hq_l % g and g % hq_l:
+        raise ValueError(f"{hq_l} query heads a rank do not share whole "
+                         f"kv heads (group {g})")
+    first = partitioning.model_index() * hq_l // g
+    return partitioning.enter(kv).narrow(2, first, max(hq_l // g, 1))
+
+
+def out_proj(p: Dict[str, torch.Tensor], attn_out: torch.Tensor, *,
+             tp: bool = False) -> torch.Tensor:
+    """(B, S, H, hd) -> (B, S, D); with ``tp`` the rank's heads' f32
+    partial products summed over ``"model"``."""
     h, k, d = p["wo"].shape
     flat = attn_out.reshape(*attn_out.shape[:-2], h * k)
+    if tp:
+        return partitioning.reduce_sum(common.matmul_f32(
+            flat, p["wo"].reshape(h * k, d))).to(attn_out.dtype)
     return torch.matmul(flat, p["wo"].reshape(h * k, d))
 
 
@@ -91,6 +197,7 @@ def naive_attention(q, k, v, *, causal=True, window=0):
 
 
 def self_attention(cfg, q, k, v, *, causal=True, window=0):
+    k, v = local_kv(cfg, q, k), local_kv(cfg, q, v)
     if cfg.attn_impl == "naive":
         return naive_attention(q, k, v, causal=causal, window=window)
     if cfg.attn_impl in ("blocked", "flash"):
@@ -183,13 +290,17 @@ def decode_attention(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor, cache,
     rows = torch.arange(b, device=x.device)
     ck.index_put_((rows, slot), k[:, 0].to(ck.dtype))
     cv.index_put_((rows, slot), v[:, 0].to(cv.dtype))
+    kv_axes = cache_logical_axes(cfg)
+    ck = with_logical_constraint(ck, kv_axes)
+    cv = with_logical_constraint(cv, kv_axes)
     idx = torch.arange(size, device=x.device)
     ok = idx[None] < torch.clamp(pos + 1, max=size)[:, None]
     if window and not ring:
         ok = ok & (idx[None] > (pos - window)[:, None])
-    out = _cached_attention(cfg, q, ck, cv, ok[:, None])
+    out = _cached_attention(cfg, q, local_kv(cfg, q, ck),
+                            local_kv(cfg, q, cv), ok[:, None])
     cache["pos"].add_(1)
-    return out_proj(p, out), cache
+    return out_proj(p, out, tp=tp_heads(cfg, p)), cache
 
 
 def chunk_attention(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor, cache,
@@ -208,10 +319,14 @@ def chunk_attention(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor, cache,
     q_pos = pos0 + torch.arange(c, device=x.device)
     ck.index_copy_(1, q_pos, k.to(ck.dtype))
     cv.index_copy_(1, q_pos, v.to(cv.dtype))
+    kv_axes = cache_logical_axes(cfg)
+    ck = with_logical_constraint(ck, kv_axes)
+    cv = with_logical_constraint(cv, kv_axes)
     idx = torch.arange(size, device=x.device)
     ok = idx[None] <= q_pos[:, None]
     if window and window > 0:
         ok = ok & (idx[None] > (q_pos[:, None] - window))
-    out = _cached_attention(cfg, q, ck, cv, ok[None])
+    out = _cached_attention(cfg, q, local_kv(cfg, q, ck),
+                            local_kv(cfg, q, cv), ok[None])
     cache["pos"].add_(c)
-    return out_proj(p, out), cache
+    return out_proj(p, out, tp=tp_heads(cfg, p)), cache

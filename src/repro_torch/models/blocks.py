@@ -32,6 +32,7 @@ import torch
 from torch import nn
 
 from . import attention, common, mlp, moe, rglru, rwkv
+from .partitioning import with_logical_constraint
 
 
 def sub(params: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
@@ -60,6 +61,37 @@ def layer_kinds(cfg):
 
 
 MODES = ("train", "prefill", "decode", "chunk")
+EMBED = ("batch", "seq", "embed")  # the residual stream's logical axes
+
+
+def block_axes(cfg, kind: str = "attention"):
+    """The logical axes of one block's parameters, keyed as
+    :class:`Block`'s (``repro/models/blocks.py:48-61``)."""
+    ax = {"ln1.scale": (None,), "ln2.scale": (None,)}
+    if kind == "attention":
+        ax.update({f"attn.{k}": v for k, v in attention.param_axes(cfg).items()})
+    elif kind == "recurrent":
+        ax.update({f"rec.{k}": v for k, v in rglru.param_axes(cfg).items()})
+    elif kind == "rwkv":
+        ax.update({f"tm.{k}": v for k, v in rwkv.param_axes(cfg).items()})
+    else:
+        raise ValueError(f"block kind {kind!r} is not ported")
+    if kind != "rwkv":
+        name, ffn = ("moe", moe) if cfg.family == "moe" else ("mlp", mlp)
+        ax.update({f"{name}.{k}": v for k, v in ffn.param_axes(cfg).items()})
+    return ax
+
+
+def block_cache_axes(cfg, kind: str):
+    """The logical axes of one block's cache (``repro/models/blocks.py:
+    79-86``)."""
+    if kind == "attention":
+        return attention.cache_axes(cfg)
+    if kind == "recurrent":
+        return rglru.state_axes()
+    if kind == "rwkv":
+        return rwkv.state_axes()
+    raise ValueError(f"block kind {kind!r} is not ported")
 
 
 def block_cache_init(cfg, kind: str, batch: int, max_len: int, *,
@@ -114,11 +146,13 @@ def block_apply(cfg, kind: str, p: Dict[str, torch.Tensor], x: torch.Tensor,
                    "wkv_state": cache["wkv"]})
         tm, (tm_shift, wkv) = rwkv.time_mix(cfg, tp, h, **states)
         x = x + tm
+        if mode == "train":
+            x = with_logical_constraint(x, EMBED)
         h2 = common.rmsnorm_apply(p["ln2.scale"], x, cfg.norm_eps)
         cm, cm_shift = rwkv.channel_mix(
             cfg, tp, h2, shift_state=None if mode == "train"
             else cache["cm_shift"])
-        x = x + cm
+        x = with_logical_constraint(x + cm, EMBED)
         if mode == "train":
             return x, 0.0
         return x, _store(cache, {"tm_shift": tm_shift, "cm_shift": cm_shift,
@@ -136,7 +170,8 @@ def block_apply(cfg, kind: str, p: Dict[str, torch.Tensor], x: torch.Tensor,
             q, k, v = attention.qkv(cfg, ap, h, positions)
             attn = attention.self_attention(cfg, q, k, v, causal=True,
                                             window=window)
-            out = attention.out_proj(ap, attn)
+            out = attention.out_proj(ap, attn,
+                                     tp=attention.tp_heads(cfg, ap))
             if mode == "prefill":
                 cache = attention.fill_cache(cache, k, v, window=window)
         x = x + out
@@ -154,9 +189,10 @@ def block_apply(cfg, kind: str, p: Dict[str, torch.Tensor], x: torch.Tensor,
             cache = _store(cache, new)
     else:
         raise ValueError(f"block kind {kind!r} is not ported")
+    x = with_logical_constraint(x, EMBED)
     h2 = common.rmsnorm_apply(p["ln2.scale"], x, cfg.norm_eps)
     out, aux = _ffn(cfg, p, h2, route_rows)
-    x = x + out
+    x = with_logical_constraint(x + out, EMBED)
     return (x, aux) if mode == "train" else (x, cache)
 
 

@@ -171,7 +171,12 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     logits = logits.to(F32)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = logz - gold
+    return masked_mean(logz - gold, mask)
+
+
+def masked_mean(nll: torch.Tensor, mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+    """The mean of ``nll`` over the unmasked tokens (all without a mask)."""
     if mask is None:
         return torch.mean(nll)
     mask = mask.to(F32)

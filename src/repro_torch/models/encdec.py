@@ -42,6 +42,8 @@ import torch
 from torch import nn
 
 from . import attention, blocks, common, mlp, transformer
+from .blocks import EMBED
+from .partitioning import with_logical_constraint
 
 MemoryKV = List[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -94,11 +96,38 @@ class EncDecLM(nn.Module):
 # ---------------------------------------------------------------------------
 
 
+def param_axes(cfg) -> Dict[str, tuple]:
+    """The logical axes of every parameter, keyed as ``EncDecLM``'s
+    (``repro/models/encdec.py:64-96``, the stacks' ``"layers"`` dropped)."""
+    attn = attention.param_axes(cfg)
+    cross = attention.param_axes(cfg, cross=True)
+    ffn = mlp.param_axes(cfg)
+    enc = {"ln1.scale": (None,), "ln2.scale": (None,),
+           **{f"attn.{k}": v for k, v in attn.items()},
+           **{f"mlp.{k}": v for k, v in ffn.items()}}
+    dec = {"ln1.scale": (None,), "ln_x.scale": (None,), "ln2.scale": (None,),
+           **{f"self_attn.{k}": v for k, v in attn.items()},
+           **{f"cross_attn.{k}": v for k, v in cross.items()},
+           **{f"mlp.{k}": v for k, v in ffn.items()}}
+    axes = {"embed.table": ("p_vocab", "p_fsdp"), "enc_ln.scale": (None,),
+            "final_ln.scale": (None,), "lm_head.w": ("p_fsdp", "p_vocab")}
+    for i in range(cfg.encoder_layers):
+        axes.update({f"enc_layers.{i}.{k}": v for k, v in enc.items()})
+    for i in range(cfg.num_layers):
+        axes.update({f"dec_layers.{i}.{k}": v for k, v in dec.items()})
+    return axes
+
+
+def cache_axes(cfg):
+    """The decoder self-attention caches' logical axes, one dict a layer."""
+    return [attention.cache_axes(cfg) for _ in range(cfg.num_layers)]
+
+
 def encode(cfg, params: Dict[str, torch.Tensor],
            frames: torch.Tensor) -> torch.Tensor:
     """frames (B, S, D) -> encoder memory (B, S, D) in the model dtype
     (``repro/models/encdec.py:103 encode``)."""
-    x = frames.to(cfg.torch_dtype)
+    x = with_logical_constraint(frames.to(cfg.torch_dtype), EMBED)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)
     for i in range(cfg.encoder_layers):
@@ -109,7 +138,8 @@ def encode(cfg, params: Dict[str, torch.Tensor],
         a = attention.self_attention(cfg, q, k, v, causal=False, window=0)
         x = x + attention.out_proj(ap, a)
         h = common.rmsnorm_apply(p["ln2.scale"], x, cfg.norm_eps)
-        x = x + mlp.apply(cfg, blocks.sub(p, "mlp."), h)
+        x = with_logical_constraint(x + mlp.apply(cfg, blocks.sub(p, "mlp."), h),
+                                    EMBED)
     return common.rmsnorm_apply(params["enc_ln.scale"], x, cfg.norm_eps)
 
 
@@ -154,7 +184,8 @@ def _dec_block(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor, positions,
     x = x + attention.cross_attention(cfg, blocks.sub(p, "cross_attn."), hx,
                                       mk, mv)
     h2 = common.rmsnorm_apply(p["ln2.scale"], x, cfg.norm_eps)
-    return x + mlp.apply(cfg, blocks.sub(p, "mlp."), h2), cache
+    x = x + mlp.apply(cfg, blocks.sub(p, "mlp."), h2)
+    return with_logical_constraint(x, EMBED), cache
 
 
 def decode_stack(cfg, params: Dict[str, torch.Tensor], tokens: torch.Tensor,

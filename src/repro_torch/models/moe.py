@@ -24,15 +24,25 @@ all-zero row: a comparison with ``arange(cap)``, which, unlike
 ``F.one_hot``, neither raises on such an index nor reads the index back to
 the host (a CUDA graph captures it).
 
-``group_size`` overrides the grouping: the serve slot steps' decode
+The groups are the whole batch's: where a step splits the batch's rows
+over ranks (``partitioning.batch_split``), a rank routes its rows in
+groups of the whole batch's size, and a group that would span ranks
+raises. ``group_size`` overrides the grouping: the serve slot steps' decode
 routes each row as a group of one token (``blocks.block_apply(...,
 route_rows=True)``), as the reference's serve steps decode each slot
 alone, since capacity couples the tokens of a group; a plain
 ``decode_step`` routes its batch as one group, as the reference's.
 
-The reference's int8 expert-combine over a tensor-parallel mesh
-(``tp_comm == "int8"``) waits for the distributed layer; without a mesh
-the reference takes the plain contraction, as here.
+Tensor parallelism (``models/partitioning.py``): where a step kept the
+rank's experts (``wi``/``wg`` (E/m, D, F), ``wo`` (E/m, F, D);
+``partitioning.local_block``), the routing is computed whole on every
+rank, the dispatch and combine weights are sliced to the rank's experts
+before the dispatch product, the tokens and the combine weights enter a
+tensor-parallel region, and the combine's f32 partial sums are summed
+over ``"model"``; with ``cfg.tp_comm == "int8"`` and
+``"experts"`` resolving to ``"model"`` the sum rides int8 (:func:`_combine`,
+``repro/models/moe.py:46-90``, forward-only). Without a mesh the combine is
+the plain contraction, as the reference's.
 """
 
 from __future__ import annotations
@@ -42,9 +52,16 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from . import common
+from . import common, partitioning, tpcomm
+from .partitioning import with_logical_constraint
 
 F32 = torch.float32
+
+
+def param_axes(cfg):
+    return {"router": ("p_fsdp", None), "wi": ("p_experts", "p_fsdp", None),
+            "wg": ("p_experts", "p_fsdp", None),
+            "wo": ("p_experts", None, "p_fsdp")}
 
 
 class MoE(nn.Module):
@@ -113,17 +130,37 @@ def route(cfg, p: Dict[str, torch.Tensor], xg: torch.Tensor) -> Routing:
                    (pos * kept).reshape(ng, gs, k, e), cap)
 
 
+def _combine(cfg, eout: torch.Tensor, combine: torch.Tensor,
+             dtype: torch.dtype) -> torch.Tensor:
+    """The expert combine (G, T, E_l*C) @ (G, E_l*C, D) of the rank's
+    experts, reduced over ``"model"``: in f32, or in int8 with
+    ``cfg.tp_comm == "int8"`` (``repro/models/moe.py:46-90``)."""
+    part = common.matmul_f32(combine, eout)
+    if (cfg.tp_comm == "int8" and partitioning.resolve_axis(
+            "experts", cfg.num_experts) == partitioning.MODEL):
+        return tpcomm.int8_reduce(part, dtype)
+    return partitioning.reduce_sum(part).to(dtype)
+
+
 def apply(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor, *,
           group_size: Optional[int] = None
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (out (B, S, D) in x's dtype, aux loss () f32)."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
+    # the rank's experts, where the step's layout kept them
+    tp = partitioning.local_block(cfg, p["wi"], 0, "p_experts", e)
+    el = p["wi"].shape[0]
     act = common.activation(cfg.act)
     total = b * s
-    gs = group_size or _group_size(total)
+    # the groups of the whole batch, whose rows a step may split over ranks
+    gs = group_size or _group_size(total * partitioning.batch_shards())
+    if total % gs:
+        raise NotImplementedError(
+            f"routing groups of {gs} tokens span the ranks' batch rows "
+            f"({total} tokens a rank)")
     ng = total // gs
-    xg = x.reshape(ng, gs, d)
+    xg = with_logical_constraint(x.reshape(ng, gs, d), ("batch", None, "embed"))
     r = route(cfg, p, xg)
     cap = r.capacity
 
@@ -136,18 +173,35 @@ def apply(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor, *,
     slots = torch.arange(cap, device=x.device)
     dispatch = (kept[..., None] & (slot[..., None] == slots)).to(x.dtype)
     combine = dispatch * weight[..., None].to(x.dtype)         # (G, T, E, C)
+    dispatch = with_logical_constraint(dispatch, ("batch", None, "experts", None))
+    combine = with_logical_constraint(combine, ("batch", None, "experts", None))
 
-    # dispatch: (G, E*C, T) @ (G, T, D) -> the experts' inputs
-    xin = torch.matmul(dispatch.reshape(ng, gs, e * cap).transpose(1, 2), xg)
-    xe = xin.reshape(ng, e, cap, d).transpose(0, 1).reshape(e, ng * cap, d)
+    xd = xg
+    if tp:  # the tokens enter a tensor-parallel region of the rank's experts
+        lo = partitioning.model_index() * el
+        xd = partitioning.enter(xg)
+        dispatch = dispatch.narrow(2, lo, el)
+        combine = partitioning.enter(combine).narrow(2, lo, el)
+    # dispatch: (G, E_l*C, T) @ (G, T, D) -> the (rank's) experts' inputs
+    xin = torch.matmul(dispatch.reshape(ng, gs, el * cap).transpose(1, 2), xd)
+    xin = xin.reshape(ng, el, cap, d)
+    xin = with_logical_constraint(xin, ("batch", "experts", None, None))
+    xe = xin.transpose(0, 1).reshape(el, ng * cap, d)
     h = common.matmul_f32(xe, p["wi"])
     g = common.matmul_f32(xe, p["wg"])
     h = (act(g) * h).to(x.dtype)
     eout = torch.bmm(h, p["wo"]).to(x.dtype)                   # (E, G*C, D)
-    eout = eout.reshape(e, ng, cap, d).transpose(0, 1).reshape(ng, e * cap, d)
-    out = torch.matmul(combine.reshape(ng, gs, e * cap), eout)
+    eout = eout.reshape(el, ng, cap, d).transpose(0, 1)
+    eout = with_logical_constraint(eout, ("batch", "experts", None, None))
+    eout = eout.reshape(ng, el * cap, d)
+    combine = combine.reshape(ng, gs, el * cap)
+    if tp:
+        out = _combine(cfg, eout, combine, x.dtype)
+    else:
+        out = torch.matmul(combine, eout)
+    out = with_logical_constraint(out.reshape(b, s, d), ("batch", "seq", "embed"))
 
     frac_tokens = r.onehot.sum(dim=2).mean(dim=(0, 1))         # (E,)
     frac_gates = r.gates.mean(dim=(0, 1))
     aux = e * torch.sum(frac_tokens * frac_gates) / k
-    return out.reshape(b, s, d), aux.to(F32)
+    return out, aux.to(F32)

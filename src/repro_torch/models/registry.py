@@ -5,7 +5,15 @@ architecture of the reference: the dense lm_350m, lm_1b, lm_8b, yi_34b,
 internlm2_20b, qwen2_72b (qkv bias) and stablelm_3b, the MoE phi35_moe and
 qwen3_moe, the VLM llava_next_34b, recurrentgemma_2b (hybrid: RG-LRU and
 local attention), rwkv6_3b (ssm: RWKV-6) and the encoder-decoder
-seamless_m4t_medium (:mod:`encdec`). The dry-run input specs wait.
+seamless_m4t_medium (:mod:`encdec`).
+
+The distributed layer's specs (``repro/models/registry.py:55-130,
+285-305``): :func:`param_axes` and :func:`batch_axes` (logical axes, the
+parameters' keyed by the port's names), and the "specs" of a step's inputs
+(:func:`param_specs`, :func:`train_batch_spec`, :func:`decode_state_spec`,
+:func:`prefill_spec`, :func:`decode_token_spec`): trees of tensors on the
+``meta`` device, shapes and dtypes that are never allocated, the
+counterpart of the reference's ``ShapeDtypeStruct`` trees.
 
 The slot pool (``repro/models/registry.py:198-265``) is the per-layer
 cache list of :func:`transformer.init_caches` at ``slots`` rows in the
@@ -55,12 +63,35 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     return {k: v.detach() for k, v in model.named_parameters()}
 
 
+def cell_applicable(cfg: ModelConfig, cell: str):
+    """(applicable, reason) of a dry-run cell for ``cfg``
+    (``repro/models/registry.py:55-58``)."""
+    if cell == "long_500k" and cfg.attention == "global" and cfg.family != "ssm":
+        return False, "full attention is O(S^2); 512k decode out of scope"
+    return True, ""
+
+
 def family_module(cfg: ModelConfig):
     """The module of ``cfg``'s family (``repro/models/registry.py:53-59``):
     :mod:`encdec`, :mod:`vlm` or :mod:`transformer`."""
     if cfg.is_encoder_decoder:
         return encdec
     return vlm if cfg.family == "vlm" else transformer
+
+
+def param_axes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """The logical axes of every parameter, keyed as :func:`init_params`'
+    dict."""
+    return family_module(cfg).param_axes(cfg)
+
+
+def param_specs(cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """:func:`init_params`' tensors on the ``meta`` device: their shapes
+    and dtypes, nothing allocated."""
+    lm = encdec.EncDecLM if cfg.is_encoder_decoder else transformer.TransformerLM
+    with torch.no_grad():
+        model = lm(cfg, torch.Generator(), device="meta")
+    return {k: v.detach() for k, v in model.named_parameters()}
 
 
 def loss_fn(cfg: ModelConfig, params, batch) -> torch.Tensor:
@@ -85,6 +116,25 @@ def train_batch_shapes(cfg: ModelConfig, batch: int, seq: int):
                 "labels": ((batch, seq - nf), torch.int32)}
     return {"tokens": ((batch, seq), torch.int32),
             "labels": ((batch, seq), torch.int32)}
+
+
+def train_batch_spec(cfg: ModelConfig, batch: int, seq: int):
+    """One training batch as ``meta`` tensors (``repro/models/registry.py:
+    90-108``)."""
+    return {name: torch.empty(shape, dtype=dtype, device="meta")
+            for name, (shape, dtype) in
+            train_batch_shapes(cfg, batch, seq).items()}
+
+
+def batch_axes(cfg: ModelConfig):
+    """The logical axes of the training batch (``repro/models/registry.py:
+    111-125``)."""
+    axes = {"tokens": ("batch", "seq"), "labels": ("batch", "seq")}
+    if cfg.is_encoder_decoder:
+        axes["frames"] = ("batch", "seq", "embed")
+    elif cfg.family == "vlm":
+        axes["embeds"] = ("batch", "seq", "embed")
+    return axes
 
 
 def make_batch(cfg: ModelConfig, batch: int, seq: int, *, seed: int = 0,
@@ -236,3 +286,35 @@ def slot_pool_bytes(cfg: ModelConfig, slots: int, max_len: int) -> int:
     from its shapes on the meta device (nothing allocated)."""
     pool = init_slot_pool(cfg, slots, max_len, device="meta")
     return sum(t.numel() * t.element_size() for t in pytree.tree_leaves(pool))
+
+
+# ---------------------------------------------------------------------------
+# serve input specs (``repro/models/registry.py:285-305``)
+# ---------------------------------------------------------------------------
+
+
+def cache_axes(cfg: ModelConfig):
+    """The logical axes of the serve caches' leaves, one dict a layer."""
+    return family_module(cfg).cache_axes(cfg)
+
+
+def decode_state_spec(cfg: ModelConfig, batch: int, max_len: int):
+    """(caches, extras) of a decode step as ``meta`` tensors; an
+    encoder-decoder's extras hold ``memory_kv``, one (k, v) pair a decoder
+    layer of (B, max_len, Hkv, hd)."""
+    caches = family_module(cfg).init_caches(cfg, batch, max_len,
+                                            device="meta")
+    extras = {}
+    if cfg.is_encoder_decoder:
+        kv = torch.empty((batch, max_len, cfg.num_kv_heads, cfg.head_dim),
+                         dtype=cfg.torch_dtype, device="meta")
+        extras["memory_kv"] = [(kv, kv) for _ in range(cfg.num_layers)]
+    return caches, extras
+
+
+def prefill_spec(cfg: ModelConfig, batch: int, seq: int):
+    return train_batch_spec(cfg, batch, seq)
+
+
+def decode_token_spec(cfg: ModelConfig, batch: int) -> torch.Tensor:
+    return torch.empty((batch, 1), dtype=torch.int32, device="meta")

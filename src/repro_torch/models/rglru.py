@@ -36,6 +36,7 @@ from torch import nn
 
 from ..kernels import ops
 from . import common
+from .partitioning import with_logical_constraint
 
 F32 = torch.float32
 _C = 8.0
@@ -92,6 +93,21 @@ def _causal_conv(p: Dict[str, torch.Tensor], x: torch.Tensor, state=None):
                              else xf[:, -(_CONV_WIDTH - 1):])
 
 
+def param_axes(cfg):
+    """``repro/models/rglru.py:48-58``."""
+    return {"w_in": ("p_fsdp", "recurrent_width"),
+            "w_out": ("recurrent_width", "p_fsdp"),
+            "conv": (None, "recurrent_width"),
+            "w_a": ("p_fsdp", "recurrent_width"), "b_a": ("recurrent_width",),
+            "w_x": ("p_fsdp", "recurrent_width"), "b_x": ("recurrent_width",),
+            "lam": ("recurrent_width",)}
+
+
+def state_axes():
+    return {"h": ("kv_batch", "recurrent_width"),
+            "conv": ("kv_batch", None, "recurrent_width")}
+
+
 def _in_proj(p, x):
     u = torch.matmul(x, p["w_in"])
     return torch.chunk(u, 2, dim=-1)
@@ -105,6 +121,7 @@ def _out_proj(p, h, gate, dtype):
 def apply(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     """Train path. x (B, S, D) -> (B, S, D) in x's dtype."""
     u, gate = _in_proj(p, x)
+    u = with_logical_constraint(u, ("batch", "seq", "recurrent_width"))
     u, _ = _causal_conv(p, u)
     a, bterm = _gates(p, u)
     return _out_proj(p, ops.lru_scan(a, bterm), gate, x.dtype)

@@ -41,6 +41,7 @@ from torch import nn
 
 from ..kernels import ops
 from . import common
+from .partitioning import with_logical_constraint
 
 F32 = torch.float32
 _LORA = 32
@@ -77,6 +78,22 @@ class RWKV(nn.Module):
         self.ck = init((d, f))
         self.cv = init((f, d))
         self.cr = init((d, d))
+
+
+def param_axes(cfg):
+    """``repro/models/rwkv.py:66-84``."""
+    return {"wr": ("p_fsdp", "heads"), "wk": ("p_fsdp", "heads"),
+            "wv": ("p_fsdp", "heads"), "wg": ("p_fsdp", "heads"),
+            "wo": ("heads", "p_fsdp"), "mix": (None, None), "w0": (None,),
+            "wA": (None, None), "wB": (None, None), "u": (None,),
+            "ln_scale": (None,), "cm_rk": (None, None),
+            "ck": ("p_fsdp", "p_ff"), "cv": ("p_ff", "p_fsdp"),
+            "cr": ("p_fsdp", None)}
+
+
+def state_axes():
+    return {"tm_shift": ("kv_batch", None), "cm_shift": ("kv_batch", None),
+            "wkv": ("kv_batch", "heads", None, None)}
 
 
 def _shift(x: torch.Tensor, last=None) -> torch.Tensor:
@@ -133,6 +150,9 @@ def time_mix(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor, *,
     g = torch.matmul(xg, p["wg"])
     logw = _decay(p, xw).reshape(b, s, h, n)
     u = p["u"].reshape(h, n)
+    r = with_logical_constraint(r, ("batch", "seq", "heads", None))
+    k = with_logical_constraint(k, ("batch", "seq", "heads", None))
+    v = with_logical_constraint(v, ("batch", "seq", "heads", None))
     if s == 1 and wkv_state is not None:
         out, final = _wkv_step(r[:, 0].to(F32), k[:, 0].to(F32),
                                v[:, 0].to(F32), logw[:, 0], u, wkv_state)
@@ -154,6 +174,7 @@ def channel_mix(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor, *,
     xr = x + (xprev - x) * mix[1]
     kk = torch.matmul(xk, p["ck"]).to(F32)
     kk = torch.square(F.relu(kk)).to(x.dtype)
+    kk = with_logical_constraint(kk, ("batch", "seq", "ff"))
     vv = torch.matmul(kk, p["cv"]).to(F32)
     rr = torch.sigmoid(torch.matmul(xr, p["cr"]).to(F32))
     return (rr * vv).to(x.dtype), x[:, -1].to(F32)

@@ -35,6 +35,20 @@ uniform stack's caches on a leading layers axis for ``lax.scan`` (and
 keeps a hybrid stack's as a list); ``convert.caches_from_jax`` and
 ``caches_to_numpy`` translate. They are updated in place and returned.
 
+Tensor parallelism (``models/partitioning.py``): :func:`param_axes` and
+:func:`cache_axes` give the reference's logical axes, flat and keyed by
+the port's names (the reference prepends ``"layers"`` to stacked leaves,
+whose rule is ``(None,)``; the port keeps one entry per layer). Where a
+step kept the rank's vocabulary rows of ``embed.table`` and columns of
+``lm_head.w``, the lookup is vocabulary-parallel (each rank looks up the
+tokens in its rows, the others read zeros, and the sum over ``"model"``
+is exact) and the head computes the rank's logit columns: the loss is
+vocabulary-parallel (:func:`vocab_parallel_cross_entropy`), and the
+serving steps' logits are gathered exactly. Where a module splits is read
+from ``partitioning.local_block``, the step layout's own decision. A
+step's ``partitioning.layer_view`` gathers each layer's sharded leaves
+inside the layer (its checkpoint, under remat), one layer at a time.
+
 Left out for later slices: tied embeddings (no config uses them).
 """
 
@@ -48,13 +62,33 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from . import blocks, common
+from . import blocks, common, partitioning
+from .partitioning import with_logical_constraint
 
 F32 = torch.float32
 
 
 def padded_vocab(cfg) -> int:
     return -(-cfg.vocab_size // 512) * 512
+
+
+def param_axes(cfg) -> Dict[str, tuple]:
+    """The logical axes of every parameter, keyed as
+    ``TransformerLM.named_parameters()`` (``repro/models/transformer.py:
+    59-77``)."""
+    axes = {"embed.table": ("p_vocab", "p_fsdp"), "final_ln.scale": (None,),
+            "lm_head.w": ("p_fsdp", "p_vocab")}
+    for i, kind in enumerate(blocks.layer_kinds(cfg)):
+        axes.update({f"layers.{i}.{k}": v
+                     for k, v in blocks.block_axes(cfg, kind).items()})
+    return axes
+
+
+def cache_axes(cfg):
+    """The logical axes of :func:`init_caches`' leaves, one dict a layer
+    (``repro/models/transformer.py:214``)."""
+    return [blocks.block_cache_axes(cfg, kind)
+            for kind in blocks.layer_kinds(cfg)]
 
 
 class Embedding(nn.Module):
@@ -111,6 +145,13 @@ _DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts,
                                   _dots_policy)
 
 
+def _layer(cfg, kind: str, prefix: str, p: Dict[str, torch.Tensor], view,
+           x: torch.Tensor, positions: torch.Tensor):
+    """One layer, its parameters through the step's ``view`` first (inside
+    a checkpoint, so a recomputation gathers them again)."""
+    return blocks.block_apply(cfg, kind, view(prefix, p), x, positions)
+
+
 def apply_layers(cfg, params: Dict[str, torch.Tensor], x: torch.Tensor,
                  positions: torch.Tensor, start: int = 0,
                  stop: Optional[int] = None):
@@ -122,9 +163,10 @@ def apply_layers(cfg, params: Dict[str, torch.Tensor], x: torch.Tensor,
     without an MoE layer)."""
     kinds = blocks.layer_kinds(cfg)
     aux = 0.0
+    view = partitioning.current_view()
     for i in range(start, len(kinds) if stop is None else stop):
-        layer = functools.partial(blocks.block_apply, cfg, kinds[i],
-                                  layer_params(params, i))
+        layer = functools.partial(_layer, cfg, kinds[i], f"layers.{i}.",
+                                  layer_params(params, i), view)
         if cfg.remat == "full" and torch.is_grad_enabled():
             x, a = checkpoint(layer, x, positions, use_reentrant=False,
                               preserve_rng_state=False)
@@ -140,18 +182,68 @@ def apply_layers(cfg, params: Dict[str, torch.Tensor], x: torch.Tensor,
     return x, aux
 
 
-def _logits(cfg, params: Dict[str, torch.Tensor], x: torch.Tensor):
+def _head(cfg, params: Dict[str, torch.Tensor], x: torch.Tensor):
+    """(the f32 logits, whether they are the rank's vocabulary columns
+    only: the step's layout kept ``lm_head.w``'s)."""
     x = common.rmsnorm_apply(params["final_ln.scale"], x, cfg.norm_eps)
+    w = params["lm_head.w"]
+    tp = partitioning.local_block(cfg, w, 1, "p_vocab", padded_vocab(cfg))
+    if tp:
+        x = partitioning.enter(x)
     # f32 logits from the activation-dtype inputs, as the reference's
     # preferred_element_type=f32 product.
-    return torch.matmul(x.to(F32), params["lm_head.w"].to(F32))
+    logits = torch.matmul(x.to(F32), w.to(F32))
+    return with_logical_constraint(
+        logits, ("batch", "seq", "vocab") if logits.ndim == 3
+        else ("batch", "vocab")), tp
+
+
+def _logits(cfg, params: Dict[str, torch.Tensor], x: torch.Tensor):
+    """The whole f32 logits (a rank's columns gathered exactly)."""
+    logits, tp = _head(cfg, params, x)
+    return partitioning.gather(logits, logits.ndim - 1) if tp else logits
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                                 mask: Optional[torch.Tensor] = None
+                                 ) -> torch.Tensor:
+    """``common.softmax_cross_entropy`` of logits whose vocabulary columns
+    are split over ``"model"``, each rank holding its (..., V/m) block
+    (Megatron's vocabulary-parallel loss): the log-sum-exp of each rank's
+    columns is gathered (m values a token) and reduced to the whole
+    log-sum-exp, and the gold logit is summed over the ranks, the one
+    holding its column and zeros, so no rank gathers the logits."""
+    logits = logits.to(F32)
+    v = logits.shape[-1]
+    lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+    logz = torch.logsumexp(partitioning.gather(lse, lse.ndim - 1), dim=-1)
+    ids = labels.long() - partitioning.model_index() * v
+    mine = (ids >= 0) & (ids < v)
+    gold = torch.gather(logits, -1, torch.where(mine, ids, 0)[..., None])
+    gold = partitioning.reduce_sum(gold[..., 0] * mine.to(F32))
+    return common.masked_mean(logz - gold, mask)
+
+
+def embed_tokens(cfg, table: torch.Tensor, tokens: torch.Tensor):
+    """The embeddings of ``tokens``; vocabulary-parallel where ``table``
+    holds the rank's rows."""
+    rows = table.shape[0]
+    if not partitioning.local_block(cfg, table, 0, "p_vocab",
+                                    padded_vocab(cfg)):
+        return torch.nn.functional.embedding(tokens.long(), table)
+    ids = tokens.long() - partitioning.model_index() * rows
+    mine = (ids >= 0) & (ids < rows)
+    x = torch.nn.functional.embedding(torch.where(mine, ids, 0), table)
+    # one rank holds each token's row and the others add zeros: exact
+    x = x * mine[..., None].to(x.dtype)
+    return partitioning.reduce_sum(x.to(F32)).to(table.dtype)
 
 
 def _embed(cfg, params: Dict[str, torch.Tensor], tokens, embeds):
     """The input activations: the token embeddings, or ``embeds`` in the
     model dtype, followed by the token embeddings when both are given."""
-    x = None if tokens is None else torch.nn.functional.embedding(
-        tokens.long(), params["embed.table"])
+    x = None if tokens is None else embed_tokens(cfg, params["embed.table"],
+                                                 tokens)
     if embeds is None:
         return x
     e = embeds.to(cfg.torch_dtype)
@@ -160,7 +252,8 @@ def _embed(cfg, params: Dict[str, torch.Tensor], tokens, embeds):
 
 def _inputs(cfg, params: Dict[str, torch.Tensor], tokens, embeds, positions):
     """(input activations (B, S, D), positions (B, S), default 0..S-1)."""
-    x = _embed(cfg, params, tokens, embeds)
+    x = with_logical_constraint(_embed(cfg, params, tokens, embeds),
+                                ("batch", "seq", "embed"))
     if positions is None:
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device).expand(b, s)
@@ -183,11 +276,11 @@ def forward(cfg, params: Dict[str, torch.Tensor], tokens: Optional[torch.Tensor]
     kinds = blocks.layer_kinds(cfg)
     if caches is None or len(caches) != len(kinds):
         raise ValueError(f"mode {mode!r} needs one cache per layer")
+    view = partitioning.current_view()
     for i, kind in enumerate(kinds):
-        x, caches[i] = blocks.block_apply(cfg, kind, layer_params(params, i),
-                                          x, positions, mode=mode,
-                                          cache=caches[i],
-                                          route_rows=route_rows)
+        x, caches[i] = blocks.block_apply(
+            cfg, kind, view(f"layers.{i}.", layer_params(params, i)), x,
+            positions, mode=mode, cache=caches[i], route_rows=route_rows)
     return _logits(cfg, params, x[:, -1]), caches
 
 
@@ -202,8 +295,9 @@ def loss_fn(cfg, params: Dict[str, torch.Tensor], batch) -> torch.Tensor:
     labels = batch["labels"]
     if x.shape[1] != labels.shape[1]:
         x = x[:, -labels.shape[1]:]
-    loss = common.softmax_cross_entropy(_logits(cfg, params, x), labels,
-                                        batch.get("mask"))
+    logits, tp = _head(cfg, params, x)
+    loss = (vocab_parallel_cross_entropy if tp else
+            common.softmax_cross_entropy)(logits, labels, batch.get("mask"))
     return loss + 0.01 * aux if cfg.family == "moe" else loss
 
 

@@ -16,3 +16,5 @@ loss_fn = transformer.loss_fn
 prefill = transformer.prefill
 decode_step = transformer.decode_step
 init_caches = transformer.init_caches
+param_axes = transformer.param_axes
+cache_axes = transformer.cache_axes

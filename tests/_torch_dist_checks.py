@@ -554,3 +554,334 @@ def physical_soak(rank, world, wd):
     logical = chaos.run_chaos_soak(chaos.ChaosConfig(
         **SOAK, device="cpu", ckpt_dir=os.path.join(wd, f"logical_{rank}")))
     return dict(report=rep.to_json(), logical=logical.to_json())
+
+
+# ---------------------------------------------------------------------------
+# the model-parallel layer (tests/test_torch_tpcomm.py,
+# tests/test_torch_steps_mesh.py)
+# ---------------------------------------------------------------------------
+
+
+def _model_mesh(world, data=1):
+    return mesh_lib.make_mesh((data, world // data), ("data", "model"),
+                              device="cpu")
+
+
+def tpcomm_inputs(world, t=12, f_per=16, d=24, seed=3):
+    """x (T, m * f_per) and w (m * f_per, d) f32, with all-zero and huge
+    rows in x."""
+    rng = _rng(seed)
+    x = rng.standard_normal((t, world * f_per)).astype(np.float32)
+    x[0] = 0.0
+    x[1] *= np.float32(3e30)
+    w = rng.standard_normal((world * f_per, d)).astype(np.float32)
+    return x, w
+
+
+def tpcomm_reduce(rank, world, wd):
+    """``int8_matmul_reduce`` on a (data 1, model m) mesh: each rank holds
+    its f columns of x and rows of w."""
+    from repro_torch.models import partitioning, tpcomm
+
+    mesh = _model_mesh(world)
+    x, w = tpcomm_inputs(world)
+    f = x.shape[1] // world
+    xs = torch.from_numpy(x[:, rank * f:(rank + 1) * f].copy())
+    ws = torch.from_numpy(w[rank * f:(rank + 1) * f].copy())
+    partitioning.reset_routes()
+    with partitioning.axis_rules(mesh):
+        out = tpcomm.int8_matmul_reduce(xs, ws, out_dtype=torch.float32)
+        routes = dict(partitioning.ROUTES)
+        # the exact all_reduce gather, the route of CUDA tensors on gloo
+        route = partitioning.gather_route
+        partitioning.gather_route = lambda t, d, mesh=None: "all_reduce"
+        try:
+            partitioning.reset_routes()
+            by_reduce = tpcomm.int8_matmul_reduce(xs, ws,
+                                                  out_dtype=torch.float32)
+        finally:
+            partitioning.gather_route = route
+    return dict(out=_np(out), routes=routes, rows=x.shape[0], d=w.shape[1],
+                by_reduce=_np(by_reduce),
+                reduce_routes=dict(partitioning.ROUTES))
+
+
+def _f32(arch, **over):
+    from repro_torch.models import registry
+
+    base = dict(d_model=64, num_heads=4, head_dim=16, vocab_size=512,
+                dtype="float32", attn_impl="blocked", q_block=8, kv_block=8)
+    base.update(over)
+    return registry.get_config(arch).reduced(**base)
+
+
+# the train-step cases: the reference's launch tests' archs at their
+# reduced widths (f32), two with 16 heads so the heads split over "model"
+# (kv heads split, and kv heads computed whole), and the encoder-decoder
+MESH_TRAIN = {
+    "stablelm_3b": dict(arch="stablelm_3b"),
+    "phi35_moe": dict(arch="phi35_moe"),
+    "rwkv6_3b": dict(arch="rwkv6_3b"),
+    "lm_1b_heads": dict(arch="lm_1b", num_heads=16, num_kv_heads=16,
+                        head_dim=8),
+    "qwen2_gqa": dict(arch="qwen2_72b", num_heads=16, num_kv_heads=2,
+                      head_dim=8, d_ff=128),
+    # the tp rules on a model the port computes whole: its split leaves
+    # are gathered for the compute
+    "seamless_tp": dict(arch="seamless_m4t_medium", mesh_strategy="tp"),
+}
+
+
+def vocab_loss(rank, world, wd):
+    """The vocabulary-parallel loss (``transformer.
+    vocab_parallel_cross_entropy``) on the (data 2, model 2) mesh: each
+    rank of "model" holds its columns of the same seeded logits (f32,
+    V = 2 x 96, half the tokens masked); the loss and the gradient of the
+    rank's columns, beside ``common.softmax_cross_entropy`` of the whole
+    logits."""
+    from repro_torch.models import common, partitioning, transformer
+
+    mesh = _model_mesh(world, data=2)
+    rng = _rng(11)
+    whole = torch.from_numpy(
+        (4.0 * rng.standard_normal((3, 5, 192))).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, 192, (3, 5)))
+    mask = torch.from_numpy((rng.random((3, 5)) < 0.5).astype(np.float32))
+    out = {}
+    with partitioning.axis_rules(mesh):
+        v = 192 // partitioning.model_size()
+        lo = partitioning.model_index() * v
+        for name, m in (("plain", None), ("masked", mask)):
+            want_in = whole.clone().requires_grad_(True)
+            want = common.softmax_cross_entropy(want_in, labels, m)
+            want.backward()
+            got_in = whole[..., lo:lo + v].clone().requires_grad_(True)
+            got = transformer.vocab_parallel_cross_entropy(got_in, labels, m)
+            got.backward()
+            out[name] = dict(loss=float(got), want=float(want),
+                             grad=_np(got_in.grad),
+                             want_grad=_np(want_in.grad[..., lo:lo + v]))
+    return out
+
+
+def _clone(tree):
+    return pytree.tree_map(lambda t: t.clone(), tree)
+
+
+def steps_train(rank, world, wd):
+    """Two SGD train steps of each :data:`MESH_TRAIN` case on a (data 2,
+    model 2) mesh (whole inputs, then the DTensors the first returned)
+    beside the mesh-free steps; one AdamW step of ``lm_1b_heads``."""
+    from repro_torch.launch import steps
+    from repro_torch.models import partitioning, registry
+
+    mesh = _model_mesh(world, data=2)
+    out = {}
+    for name, spec in MESH_TRAIN.items():
+        spec = dict(spec)
+        cfg = _f32(spec.pop("arch"), **spec)
+        params = registry.init_params(cfg, seed=0, device="cpu")
+        # 8 x 128 tokens: the MoE's routing groups of 512 tokens hold
+        # whole rank shards of the batch
+        seq = 128 if cfg.family == "moe" else 16
+        batches = [registry.make_batch(cfg, 8, seq, seed=s, device="cpu")
+                   for s in (1, 2)]
+        plain, _ = steps.make_sgd_train_step(cfg, None, optimizer="sgd",
+                                             lr=0.1)
+        meshed, shardings_for = steps.make_sgd_train_step(
+            cfg, mesh, optimizer="sgd", lr=0.1)
+        opt = optim.sgd(0.1)
+        pp, po = _clone(params), opt.init(params)
+        mp, mo = _clone(params), opt.init(params)
+        res = {"loss": [], "mesh_loss": []}
+        partitioning.reset_routes()
+        for b in batches:
+            pp, po, pl = plain(pp, po, b)
+            mp, mo, ml = meshed(mp, mo, b)
+            res["loss"].append(float(pl))
+            res["mesh_loss"].append(float(ml))
+        res["routes"] = dict(partitioning.ROUTES)
+        res["dtensor"] = all(sharding.is_dtensor(v) for v in mp.values())
+        res["params"] = _tree_np(pp)
+        res["mesh_params"] = {k: _np(partitioning.full(v))
+                              for k, v in mp.items()}
+        specs = steps.train_input_specs(cfg, 8, 16, optimizer="sgd")
+        (p_sh, _, b_sh), _ = shardings_for(specs)
+        res["placements"] = {k: str(v) for k, v in p_sh.items()}
+        res["local_shapes"] = {k: tuple(v.to_local().shape)
+                               for k, v in mp.items()}
+        out[name] = res
+    return out
+
+
+def steps_round(rank, world, wd):
+    """The DrJAX round step of reduced lm_350m (dp) on the (data 2, model
+    2) mesh beside the mesh-free round, with every all_reduce's group."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import steps
+    from repro_torch.models import registry
+
+    mesh = _model_mesh(world, data=2)
+    cfg = _f32("lm_350m")
+    params = registry.init_params(cfg, seed=0, device="cpu")
+    data = registry.make_batch(cfg, 2, 16, seed=5, lead=(4, 2), device="cpu")
+    plain, *_ = steps.make_drjax_round_step(cfg, None, partition_size=4,
+                                            num_local_steps=2)
+    meshed, param_sh, server_sh, data_sh = steps.make_drjax_round_step(
+        cfg, mesh, partition_size=4, num_local_steps=2)
+    state = optim.fedavg_momentum(1.0).init(params)
+    p_out, _, p_m = plain(_clone(params), _clone(state), data)
+    groups = []
+    real = dist.all_reduce
+
+    def spy(t, *a, group=None, **k):
+        groups.append(tuple(dist.get_process_group_ranks(group))
+                      if group is not None else None)
+        return real(t, *a, group=group, **k)
+
+    dist.all_reduce = spy
+    try:
+        m_out, _, m_m = meshed(_clone(params), _clone(state), data)
+    finally:
+        dist.all_reduce = real
+    data_groups = [tuple(int(r) for r in g) for g in
+                   mesh["data"].mesh.reshape(1, -1).tolist()]
+    return dict(loss=float(_np(p_m["loss"])), mesh_loss=float(_np(m_m["loss"])),
+                params=_tree_np(p_out), mesh_params=_tree_np(m_out),
+                groups=sorted(set(g for g in groups if g)),
+                data_group=tuple(mesh["data"].mesh.tolist()),
+                model_group=tuple(mesh["model"].mesh.tolist()),
+                data_sharding=str(data_sh(data["tokens"])))
+
+
+def int8_bound_spy(worst: list):
+    """Wrap ``tpcomm.int8_sum`` to record, at every call, the largest
+    ``|int8 sum - exact f32 sum| / (sum_j s_j + m ulps)`` over the output
+    (the exact sum by an all_reduce of the partials): at most 1 where
+    the reduction keeps its bound. Returns the unwrap function."""
+    from repro_torch.models import partitioning, tpcomm
+
+    real = tpcomm.int8_sum
+
+    def spy(part):
+        out = real(part)
+        dims = partitioning.model_dims()
+        exact = partitioning.all_reduce_sum(part, dims)
+        _, s = tpcomm._quant_rows(part)
+        scales = partitioning.all_reduce_sum(s, dims)
+        m = partitioning.model_size()
+        bound = scales + m * torch.nextafter(
+            exact.abs(), torch.tensor(float("inf"))) - m * exact.abs()
+        worst.append(float(((out - exact).abs() / bound).max()))
+        return out
+
+    tpcomm.int8_sum = spy
+
+    def undo():
+        tpcomm.int8_sum = real
+
+    return undo
+
+
+def steps_serve(rank, world, wd):
+    """The int8 and bf16-wire prefill of reduced qwen2_72b (the reference's
+    launch test's widths, f32) on the (data 2, model 2) mesh beside the
+    mesh-free prefill, then a decode step of each's caches."""
+    from repro_torch.launch import steps
+    from repro_torch.models import partitioning, registry
+
+    mesh = _model_mesh(world, data=2)
+    out = {}
+    for name, over in (("qwen2", dict(num_heads=8, num_kv_heads=2,
+                                      head_dim=16, d_ff=128)),
+                       ("qwen2_heads", dict(num_heads=16, num_kv_heads=2,
+                                            head_dim=8, d_ff=128))):
+        cfg = _f32("qwen2_72b", **over)
+        params = registry.init_params(cfg, seed=0, device="cpu")
+        batch = {"tokens": registry.make_batch(cfg, 8, 16, seed=7,
+                                               device="cpu")["tokens"]}
+        token = batch["tokens"][:, -1:]
+        res = {}
+        plain_pre = steps.make_prefill_step(cfg, max_len=24)
+        logits, caches = plain_pre(params, batch)
+        res["logits"] = _np(logits)
+        res["decode"] = _np(steps.make_decode_step(cfg)(params, token,
+                                                        caches)[0])
+        for wire in ("bf16", "int8"):
+            partitioning.reset_routes()
+            pre = steps.make_prefill_step(cfg, mesh, tp_comm=wire,
+                                          max_len=24)
+            worst = []
+            undo = int8_bound_spy(worst)
+            try:
+                ml, mc = pre(params, batch)
+            finally:
+                undo()
+            routes = dict(partitioning.ROUTES)
+            res[f"{wire}_bound"] = worst
+            dec = steps.make_decode_step(cfg, mesh)
+            dl, mc = dec(params, token, mc)
+            res[wire] = dict(logits=_np(ml), routes=routes,
+                             decode=_np(dl),
+                             cache_placements=str(mc[0]["k"].placements),
+                             cache_local=tuple(mc[0]["k"].to_local().shape))
+        res["coord"] = tuple(mesh.get_coordinate())
+        out[name] = res
+    return out
+
+
+
+def constraint_redistributes(rank, world, wd):
+    """``with_logical_constraint`` on a (data 1, model m) mesh: a
+    replicated DTensor goes to the spec (heads over "model"), a plain
+    tensor is returned as it is, and ``partitioning.full`` gives the whole
+    value back."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.models import partitioning
+
+    mesh = _model_mesh(world)
+    whole = torch.arange(4 * 2 * world, dtype=torch.float32).reshape(
+        4, 2 * world)
+    rep = DTensor.from_local(whole, mesh, [Replicate(), Replicate()],
+                             run_check=False)
+    with partitioning.axis_rules(mesh):
+        got = partitioning.with_logical_constraint(rep, ("batch", "heads"))
+        plain = partitioning.with_logical_constraint(whole, ("batch",
+                                                             "heads"))
+        back = partitioning.full(got)
+    return dict(placements=str(tuple(got.placements)),
+                local=_np(got.to_local()), plain_same=plain is whole,
+                back=_np(back), whole=_np(whole))
+
+
+def fsdp_layer_gathers(rank, world, wd):
+    """One FSDP train step of ``lm_1b_heads`` on the (data 2, model 2)
+    mesh under remat "full" and "none": the gathers each makes, and how
+    many leaves of the layers the rules shard over "data"."""
+    from repro_torch.launch import steps
+    from repro_torch.models import partitioning, registry
+
+    mesh = _model_mesh(world, data=2)
+    spec = dict(MESH_TRAIN["lm_1b_heads"])
+    cfg = _f32(spec.pop("arch"), **spec)
+    params = registry.init_params(cfg, seed=0, device="cpu")
+    batch = registry.make_batch(cfg, 8, 16, seed=1, device="cpu")
+    out = {}
+    for remat in ("full", "none"):
+        step, _ = steps.make_sgd_train_step(cfg, mesh, optimizer="sgd",
+                                            lr=0.1, remat=remat)
+        partitioning.reset_routes()
+        step(_clone(params), optim.sgd(0.1).init(params), batch)
+        out[remat] = partitioning.ROUTES[("gather", "all_gather")]
+    rules = steps.strategy_rules(cfg, True)
+    shapes = {k: tuple(v.shape) for k, v in params.items()}
+    with partitioning.axis_rules(mesh, rules):
+        axes = registry.param_axes(cfg)
+        out["layer_fsdp_leaves"] = sum(
+            1 for k, ax in axes.items() if k.startswith("layers.")
+            and any("data" in (e if isinstance(e, tuple) else (e,))
+                    for e in partitioning.spec_for(ax, shapes[k])
+                    if e is not None))
+    return out

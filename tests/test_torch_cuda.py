@@ -1443,3 +1443,125 @@ def test_one_rank_nccl_mesh_rounds_bitwise(card, tmp_path):
                 assert torch.equal(pa[k], pb[k]), k
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_int8_tp_reduction_on_one_nccl_rank(card, tmp_path):
+    """``tpcomm`` on the card: the int8 sum of one rank's partial is its
+    plain version (``ref.quantize_ref`` and the product of q and s)
+    bitwise, the forced gather over a model dim of one rank takes NCCL's
+    ``all_gather`` and returns the int8 bits as they were, and the
+    mesh-free ``int8_matmul_reduce`` is the f32-accumulated product."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import common, partitioning, tpcomm
+
+    gen = torch.Generator(device=card).manual_seed(0)
+    x = torch.randn(512, 1024, generator=gen, device=card).bfloat16()
+    w = torch.randn(1024, 768, generator=gen, device=card).bfloat16()
+    want = common.matmul_f32(x, w)
+    got = tpcomm.int8_matmul_reduce(x, w, out_dtype=torch.float32)
+    assert torch.equal(got, want)
+    assert compat.init_process_group(
+        0, 1, init_method=f"file://{tmp_path}/rendezvous",
+        device="cuda") == "nccl"
+    try:
+        mesh = mesh_lib.make_mesh((1, 1), ("data", "model"), device="cuda")
+        partitioning.reset_routes()
+        with partitioning.axis_rules(mesh):
+            out = tpcomm.int8_sum(want)
+            q, s = ref.quantize_ref(want)
+            assert torch.equal(out, q.float() * s)
+            gathered = partitioning.gather_exact(q[None], 0, (1,))
+            assert torch.equal(gathered[0], q)
+            assert partitioning.gather_route(q, 1) == "all_gather"
+        assert partitioning.ROUTES[("gather", "all_gather")] == 1
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hkv,ranks", [(16, 16, 2), (64, 8, 2),
+                                          (64, 8, 16)])
+def test_flash_on_a_ranks_heads_is_its_slice_of_the_whole(card, hq, hkv,
+                                                          ranks):
+    """K2 on one rank's query heads (and the kv heads they read,
+    ``attention.local_kv``'s choice) is bitwise those heads of the call on
+    every head, forward and both backward kernels: what the
+    tensor-parallel attention runs on each rank."""
+    b, s, hd = 2, 256, 128
+    gen = torch.Generator(device=card).manual_seed(1)
+    q, k, v = (torch.randn(b, s, h, hd, generator=gen, device=card)
+               .bfloat16().requires_grad_(True) for h in (hq, hkv, hkv))
+    out = ops.flash_attention(q, k, v, causal=True)
+    dout = torch.randn_like(out)
+    dq, dk, dv = torch.autograd.grad(out, (q, k, v), dout)
+    g, hl = hq // hkv, hq // ranks
+    for r in range(ranks):
+        first, n = r * hl // g, max(hl // g, 1)
+        ql = q.detach()[:, :, r * hl:(r + 1) * hl].contiguous()
+        ql.requires_grad_(True)
+        kl, vl = (t.detach()[:, :, first:first + n].contiguous()
+                  .requires_grad_(True) for t in (k, v))
+        ol = ops.flash_attention(ql, kl, vl, causal=True)
+        assert torch.equal(ol, out[:, :, r * hl:(r + 1) * hl])
+        dql, _, _ = torch.autograd.grad(
+            ol, (ql, kl, vl), dout[:, :, r * hl:(r + 1) * hl].contiguous())
+        assert torch.equal(dql, dq[:, :, r * hl:(r + 1) * hl])
+    if hq == hkv:  # each kv head read by one rank's heads alone
+        for r in range(ranks):
+            kl, vl = (t.detach()[:, :, r * hl:(r + 1) * hl].contiguous()
+                      .requires_grad_(True) for t in (k, v))
+            ql = (q.detach()[:, :, r * hl:(r + 1) * hl].contiguous()
+                  .requires_grad_(True))
+            ol = ops.flash_attention(ql, kl, vl, causal=True)
+            _, dkl, dvl = torch.autograd.grad(
+                ol, (ql, kl, vl), dout[:, :, r * hl:(r + 1) * hl].contiguous())
+            assert torch.equal(dkl, dk[:, :, r * hl:(r + 1) * hl])
+            assert torch.equal(dvl, dv[:, :, r * hl:(r + 1) * hl])
+
+
+@pytest.mark.cuda
+def test_mesh_free_serve_step_builds_one_graph_a_bucket(card):
+    """``make_serve_step(cfg)`` (``mesh=None``) through the serve runtime's
+    ``CudaGraphs``: one build for each chunk bucket and replays after it,
+    its tokens bitwise the eager step's."""
+    from repro_torch.launch import steps
+    from repro_torch.models import registry
+    from repro_torch.runtime.executor import CudaGraphs, TraceCounter
+
+    cfg = registry.get_config("lm_350m").reduced(dtype="bfloat16")
+    params = registry.init_params(cfg, seed=0, device="cuda")
+    step = steps.make_serve_step(cfg)
+    assert not hasattr(step, "shardings_for")
+    counter = TraceCounter()
+    graphs = CudaGraphs(step, device="cuda", counter=counter)
+    slots, max_len = 2, 64
+
+    def inputs(c):
+        pool = registry.init_slot_pool(cfg, slots, max_len, device="cuda")
+        return (params, torch.zeros(slots, 1, dtype=torch.int32,
+                                    device=card), pool,
+                torch.zeros(1, dtype=torch.int64, device=card),
+                torch.arange(c, dtype=torch.int32, device=card) % 97,
+                torch.zeros((), dtype=torch.int32, device=card),
+                torch.ones((), dtype=torch.bool, device=card),
+                torch.ones((), dtype=torch.bool, device=card))
+
+    for c in (8, 16):
+        args = inputs(c)
+        eager = steps.make_serve_step(cfg)(*inputs(c))[0].clone()
+        for _ in range(3):
+            fresh = inputs(c)
+            for a, f in zip(pytree_leaves(args[1:]), pytree_leaves(fresh[1:])):
+                a.copy_(f)
+            tokens, _ = graphs(c, *args)
+            assert torch.equal(tokens, eager)
+    assert counter.count == 2 and graphs.replays == 4
+
+
+def pytree_leaves(tree):
+    from torch.utils import _pytree as pytree
+
+    return pytree.tree_leaves(tree)

@@ -35,7 +35,9 @@ def _imported_roots(path: Path):
 def test_no_jax_or_reference_imports():
     files = _port_files()
     assert {PORT / "core" / "interpreter.py",
-            PORT / "runtime" / "executor.py"} <= set(files)
+            PORT / "runtime" / "executor.py",
+            PORT / "models" / "partitioning.py",
+            PORT / "models" / "tpcomm.py"} <= set(files)
     bad = [(str(f.relative_to(REPO)), root) for f in files
            for root in _imported_roots(f)
            if root in ("jax", "jaxlib", "repro", "flax", "optax")]
@@ -60,7 +62,8 @@ def test_imports_without_jax():
             "repro_torch.algorithms.maml",
             "repro_torch.algorithms.btm", "repro_torch.launch.steps",
             "repro_torch.launch.serve", "repro_torch.launch.mesh",
-            "repro_torch.core.sharding",
+            "repro_torch.core.sharding", "repro_torch.models.partitioning",
+            "repro_torch.models.tpcomm",
             "repro_torch.configs.stablelm_3b"} <= set(modules)
     code = (
         "import sys\n"
