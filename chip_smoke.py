@@ -63,7 +63,7 @@ Phases, each reported on its own line (any failure raises, exit != 0):
    at least rounds x cohort times, the K2 forward at least rounds x cohort
    x steps x layers x 2 (the checkpoint recompute) and each K2 backward
    kernel rounds x cohort x steps x layers times;
-4. hier: 2 pod-hierarchical rounds of lm_350m at full width and 12 of
+4. hier: 2 pod-hierarchical rounds of lm_350m at full width and 8 of
    its 24 layers (``HIER_LAYERS``; 2 pods x 2 clients, fused int8
    reduce+compress), then one more round from the same state unfused; the
    fused and unfused rounds agree within one quantization step per element;
@@ -291,7 +291,14 @@ Phases, each reported on its own line (any failure raises, exit != 0):
    greedy oracle (logged, not gated). ``[slice 13 phases]`` logs their
    seconds;
 25. the other decoder architectures: ``dense configs`` (2 flat int8
-   rounds of full lm_1b, 1.745 B, at [flat]'s shapes); ``qkv bias``
+   rounds of full lm_1b, 1.745 B, at [flat]'s shapes), then ``cost``
+   (``phase_cost``, no new round): the analytic bound of one round on one
+   card (``repro_torch.launch.analytic``, H100 constants) for [flat],
+   [long], [hybrid], [ssm] and [dense configs], each round's seconds over
+   it and the analytic model-FLOP utilization; and one full-width lm_350m
+   client train step at B 4 x S 512 under ``hlo_cost.count_flops``: its
+   FLOPs within [0.65, 1.5] of ``analytic.flops_cell``, K2's three ops
+   counted at their launches times the call's FLOP; ``qkv bias``
    (qwen2_72b at full width, its biases drawn nonzero: a flat round at 1
    of 80 layers, cohort 2, batch 1, seq 4096, and loss and gradients at
    2 layers and seq 4096 in f32 through K2 against the plain path);
@@ -373,9 +380,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
-F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
-BF16_TC_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
+def peaks():
+    """The port's cost model, the one owner of the card's peaks
+    (``repro_torch.launch.hlo_cost``: ``HBM_BW`` HBM3 bytes/s,
+    ``PEAK_FLOPS`` dense bf16 tensor-core FLOP/s, ``F32_FLOPS`` f32 outside
+    the tensor cores), imported once the port is on the path."""
+    from repro_torch.launch import hlo_cost
+
+    return hlo_cost
 
 
 def log(phase: str, **fields) -> None:
@@ -401,8 +413,8 @@ def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
 
 
 def bound(nbytes: float, ops: float):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_bytes = nbytes / peaks().HBM_BW * 1e3
+    t_ops = ops / peaks().F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1091,8 +1103,8 @@ def flash_bounds(nbytes: float, flop: float, dtype):
     if dtype != torch.bfloat16:
         b_ms, by = bound(nbytes, flop)
         return b_ms, by, by
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flop / BF16_TC_OPS_PER_S * 1e3
+    t_bytes = nbytes / peaks().HBM_BW * 1e3
+    t_ops = flop / peaks().PEAK_FLOPS * 1e3
     if t_bytes >= t_ops:
         return t_bytes, "bytes", "bytes"
     return t_ops, "operations", "bf16 tensor-core ops"
@@ -1813,7 +1825,7 @@ def phase_wkv(gen):
         # the products run on TF32 tensor cores in three passes (3xTF32):
         # the route's bound is its bytes or three times its FLOP at that
         # rate; the f32 SIMT bound of the same work is logged beside it
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_bytes = nbytes / peaks().HBM_BW * 1e3
         t_ops = 3 * flop / TF32_TC_OPS_PER_S * 1e3
         b_ms, by = ((t_bytes, "bytes") if t_bytes >= t_ops
                     else (t_ops, "operations"))
@@ -1966,6 +1978,12 @@ def model_as(cfg, biases: bool = False):
     return stack
 
 
+# phase name -> (cfg, args, round seconds, model_utilization) of every
+# round phase_train ran, for [cost]
+ROUNDS: dict = {}
+COST_ROUNDS = ("flat", "long", "hybrid", "ssm", "dense configs")
+
+
 def phase_train(phase: str, layers: int = 0, biases: bool = False, **over):
     """Flat rounds of a full-width model through ``launch.train``: lm_350m
     with int8 deltas, or (``arch``) another architecture, at ``layers`` of
@@ -2007,7 +2025,9 @@ def phase_train(phase: str, layers: int = 0, biases: bool = False, **over):
     if args.arch != "lm_350m":
         flop = model_flop(cfg, args, n_params)
         extra = dict(model_flop_per_round=f"{flop:.4e}", model_utilization=[
-            f"{flop / v / BF16_TC_OPS_PER_S:.4f}" for v in seconds])
+            f"{flop / v / peaks().PEAK_FLOPS:.4f}" for v in seconds])
+    ROUNDS[phase] = dict(cfg=cfg, args=args, seconds=list(seconds),
+                         model_utilization=extra.get("model_utilization"))
     log(phase, arch=args.arch, layers=cfg.num_layers, params=n_params,
         seq=args.seq, tokens_per_round=tokens,
         losses=[round(v, 5) for v in losses],
@@ -2022,6 +2042,104 @@ def phase_train(phase: str, layers: int = 0, biases: bool = False, **over):
     gc.collect()
     torch.cuda.empty_cache()
     return counts
+
+
+def phase_cost(names=COST_ROUNDS) -> dict:
+    """[cost]: the port's cost model (``repro_torch.launch.analytic``, H100
+    constants) against the card, with no new round.
+
+    (a) For each round the smoke timed (``names``): the analytic bound of
+    one round on one card (``analytic.round_roofline``: a client step's
+    ``flops_cell`` and ``bytes_cell`` on a mesh of one chip, times cohort x
+    local steps), each measured round's seconds over it, and the analytic
+    model-FLOP utilization (6 x active params x tokens over the round's
+    seconds at 989 TFLOP/s) beside the smoke's ``model_utilization``.
+
+    (b) One full-width lm_350m client train step at the [flat] round's B 4
+    x S 512 (its loss and gradients, remat as configured) under
+    ``hlo_cost.count_flops``: the counted FLOPs over ``flops_cell`` within
+    the reference's band [0.65, 1.5] (``tests/test_roofline.py``), and each
+    K2 op's count equal to its launches times the call's FLOP
+    (:func:`flash_work`). The step runs under the counter's dispatch mode,
+    so its time is not a timing and is not reported."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import analytic, hlo_cost
+    from repro_torch.models import registry
+
+    t0 = time.perf_counter()
+    out = {}
+    for name in names:
+        r = ROUNDS[name]
+        cfg, args = r["cfg"], r["args"]
+        rl = analytic.round_roofline(cfg, args.batch, args.seq,
+                                     args.cohort * args.local_steps)
+        bound_by = "operations" if rl["compute_s"] >= rl["memory_s"] \
+            else "bytes"
+        out[name] = dict(
+            arch=args.arch, bound_s=rl["bound_s"], bound_by=bound_by,
+            round_s=r["seconds"],
+            over_bound=[v / rl["bound_s"] for v in r["seconds"]],
+            mfu=[rl["model_flops"] / (v * hlo_cost.PEAK_FLOPS)
+                 for v in r["seconds"]],
+            smoke_model_utilization=r["model_utilization"])
+        log("cost", round=name, arch=args.arch,
+            bound_s=f"{rl['bound_s']:.4f}", bound_by=bound_by,
+            compute_s=f"{rl['compute_s']:.4f}",
+            memory_s=f"{rl['memory_s']:.4f}",
+            round_s=[round(v, 3) for v in r["seconds"]],
+            over_bound=[f"{v:.2f}" for v in out[name]["over_bound"]],
+            analytic_mfu=[f"{v:.4f}" for v in out[name]["mfu"]],
+            smoke_model_utilization=r["model_utilization"])
+
+    cfg = registry.get_config("lm_350m")
+    args = flat_args()
+    params = registry.init_params(cfg, seed=args.seed, device="cuda")
+    batch = registry.make_batch(cfg, args.batch, args.seq, seed=args.seed,
+                                device="cuda")
+
+    def client_step(p):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+        loss = registry.loss_fn(cfg, leaves, batch)
+        return loss, torch.autograd.grad(loss, list(leaves.values()))
+
+    ops.reset_launches()
+    (loss, grads), counted, by_op = hlo_cost.count_flops(client_step, params)
+    launches = ops.launch_counts()
+    require(math.isfinite(float(loss.detach()))
+            and all(bool(torch.isfinite(g).all()) for g in grads),
+            "[cost] the counted client step's loss or gradients are not "
+            "finite")
+    ana = analytic.flops_cell(cfg, "train", args.batch, args.seq)["total"]
+    ratio = counted / ana
+    require(0.65 <= ratio <= 1.5,
+            f"[cost] counted FLOPs {counted} over the analytic {ana} = "
+            f"{ratio:.4f}, outside [0.65, 1.5]")
+    shape = (args.batch, args.seq, cfg.num_heads, cfg.head_dim)
+    q = torch.empty(shape, dtype=cfg.torch_dtype, device="meta")
+    k = torch.empty(shape[:2] + (cfg.num_kv_heads, cfg.head_dim),
+                    dtype=cfg.torch_dtype, device="meta")
+    work = flash_work(q, k, args.batch * cfg.num_heads
+                      * visible_pairs(args.seq, args.seq, True, 0))
+    k2 = {}
+    for name in FLASH_NAMES:
+        k2[name] = dict(counted=by_op.get(f"repro.{name}", 0),
+                        launches=launches[name], per_call=work[name][1])
+        require(launches[name] > 0 and k2[name]["counted"]
+                == launches[name] * work[name][1],
+                f"[cost] {name}: counted {k2[name]['counted']} FLOP over "
+                f"{launches[name]} launches of {work[name][1]}")
+    out["step"] = dict(counted=counted, analytic=ana, ratio=ratio, k2=k2,
+                       by_op=by_op)
+    del params, batch, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    log("cost", step="lm_350m client step, B 4 x S 512", counted=counted,
+        analytic=f"{ana:.6e}", counted_over_analytic=f"{ratio:.4f}",
+        k2=json.dumps(k2), by_op=json.dumps(by_op),
+        seconds=f"{seconds:.1f}")
+    out["seconds"] = seconds
+    return out
 
 
 def hier_round_fn(cfg, args, pods: int, fused, straggler: bool = False,
@@ -2048,11 +2166,12 @@ def hier_round_fn(cfg, args, pods: int, fused, straggler: bool = False,
         round_cfg), server_opt
 
 
-# [hier] and [plan] at 12 of lm_350m's 24 layers: [plan]'s two traces of
+# [hier] and [plan] at 8 of lm_350m's 24 layers: [plan]'s two traces of
 # the round take time in proportion to the layers (160-245 s for the
-# phase at 24 layers on H100 hosts, PERF.md), and [plan] prices the wire
-# bytes [hier] measures, so both run the same depth
-HIER_LAYERS = 12
+# phase at 24 layers on H100 hosts, PERF.md) and the smoke has a time
+# limit, and [plan] prices the wire bytes [hier] measures, so both run
+# the same depth
+HIER_LAYERS = 8
 
 
 def hier_config(args):
@@ -4122,7 +4241,7 @@ def phase_state_and_second_order(gen) -> dict:
     nbytes, flop = wkv_work(*WKV_SERVE_SHAPE)["wkv6_fwd"]
     b, s, h, n = WKV_SERVE_SHAPE
     nbytes += 2 * b * h * n * n * 4  # s0 read, the final state written
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_bytes = nbytes / peaks().HBM_BW * 1e3
     t_ops = 3 * flop / TF32_TC_OPS_PER_S * 1e3
     b_ms, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
     state = dict(shape=f"{WKV_SERVE_SHAPE} f32, model-like decays, s0",
@@ -4606,7 +4725,7 @@ def phase_serve(arch: str, seed: int = 0, run: dict = None) -> dict:
     log("serve", arch=arch, decode_step_replay_ms=f"{replay_ms:.4f}",
         decode_step_eager_ms=f"{eager_ms:.4f}", replay_bitwise_eager=True,
         decode_weight_bytes=weight_bytes,
-        decode_weight_bytes_ms=f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.4f}",
+        decode_weight_bytes_ms=f"{weight_bytes / peaks().HBM_BW * 1e3:.4f}",
         peak_gib=f"{peak:.2f}", seconds=f"{time.perf_counter() - t_phase:.1f}")
     result["peak_gib"] = peak
     del cont, stat, params
@@ -5300,9 +5419,10 @@ def flat_data(cfg, args):
 def phase_mesh_one_rank(workdir: str) -> dict:
     """[mesh] (a): a (pod 1, data 1) mesh from ``mesh_for_placements`` in a
     world of one NCCL rank. [flat]'s int8 round (K1a, K1b, K2) with its
-    clients over "data", and [hier]'s fused int8 round 2 x 2 at 12 layers
-    (K2, K3b) with pods over "pod" and clients over "data": losses and
-    parameters bitwise the mesh-free rounds', launch counts equal. Saves
+    clients over "data", and [hier]'s fused int8 round 2 x 2 at
+    ``HIER_LAYERS`` layers (K2, K3b) with pods over "pod" and clients over
+    "data": losses and parameters bitwise the mesh-free rounds', launch
+    counts equal. Saves
     the mesh-free flat round's first parameters for (b)."""
     import torch.distributed as dist
 
@@ -6104,6 +6224,7 @@ def main() -> int:
     t_slice14 = time.perf_counter()
     free_graphs()
     dense_counts = phase_train("dense configs", arch="lm_1b", rounds=2)
+    phase_cost()
     moe_counts = phase_train(
         "moe", arch="phi35_moe", layers=2, rounds=2, cohort=2, local_steps=2,
         batch=1, seq=4096, compression="none")

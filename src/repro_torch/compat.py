@@ -11,13 +11,15 @@ CPU path (the plain PyTorch versions of the kernels), as the tests do.
 
 Also the one place that builds process groups and meshes: the backend
 rule (:func:`dist_backend`), an explicit rendezvous
-(:func:`init_process_group`), ``DeviceMesh`` construction over a rank
-subset (:func:`make_mesh`) and the replicated and named shardings as
+(:func:`init_process_group`), a fake world of one process
+(:func:`fake_world`, the dry run's), ``DeviceMesh`` construction over a
+rank subset (:func:`make_mesh`) and the replicated and named shardings as
 DTensor placement lists.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import shutil
@@ -117,6 +119,26 @@ def init_process_group(rank: int, world_size: int, *, init_method: str,
     return name
 
 
+@contextlib.contextmanager
+def fake_world(world: int, rank: int = 0):
+    """This process as rank ``rank`` of a world of ``world`` ranks whose
+    collectives move nothing (torch's ``"fake"`` backend over a
+    ``FakeStore``): every rank-local decision and every collective call is
+    the real run's, with no peers. Torn down on exit, so another may
+    follow."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a process group is already up")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
 def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
               device: DeviceLike = "cuda", devices=None):
     """A ``DeviceMesh`` of ``shape`` with dim names ``axes`` over the ranks
@@ -150,13 +172,24 @@ def mesh_axis_names(mesh) -> Tuple[str, ...]:
     return tuple(mesh.mesh_dim_names)
 
 
+def mesh_grid(mesh) -> np.ndarray:
+    """The mesh's ranks as an integer array of its shape, read outside any
+    dispatch mode: a ``DeviceMesh`` may build its rank tensor from its
+    layout on each read, which a fake-tensor or tracing mode would
+    otherwise take for a step's own work."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    with _disable_current_modes():
+        return np.asarray(mesh.mesh)
+
+
 def mesh_shape(mesh) -> Tuple[int, ...]:
-    return tuple(int(s) for s in mesh.mesh.shape)
+    return tuple(int(s) for s in mesh_grid(mesh).shape)
 
 
 def mesh_ranks(mesh) -> Tuple[int, ...]:
     """The mesh's ranks, row-major: its device identity."""
-    return tuple(int(r) for r in np.asarray(mesh.mesh).reshape(-1))
+    return tuple(int(r) for r in mesh_grid(mesh).reshape(-1))
 
 
 def replicated_placements(mesh) -> list:

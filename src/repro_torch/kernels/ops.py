@@ -28,7 +28,9 @@ from __future__ import annotations
 import math
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.utils.flop_counter
 
 from . import flash_attention as _fa
 from . import quantize as _quant
@@ -288,6 +290,83 @@ _op("wkv6_bwd", "(Tensor r, Tensor k, Tensor v, Tensor logw, Tensor u, "
     lambda r, k, v, logw, u, states, dout, s0, final, dfinal: tuple(
         t.new_empty(t.shape) for t in (r, k, v, logw, u)) + (
         _empty0(r) if s0 is None else s0.new_empty(s0.shape),))
+
+
+# ---------------------------------------------------------------------------
+# FLOP formulas (``torch.utils.flop_counter``)
+# ---------------------------------------------------------------------------
+#
+# ``FlopCounterMode`` counts an op it has no formula for as 0, and under any
+# dispatch mode each kernel is one ``repro`` node: these formulas count the
+# work each kernel's inputs need, as the ``.cu`` headers count it. The int8
+# kernels (K1, K3) do no products; their bytes are the memory term's.
+
+
+def visible_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs ``ref.visible_mask`` lets attend, counted
+    a query row at a time in numpy (positions start at 0 for both)."""
+    i = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(i, skv - 1) if causal else np.full_like(i, skv - 1)
+    lo = np.maximum(i - window + 1, 0) if window and window > 0 else 0
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _flash_flop(per_pair: int):
+    def formula(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
+        b, sq, hq, hd = q_shape
+        causal, window = args[-2], args[-1]
+        return per_pair * hd * hq * b * visible_pairs(sq, k_shape[1], causal,
+                                                      window)
+
+    return formula
+
+
+# per visible pair and query head: the forward's q.k and p.v (4 hd);
+# bwd_dq recomputes s and dp and forms dq (6 hd); bwd_dkdv recomputes s and
+# dp and forms dv and dk (8 hd)
+torch.utils.flop_counter.register_flop_formula(
+    torch.ops.repro.flash_attention_fwd)(_flash_flop(4))
+torch.utils.flop_counter.register_flop_formula(
+    torch.ops.repro.flash_attention_bwd_dq)(_flash_flop(6))
+torch.utils.flop_counter.register_flop_formula(
+    torch.ops.repro.flash_attention_bwd_dkdv)(_flash_flop(8))
+
+
+@torch.utils.flop_counter.register_flop_formula(torch.ops.repro.lru_scan_fwd)
+def _lru_fwd_flop(a_shape, b_shape, h0_shape, *, out_shape=None,
+                  **kwargs) -> int:
+    """h_t = a_t h_{t-1} + b_t: a product and a sum an element."""
+    return 2 * math.prod(a_shape)
+
+
+@torch.utils.flop_counter.register_flop_formula(torch.ops.repro.lru_scan_bwd)
+def _lru_bwd_flop(a_shape, h_shape, g_shape, h0_shape, *, out_shape=None,
+                  **kwargs) -> int:
+    """dh_t = g_t + a_{t+1} dh_{t+1} and da_t = dh_t h_{t-1}: three an
+    element; dh0 = a_0 dh_0 one a (batch, width) entry, given h0."""
+    b, _, w = a_shape
+    return 3 * math.prod(a_shape) + (b * w if h0_shape is not None else 0)
+
+
+def _wkv_chunks(s: int):
+    c = _ref.WKV_CHUNK
+    return [min(c, s - c * i) for i in range(-(-s // c))]
+
+
+@torch.utils.flop_counter.register_flop_formula(torch.ops.repro.wkv6_fwd)
+def _wkv_fwd_flop(r_shape, *args, out_shape=None, **kwargs) -> int:
+    """Per (batch, head) and chunk of L steps, the chunked form's products:
+    the scores and their product with v (2 L^2 N) and the state's readout
+    and update (4 L N^2)."""
+    b, s, h, n = r_shape
+    return b * h * sum(2 * L * L * n + 4 * L * n * n for L in _wkv_chunks(s))
+
+
+@torch.utils.flop_counter.register_flop_formula(torch.ops.repro.wkv6_bwd)
+def _wkv_bwd_flop(r_shape, *args, out_shape=None, **kwargs) -> int:
+    """Per (batch, head) and chunk of L steps: 5 L^2 N + 8 L N^2."""
+    b, s, h, n = r_shape
+    return b * h * sum(5 * L * L * n + 8 * L * n * n for L in _wkv_chunks(s))
 
 
 # ---------------------------------------------------------------------------

@@ -350,7 +350,8 @@ def _gather_one(t: torch.Tensor, dim: int, d: int, mesh) -> torch.Tensor:
             dist.all_reduce(full.view(-1).view(torch.uint8), group=group)
         return full
     ranks = dist.get_process_group_ranks(group)
-    mesh_ranks = [int(r) for r in mesh.mesh.swapdims(-1, d).reshape(
+    grid = compat.mesh_grid(mesh)
+    mesh_ranks = [int(r) for r in grid.swapaxes(-1, d).reshape(
         -1, k)[_row_of(d, mesh)]]
     if ranks != mesh_ranks:
         raise RuntimeError(f"mesh dim {d}'s group ranks {ranks} are not in "

@@ -43,6 +43,19 @@ ARCH_IDS = ("lm_350m", "lm_1b", "lm_8b", "yi_34b", "internlm2_20b",
             "seamless_m4t_medium")
 
 
+# The dry run's shape cells (``repro/models/registry.py:38-47``).
+SHAPE_CELLS: Dict[str, Dict[str, int]] = {
+    "train_4k": dict(seq_len=4096, global_batch=256, kind="train"),
+    "prefill_32k": dict(seq_len=32768, global_batch=32, kind="prefill"),
+    "decode_32k": dict(seq_len=32768, global_batch=128, kind="decode"),
+    "long_500k": dict(seq_len=524288, global_batch=1, kind="decode"),
+}
+
+# archs whose cost grows less than quadratically in the sequence: the only
+# ones that run the 512k decode cell
+SUBQUADRATIC = ("recurrentgemma_2b", "rwkv6_3b")
+
+
 def get_config(arch: str) -> ModelConfig:
     if arch not in ARCH_IDS:
         raise ValueError(f"arch {arch!r} is not ported; have {ARCH_IDS}")

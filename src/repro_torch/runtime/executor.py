@@ -78,6 +78,7 @@ import hashlib
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.fx as fx
 from torch.utils import _pytree as pytree
@@ -889,9 +890,10 @@ def _broadcast_tree(tree, mesh, src: int):
     copied, never written)."""
     import torch.distributed as dist
 
-    grid = torch.as_tensor(mesh.mesh)
-    src_coord = [int(c[0]) for c in torch.nonzero(grid == src,
-                                                  as_tuple=True)]
+    from .. import compat
+
+    grid = compat.mesh_grid(mesh)
+    src_coord = [int(c) for c in np.argwhere(grid == src)[0]]
     coord = mesh.get_coordinate()
     leaves, spec = pytree.tree_flatten(tree)
     out = [x.detach().clone() if isinstance(x, torch.Tensor) else x

@@ -885,3 +885,68 @@ def fsdp_layer_gathers(rank, world, wd):
                     for e in partitioning.spec_for(ax, shapes[k])
                     if e is not None))
     return out
+
+
+# ---------------------------------------------------------------------------
+# the dry run's counts in a real world (tests/test_torch_dryrun.py)
+# ---------------------------------------------------------------------------
+
+# name -> (arch, kind, algorithm, mesh shape): reduced f32 widths (_f32),
+# global batch 8, sequence 16; lm_350m splits its clients' rows over
+# "model" (dp), lm_1b its heads, FFN and vocabulary (tp)
+DRYRUN_CASES = {
+    "sgd_350m": ("lm_350m", "train", "sgd", (2, 2)),
+    "round_350m": ("lm_350m", "train", "local_sgd", (2, 2)),
+    "prefill_1b": ("lm_1b", "prefill", "sgd", (2, 2)),
+    "sgd_1b": ("lm_1b", "train", "sgd", (2, 2, 2)),
+    "round_1b": ("lm_1b", "train", "local_sgd", (2, 2, 2)),
+    "decode_1b": ("lm_1b", "decode", "sgd", (2, 2, 2)),
+}
+DRYRUN_AXES = {2: ("data", "model"), 3: ("pod", "data", "model")}
+DRYRUN_BATCH, DRYRUN_SEQ = 8, 16
+
+
+def dryrun_counts(rank, world, wd):
+    """Each :data:`DRYRUN_CASES` case of this world's size on a gloo mesh:
+    ``dryrun.build_step``'s step on real tensors at its placements, with
+    its collectives and FLOPs counted as the dry run counts them; and the
+    bytes of a rank's storage blocks of the whole parameters and AdamW
+    state that ``steps.shard_tree`` places by the step's rules (the serve
+    steps': FSDP for MoE only)."""
+    import math
+
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.models import registry
+
+    out = {}
+    for name, (arch, kind, alg, shape) in DRYRUN_CASES.items():
+        if math.prod(shape) != world:
+            continue
+        mesh = mesh_lib.make_mesh(shape, DRYRUN_AXES[len(shape)],
+                                  device="cpu")
+        cfg = _f32(arch)
+        step, specs, placements = dryrun.build_step(
+            cfg, kind, mesh, batch=DRYRUN_BATCH, seq=DRYRUN_SEQ,
+            algorithm=alg, n_groups=math.prod(shape[:-1]))
+        gen = torch.Generator().manual_seed(0)
+
+        def make(shp, dtype):
+            if dtype.is_floating_point:
+                return (0.02 * torch.randn(shp, generator=gen)).to(dtype)
+            return torch.zeros(shp, dtype=dtype)
+
+        args = dryrun.materialize(specs, placements, mesh, make)
+        counted = dryrun.count_step(step, args, track_memory=False)
+        params = registry.init_params(cfg, seed=0, device="cpu")
+        p_axes = registry.param_axes(cfg)
+        rules = (steps.strategy_rules(cfg, True) if kind == "train" else
+                 steps.fsdp_rules(steps._serve_fsdp(cfg, None)))
+        opt = optim.adamw(3e-4).init(params)
+        out[name] = dict(
+            collectives=counted["collectives"], flops=counted["flops"],
+            param_bytes=dryrun.local_bytes(
+                steps.shard_tree(params, p_axes, mesh, rules)),
+            optimizer_bytes=dryrun.local_bytes(steps.shard_tree(
+                opt, steps._optimizer_axes("adamw", p_axes), mesh, rules)),
+            whole_param_bytes=dryrun.local_bytes(params))
+    return out
