@@ -337,7 +337,8 @@ Phases, each reported on its own line (any failure raises, exit != 0):
    its ms;
 27. after [chaos] and [mesh], ``tp``: the model-parallel half of the
    distributed layer in gloo worlds whose ranks share the card
-   (``--mesh-rank tp|tpc``): (a) ``make_sgd_train_step`` of whole lm_1b
+   (``--mesh-rank tp|tpc``): (a) ``make_sgd_train_step`` of lm_1b at 8
+   of its 24 layers
    (2 AdamW steps, B 4 x S 512) on a (data 1, model 2) mesh, K2's wgmma
    kernels on each rank's 8 heads, the losses within 2^-10 relative of the
    mesh-free steps' and the update within 2^-2 of theirs (the worst
@@ -348,7 +349,20 @@ Phases, each reported on its own line (any failure raises, exit != 0):
    ``tpcomm.int8_wire_bytes``; each wire timed warm, without the spies
    that check the bound); (c) ``make_drjax_round_step`` of lm_350m
    (dp) on a (data 2, model 2) mesh of 4 ranks, with ``all_reduce``s over
-   "data" and "model", held to the mesh-free round.
+   "data" and "model", held to the mesh-free round;
+28. after [tp], ``serve mesh``: serving on a (data 2, model 1) mesh of 2
+   gloo ranks sharing the card (``--mesh-rank sm``): (a) full-width
+   stablelm_3b through both schedulers with ``mesh=`` (4 slots, 2 a rank,
+   8 requests of 16-512 tokens, 32 new, chunk 64; the steps eager, every
+   step's next tokens gathered), each rank's tokens held token for token
+   to the mesh-free scheduler with one rank's slots (the 4-slot run's
+   agreement logged beside it), tokens/s, TTFT, ITL, the decode step's
+   ms, pool MiB a rank, peak GiB and the bytes a step gathers logged; (b)
+   phi35_moe at 2 of 32 layers, full width: a prefill of B 8 x S 64 (one
+   routing group of 512 over both ranks) and 16 greedy decode steps at B 8
+   (a group of 8 over both), every MoE call's choices, kept choices and
+   slots bitwise the one-rank run's, the tokens equal, the logits within
+   one bf16 step of the largest, K2's launches a rank logged.
 
 Then one JSON line with every kernel's launches, error and times (the K2
 rows with their launches in [pipeline], [maml] and [btm], the split-KV
@@ -5356,6 +5370,9 @@ def phase_chaos(smi: str) -> dict:
 # time a multi-card run. The spawned ranks run this file with
 # ``--mesh-rank`` and load the kernels [build] built.
 MESH_TIMEOUT_S = 300.0
+# [mesh]'s flat rounds at 8 of lm_350m's 24 layers since [serve mesh]
+# (24 before), to keep the smoke inside its time limit
+MESH_LAYERS = 8
 MESH_SOAK = dict(rounds=20, seed=1, num_pods=4, clients_per_pod=2,
                  num_device_failures=1, num_elastic_events=2,
                  num_ckpt_faults=1, checkpoint_every=4, audit_every=8,
@@ -5363,8 +5380,10 @@ MESH_SOAK = dict(rounds=20, seed=1, num_pods=4, clients_per_pod=2,
 
 
 def mesh_flat_round(mesh=None, ann: bool = True):
-    """[flat]'s int8 round of full lm_350m (cohort 4, seq 512), its clients
-    over "data" of ``mesh`` when given."""
+    """[flat]'s int8 round of lm_350m at full width and ``MESH_LAYERS``
+    of its 24 layers (cohort 4, seq 512), its clients over "data" of
+    ``mesh`` when given."""
+    import dataclasses
     import functools
 
     from repro_torch.algorithms import rounds
@@ -5372,7 +5391,8 @@ def mesh_flat_round(mesh=None, ann: bool = True):
     from repro_torch.models import registry
 
     args = flat_args()
-    cfg = registry.get_config(args.arch)
+    cfg = dataclasses.replace(registry.get_config(args.arch),
+                              num_layers=MESH_LAYERS)
     client_opt, server_opt = train.optimizers(args)
     round_cfg = rounds.LocalSGDConfig(
         partition_size=args.cohort, num_local_steps=args.local_steps,
@@ -5558,6 +5578,8 @@ def mesh_rank_main(kind: str, rank: int, world: int, rdzv: str,
     torch.backends.cudnn.allow_tf32 = False
     if kind in ("tp", "tpc"):
         out = tp_rank_main(kind, rank, world, workdir)
+    elif kind == "sm":
+        out = serve_mesh_rank(rank, world, workdir)
     else:
         out = (mesh_rank_flat(rank, world, workdir) if kind == "b"
                else mesh_rank_soak(rank, world, workdir))
@@ -5679,7 +5701,9 @@ def phase_mesh() -> dict:
 # gloo worlds whose ranks share it, as [mesh]'s (b) and (c): (a) and (b)
 # on a (data 1, model 2) mesh of 2 ranks, (c) on a (data 2, model 2) mesh
 # of 4. The multi-rank paths run; a multi-card run is not timed.
-TP_TRAIN = dict(arch="lm_1b", batch=4, seq=512, steps=2, lr=3e-4)
+# (a) at full width and 8 of lm_1b's 24 layers since [serve mesh] (24
+# before), to keep the smoke inside its time limit
+TP_TRAIN = dict(arch="lm_1b", layers=8, batch=4, seq=512, steps=2, lr=3e-4)
 TP_PREFILL = dict(arch="qwen2_72b", layers=2, batch=4, seq=512)
 TP_ROUND = dict(arch="lm_350m", partition=4, local_steps=2, batch=2,
                 seq=512)
@@ -5756,10 +5780,12 @@ def tp_entries() -> dict:
 
 
 def tp_rank_train(rank: int, world: int, workdir: str) -> dict:
-    """(a) on one rank: two AdamW steps of whole lm_1b on the (data 1,
-    model 2) mesh, parameters and moments as DTensors; rank 0 then runs
-    the mesh-free steps from the same parameters and holds the mesh's to
-    them."""
+    """(a) on one rank: two AdamW steps of lm_1b at full width and
+    ``TP_TRAIN``'s layers on the (data 1, model 2) mesh, parameters and
+    moments as DTensors; rank 0 then runs the mesh-free steps from the
+    same parameters and holds the mesh's to them."""
+    import dataclasses
+
     import torch.distributed as dist
 
     from repro_torch import optim
@@ -5770,7 +5796,8 @@ def tp_rank_train(rank: int, world: int, workdir: str) -> dict:
 
     run = TP_TRAIN
     mesh = mesh_lib.make_mesh((1, world), ("data", "model"), device="cuda")
-    cfg = registry.get_config(run["arch"])
+    cfg = dataclasses.replace(registry.get_config(run["arch"]),
+                              num_layers=run["layers"])
     whole = registry.init_params(cfg, seed=0, device="cuda")
     batches = [registry.make_batch(cfg, run["batch"], run["seq"], seed=s,
                                    device="cuda") for s in (1, 2)]
@@ -5996,8 +6023,8 @@ def tp_rank_main(kind: str, rank: int, world: int, workdir: str) -> dict:
 
 
 def phase_tp() -> dict:
-    """[tp]: (a) ``make_sgd_train_step`` of whole lm_1b (24 x d 2048, 16
-    heads x 128, tp, AdamW, FSDP off) on B 4 x S 512, 2 steps, on a (data
+    """[tp]: (a) ``make_sgd_train_step`` of lm_1b at full width and 8 of
+    its 24 layers (d 2048, 16 heads x 128, tp, AdamW, FSDP off) on B 4 x S 512, 2 steps, on a (data
     1, model 2) mesh of 2 gloo ranks sharing the card; (b) the prefill of
     qwen2_72b at 2 of 80 layers, full width, B 4 x S 512, bf16 wire and
     int8; (c) ``make_drjax_round_step`` of lm_350m (dp), partition 4, 2
@@ -6038,7 +6065,9 @@ def phase_tp() -> dict:
             f"{TP_TRAIN_UPDATE_GAP}: {a0['control_gap']}")
     route = "all_reduce" if "gather/all_reduce" in a0["routes"] else \
         "all_gather"
-    log("tp", step="a", arch=TP_TRAIN["arch"], mesh="(data 1, model 2)",
+    log("tp", step="a", arch=TP_TRAIN["arch"],
+        layers=f"{TP_TRAIN['layers']} of {cfg.num_layers}",
+        mesh="(data 1, model 2)",
         ranks=2, backend="gloo", batch=TP_TRAIN["batch"], seq=TP_TRAIN["seq"],
         losses=a0["losses"], mesh_free_losses=a0["plain_losses"],
         update_gap=a0["update_gap"], update_gate=TP_TRAIN_UPDATE_GAP,
@@ -6128,6 +6157,421 @@ def phase_tp() -> dict:
         two_ranks_s=f"{t_ab:.1f}",
         four_ranks_s=f"{time.perf_counter() - t0 - t_ab:.1f}")
     return {"a": tr, "b": pf, "c": rd}
+
+
+# [serve mesh]: serving on a data-parallel mesh, in a gloo world of 2
+# ranks sharing the card (``--mesh-rank sm``) on a (data 2, model 1) mesh:
+# (a) stablelm_3b (the reference serve's default) through both schedulers
+# with ``mesh=``, 4 slots (2 a rank), held token for token to the
+# mesh-free schedulers; (b) phi35_moe at 2 of 32 layers, full width: a
+# prefill of B 8 x S 64 (one routing group of 512 tokens over both
+# ranks), then 16 greedy decode steps at B 8 (a group of 8 over both
+# ranks), held to the mesh-free run of the whole batch on each rank.
+SERVE_MESH_A = dict(arch="stablelm_3b", requests=8, slots=4, lens=(16, 512),
+                    max_new=32, chunk=64, max_len=576)
+SERVE_MESH_B = dict(arch="phi35_moe", layers=2, batch=8, seq=64,
+                    decode_steps=16)
+
+
+def serve_mesh_rank_a(rank: int, mesh) -> dict:
+    """(a) on one rank: each scheduler with ``mesh=`` over a warm-up
+    request, then the seeded requests timed; a decode step alone (ms and
+    the bytes it gathers); then, on rank 0, the mesh-free schedulers on
+    the same requests (captured CUDA graphs)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.models import partitioning, registry
+
+    run = SERVE_MESH_A
+    cfg = registry.get_config(run["arch"])
+    torch.cuda.reset_peak_memory_stats()
+    params = registry.init_params(cfg, seed=0, device="cuda")
+    classes = (("continuous", serve_lib.ContinuousBatchingScheduler),
+               ("static", serve_lib.StaticWaveScheduler))
+    out = {}
+
+    def requests(seed=0):
+        return serve_requests(serve_lib, cfg, seed, run["requests"],
+                              run["lens"], run["max_new"])
+
+    for label, cls in classes:
+        sched = cls(cfg, params, run["slots"], max_len=run["max_len"],
+                    chunk=run["chunk"], mesh=mesh)
+        sched.run(serve_requests(serve_lib, cfg, 100, 1,
+                                 (2 * run["chunk"] - 1,) * 2, 2))
+        reqs = requests()
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        partitioning.reset_routes()
+        t0 = time.perf_counter()
+        sched.run(reqs)
+        torch.cuda.synchronize()
+        stats = latency_stats(reqs, time.perf_counter() - t0)
+        launches = {k: n for k, n in ops.launch_counts().items() if n}
+        run_routes = {str(k): v for k, v in partitioning.ROUTES.items()}
+        partitioning.reset_routes()
+        sched._decode_all()
+        torch.cuda.synchronize()
+        step_routes = {str(k): v for k, v in partitioning.ROUTES.items()}
+        step_ms = time_ms(sched._decode_all, warmup=2, iters=10)
+        leaves = [t.to_local() for t in
+                  torch.utils._pytree.tree_leaves(sched._pool)]
+        out[label] = dict(
+            tokens=[r.generated for r in reqs], stats=stats,
+            launches=launches, routes=run_routes, step_routes=step_routes,
+            decode_step_ms=step_ms, captured=sched.captured,
+            replayed=sched.replayed_launches(),
+            pool_mib=sum(t.numel() * t.element_size() for t in leaves)
+            / 2**20, local_slots=int(leaves[0].shape[0]),
+            builds=[sched.prefill_traces, sched.decode_traces])
+        del sched, leaves
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    if rank == 0:
+        # the mesh-free schedulers with the pool's slots, and with the
+        # slots of one rank (each decode step the same rows' products as a
+        # rank's)
+        for label, cls in classes:
+            for key, slots in (("mesh_free", run["slots"]),
+                               ("rank_slots", run["slots"] // 2)):
+                sched = cls(cfg, params, slots, max_len=run["max_len"],
+                            chunk=run["chunk"])
+                sched.run(serve_requests(serve_lib, cfg, 100, 1,
+                                         (2 * run["chunk"] - 1,) * 2, 2))
+                reqs = requests()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sched.run(reqs)
+                torch.cuda.synchronize()
+                out[label][f"{key}_tokens"] = [r.generated for r in reqs]
+                out[label][f"{key}_stats"] = latency_stats(
+                    reqs, time.perf_counter() - t0)
+                del sched
+        free_graphs()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_mesh_routing(seen, k: int, e: int, lo: int, n: int) -> list:
+    """The tokens [lo, lo + n) of each recorded ``moe.route`` call: expert
+    choices, kept choices and slots (int64), and weights."""
+    out = []
+    for r in seen:
+        flat = [r.onehot.reshape(-1, k, e), r.kept.reshape(-1, k, e),
+                r.slot.reshape(-1, k, e), r.weights.reshape(-1, k)]
+        out.append([t[lo:lo + n] for t in flat])
+    return out
+
+
+def serve_mesh_rank_b(rank: int, world: int, mesh) -> dict:
+    """(b) on one rank: the mesh-free prefill and greedy decode steps of
+    the whole batch, then the same on the mesh (the rank's rows), every
+    MoE call's routing recorded; the rank's tokens' routing, its logits
+    and the greedy tokens held to the mesh-free run's."""
+    import dataclasses
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import moe, partitioning, registry
+
+    run = SERVE_MESH_B
+    cfg = dataclasses.replace(registry.get_config(run["arch"]),
+                              num_layers=run["layers"])
+    k, e = cfg.experts_per_token, cfg.num_experts
+    b, s, n_dec = run["batch"], run["seq"], run["decode_steps"]
+    torch.cuda.reset_peak_memory_stats()
+    params = registry.init_params(cfg, seed=0, device="cuda")
+    prompt = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)).cuda()
+    real_route = moe.route
+
+    def greedy(pre, dec, rows):
+        """Prefill, then ``n_dec`` decode steps feeding the whole batch's
+        greedy tokens: logits of each step, the tokens, the routing."""
+        seen = []
+
+        def spy(cfg_, p, xg):
+            r = real_route(cfg_, p, xg)
+            seen.append(r)
+            return r
+
+        moe.route = spy
+        try:
+            logits, caches = pre(params, {"tokens": prompt})
+            all_logits, tokens = [logits], []
+            for _ in range(n_dec):
+                tok = rows(logits.argmax(-1).to(torch.int32)[:, None])
+                tokens.append(tok)
+                logits, caches = dec(params, tok, caches)
+                all_logits.append(logits)
+        finally:
+            moe.route = real_route
+        torch.cuda.synchronize()
+        return all_logits, tokens, seen
+
+    want_logits, want_tokens, want_seen = greedy(
+        steps.make_prefill_step(cfg, max_len=s + n_dec),
+        steps.make_decode_step(cfg), lambda t: t)
+    rows = b // world
+    lo = rank * rows
+    with partitioning.axis_rules(mesh):
+        dims = partitioning.mesh_dims(partitioning.resolve_axis("batch", b))
+
+    def whole_tokens(t):
+        with partitioning.axis_rules(mesh):
+            return partitioning.gather_exact(t.contiguous(), 0, dims)
+
+    pre = steps.make_prefill_step(cfg, mesh, max_len=s + n_dec)
+    dec = steps.make_decode_step(cfg, mesh)
+    greedy(pre, dec, whole_tokens)  # warm
+    ops.reset_launches()
+    partitioning.reset_routes()
+    t0 = time.perf_counter()
+    got_logits, got_tokens, got_seen = greedy(pre, dec, whole_tokens)
+    seconds = time.perf_counter() - t0
+    launches = {key: n for key, n in ops.launch_counts().items() if n}
+    entries = tp_entries()
+    routes = {str(key): v for key, v in partitioning.ROUTES.items()}
+    # the tokens of the rank's rows in each call's grouped tokens: the
+    # prefill's one group of b x s and each decode step's group of b
+    calls = []
+    for i, (want_r, got_r) in enumerate(zip(want_seen, got_seen)):
+        per = s if i < cfg.num_layers else 1
+        mine = serve_mesh_routing([got_r], k, e, lo * per, rows * per)[0]
+        ref = serve_mesh_routing([want_r], k, e, lo * per, rows * per)[0]
+        gates = [r_.gates.reshape(-1, e)[lo * per:(lo + rows) * per]
+                 for r_ in (got_r, want_r)]
+        calls.append(dict(
+            choice_tokens_differ=int((mine[0] != ref[0]).flatten(1).any(1)
+                                     .sum()),
+            gates_max_diff=float((gates[0] - gates[1]).abs().max()),
+            choices=torch.equal(mine[0], ref[0]),
+            kept=torch.equal(mine[1], ref[1]),
+            slot=torch.equal(mine[2], ref[2]),
+            weights=torch.equal(mine[3], ref[3]),
+            tokens=int(got_r.onehot.shape[0] * got_r.onehot.shape[1])))
+    def steps_off(got, want):
+        """The largest |got - want| in units of one bf16 step of each
+        element plus 1e-3 of the largest magnitude."""
+        want = want.float()
+        bound = 2.0 ** -7 * want.abs() + 1e-3 * want.abs().max()
+        return float(((got.float() - want).abs() / bound).max())
+
+    def of_largest(got, want):
+        """The largest |got - want| in units of one bf16 step of the
+        largest magnitude."""
+        want = want.float()
+        return float((got.float() - want).abs().max()
+                     / (2.0 ** -7 * want.abs().max()))
+
+    pairs = [(got, want[lo:lo + rows])
+             for got, want in zip(got_logits, want_logits)]
+    per_step = [steps_off(got, want) for got, want in pairs]
+    worst = max(per_step)
+    worst_of_largest = max(of_largest(got, want) for got, want in pairs)
+    bitwise_steps = sum(torch.equal(got, want) for got, want in pairs)
+    # the control: the one-rank prefill of the batch twice over (B 16: two
+    # routing groups, each this batch's group), its first 8 rows against
+    # the B 8 prefill's: the same function at twice the GEMMs' rows
+    pre_one = steps.make_prefill_step(cfg, max_len=s + n_dec)
+    twice, _ = pre_one(params, {"tokens": torch.cat([prompt, prompt])})
+    control = steps_off(twice[:b], want_logits[0])
+    control_rows = steps_off(twice[lo:lo + rows], want_logits[0][lo:lo + rows])
+    del twice
+    out = dict(
+        calls=calls, n_calls=[len(want_seen), len(got_seen)],
+        tokens_equal=all(torch.equal(g, w) for g, w in
+                         zip(got_tokens, want_tokens)),
+        logits_worst=worst, logits_per_step=per_step,
+        logits_of_largest=worst_of_largest, bitwise_steps=bitwise_steps,
+        control_b16=control, control_b16_rows=control_rows,
+        seconds=seconds, launches=launches,
+        entries=entries, routes=routes,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_mesh_rank(rank: int, world: int, workdir: str) -> dict:
+    from repro_torch.launch import mesh as mesh_lib
+
+    mesh = mesh_lib.make_mesh((world, 1), ("data", "model"), device="cuda")
+    t0 = time.perf_counter()
+    a = serve_mesh_rank_a(rank, mesh)
+    t_a = time.perf_counter() - t0
+    b = serve_mesh_rank_b(rank, world, mesh)
+    return {"a": a, "b": b, "a_s": t_a, "b_s": time.perf_counter() - t0 - t_a}
+
+
+def token_agreement(got: list, want: list) -> dict:
+    """Requests equal token for token, and the share of tokens equal."""
+    same = sum(g == w for g, w in zip(got, want))
+    pairs = [(a, b) for g, w in zip(got, want) for a, b in zip(g, w)]
+    return {"requests_equal": f"{same}/{len(want)}",
+            "token_share": sum(a == b for a, b in pairs) / max(len(pairs), 1),
+            "all": same == len(want) and len(got) == len(want)}
+
+
+def phase_serve_mesh() -> dict:
+    """[serve mesh]: (a) and (b) above in one world of 2 gloo ranks; every
+    gate fails the run, after both are logged. Returns each rank's K2
+    launches in (b).
+
+    (b)'s gates: every MoE call's expert choices, kept choices and slots
+    bitwise, the greedy tokens equal, and each step's logits within one
+    bf16 step of its largest magnitude (``2^-7 max |want|``) of the
+    one-rank run. A rank's decode GEMMs take 4 rows where the one-rank
+    run's take 8, and now and then an activation rounds one bf16 step
+    apart; such a step moves a logit near 0 by a few steps of its own
+    magnitude, so the per-element form (``2^-7 |want| + 1e-3 max |want|``)
+    is logged, not gated. The control, the one-rank prefill of the batch
+    twice over (two routing groups, each this batch's) against the
+    batch's, is logged.
+
+    (a)'s gate holds each rank's tokens, token for token, to the
+    mesh-free scheduler with the slots of one rank: a rank decodes its 2
+    slots as a batch of 2, and cuBLAS picks its bf16 GEMM by the row
+    count, so a row's logits round otherwise in a batch of 4; the
+    mesh-free runs with 4 and with 2 slots are logged beside it (the
+    CPU tests hold the mesh to the reference's 4-slot scheduler
+    exactly)."""
+    import tempfile
+
+    from repro_torch.models import registry
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="serve_mesh_") as workdir:
+        ranks = mesh_world("sm", 2, workdir)
+    run = SERVE_MESH_A
+    gates = []
+    for label in ("continuous", "static"):
+        a0 = ranks[0]["a"][label]
+        agree = {f"rank{i}": token_agreement(r["a"][label]["tokens"],
+                                             a0["rank_slots_tokens"])
+                 for i, r in enumerate(ranks)}
+        agree_whole = {f"rank{i}": token_agreement(
+            r["a"][label]["tokens"], a0["mesh_free_tokens"])
+            for i, r in enumerate(ranks)}
+        control = token_agreement(a0["rank_slots_tokens"],
+                                  a0["mesh_free_tokens"])
+        for rank, r in enumerate(ranks):
+            a = r["a"][label]
+            gates.append((agree[f"rank{rank}"]["all"],
+                          f"[serve mesh] (a) {label} rank {rank}: tokens "
+                          f"differ from the mesh-free scheduler's with the "
+                          f"rank's slots: {agree[f'rank{rank}']}"))
+            gates.append((a["local_slots"] == run["slots"] // 2
+                          and not a["captured"] and not a["replayed"],
+                          f"[serve mesh] (a) {label} rank {rank}: local "
+                          f"slots {a['local_slots']}, captured "
+                          f"{a['captured']}"))
+        st = a0["stats"]
+        free, half = a0["mesh_free_stats"], a0["rank_slots_stats"]
+        log("serve mesh", step="a", arch=run["arch"], scheduler=label,
+            mesh="(data 2, model 1)", ranks=2, backend="gloo",
+            requests=run["requests"], slots=f"{run['slots']} (2 a rank)",
+            prompts=f"{run['lens'][0]}-{run['lens'][1]}",
+            max_new=run["max_new"], chunk=run["chunk"], replayed=False,
+            vs_rank_slots=json.dumps({k: {"requests": v["requests_equal"],
+                                          "share": round(v["token_share"], 4)}
+                                      for k, v in agree.items()}),
+            vs_mesh_free_4_slots=json.dumps(
+                {k: {"requests": v["requests_equal"],
+                     "share": round(v["token_share"], 4)}
+                 for k, v in agree_whole.items()}),
+            control_2_vs_4_slots_mesh_free=json.dumps(
+                {"requests": control["requests_equal"],
+                 "share": round(control["token_share"], 4)}),
+            tokens=st["tokens"],
+            tokens_per_s=[round(r["a"][label]["stats"]["tokens_per_s"], 1)
+                          for r in ranks],
+            ttft_p50_s=f"{st['ttft_p50_s']:.4f}",
+            ttft_p99_s=f"{st['ttft_p99_s']:.4f}",
+            itl_p50_ms=f"{st['itl_p50_ms']:.3f}",
+            itl_p99_ms=f"{st['itl_p99_ms']:.3f}",
+            decode_step_ms=[round(r["a"][label]["decode_step_ms"], 4)
+                            for r in ranks],
+            pool_mib_a_rank=round(a0["pool_mib"], 2),
+            pool_mib_whole=round(registry.slot_pool_bytes(
+                registry.get_config(run["arch"]), run["slots"],
+                run["max_len"]) / 2**20, 2),
+            step_gathered=json.dumps(a0["step_routes"]),
+            run_routes=json.dumps(a0["routes"]), builds=a0["builds"],
+            launches=json.dumps(a0["launches"]),
+            mesh_free_tokens_per_s=f"{free['tokens_per_s']:.1f}",
+            mesh_free_itl_p50_ms=f"{free['itl_p50_ms']:.3f}",
+            rank_slots_tokens_per_s=f"{half['tokens_per_s']:.1f}",
+            rank_slots_itl_p50_ms=f"{half['itl_p50_ms']:.3f}")
+    log("serve mesh", step="a",
+        peak_gib=[round(r["a"]["peak_gib"], 2) for r in ranks],
+        seconds=[round(r["a_s"], 1) for r in ranks])
+    run = SERVE_MESH_B
+    for rank, r in enumerate(ranks):
+        b = r["b"]
+        gates.append((b["n_calls"][0] == b["n_calls"][1]
+                      == run["layers"] * (1 + run["decode_steps"]),
+                      f"[serve mesh] (b) rank {rank}: MoE calls "
+                      f"{b['n_calls']}"))
+        for i, c in enumerate(b["calls"]):
+            gates.append((c["choices"] and c["kept"] and c["slot"],
+                          f"[serve mesh] (b) rank {rank}: MoE call {i} "
+                          f"routes its tokens otherwise than the one-rank "
+                          f"run: {c}"))
+        gates.append((b["tokens_equal"], f"[serve mesh] (b) rank {rank}: "
+                      f"greedy tokens differ"))
+        gates.append((b["logits_of_largest"] <= 1.0,
+                      f"[serve mesh] (b) rank {rank}: logits "
+                      f"{b['logits_of_largest']:.3f} of one bf16 step of "
+                      f"the largest"))
+        gates.append((b["launches"].get("flash_attention_fwd", 0)
+                      == run["layers"] and b["entries"].get(
+                          "repro_flash_wg_fwd", 0) == run["layers"],
+                      f"[serve mesh] (b) rank {rank}: K2 {b['launches']} "
+                      f"{b['entries']}"))
+    b0 = ranks[0]["b"]
+    log("serve mesh", step="b", arch=run["arch"],
+        layers=f"{run['layers']} of 32", mesh="(data 2, model 1)",
+        prefill=f"B {run['batch']} x S {run['seq']}",
+        group_tokens=[b0["calls"][0]["tokens"], b0["calls"][-1]["tokens"]],
+        decode_steps=run["decode_steps"],
+        routing_equal_calls=[sum(c["choices"] and c["kept"] and c["slot"]
+                                 for c in r["b"]["calls"]) for r in ranks],
+        calls=len(b0["calls"]),
+        weights_equal_calls=[sum(c["weights"] for c in r["b"]["calls"])
+                             for r in ranks],
+        choice_tokens_differ=[[c["choice_tokens_differ"]
+                               for c in r["b"]["calls"]] for r in ranks],
+        gates_max_diff=[max(c["gates_max_diff"] for c in r["b"]["calls"])
+                        for r in ranks],
+        tokens_equal=[r["b"]["tokens_equal"] for r in ranks],
+        logits_worst_over_bf16_step=[round(r["b"]["logits_worst"], 4)
+                                     for r in ranks],
+        logits_per_step=[[round(v, 3) for v in r["b"]["logits_per_step"]]
+                         for r in ranks],
+        logits_over_one_step_of_largest=[
+            round(r["b"]["logits_of_largest"], 4) for r in ranks],
+        bitwise_steps=[f"{r['b']['bitwise_steps']}/"
+                       f"{len(r['b']['logits_per_step'])}" for r in ranks],
+        control_b16_prefill=[round(r["b"]["control_b16"], 4)
+                             for r in ranks],
+        control_b16_prefill_rows=[round(r["b"]["control_b16_rows"], 4)
+                                  for r in ranks],
+        k2_launches=[r["b"]["launches"].get("flash_attention_fwd", 0)
+                     for r in ranks],
+        k2_entries=[r["b"]["entries"] for r in ranks],
+        seconds=[round(r["b"]["seconds"], 3) for r in ranks],
+        peak_gib=[round(r["b"]["peak_gib"], 2) for r in ranks],
+        routes=json.dumps(b0["routes"]))
+    log("serve mesh", seconds=f"{time.perf_counter() - t0:.1f}")
+    for ok, what in gates:
+        require(ok, what)
+    return {"k2_launches": [r["b"]["launches"].get("flash_attention_fwd", 0)
+                            for r in ranks]}
 
 
 def main() -> int:
@@ -6244,6 +6688,8 @@ def main() -> int:
     phase_mesh()
     free_graphs()
     phase_tp()
+    free_graphs()
+    serve_mesh = phase_serve_mesh()
     log("new phases", seconds=f"{time.perf_counter() - t_new:.1f}")
     launches = {"quantize": flat_counts["quantize"],
                 "dequantize": flat_counts["dequantize"],
@@ -6362,7 +6808,9 @@ def main() -> int:
             "llava_next_34b prefill": vlm["prefill_k2_launches"],
             "seamless_m4t_medium prefill": encdec["serve"]["prefill_k2"],
             "seamless_m4t_medium 32 decode steps":
-                encdec["serve"]["decode_k2"]},
+                encdec["serve"]["decode_k2"],
+            "phi35_moe (2 layers) mesh prefill, each rank":
+                serve_mesh["k2_launches"]},
         "lru_scan_fwd": chunk_launches("recurrentgemma_2b", "lru_scan_fwd"),
         "wkv6_fwd": chunk_launches("rwkv6_3b", "wkv6_fwd"),
     }

@@ -23,6 +23,7 @@ import contextlib
 import math
 import os
 import shutil
+import weakref
 from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -172,15 +173,29 @@ def mesh_axis_names(mesh) -> Tuple[str, ...]:
     return tuple(mesh.mesh_dim_names)
 
 
+# a DeviceMesh's rank grid, read once: the mesh is immutable, and torch
+# 2.13 rebuilds the grid from its layout on every read (about a quarter of
+# a millisecond, which the partitioning helpers pay several times a leaf)
+_GRIDS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
 def mesh_grid(mesh) -> np.ndarray:
-    """The mesh's ranks as an integer array of its shape, read outside any
-    dispatch mode: a ``DeviceMesh`` may build its rank tensor from its
-    layout on each read, which a fake-tensor or tracing mode would
-    otherwise take for a step's own work."""
+    """The mesh's ranks as a read-only integer array of its shape, read
+    outside any dispatch mode: a ``DeviceMesh`` may build its rank tensor
+    from its layout on each read, which a fake-tensor or tracing mode
+    would otherwise take for a step's own work. A ``DeviceMesh``'s is read
+    once."""
+    from torch.distributed.device_mesh import DeviceMesh
     from torch.utils._python_dispatch import _disable_current_modes
 
-    with _disable_current_modes():
-        return np.asarray(mesh.mesh)
+    grid = _GRIDS.get(mesh) if isinstance(mesh, DeviceMesh) else None
+    if grid is None:
+        with _disable_current_modes():
+            grid = np.array(mesh.mesh)
+        grid.flags.writeable = False
+        if isinstance(mesh, DeviceMesh):
+            _GRIDS[mesh] = grid
+    return grid
 
 
 def mesh_shape(mesh) -> Tuple[int, ...]:

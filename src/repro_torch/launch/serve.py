@@ -32,6 +32,18 @@ card one CUDA graph each, replayed (``runtime.executor.CudaGraphs``), on
 the CPU run eagerly. ``prefill_traces`` and ``decode_traces`` count their
 builds and stay flat after a bucket warm-up.
 
+On a mesh (``mesh=``, as the reference's schedulers take it), every rank
+runs the same scheduler over the same requests, SPMD: the pool is
+sharded over the data ranks (``registry.init_slot_pool(mesh=)``: a rank
+allocates and decodes its block of the slots), the steps are the mesh
+steps of :mod:`repro_torch.launch.steps`, whose next tokens reach every
+rank by an exact gather, and the scheduler clock advances by the
+slowest rank's step (a max over the mesh), so every rank admits, chunks
+and retires the same requests at the same step. Each step ends in a
+collective that no CUDA graph holds (gloo's on the card: ROADMAP, Port
+conventions), so on a mesh every step runs eagerly; ``captured`` says
+which, and ``replayed_launches()`` stays empty.
+
 The reference's async discipline: the host stays one step ahead of the
 device. Step t is dispatched before the host does the bookkeeping of step
 t - 1, from one batched device-to-host copy of that step's tokens (into
@@ -133,15 +145,18 @@ class _SchedulerBase:
     again."""
 
     def __init__(self, cfg, params, slots: int, max_len: int,
-                 chunk: int = DEFAULT_CHUNK, fault_hook=None):
+                 chunk: int = DEFAULT_CHUNK, mesh=None, fault_hook=None):
         self.cfg, self.params = cfg, params
         self.slots, self.max_len, self.chunk = slots, max_len, chunk
+        self.mesh = mesh
         self.eos_id = cfg.eos_id
         self.fault_hook = fault_hook
         self.step_index = 0  # monotonic across run() calls
-        self.device = next(iter(params.values())).device
+        self.device = _local(next(iter(params.values()))).device
+        # a collective ends every mesh step: no CUDA graph holds it
+        self.captured = mesh is None and self.device.type == "cuda"
         self._pool = registry.init_slot_pool(cfg, slots, max_len,
-                                             device=self.device)
+                                             device=self.device, mesh=mesh)
         self._tokens = torch.zeros((slots, 1), dtype=torch.int32,
                                    device=self.device)
         # the steps' scalar inputs, written before each step (static buffers
@@ -154,10 +169,27 @@ class _SchedulerBase:
         self._slots: List[Optional[_Slot]] = [None] * slots
         self._prefill_counter = TraceCounter()
         self._decode_counter = TraceCounter()
-        self._decode = CudaGraphs(steps_lib.make_slot_decode_step(cfg),
-                                  device=self.device,
-                                  counter=self._decode_counter)
+        self._decode = self._graphs(steps_lib.make_slot_decode_step(cfg, mesh),
+                                    self._decode_counter)
         self._steps = [self._decode]
+
+    def _graphs(self, step, counter: TraceCounter) -> CudaGraphs:
+        return CudaGraphs(step, device=self.device, counter=counter,
+                          capture=self.captured)
+
+    def _elapsed(self, t0: float) -> float:
+        """The seconds since ``t0``: on a mesh the slowest rank's, so the
+        ranks' clocks, and their admissions, agree."""
+        dt = time.perf_counter() - t0
+        if self.mesh is None:
+            return dt
+        import torch.distributed as dist
+
+        t = torch.tensor([dt], dtype=torch.float64)
+        for d in range(self.mesh.ndim):
+            dist.all_reduce(t, op=dist.ReduceOp.MAX,
+                            group=self.mesh.get_group(d))
+        return float(t[0])
 
     def _tick(self) -> None:
         self.step_index += 1
@@ -216,7 +248,8 @@ class _SchedulerBase:
         return buf
 
     def _decode_all(self):
-        self._decode("decode", self.params, self._tokens, self._pool)
+        self._pool = self._decode("decode", self.params, self._tokens,
+                                  self._pool)[1]
 
     def _collect(self, tokens_np: np.ndarray, meta, clock: float) -> int:
         """Apply one fetched step's tokens to the requests that produced
@@ -246,12 +279,11 @@ class ContinuousBatchingScheduler(_SchedulerBase):
     (``repro/launch/serve.py:219``)."""
 
     def __init__(self, cfg, params, slots: int, max_len: int,
-                 chunk: int = DEFAULT_CHUNK, fault_hook=None):
-        super().__init__(cfg, params, slots, max_len, chunk, fault_hook)
+                 chunk: int = DEFAULT_CHUNK, mesh=None, fault_hook=None):
+        super().__init__(cfg, params, slots, max_len, chunk, mesh, fault_hook)
         # one build per chunk bucket (the chunk length keys the step)
-        self._serve = CudaGraphs(steps_lib.make_serve_step(cfg),
-                                 device=self.device,
-                                 counter=self._prefill_counter)
+        self._serve = self._graphs(steps_lib.make_serve_step(cfg, mesh),
+                                   self._prefill_counter)
         self._steps.append(self._serve)
         self._mid_prefill: Optional[int] = None
 
@@ -300,9 +332,9 @@ class ContinuousBatchingScheduler(_SchedulerBase):
                 emit = not st.chunks
                 ctokens = self._set_chunk(i, st.req.prompt, st.pos, c,
                                           st.first, emit)
-                self._serve(c, self.params, self._tokens, self._pool,
-                            self._cslot, ctokens, self._cpos, self._cfirst,
-                            self._cemit)
+                self._pool = self._serve(
+                    c, self.params, self._tokens, self._pool, self._cslot,
+                    ctokens, self._cpos, self._cfirst, self._cemit)[1]
                 st.pos += c
                 st.first = False
                 if emit:  # the chunk's token is in the feed at slot i
@@ -328,7 +360,7 @@ class ContinuousBatchingScheduler(_SchedulerBase):
                 if arrive_i < len(reqs):
                     clock = max(clock, reqs[arrive_i].arrival)
                 continue
-            clock += time.perf_counter() - t0
+            clock += self._elapsed(t0)
 
         return {r.rid: r.generated for r in reqs}
 
@@ -341,12 +373,11 @@ class StaticWaveScheduler(_SchedulerBase):
     only the scheduling differs."""
 
     def __init__(self, cfg, params, batch: int, max_len: int,
-                 chunk: int = DEFAULT_CHUNK, fault_hook=None):
-        super().__init__(cfg, params, batch, max_len, chunk, fault_hook)
+                 chunk: int = DEFAULT_CHUNK, mesh=None, fault_hook=None):
+        super().__init__(cfg, params, batch, max_len, chunk, mesh, fault_hook)
         self.batch = batch
-        self._chunk = CudaGraphs(steps_lib.make_slot_chunk_step(cfg),
-                                 device=self.device,
-                                 counter=self._prefill_counter)
+        self._chunk = self._graphs(steps_lib.make_slot_chunk_step(cfg, mesh),
+                                   self._prefill_counter)
         self._steps.append(self._chunk)
 
     def run(self, requests: List[Request]) -> Dict[int, List[int]]:
@@ -385,14 +416,15 @@ class StaticWaveScheduler(_SchedulerBase):
             pos, cfirst, ctok = 0, True, None
             for c in chunk_schedule(len(req.prompt), self.chunk):
                 ctokens = self._set_chunk(slot, req.prompt, pos, c, cfirst)
-                ctok, _ = self._chunk(c, self.params, self._pool, self._cslot,
-                                      ctokens, self._cpos, self._cfirst)
+                ctok, self._pool = self._chunk(
+                    c, self.params, self._pool, self._cslot, ctokens,
+                    self._cpos, self._cfirst)
                 pos += c
                 cfirst = False
             self._slots[slot] = _Slot(req=req, chunks=[], phase="decode")
             # the baseline waits once per request here
             tok = int(ctok)
-            clock += time.perf_counter() - t0
+            clock += self._elapsed(t0)
             first[slot, 0] = tok
             req.generated.append(tok)
             req.token_times.append(clock)
@@ -421,10 +453,15 @@ class StaticWaveScheduler(_SchedulerBase):
             if not dispatched:
                 break
             prev = (_Fetch(self._tokens), meta)
-            clock += time.perf_counter() - t0
+            clock += self._elapsed(t0)
         for slot in range(self.slots):
             self._slots[slot] = None
         return clock
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local tensor, or ``t``."""
+    return t.to_local() if hasattr(t, "to_local") else t
 
 
 # the reference's older name: the static scheduler succeeds BatchScheduler

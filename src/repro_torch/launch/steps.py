@@ -11,6 +11,10 @@ The serve half of the reference's step builders:
   the fused :func:`make_serve_step` (both in one step), with
   :func:`_gather_slot`, :func:`_scatter_slot` and :func:`_reset_if`.
 
+On a mesh whose data ranks split the pool's slots (``kv_batch``), a rank
+holds and decodes its block of them and the next tokens reach every rank
+by an exact gather (:func:`_slot_step_on_mesh`).
+
 The pool is the scheduler's state for the life of the server, as the
 reference's donated pool is: every step writes it in place, and writes the
 greedy next tokens into the token feed ``tokens`` (slots, 1) int32 in
@@ -461,10 +465,21 @@ class _MeshServe:
         self.cfg, self.mesh = cfg, mesh
         self.rules = fsdp_rules(_serve_fsdp(cfg, fsdp))
         self.p_axes = registry.param_axes(cfg)
+        # a whole parameter's compute layout is a view of it (the rank's
+        # slices), the same at every call: name -> (the parameter, view)
+        self._views: Dict[str, tuple] = {}
 
     def _local(self, name, v):
-        return _localize(v, self.p_axes[name],
-                         tp=partitioning.tp_leaf(self.cfg, name))
+        from ..core import sharding
+
+        seen = self._views.get(name)
+        if seen is not None and seen[0] is v:
+            return seen[1]
+        local = _localize(v, self.p_axes[name],
+                          tp=partitioning.tp_leaf(self.cfg, name))
+        if not sharding.is_dtensor(v):
+            self._views[name] = (v, local)
+        return local
 
     @contextlib.contextmanager
     def params(self, params):
@@ -475,17 +490,30 @@ class _MeshServe:
             yield {k: v if _per_layer(self.cfg, k) else self._local(k, v)
                    for k, v in params.items()}
 
-    def caches_in(self, caches):
-        axes = registry.cache_axes(self.cfg)
+    def caches_in(self, caches, axes=None):
+        axes = registry.cache_axes(self.cfg) if axes is None else axes
         shapes = _shapes_of(caches)
         tp = partitioning.tp_model(self.cfg)
         local = _axes_map(lambda ax, x: _localize(x, ax, tp=tp), axes, caches)
         return local, axes, shapes
 
-    def caches_out(self, local, axes, shapes):
+    def caches_out(self, local, axes, shapes, given=None):
+        """The compute-layout caches as DTensors at their placements; a leaf
+        that is still the local tensor of ``given``'s DTensor (updated in
+        place) returns that DTensor."""
+        from ..core import sharding
+
         tp = partitioning.tp_model(self.cfg)
-        return _axes_map(lambda ax, x, shp: _publish(x, ax, shp, tp=tp),
-                         axes, local, shapes)
+
+        def one(ax, x, shp, old=None):
+            if (old is not None and sharding.is_dtensor(old)
+                    and old.to_local() is x):
+                return old
+            return _publish(x, ax, shp, tp=tp)
+
+        if given is None:
+            return _axes_map(one, axes, local, shapes)
+        return _axes_map(one, axes, local, shapes, given)
 
     def shardings_for(self, what: str):
         def fn(specs):
@@ -650,32 +678,120 @@ def _greedy(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
-def _slot_step_on_mesh(cfg, mesh, fsdp, step, pool_at: int):
-    """A slot step on a mesh: ``step(params, *args)`` with the pool at
-    ``args[pool_at]`` runs on the rank's compute layout of the parameters
-    and the pool, and returns the pool as DTensors. The slots stay whole
-    on every rank: a pool whose slots the rules shard (``kv_batch`` over
-    a mesh axis of size > 1) raises, since a chunk's slot index addresses
-    the whole pool."""
+def _keep_unless(own, new_cache, old_cache):
+    """``new_cache`` where ``own`` (a (1,) bool tensor) is set, else
+    ``old_cache``: a rank writes a chunk's slot only if it owns it."""
+    own = own.reshape(())
+    return pytree.tree_map(lambda n, o: torch.where(own, n, o), new_cache,
+                           old_cache)
+
+
+def _decode_body(decode_fn, params, tokens, pool):
+    """Every slot of ``pool`` one token: the greedy next tokens into
+    ``tokens``, in place."""
+    logits, pool = decode_fn(params, tokens, pool)
+    tokens.copy_(_greedy(logits)[:, None])
+    return tokens, pool
+
+
+def _chunk_body(chunk_fn, dims, params, pool, cslot, ctokens, cpos, cfirst,
+                own=None):
+    """One prompt chunk into slot ``cslot`` of ``pool`` -> (greedy token,
+    pool); with ``own``, the slot is written only where it is set."""
+    cache = _reset_if(cfirst, _gather_slot(pool, dims, cslot))
+    logits, cache = chunk_fn(params, ctokens[None], cache, cpos)
+    if own is not None:
+        cache = _keep_unless(own, cache, _gather_slot(pool, dims, cslot))
+    pool = _scatter_slot(pool, cache, dims, cslot)
+    return _greedy(logits[0]), pool
+
+
+def _serve_body(decode_fn, chunk_fn, dims, params, tokens, pool, cslot,
+                ctokens, cpos, cfirst, cemit, own=None):
+    """The fused step (:func:`make_serve_step`) on ``pool``; with ``own``,
+    the chunk's slot and its token in the feed are written only where it
+    is set."""
+    cache = _reset_if(cfirst, _gather_slot(pool, dims, cslot))
+    logits, pool = decode_fn(params, tokens, pool)
+    nxt = _greedy(logits)[:, None]
+    clogits, cache = chunk_fn(params, ctokens[None], cache, cpos)
+    if own is not None:
+        # a slot this rank does not own keeps its decode leg's write
+        cache = _keep_unless(own, cache, _gather_slot(pool, dims, cslot))
+        cemit = cemit & own.reshape(())
+    pool = _scatter_slot(pool, cache, dims, cslot)
+    ctok = _greedy(clogits).reshape(1, 1)
+    mine = nxt.index_select(0, cslot)
+    nxt.index_copy_(0, cslot, torch.where(cemit, ctok, mine))
+    tokens.copy_(nxt)
+    return tokens, pool
+
+
+class _SlotShard:
+    """Where a rank of a mesh step holds its block of the pool's slots:
+    ``n`` ranks over mesh ``dims`` (``kv_batch``'s), ``per`` slots each,
+    from global slot ``lo``."""
+
+    def __init__(self, slots: int):
+        self.dims = partitioning.mesh_dims(
+            partitioning.resolve_axis("kv_batch", slots))
+        self.n = partitioning._shards(self.dims)
+        self.per = slots // self.n
+        self.lo = partitioning.block_index(self.dims) * self.per
+
+    def local(self, cslot: torch.Tensor):
+        """A global slot ((1,) int64) -> (the rank's index of it, clamped
+        into its block, and whether the rank owns it), on the device."""
+        li = cslot - self.lo
+        own = (li >= 0) & (li < self.per)
+        return li.clamp(0, self.per - 1), own
+
+    def rows(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The rank's rows of the whole token feed (a view)."""
+        return tokens.narrow(0, self.lo, self.per)
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The ranks' blocks of dim 0, exactly, in slot order."""
+        return partitioning.gather_exact(t.contiguous(), 0, self.dims)
+
+
+def _slot_step_on_mesh(cfg, mesh, fsdp, step, sharded, pool_at: int):
+    """A slot step on a mesh: ``step(params, *args)`` (the mesh-free step's
+    function) with the pool at ``args[pool_at]``, run on the rank's
+    compute layout of the parameters and the pool, the pool returned as
+    DTensors at :func:`registry.slot_pool_axes`' placements.
+
+    Where ``kv_batch`` shards the slots over n > 1 ranks (the data ranks),
+    rank r holds slots [r * slots/n, (r + 1) * slots/n) and
+    ``sharded(cp, shard, *args)`` runs instead: the rank decodes its
+    slots (each slot routes alone, so ranks do not couple), a chunk runs
+    on every rank against the clamped local index of the global ``cslot``
+    and only the owner writes its slot (the non-owners' chunk is
+    discarded: every rank runs the same program, so the layers'
+    collectives match), and the next tokens (and a chunk's token) reach
+    every rank by an exact gather of the ranks' blocks. A pool whose slots
+    do not split over the data ranks raises ``ValueError``
+    (``registry.slot_shards``); the token feed and ``cslot`` are whole
+    tensors every rank holds."""
     if mesh is None:
         return step
     ms = _MeshServe(cfg, mesh, fsdp)
+    axes = registry.slot_pool_axes(cfg)
 
     def on_mesh(params, *args):
-        with axis_rules(mesh, ms.rules):
+        with axis_rules(mesh, ms.rules), torch.no_grad():
             pool = args[pool_at]
-            slots = _shape(pool[0]["pos"])[0]
-            dims = partitioning.mesh_dims(
-                partitioning.resolve_axis("kv_batch", slots))
-            if dims and partitioning._shards(dims) > 1:
-                raise NotImplementedError(
-                    f"the rules shard the slot pool's {slots} slots over "
-                    f"mesh dims {dims}; the slot steps keep them whole")
-            local, axes, shapes = ms.caches_in(pool)
+            slots = _shape(pytree.tree_leaves(pool)[0])[0]
+            registry.slot_shards(mesh, slots)
+            shard = _SlotShard(slots)
+            local, _, shapes = ms.caches_in(pool, axes)
             args = args[:pool_at] + (local,) + args[pool_at + 1:]
             with ms.params(params) as cp:
-                out, local = step(cp, *args)
-            return out, ms.caches_out(local, axes, shapes)
+                if shard.n > 1:
+                    out, local = sharded(cp, shard, *args)
+                else:
+                    out, local = step(cp, *args)
+            return out, ms.caches_out(local, axes, shapes, pool)
 
     on_mesh.shardings_for = ms.shardings_for("decode")
     return on_mesh
@@ -691,11 +807,16 @@ def make_slot_decode_step(cfg, mesh=None, *, fsdp: Optional[bool] = None):
 
     def slot_decode_step(params, tokens, pool):
         with torch.no_grad():
-            logits, pool = decode_fn(params, tokens, pool)
-            tokens.copy_(_greedy(logits)[:, None])
+            return _decode_body(decode_fn, params, tokens, pool)
+
+    def sharded(params, shard, tokens, pool):
+        with torch.no_grad():
+            _, pool = _decode_body(decode_fn, params, shard.rows(tokens),
+                                   pool)
+            tokens.copy_(shard.gather(shard.rows(tokens)))
         return tokens, pool
 
-    return _slot_step_on_mesh(cfg, mesh, fsdp, slot_decode_step, 1)
+    return _slot_step_on_mesh(cfg, mesh, fsdp, slot_decode_step, sharded, 1)
 
 
 def make_slot_chunk_step(cfg, mesh=None, *, fsdp: Optional[bool] = None):
@@ -704,18 +825,26 @@ def make_slot_chunk_step(cfg, mesh=None, *, fsdp: Optional[bool] = None):
     decode leg (``repro/launch/steps.py:438``). ``cfirst`` zero-resets the
     slot first, so a reused slot is never reallocated. The token is the
     greedy continuation after the chunk: meaningful on a prompt's last
-    chunk."""
+    chunk. On a sharded pool ``cslot`` is global and the token is the
+    owner's on every rank."""
     chunk_fn = registry.make_chunk_prefill_fn(cfg)
     dims = registry.cache_batch_dims(cfg)
 
     def slot_chunk_step(params, pool, cslot, ctokens, cpos, cfirst):
         with torch.no_grad():
-            cache = _reset_if(cfirst, _gather_slot(pool, dims, cslot))
-            logits, cache = chunk_fn(params, ctokens[None], cache, cpos)
-            pool = _scatter_slot(pool, cache, dims, cslot)
-            return _greedy(logits[0]), pool
+            return _chunk_body(chunk_fn, dims, params, pool, cslot, ctokens,
+                               cpos, cfirst)
 
-    return _slot_step_on_mesh(cfg, mesh, fsdp, slot_chunk_step, 0)
+    def sharded(params, shard, pool, cslot, ctokens, cpos, cfirst):
+        with torch.no_grad():
+            li, own = shard.local(cslot)
+            ctok, pool = _chunk_body(chunk_fn, dims, params, pool, li,
+                                     ctokens, cpos, cfirst, own)
+            owner = torch.div(cslot, shard.per, rounding_mode="floor")
+            ctok = shard.gather(ctok.reshape(1)).index_select(0, owner)
+        return ctok.reshape(()), pool
+
+    return _slot_step_on_mesh(cfg, mesh, fsdp, slot_chunk_step, sharded, 0)
 
 
 def make_serve_step(cfg, mesh=None, *, fsdp: Optional[bool] = None):
@@ -731,25 +860,29 @@ def make_serve_step(cfg, mesh=None, *, fsdp: Optional[bool] = None):
     the chunk's greedy token replaces the slot's entry of the token feed,
     so the request decodes on the very next step. ``tokens`` and the pool
     are written in place and returned. The decode leg routes each slot's
-    token alone through MoE layers."""
+    token alone through MoE layers. On a sharded pool ``cslot`` is global:
+    its owner writes the slot and splices the token into its rows of the
+    feed before the gather."""
     decode_fn = registry.make_decode_fn(cfg, route_rows=True)
     chunk_fn = registry.make_chunk_prefill_fn(cfg)
     dims = registry.cache_batch_dims(cfg)
 
     def serve_step(params, tokens, pool, cslot, ctokens, cpos, cfirst, cemit):
         with torch.no_grad():
-            cache = _reset_if(cfirst, _gather_slot(pool, dims, cslot))
-            logits, pool = decode_fn(params, tokens, pool)
-            nxt = _greedy(logits)[:, None]
-            clogits, cache = chunk_fn(params, ctokens[None], cache, cpos)
-            pool = _scatter_slot(pool, cache, dims, cslot)
-            ctok = _greedy(clogits).reshape(1, 1)
-            mine = nxt.index_select(0, cslot)
-            nxt.index_copy_(0, cslot, torch.where(cemit, ctok, mine))
-            tokens.copy_(nxt)
+            return _serve_body(decode_fn, chunk_fn, dims, params, tokens,
+                               pool, cslot, ctokens, cpos, cfirst, cemit)
+
+    def sharded(params, shard, tokens, pool, cslot, ctokens, cpos, cfirst,
+                cemit):
+        with torch.no_grad():
+            li, own = shard.local(cslot)
+            rows = shard.rows(tokens)
+            _, pool = _serve_body(decode_fn, chunk_fn, dims, params, rows,
+                                  pool, li, ctokens, cpos, cfirst, cemit, own)
+            tokens.copy_(shard.gather(rows))
         return tokens, pool
 
-    return _slot_step_on_mesh(cfg, mesh, fsdp, serve_step, 1)
+    return _slot_step_on_mesh(cfg, mesh, fsdp, serve_step, sharded, 1)
 
 
 # ---------------------------------------------------------------------------

@@ -31,7 +31,7 @@ from typing import Dict
 import torch
 from torch import nn
 
-from . import attention, common, mlp, moe, rglru, rwkv
+from . import attention, common, mlp, moe, partitioning, rglru, rwkv
 from .partitioning import with_logical_constraint
 
 
@@ -117,13 +117,17 @@ def _store(cache, new):
     return cache
 
 
-def _ffn(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor, route_rows: bool):
+def _ffn(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor, route_rows: bool,
+         train: bool):
     """The block's FFN: (out, aux loss), aux 0.0 for a dense MLP. An MoE
     layer routes the batch's tokens in ``moe.apply``'s groups, or with
-    ``route_rows`` each row as its own group of one token."""
+    ``route_rows`` each row as its own group of one token. On rows split
+    over ranks the aux loss takes a collective, which the modes that drop
+    it skip."""
     if cfg.family == "moe":
+        kw = {} if train or partitioning.batch_shards() == 1 else {"aux": False}
         return moe.apply(cfg, sub(p, "moe."), x,
-                         group_size=1 if route_rows else None)
+                         group_size=1 if route_rows else None, **kw)
     return mlp.apply(cfg, sub(p, "mlp."), x), 0.0
 
 
@@ -191,7 +195,7 @@ def block_apply(cfg, kind: str, p: Dict[str, torch.Tensor], x: torch.Tensor,
         raise ValueError(f"block kind {kind!r} is not ported")
     x = with_logical_constraint(x, EMBED)
     h2 = common.rmsnorm_apply(p["ln2.scale"], x, cfg.norm_eps)
-    out, aux = _ffn(cfg, p, h2, route_rows)
+    out, aux = _ffn(cfg, p, h2, route_rows, mode == "train")
     x = with_logical_constraint(x + out, EMBED)
     return (x, aux) if mode == "train" else (x, cache)
 

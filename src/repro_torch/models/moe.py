@@ -25,13 +25,30 @@ all-zero row: a comparison with ``arange(cap)``, which, unlike
 the host (a CUDA graph captures it).
 
 The groups are the whole batch's: where a step splits the batch's rows
-over ranks (``partitioning.batch_split``), a rank routes its rows in
-groups of the whole batch's size, and a group that would span ranks
-raises. ``group_size`` overrides the grouping: the serve slot steps' decode
-routes each row as a group of one token (``blocks.block_apply(...,
-route_rows=True)``), as the reference's serve steps decode each slot
-alone, since capacity couples the tokens of a group; a plain
-``decode_step`` routes its batch as one group, as the reference's.
+over ranks (``partitioning.batch_split``), group g is ``gs`` consecutive
+tokens of the global (B·S) order, each rank's rows in
+``partitioning.batch_index`` order, as the reference groups the global
+batch and GSPMD carries a group across devices. A rank whose rows hold
+whole groups routes them alone. Where a group spans the ranks' rows
+(the whole batch's ``gs`` does not divide a rank's tokens: a decode
+step's few rows, a short prefill), the rank gathers the batch's tokens
+exactly over the chain (``partitioning.batch_gather``), computes the
+groups its rows touch whole (routing, capacity positions in the group's
+(token, choice) order, dispatch, experts, combine: what every rank of
+the reference computes for a group it cannot split) and keeps its rows:
+each of its tokens gets the choices, slots and weights of the
+whole-batch run, bitwise. The gather's gradient is the chain's summed
+cotangents, so the train step's gradient is the whole batch's. On split
+rows the aux loss comes from the batch's sums over the chain
+(``partitioning.batch_sum``: the choice counts exact, the gate sums f32 in
+another order), as the reference's means over the whole batch. With
+``aux=False`` (the serve modes, which drop it) no aux is computed and no
+collective runs for it. ``group_size`` overrides the grouping: the serve
+slot steps' decode routes each row as a group of one token
+(``blocks.block_apply(..., route_rows=True)``), as the reference's serve
+steps decode each slot alone, since capacity couples the tokens of a
+group; a plain ``decode_step`` routes its batch as one group, as the
+reference's.
 
 Tensor parallelism (``models/partitioning.py``): where a step kept the
 rank's experts (``wi``/``wg`` (E/m, D, F), ``wo`` (E/m, F, D);
@@ -143,9 +160,10 @@ def _combine(cfg, eout: torch.Tensor, combine: torch.Tensor,
 
 
 def apply(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor, *,
-          group_size: Optional[int] = None
-          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, D) -> (out (B, S, D) in x's dtype, aux loss () f32)."""
+          group_size: Optional[int] = None, aux: bool = True
+          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """x (B, S, D) -> (out (B, S, D) in x's dtype, aux loss () f32, or None
+    with ``aux=False``)."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
     # the rank's experts, where the step's layout kept them
@@ -154,13 +172,19 @@ def apply(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor, *,
     act = common.activation(cfg.act)
     total = b * s
     # the groups of the whole batch, whose rows a step may split over ranks
-    gs = group_size or _group_size(total * partitioning.batch_shards())
+    shards = 1 if group_size else partitioning.batch_shards()
+    gs = group_size or _group_size(total * shards)
+    xt = x.reshape(total, d)
+    first = 0  # the rank's first token in the grouped tokens
     if total % gs:
-        raise NotImplementedError(
-            f"routing groups of {gs} tokens span the ranks' batch rows "
-            f"({total} tokens a rank)")
-    ng = total // gs
-    xg = with_logical_constraint(x.reshape(ng, gs, d), ("batch", None, "embed"))
+        # groups span the ranks' rows: the groups this rank's rows touch,
+        # from the batch's tokens
+        start = partitioning.batch_index() * total
+        g0, g1 = start // gs, (start + total - 1) // gs + 1
+        xt = partitioning.batch_gather(xt, 0)[g0 * gs:g1 * gs]
+        first = start - g0 * gs
+    ng = xt.shape[0] // gs
+    xg = with_logical_constraint(xt.reshape(ng, gs, d), ("batch", None, "embed"))
     r = route(cfg, p, xg)
     cap = r.capacity
 
@@ -199,9 +223,22 @@ def apply(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor, *,
         out = _combine(cfg, eout, combine, x.dtype)
     else:
         out = torch.matmul(combine, eout)
+    if ng * gs != total:  # the rank's rows of the groups they touch
+        out = out.reshape(ng * gs, d)[first:first + total]
     out = with_logical_constraint(out.reshape(b, s, d), ("batch", "seq", "embed"))
-
-    frac_tokens = r.onehot.sum(dim=2).mean(dim=(0, 1))         # (E,)
-    frac_gates = r.gates.mean(dim=(0, 1))
-    aux = e * torch.sum(frac_tokens * frac_gates) / k
-    return out, aux.to(F32)
+    if not aux:
+        return out, None
+    if shards > 1:
+        # the whole batch's means, from this rank's tokens' sums over the
+        # chain
+        own = slice(first, first + total)
+        counts = r.onehot.sum(dim=2).reshape(-1, e)[own].sum(dim=0)
+        gate_sums = r.gates.reshape(-1, e)[own].sum(dim=0)
+        n = total * shards
+        frac_tokens = partitioning.batch_sum(counts) / n
+        frac_gates = partitioning.batch_sum(gate_sums) / n
+    else:
+        frac_tokens = r.onehot.sum(dim=2).mean(dim=(0, 1))     # (E,)
+        frac_gates = r.gates.mean(dim=(0, 1))
+    loss = e * torch.sum(frac_tokens * frac_gates) / k
+    return out, loss.to(F32)

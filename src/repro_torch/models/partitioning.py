@@ -41,7 +41,14 @@ explicitly (Megatron's scheme):
   take the place of GSPMD's constraints;
 * a module that splits reads where from :func:`local_block`, the same
   decision the step's layout makes (:func:`local_dims`,
-  :func:`tp_leaf`), and raises where its weight disagrees.
+  :func:`tp_leaf`), and raises where its weight disagrees;
+* model code that needs the whole batch where a step splits its rows
+  (:func:`batch_split`: MoE routing groups that span the ranks' rows)
+  takes :func:`batch_gather` (the exact gather over the batch chain, the
+  ranks' rows in :func:`batch_index` order) and :func:`batch_sum`; the
+  gradient of each sums the ranks' cotangents over the chain, since every
+  rank computes the same value from them and the loss is the chain's
+  mean.
 
 Every gather goes by :func:`gather_route`: ``all_gather`` on NCCL and on
 CPU gloo, and on gloo with CUDA tensors (ranks sharing one card) the exact
@@ -124,6 +131,7 @@ class _Ctx:
         self.mesh = None
         self.rules: Dict[str, Tuple[AxisName, ...]] = dict(DEFAULT_RULES)
         self.batch_shards = 1
+        self.batch_dims: Tuple[int, ...] = ()
         self.view = None
 
 
@@ -153,13 +161,15 @@ def current_mesh():
 @contextlib.contextmanager
 def batch_split(dims: Sequence[int]):
     """Model code in this block runs on the rank's rows of a batch split
-    over mesh ``dims`` (:func:`batch_shards` reads their count)."""
-    old = _CTX.batch_shards
+    over mesh ``dims`` (:func:`batch_shards` reads their count,
+    :func:`batch_gather` and :func:`batch_sum` run over them)."""
+    old = _CTX.batch_shards, _CTX.batch_dims
     _CTX.batch_shards = _shards(dims) if dims else 1
+    _CTX.batch_dims = tuple(dims) if _CTX.batch_shards > 1 else ()
     try:
         yield
     finally:
-        _CTX.batch_shards = old
+        _CTX.batch_shards, _CTX.batch_dims = old
 
 
 @contextlib.contextmanager
@@ -185,6 +195,13 @@ def batch_shards() -> int:
     """How many ranks the batch's rows are split over (1 outside
     :func:`batch_split`)."""
     return _CTX.batch_shards
+
+
+def batch_index() -> int:
+    """This rank's block of the batch's rows (0 outside
+    :func:`batch_split`): the global token order is each rank's rows in
+    this order."""
+    return block_index(_CTX.batch_dims) if _CTX.batch_dims else 0
 
 
 def _mesh_axis_sizes(mesh) -> Dict[str, int]:
@@ -376,10 +393,12 @@ def _row_of(d: int, mesh) -> int:
 def gather_exact(t: torch.Tensor, dim: int, dims: Sequence[int],
                  mesh=None) -> torch.Tensor:
     """All blocks of tensor dim ``dim`` split over mesh ``dims``, exactly
-    (no autograd)."""
+    (no autograd). A mesh dim of one rank gathers nothing: ``t`` itself."""
     mesh = _CTX.mesh if mesh is None else mesh
+    shape = compat.mesh_shape(mesh)
     for d in reversed(tuple(dims)):  # innermost first: row-major blocks
-        t = _gather_one(t, dim, d, mesh)
+        if shape[d] > 1:
+            t = _gather_one(t, dim, d, mesh)
     return t
 
 
@@ -399,12 +418,16 @@ def slice_local(t: torch.Tensor, dim: int, dims: Sequence[int],
 def all_reduce_sum(t: torch.Tensor, dims: Sequence[int],
                    mesh=None) -> torch.Tensor:
     """The sum over mesh ``dims`` of a fresh copy of ``t`` (no autograd);
-    a 16-bit float tensor is summed in f32 and rounded once."""
+    a 16-bit float tensor is summed in f32 and rounded once. A mesh dim of
+    one rank sums nothing."""
     dist = _dist()
     out = t.detach().to(torch.float32 if t.element_size() == 2
                         and t.is_floating_point() else t.dtype,
                         copy=True).contiguous()
+    shape = compat.mesh_shape(_CTX.mesh if mesh is None else mesh)
     for d in dims:
+        if shape[d] == 1:
+            continue
         group = _group(d, mesh)
         ROUTES[("all_reduce", str(dist.get_backend(group)))] += 1
         dist.all_reduce(out, group=group)
@@ -504,6 +527,56 @@ def mean_over(x: torch.Tensor, dims: Sequence[int]) -> torch.Tensor:
     return _Mean.apply(x, tuple(dims)) if dims else x
 
 
+# The batch chain: the mesh dims of :func:`batch_split`. A value computed
+# from a gathered or summed batch is the same on every rank of the chain,
+# and a data-parallel loss is the mean over the chain of the ranks' losses
+# (``launch/steps.py:dp_loss``), so each rank's cotangent of such a value
+# is 1/n of its share: the backward of both collectives sums the ranks'
+# cotangents over the chain.
+
+
+class _BatchGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, dims):
+        ctx.dim, ctx.dims, ctx.mesh = dim, dims, _CTX.mesh
+        return gather_exact(t, dim, dims)
+
+    @staticmethod
+    def backward(ctx, ct):
+        whole = all_reduce_sum(ct, ctx.dims, ctx.mesh)
+        return (slice_local(whole, ctx.dim, ctx.dims, ctx.mesh).contiguous(),
+                None, None)
+
+
+class _BatchSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dims):
+        ctx.dims, ctx.mesh = dims, _CTX.mesh
+        return all_reduce_sum(t, dims)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return all_reduce_sum(ct, ctx.dims, ctx.mesh), None
+
+
+def batch_gather(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """The exact gather over the batch chain of tensor dim ``dim``, the
+    ranks' blocks in :func:`batch_index` order (bitwise: the routed
+    gather); ``x`` itself outside a split. Its gradient is the ranks'
+    cotangents summed over the chain, this rank's block of it."""
+    dims = _CTX.batch_dims
+    return _BatchGather.apply(x, dim, dims) if dims else x
+
+
+def batch_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the batch chain (exact for integer tensors; a 16-bit
+    float is summed in f32, :func:`all_reduce_sum`); ``x`` itself outside
+    a split. Its gradient is the ranks' cotangents summed over the
+    chain."""
+    dims = _CTX.batch_dims
+    return _BatchSum.apply(x, dims) if dims else x
+
+
 # ---------------------------------------------------------------------------
 # storage and compute layouts
 # ---------------------------------------------------------------------------
@@ -590,14 +663,16 @@ def to_compute(x: torch.Tensor, logical_axes, shape, *,
     local, the other sharded dims are gathered (storage) or kept whole.
     Differentiable: a gather's gradient is the rank's slice, and a whole
     value's slice gathers its gradient, so a whole value's gradient is
-    whole on every rank."""
+    whole on every rank. A dim split over one rank is left as it is (the
+    same tensor: no copy)."""
     keep = local_dims(logical_axes, shape, tp=tp)
     if whole:
         for i, dims in keep.items():
-            x = _Slice.apply(x, i, dims)
+            if _shards(dims) > 1:
+                x = _Slice.apply(x, i, dims)
         return x
     for i, dims in sharded_dims(logical_axes, shape).items():
-        if i not in keep:
+        if i not in keep and _shards(dims) > 1:
             x = _Gather.apply(x, i, dims)
     return x
 

@@ -34,7 +34,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from .. import compat
-from . import encdec, transformer, vlm
+from . import encdec, partitioning, transformer, vlm
 from .config import ModelConfig
 
 ARCH_IDS = ("lm_350m", "lm_1b", "lm_8b", "yi_34b", "internlm2_20b",
@@ -280,10 +280,19 @@ def slot_vmap_axes(cfg: ModelConfig):
 
 
 def init_slot_pool(cfg: ModelConfig, slots: int, max_len: int, *,
-                   device="cuda"):
+                   device="cuda", mesh=None):
     """The serve cache pool, allocated once for the life of the server and
     updated in place (``repro/models/registry.py:239``): the no-ring caches
-    of ``slots`` rows, each position leaf with one entry per slot."""
+    of ``slots`` rows, each position leaf with one entry per slot.
+
+    With ``mesh``, each leaf is a DTensor at the placements of
+    :func:`slot_pool_axes` under the default rules, and a rank allocates
+    only its storage block: its slots where ``kv_batch`` shards them (the
+    data ranks), its kv heads where they split over ``"model"``. A pool
+    whose slots do not split over the data ranks raises ``ValueError``
+    (:func:`slot_shards`)."""
+    if mesh is not None:
+        return _slot_pool_on_mesh(cfg, slots, max_len, device, mesh)
     dev = compat.resolve_device(device) if str(device) != "meta" else device
     caches = transformer.init_caches(cfg, slots, max_len, ring=False,
                                      device=dev)
@@ -292,6 +301,48 @@ def init_slot_pool(cfg: ModelConfig, slots: int, max_len: int, *,
             (slots,) + tuple(leaf.shape), dtype=leaf.dtype,
             device=leaf.device),
         caches, cache_batch_dims(cfg))
+
+
+def slot_pool_axes(cfg: ModelConfig):
+    """The logical axes of the pool's leaves: :func:`cache_axes`, a
+    position leaf's slot axis ``kv_batch``."""
+    return pytree.tree_map(
+        lambda ax, d: ("kv_batch",) if d == POS_LEAF else ax,
+        cache_axes(cfg), cache_batch_dims(cfg),
+        is_leaf=partitioning.is_axes_leaf)
+
+
+def slot_shards(mesh, slots: int) -> int:
+    """How many ranks ``mesh`` splits a pool's ``slots`` over: the ranks
+    of the first ``kv_batch`` candidate of the default rules whose axes
+    the mesh has. Raises ``ValueError`` where they do not divide
+    ``slots`` (the rules would keep such a pool whole on every rank)."""
+    with partitioning.axis_rules(mesh):
+        n = partitioning._shards(partitioning.mesh_dims(
+            partitioning.resolve_axis("kv_batch")))
+    if slots % n:
+        raise ValueError(f"a pool of {slots} slots does not split over the "
+                         f"mesh's {n} data ranks")
+    return n
+
+
+def _slot_pool_on_mesh(cfg, slots, max_len, device, mesh):
+    slot_shards(mesh, slots)
+    dev = compat.resolve_device(device)
+    whole = init_slot_pool(cfg, slots, max_len, device="meta")
+    axes = slot_pool_axes(cfg)
+
+    def one(ax, leaf):
+        shape = tuple(leaf.shape)
+        local = list(shape)
+        for i, dims in partitioning.sharded_dims(ax, shape).items():
+            local[i] //= partitioning._shards(dims)
+        return partitioning.wrap(
+            torch.zeros(local, dtype=leaf.dtype, device=dev), ax, shape)
+
+    with partitioning.axis_rules(mesh):
+        return pytree.tree_map(one, axes, whole,
+                               is_leaf=partitioning.is_axes_leaf)
 
 
 def slot_pool_bytes(cfg: ModelConfig, slots: int, max_len: int) -> int:

@@ -280,15 +280,17 @@ class CudaGraphs:
     capture's kernel calls stay off the wrappers' counters
     (``ops.uncounted``: recorded, not launched); each replay adds them to
     ``replayed`` (kernel name -> launches), which the counters never see.
-    On the CPU every call runs ``fn`` eagerly."""
+    On the CPU, and with ``capture=False`` (a step that runs collectives),
+    every call runs ``fn`` eagerly."""
 
     def __init__(self, fn: Callable, *, device,
                  counter: Optional["TraceCounter"] = None,
-                 replay_first: bool = False):
+                 replay_first: bool = False, capture: bool = True):
         self.fn = fn
         self.device = torch.device(device)
         self.counter = counter
         self.replay_first = replay_first
+        self.capture = capture and self.device.type == "cuda"
         self.graphs: Dict[Any, Optional[tuple]] = {}
         self.replays = 0
         self.replayed: Dict[str, int] = {}
@@ -298,7 +300,7 @@ class CudaGraphs:
         if key not in self.graphs:
             if self.counter is not None:
                 self.counter.count += 1
-            if self.device.type != "cuda":
+            if not self.capture:
                 self.graphs[key] = None
                 return self.fn(*args)
             out = self._capture(key, args)

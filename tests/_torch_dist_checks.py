@@ -893,7 +893,9 @@ def fsdp_layer_gathers(rank, world, wd):
 
 # name -> (arch, kind, algorithm, mesh shape): reduced f32 widths (_f32),
 # global batch 8, sequence 16; lm_350m splits its clients' rows over
-# "model" (dp), lm_1b its heads, FFN and vocabulary (tp)
+# "model" (dp), lm_1b its heads, FFN and vocabulary (tp); phi35_moe's
+# routing groups span the ranks' rows (train: 128 tokens, 64 a rank;
+# decode: 8 tokens, 2 a rank), its experts split over "model"
 DRYRUN_CASES = {
     "sgd_350m": ("lm_350m", "train", "sgd", (2, 2)),
     "round_350m": ("lm_350m", "train", "local_sgd", (2, 2)),
@@ -901,6 +903,8 @@ DRYRUN_CASES = {
     "sgd_1b": ("lm_1b", "train", "sgd", (2, 2, 2)),
     "round_1b": ("lm_1b", "train", "local_sgd", (2, 2, 2)),
     "decode_1b": ("lm_1b", "decode", "sgd", (2, 2, 2)),
+    "sgd_moe": ("phi35_moe", "train", "sgd", (2, 2)),
+    "decode_moe": ("phi35_moe", "decode", "sgd", (2, 2, 2)),
 }
 DRYRUN_AXES = {2: ("data", "model"), 3: ("pod", "data", "model")}
 DRYRUN_BATCH, DRYRUN_SEQ = 8, 16
@@ -949,4 +953,298 @@ def dryrun_counts(rank, world, wd):
             optimizer_bytes=dryrun.local_bytes(steps.shard_tree(
                 opt, steps._optimizer_axes("adamw", p_axes), mesh, rules)),
             whole_param_bytes=dryrun.local_bytes(params))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# serving on a data-parallel mesh (tests/test_torch_moe_mesh.py,
+# tests/test_torch_serve_mesh.py)
+# ---------------------------------------------------------------------------
+
+# the MoE cases: reduced phi35_moe (4 experts, top 2) and qwen3_moe with
+# 16 experts and its top 8, f32 (_f32)
+MOE_MESH = {"phi35_moe": {},
+            "qwen3_moe": dict(num_experts=16, experts_per_token=8)}
+# (B, S): one routing group of 24 tokens over every rank; groups of 512
+# of 1,536 tokens, which a rank's rows cover in part (a rank of 2 holds
+# one group and half of the next; of 4, parts of two)
+MOE_SHAPES = {"one_group": (4, 6), "three_groups": (4, 384)}
+
+
+def moe_params_path(wd, arch):
+    return os.path.join(wd, f"{arch}_params.npz")
+
+
+def moe_load_params(wd, arch):
+    """The parameters the parent wrote (the reference's init, converted)."""
+    with np.load(moe_params_path(wd, arch)) as z:
+        return {k: torch.from_numpy(z[k]) for k in z.files}
+
+
+def moe_input(cfg, b, s, seed=5):
+    return _rng(seed).standard_normal((b, s, cfg.d_model)).astype(np.float32)
+
+
+def _moe_meshes(world):
+    """(data n) over every rank, and (data 2, model 2) in a world of 4."""
+    out = {"data": _model_mesh(world, data=world)}
+    if world == 4:
+        out["data2_model2"] = _model_mesh(world, data=2)
+    return out
+
+
+class _RouteSpy:
+    """Records every ``moe.route`` call's result while active."""
+
+    def __init__(self):
+        self.seen = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.real = moe.route
+
+        def spy(cfg, p, xg):
+            r = self.real(cfg, p, xg)
+            self.seen.append(r)
+            return r
+
+        moe.route = spy
+        return self.seen
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.route = self.real
+
+
+def _token_routing(r, k, e):
+    """One Routing's per-token arrays, in the grouped tokens' order."""
+    return dict(choices=_np(r.onehot.reshape(-1, k, e)),
+                kept=_np(r.kept.reshape(-1, k, e)),
+                slot=_np(r.slot.reshape(-1, k, e)),
+                weights=_np(r.weights.reshape(-1, k)))
+
+
+def moe_mesh_apply(rank, world, wd):
+    """``moe.apply`` of each :data:`MOE_MESH` layer (layer 0 of the
+    parameters the parent wrote) on each :data:`MOE_SHAPES` batch: the
+    mesh-free run of the whole batch, then each mesh's run of the rank's
+    rows under ``batch_split`` (the rank's experts on (data 2, model 2)):
+    its rows, aux loss and its tokens' routing beside the mesh-free run's,
+    and the batch chain's collectives."""
+    from repro_torch.models import moe, partitioning
+
+    out = {}
+    for arch, over in MOE_MESH.items():
+        cfg = _f32(arch, **over)
+        k, e = cfg.experts_per_token, cfg.num_experts
+        params = moe_load_params(wd, arch)
+        p = {n[len("layers.0.moe."):]: v for n, v in params.items()
+             if n.startswith("layers.0.moe.")}
+        axes = moe.param_axes(cfg)
+        for shape, (b, s) in MOE_SHAPES.items():
+            x = torch.from_numpy(moe_input(cfg, b, s))
+            with torch.no_grad(), _RouteSpy() as seen:
+                want, want_aux = moe.apply(cfg, p, x)
+            plain = _token_routing(seen[0], k, e) if len(seen) == 1 else None
+            for name, mesh in _moe_meshes(world).items():
+                partitioning.reset_routes()
+                with torch.no_grad(), partitioning.axis_rules(mesh):
+                    dims = partitioning.mesh_dims(
+                        partitioning.resolve_axis("batch", b))
+                    rows = b // partitioning._shards(dims)
+                    lo = partitioning.block_index(dims) * rows
+                    lp = {n: partitioning.to_compute(v, axes[n],
+                                                     tuple(v.shape),
+                                                     whole=True)
+                          for n, v in p.items()}
+                    with partitioning.batch_split(dims), \
+                            _RouteSpy() as got_seen:
+                        got, aux = moe.apply(cfg, lp, x[lo:lo + rows])
+                    total = rows * s
+                    gs = moe._group_size(b * s)
+                    start = lo * s
+                    first = start - (start // gs) * gs
+                    mine = _token_routing(got_seen[0], k, e)
+                    own = {key: v[first:first + total]
+                           for key, v in mine.items()}
+                    ref = {key: v[start:start + total]
+                           for key, v in plain.items()}
+                out[(arch, shape, name)] = dict(
+                    lo=lo, rows=_np(got), aux=float(aux),
+                    want=_np(want), want_aux=float(want_aux),
+                    routing=own, plain_routing=ref,
+                    spans=bool(total % gs), routes=dict(partitioning.ROUTES),
+                    local_experts=int(lp["wi"].shape[0]))
+    return out
+
+
+def moe_mesh_grads(rank, world, wd):
+    """The train step's gradient (``steps.dp_loss`` of whole parameters,
+    as ``make_sgd_train_step`` differentiates it) of reduced phi35_moe on
+    B 4 x S 6 (one routing group of 24 over every rank) on each mesh,
+    beside ``registry.loss_fn``'s mesh-free gradient."""
+    from repro_torch.launch import steps
+    from repro_torch.models import partitioning, registry
+
+    cfg = _f32("phi35_moe")
+    params = moe_load_params(wd, "phi35_moe")
+    batch = registry.make_batch(cfg, 4, 6, seed=3, device="cpu")
+    p_axes = registry.param_axes(cfg)
+    shapes = steps._shapes_of(registry.param_specs(cfg))
+    b_axes = registry.batch_axes(cfg)
+
+    def grads(loss_fn):
+        leaves = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        loss = loss_fn(leaves, batch)
+        g = torch.autograd.grad(loss, list(leaves.values()))
+        return float(loss), {k: _np(v) for k, v in zip(leaves, g)}
+
+    want_loss, want = grads(lambda p, b: registry.loss_fn(cfg, p, b))
+    out = {}
+    for name, mesh in _moe_meshes(world).items():
+        partitioning.reset_routes()
+        with partitioning.axis_rules(mesh, steps.strategy_rules(cfg, False)):
+            dims = steps.batch_dims(batch)
+            with partitioning.batch_split(dims):
+                loss, got = grads(steps.dp_loss(cfg, p_axes, shapes, b_axes,
+                                                whole=True))
+        out[name] = dict(loss=loss, grads=got,
+                         routes=dict(partitioning.ROUTES))
+    return dict(want_loss=want_loss, want=want, mesh=out)
+
+
+MOE_STEPS = dict(batch=4, seq=6, max_len=8)
+
+
+def moe_mesh_steps(rank, world, wd):
+    """``make_prefill_step`` then ``make_decode_step`` of reduced
+    phi35_moe on each mesh, whole inputs (B 4 x S 6: one routing group of
+    24 tokens over the data ranks; the decode step's 4 tokens one group):
+    the rank's rows of the logits."""
+    from repro_torch.launch import steps
+    from repro_torch.models import partitioning, registry
+
+    cfg = _f32("phi35_moe")
+    params = moe_load_params(wd, "phi35_moe")
+    b, s = MOE_STEPS["batch"], MOE_STEPS["seq"]
+    tokens = torch.from_numpy(moe_step_tokens(cfg))
+    out = {}
+    for name, mesh in _moe_meshes(world).items():
+        pre = steps.make_prefill_step(cfg, mesh, max_len=MOE_STEPS["max_len"])
+        logits, caches = pre(params, {"tokens": tokens})
+        dec = steps.make_decode_step(cfg, mesh)
+        dlogits, caches = dec(params, tokens[:, -1:], caches)
+        with partitioning.axis_rules(mesh):
+            dims = partitioning.mesh_dims(partitioning.resolve_axis("batch",
+                                                                    b))
+            lo = partitioning.block_index(dims) * (b // partitioning._shards(
+                dims))
+        out[name] = dict(lo=lo, prefill=_np(logits), decode=_np(dlogits),
+                         seq=s)
+    return out
+
+
+def moe_step_tokens(cfg):
+    b, s = MOE_STEPS["batch"], MOE_STEPS["seq"]
+    return _rng(9).integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+
+
+# the schedulers' cases: (arch, prompt lengths, max_new, max_len, chunk);
+# the MoE prompts powers of two no longer than the chunk, as
+# tests/test_torch_serve.py's
+SERVE_MESH = {
+    "stablelm_3b": ([6, 13, 3, 9, 11, 5], 6, 24, 8),
+    "phi35_moe": ([8, 4, 16, 8, 2, 16], 5, 32, 16),
+}
+SERVE_SLOTS = 4
+
+
+def serve_mesh_requests(cfg, arch, cls):
+    """The same requests for both packages' schedulers (``cls`` their
+    ``Request``), arrivals staggered after the first two."""
+    lens, max_new, _, _ = SERVE_MESH[arch]
+    rng = _rng(21)
+    return [cls(rid=i, prompt=rng.integers(0, cfg.vocab_size, size=(n,))
+                .astype(np.int32), max_new=max_new,
+                arrival=0.0 if i < 2 else 1e-4 * i)
+            for i, n in enumerate(lens)]
+
+
+def serve_mesh(rank, world, wd):
+    """The continuous and static schedulers with ``mesh=`` over 4 slots
+    (2 a rank on (data 2), (data 2, model 2) in a world of 4) for each
+    :data:`SERVE_MESH` case (reduced, the parent's parameters): every
+    request's tokens, the pool's local and global shapes, whether steps
+    were captured; and the ValueError of a pool of 3 slots."""
+    from repro_torch.launch import serve
+    from repro_torch.models import registry
+
+    mesh = _model_mesh(world, data=2)
+    out = {}
+    for arch, (lens, max_new, max_len, chunk) in SERVE_MESH.items():
+        cfg = registry.get_config(arch).reduced()
+        params = moe_load_params(wd, arch + "_serve")
+        for kind, cls in (("continuous", serve.ContinuousBatchingScheduler),
+                          ("static", serve.StaticWaveScheduler)):
+            sched = cls(cfg, params, SERVE_SLOTS, max_len, chunk, mesh=mesh)
+            got = sched.run(serve_mesh_requests(cfg, arch, serve.Request))
+            leaf = pytree.tree_leaves(sched._pool)[0]
+            out[(arch, kind)] = dict(
+                tokens=got, captured=sched.captured,
+                replayed=sched.replayed_launches(),
+                dtensor=all(sharding.is_dtensor(v)
+                            for v in pytree.tree_leaves(sched._pool)),
+                local=tuple(leaf.to_local().shape), shape=tuple(leaf.shape),
+                builds=(sched.prefill_traces, sched.decode_traces))
+        try:
+            serve.ContinuousBatchingScheduler(cfg, params, 3, max_len, chunk,
+                                              mesh=mesh)
+            out[(arch, "three_slots")] = None
+        except ValueError as err:
+            out[(arch, "three_slots")] = str(err)
+    return out
+
+
+def moe_mesh_card(rank, world, wd):
+    """(b)'s routing on the card: one full-width phi35_moe MoE layer (bf16,
+    seeded) on B 8 x S 64 (one routing group of 512 over the 2 ranks) and
+    on a decode batch of 8 tokens, the mesh-free run of the whole batch
+    and each rank's rows on a (data 2) mesh of gloo ranks sharing the
+    card; the rank's tokens' routing compared bitwise, and its rows."""
+    from repro_torch.models import moe, partitioning, registry
+
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    mesh = mesh_lib.make_mesh((world,), ("data",), device="cuda")
+    cfg = registry.get_config("phi35_moe")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    layer = moe.MoE(cfg, gen, device="cuda")
+    p = {n: v.detach() for n, v in layer.named_parameters()}
+    k, e = cfg.experts_per_token, cfg.num_experts
+    out = {}
+    for name, (b, s) in (("prefill", (8, 64)), ("decode", (8, 1))):
+        x = torch.randn((b, s, cfg.d_model), generator=gen,
+                        device="cuda").to(cfg.torch_dtype)
+        with torch.no_grad(), _RouteSpy() as seen:
+            want, _ = moe.apply(cfg, p, x)
+        plain = _token_routing(seen[0], k, e)
+        rows = b // world
+        lo = rank * rows
+        with torch.no_grad(), partitioning.axis_rules(mesh), \
+                partitioning.batch_split((0,)), _RouteSpy() as got_seen:
+            got, _ = moe.apply(cfg, p, x[lo:lo + rows])
+        mine = _token_routing(got_seen[0], k, e)
+        start, total = lo * s, rows * s
+        gs = moe._group_size(b * s)
+        first = start - (start // gs) * gs
+        out[name] = dict(
+            spans=bool(total % gs),
+            routing_equal={key: bool(np.array_equal(
+                mine[key][first:first + total],
+                plain[key][start:start + total])) for key in mine},
+            rows_equal=bool(torch.equal(got, want[lo:lo + rows])),
+            max_abs=float((got.float() - want[lo:lo + rows].float())
+                          .abs().max()),
+            want_max=float(want.float().abs().max()))
     return out

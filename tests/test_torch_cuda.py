@@ -1565,3 +1565,29 @@ def pytree_leaves(tree):
     from torch.utils import _pytree as pytree
 
     return pytree.tree_leaves(tree)
+
+
+@pytest.mark.cuda
+def test_moe_routing_groups_span_two_ranks_on_card(card, tmp_path):
+    """[serve mesh] (b)'s routing on the card: one full-width phi35_moe
+    MoE layer (bf16, seeded) on B 8 x S 64 (one routing group of 512
+    tokens over both ranks) and on a decode batch of 8 tokens, in a gloo
+    world of 2 ranks sharing the card on a (data 2) mesh: each rank's
+    tokens' expert choices, kept choices, slots and weights bitwise those
+    of the one-rank run of the whole batch, and its rows within one bf16
+    step of the largest magnitude (``_torch_dist_checks.moe_mesh_card``)."""
+    import sys
+
+    here = str(Path(__file__).resolve().parent)
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    import _torch_dist
+
+    ranks = _torch_dist.run_world(2, ["moe_mesh_card"],
+                                  str(tmp_path))["moe_mesh_card"]
+    for rank, res in enumerate(ranks):
+        for name, r in res.items():
+            assert r["spans"], name
+            assert all(r["routing_equal"].values()), (rank, name,
+                                                      r["routing_equal"])
+            assert r["max_abs"] <= 2.0 ** -7 * r["want_max"], (rank, name)

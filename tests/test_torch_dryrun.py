@@ -11,9 +11,9 @@ CPU-only torch cannot index a fake CUDA tensor or take its gradient).
 * A rank's parameter and optimizer bytes equal its storage blocks of the
   whole values that ``steps.shard_tree`` places by the train step's rules
   (the round holds its parameters whole).
-* ``long_500k`` is ``skipped`` for a full-attention arch; MoE routing
-  groups that span the ranks' rows (a known gap) end ``error`` with their
-  message; the CLI writes only under ``--out``, and never imports JAX.
+* ``long_500k`` is ``skipped`` for a full-attention arch; MoE cells whose
+  routing groups span the ranks' rows end ``ok`` with a gloo world's
+  counts; the CLI writes only under ``--out``, and never imports JAX.
 """
 
 import json
@@ -119,16 +119,25 @@ def test_long_500k_skipped_for_full_attention():
     assert "O(S^2)" in rec["reason"]
 
 
-def test_moe_routing_gap_is_an_error():
+def test_moe_routing_gap_is_an_error(fake, gloo):
+    """The MoE cell whose routing group spans the ranks' rows (phi35_moe
+    train, 128 tokens in one group, 64 a rank), once the port's gap and an
+    ``error``, ends ``ok``, and its counts are a gloo world's: the batch's
+    tokens gathered and the aux sums summed over "data" in every MoE
+    layer."""
     rec = dryrun.run_cell(
         "phi35_moe", "train_4k", "single", device="cpu",
         cfg=checks._f32("phi35_moe"),
         mesh_spec=((2, 2), checks.DRYRUN_AXES[2]),
         shape={"kind": "train", "seq_len": 16, "global_batch": 8})
-    assert rec["status"] == "error"
-    assert rec["error"].startswith("NotImplementedError: routing groups")
-    assert "span the ranks' batch rows" in rec["error"]
-    assert "moe.py" in rec["traceback"]
+    assert rec["status"] == "ok", rec.get("traceback")
+    real = gloo["sgd_moe"]
+    assert rec["collectives"] == real["collectives"] == \
+        fake["sgd_moe"]["collectives"]
+    assert rec["trace_cost"]["flops_per_device"] == real["flops"]
+    # the decode cell's group of 8 tokens over 4 ranks of 2 rows too
+    assert fake["decode_moe"]["collectives"] == \
+        gloo["decode_moe"]["collectives"]
 
 
 def test_cli_writes_only_under_out_and_imports_no_jax(tmp_path):
